@@ -1,0 +1,235 @@
+"""PCA estimator and model of the port, on the card by default.
+
+Counterpart of ``spark_rapids_ml_tpu/models/pca.py``: the same params,
+setters, defaults and messages, plus a ``device`` argument (default
+``"cuda"``). Semantics are the reference's: the covariance is the
+scatter-form Gram (no 1/(n−1)), components come in descending eigenvalue
+order with each column's largest-magnitude element positive, and
+explainedVariance is sᵢ/Σs over the full singular-value spectrum (s = √λ),
+truncated to k. ``meanCentering=True`` really centers.
+
+This slice fits the resident path with solver ``"full"`` at precision
+``"highest"`` (f32 matmul) or ``"high"`` (the split-bf16 kernel). The
+options not yet ported raise ``NotImplementedError``: ``standardize=True``,
+solvers ``"randomized"``/``"svd"``/``"auto"``, precision ``"default"``, data
+above the streamed-fit cutover, and save/load.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from spark_rapids_ml_tpu_torch.models.base import Estimator, Model
+from spark_rapids_ml_tpu_torch.models.params import HasInputCol, HasOutputCol, Param
+from spark_rapids_ml_tpu_torch.ops import linalg as L
+from spark_rapids_ml_tpu_torch.parallel.executor import run_partition_tasks
+from spark_rapids_ml_tpu_torch.parallel.tree_aggregate import tree_reduce
+from spark_rapids_ml_tpu_torch.telemetry import trace_range
+from spark_rapids_ml_tpu_torch.utils import columnar
+from spark_rapids_ml_tpu_torch.utils.config import get_config
+from spark_rapids_ml_tpu_torch.utils.device import resolve_device
+
+
+class PCAParams(HasInputCol, HasOutputCol):
+    """Shared params (the RapidsPCAParams analog)."""
+
+    k = Param("k", "number of principal components", int)
+    meanCentering = Param(
+        "meanCentering",
+        "center the data before computing the covariance (the reference "
+        "accepts this but computes the uncentered Gram regardless; False "
+        "reproduces reference behavior exactly)",
+        bool,
+    )
+    precision = Param(
+        "precision",
+        "matmul precision for the Gram pass: 'highest' (f32 with TF32 off, "
+        "default), 'high' (split-bf16 tensor-core kernel: three bf16 "
+        "products, ~16 mantissa bits), or 'default' (one bf16 pass; not "
+        "ported yet)",
+        str,
+    )
+    standardize = Param(
+        "standardize",
+        "fuse StandardScaler into the fit: the decomposition runs on the "
+        "covariance of (x−μ)/σ and transform standardizes before projecting "
+        "(not ported yet)",
+        bool,
+    )
+    solver = Param(
+        "solver",
+        "decomposition solver: 'full' (exact refined eigh, reference "
+        "parity); 'randomized', 'svd' and 'auto' are not ported yet",
+        str,
+    )
+
+    def __init__(self, uid: str | None = None, device: str | torch.device = "cuda",
+                 **kwargs):
+        super().__init__(uid, **kwargs)
+        self.device = resolve_device(device)
+        self._setDefault(
+            meanCentering=False,
+            standardize=False,
+            outputCol="pca_features",
+            precision=get_config().default_precision,
+            solver="full",
+        )
+
+    def getK(self) -> int:
+        return self.getOrDefault("k")
+
+    def getMeanCentering(self) -> bool:
+        return self.getOrDefault("meanCentering")
+
+
+def _to_device(mat: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host matrix → contiguous f32 tensor on ``device``."""
+    host = np.ascontiguousarray(mat, dtype=np.float32)
+    if not host.flags.writeable:  # torch tensors may not alias read-only memory
+        host = host.copy()
+    return torch.from_numpy(host).to(device)
+
+
+class PCA(PCAParams, Estimator):
+    """PCA with the reference's drop-in API, fitted on ``device``.
+
+    >>> model = PCA().setInputCol("features").setOutputCol("pca").setK(3).fit(df)
+    >>> out = model.transform(df)
+    """
+
+    def setK(self, value: int) -> "PCA":
+        return self._set(k=value)
+
+    def setMeanCentering(self, value: bool) -> "PCA":
+        return self._set(meanCentering=value)
+
+    def setStandardize(self, value: bool) -> "PCA":
+        return self._set(standardize=value)
+
+    def setPrecision(self, value: str) -> "PCA":
+        if value not in L.PRECISIONS:
+            raise ValueError(f"precision must be one of {sorted(L.PRECISIONS)}")
+        return self._set(precision=value)
+
+    def setSolver(self, value: str) -> "PCA":
+        if value not in ("full", "randomized", "svd", "auto"):
+            raise ValueError(
+                "solver must be 'full', 'randomized', 'svd', or 'auto'"
+            )
+        return self._set(solver=value)
+
+    def fit(self, dataset: Any, num_partitions: int | None = None) -> "PCAModel":
+        """Per-partition Gram statistics on the card, a tree reduction of
+        them, then one eigendecomposition."""
+        input_col = self._paramMap.get("inputCol") or self._defaultParamMap.get("inputCol")
+        ds = columnar.PartitionedDataset.from_any(dataset, input_col, num_partitions)
+        k = self.getK()
+        mean_centering = self.getMeanCentering()
+        solver = self.getOrDefault("solver")
+        precision = self.getOrDefault("precision")
+        if self.getOrDefault("standardize"):
+            raise NotImplementedError(
+                "standardize=True is not ported yet (queued after the "
+                "streamed-fold slice, with ops/scaler.py finalize_moments)"
+            )
+        if solver != "full":
+            raise NotImplementedError(
+                f"solver {solver!r} is not ported yet (queued after the "
+                "streamed-fold slice); use solver='full'"
+            )
+        if columnar.use_streamed_fit(ds):
+            raise NotImplementedError(
+                "this dataset exceeds the resident-fit cutover "
+                "(TPU_ML_STREAM_FIT_MAX_RESIDENT_BYTES) and needs the "
+                "streamed fold, which is the next slice of the port; it is "
+                "not run resident instead"
+            )
+        device = self.device
+
+        with trace_range("compute cov", device):
+            mats = list(ds.matrices())
+            n_cols = mats[0].shape[1]
+            for m in mats[1:]:
+                if m.shape[1] != n_cols:
+                    raise ValueError(
+                        f"inconsistent feature dim: {m.shape[1]} != {n_cols}"
+                    )
+            if k > n_cols:
+                raise ValueError(f"k={k} must be <= number of features {n_cols}")
+
+            def partition_task(mat):
+                padded, true_rows = columnar.pad_rows(mat)
+                stats = L.gram_stats(_to_device(padded, device), precision=precision)
+                # padding adds zero rows: fix only the count
+                return L.GramStats(
+                    stats.xtx, stats.col_sum, torch.full_like(stats.count, true_rows)
+                )
+
+            partials = run_partition_tasks(partition_task, mats)
+            stats = tree_reduce(partials, L.combine_gram_stats)
+
+        with trace_range("eigh", device):
+            cov = L.covariance_from_stats(stats, mean_centering=mean_centering)
+            pc, explained = L.pca_fit_from_cov(cov, k, solver=solver)
+
+        model = PCAModel(
+            uid=self.uid,
+            pc=pc.cpu().numpy(),
+            explainedVariance=explained.cpu().numpy(),
+            device=device,
+        )
+        return self._copyValues(model)
+
+
+class PCAModel(PCAParams, Model):
+    """Fitted PCA model: ``pc`` [n, k] and ``explainedVariance`` [k] as host
+    arrays, and ``mean``/``std`` for a model fitted with standardize=True.
+    ``transform`` projects on ``device``; ``transform_rows`` is the row-at-a-
+    time host path."""
+
+    def __init__(
+        self,
+        uid: str | None = None,
+        pc: np.ndarray | None = None,
+        explainedVariance: np.ndarray | None = None,
+        mean: np.ndarray | None = None,
+        std: np.ndarray | None = None,
+        device: str | torch.device = "cuda",
+    ):
+        super().__init__(uid, device=device)
+        self.pc = None if pc is None else np.asarray(pc)
+        self.explainedVariance = (
+            None if explainedVariance is None else np.asarray(explainedVariance)
+        )
+        self.mean = None if mean is None else np.asarray(mean)
+        self.std = None if std is None else np.asarray(std)
+
+    def _project_matrix(self, mat: np.ndarray) -> np.ndarray:
+        padded, true_rows = columnar.pad_rows(
+            columnar.standardize_host(mat, self.mean, self.std)
+        )
+        out = L.project(_to_device(padded, self.device), _to_device(self.pc, self.device))
+        return out[:true_rows].cpu().numpy()
+
+    def transform(self, dataset: Any) -> Any:
+        """Project the input column; returns the same container type with the
+        output column appended."""
+        with trace_range("pca transform", self.device):
+            return columnar.apply_column_transform(
+                dataset,
+                self._paramMap.get("inputCol"),
+                self.getOutputCol(),
+                self._project_matrix,
+            )
+
+    def transform_rows(self, rows) -> list[np.ndarray]:
+        """Row-at-a-time host projection pcᵀ·row (the reference's ``apply``),
+        in numpy; the card is not involved."""
+        mat = columnar.standardize_host(
+            np.stack([np.asarray(r) for r in rows]), self.mean, self.std
+        )
+        pct = self.pc.T
+        return [pct @ r for r in mat]

@@ -1,0 +1,187 @@
+"""Columnar input for the port: [rows, n] matrices out of the containers the
+estimators accept, row bucketing, and the partitioned dataset.
+
+Counterpart of ``spark_rapids_ml_tpu/utils/columnar.py`` for the resident
+PCA path. Accepted inputs: a 2-D ndarray, a pandas DataFrame whose column
+holds one array per row, and a pyarrow Table or RecordBatch with a list or
+fixed-size-list column (the reference's ArrayType input).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Iterator
+
+import numpy as np
+
+from spark_rapids_ml_tpu_torch.utils.config import get_config, wire_dtype
+
+try:  # keep the core importable without pyarrow
+    import pyarrow as pa
+except ImportError:  # pragma: no cover
+    pa = None
+
+
+def _from_arrow_column(col) -> np.ndarray:
+    """Arrow list / fixed_size_list column → [rows, n] ndarray, zero-copy
+    where the values buffer allows it."""
+    if isinstance(col, pa.ChunkedArray):
+        if col.num_chunks == 1:
+            return _from_arrow_column(col.chunk(0))
+        return np.concatenate([_from_arrow_column(c) for c in col.chunks])
+    if col.null_count:
+        raise ValueError("null rows are not supported in the input column")
+    if pa.types.is_fixed_size_list(col.type):
+        n = col.type.list_size
+        values = col.values.to_numpy(zero_copy_only=False)
+        return values.reshape(-1, n)[col.offset : col.offset + len(col)]
+    if pa.types.is_list(col.type) or pa.types.is_large_list(col.type):
+        offsets = col.offsets.to_numpy(zero_copy_only=False)
+        lengths = np.diff(offsets)
+        if len(lengths) == 0:
+            raise ValueError("empty input column")
+        n = int(lengths[0])
+        if not np.all(lengths == n):
+            raise ValueError("ragged rows: all rows must have equal length")
+        values = col.values.to_numpy(zero_copy_only=False)
+        return values[offsets[0] : offsets[-1]].reshape(-1, n)
+    raise TypeError(f"unsupported Arrow column type for ArrayType input: {col.type}")
+
+
+def _extract_matrix(data: Any, input_col: str | None) -> np.ndarray:
+    if pa is not None and isinstance(data, (pa.Table, pa.RecordBatch)):
+        if input_col is None:
+            raise ValueError("input_col is required for Arrow tables")
+        return _from_arrow_column(data.column(input_col))
+    if hasattr(data, "columns") and hasattr(data, "assign") and input_col is not None:
+        rows = data[input_col].to_numpy()  # pandas: one array per row
+        return np.stack([np.asarray(r) for r in rows])
+    arr = np.asarray(data)
+    if arr.ndim == 2:
+        return arr
+    if arr.ndim == 1 and arr.dtype == object:
+        return np.stack([np.asarray(r) for r in arr])
+    raise TypeError(
+        f"cannot extract a [rows, n] matrix from {type(data).__name__}"
+        + (f" column {input_col!r}" if input_col else "")
+    )
+
+
+def matrix_to_arrow_column(x: np.ndarray):
+    """[rows, k] ndarray → Arrow FixedSizeList column."""
+    _, k = x.shape
+    values = pa.array(np.ascontiguousarray(x).reshape(-1))
+    return pa.FixedSizeListArray.from_arrays(values, k)
+
+
+def apply_column_transform(dataset: Any, input_col: str | None, output_col: str, fn):
+    """Apply a [rows, n] → [rows, k] matrix function to the input column and
+    append the result as ``output_col``, keeping the container type (a bare
+    matrix in gives a bare matrix out)."""
+    if pa is not None and isinstance(dataset, (pa.Table, pa.RecordBatch)):
+        out = np.asarray(fn(_extract_matrix(dataset, input_col)))
+        if isinstance(dataset, pa.RecordBatch):
+            dataset = pa.Table.from_batches([dataset])
+        return dataset.append_column(output_col, matrix_to_arrow_column(out))
+    if hasattr(dataset, "columns") and hasattr(dataset, "assign") and input_col:
+        out = np.asarray(fn(_extract_matrix(dataset, input_col)))
+        return dataset.assign(**{output_col: list(out)})
+    if isinstance(dataset, PartitionedDataset):
+        return PartitionedDataset(
+            [np.asarray(fn(m)) for m in dataset.matrices()], dataset.input_col
+        )
+    return np.asarray(fn(_extract_matrix(dataset, input_col)))
+
+
+def standardize_host(
+    mat: np.ndarray, mean: np.ndarray | None, std: np.ndarray | None
+) -> np.ndarray:
+    """(x − μ)/σ on host rows, zero-variance features unscaled; a no-op when
+    ``mean`` is None. Applied before padding, so pad rows stay zero."""
+    if mean is None:
+        return mat
+    safe = np.where(std > 0, std, 1.0)
+    return (mat - mean[None, :].astype(mat.dtype)) / safe[None, :].astype(mat.dtype)
+
+
+def bucket_rows(rows: int, *, min_bucket: int | None = None) -> int:
+    """Round a row count up to its power-of-two bucket, at least
+    ``min_bucket`` (``TPU_ML_MIN_BUCKET``). Zero rows are exact for every
+    reduction of the fit, and the true count travels beside them."""
+    if min_bucket is None:
+        min_bucket = get_config().min_bucket
+    return max(min_bucket, 1 << math.ceil(math.log2(max(rows, 1))))
+
+
+def pad_rows(x: np.ndarray, *, min_bucket: int | None = None) -> tuple[np.ndarray, int]:
+    """Zero-pad [rows, n] to its row bucket; returns (padded, true_rows)."""
+    rows = x.shape[0]
+    bucket = bucket_rows(rows, min_bucket=min_bucket)
+    if bucket == rows:
+        return x, rows
+    out = np.zeros((bucket, x.shape[1]), dtype=x.dtype)
+    out[:rows] = x
+    return out, rows
+
+
+@dataclass
+class PartitionedDataset:
+    """An ordered list of columnar partitions with their input column."""
+
+    partitions: list[Any]
+    input_col: str | None = None
+
+    @staticmethod
+    def from_any(
+        data: Any, input_col: str | None = None, num_partitions: int | None = None
+    ) -> "PartitionedDataset":
+        """Wrap a supported container; ``num_partitions`` > 1 splits its rows
+        into that many nearly equal slices."""
+        if isinstance(data, PartitionedDataset):
+            return data
+        if isinstance(data, (list, tuple)) and data and (
+            pa is not None and isinstance(data[0], (pa.Table, pa.RecordBatch))
+        ):
+            return PartitionedDataset(list(data), input_col)
+        x = _extract_matrix(data, input_col)
+        if num_partitions and num_partitions > 1:
+            return PartitionedDataset(np.array_split(x, num_partitions), input_col)
+        return PartitionedDataset([x], input_col)
+
+    def est_rows(self) -> int | None:
+        """Total rows from partition metadata alone; None when a partition's
+        size is not known without extracting it."""
+        total = 0
+        for p in self.partitions:
+            nr = getattr(p, "num_rows", None)
+            if nr is None and isinstance(p, np.ndarray):
+                nr = p.shape[0]
+            if nr is None:
+                return None
+            total += int(nr)
+        return total
+
+    def est_feature_dim(self) -> int | None:
+        """Feature count of a 2-D ndarray first partition, else None."""
+        if not self.partitions:
+            return None
+        p = self.partitions[0]
+        if isinstance(p, np.ndarray) and p.ndim == 2:
+            return int(p.shape[1])
+        return None
+
+    def matrices(self) -> Iterator[np.ndarray]:
+        for p in self.partitions:
+            yield _extract_matrix(p, self.input_col)
+
+
+def use_streamed_fit(ds: PartitionedDataset) -> bool:
+    """True when partition metadata proves the resident array (rows × n at
+    the wire dtype) exceeds ``TPU_ML_STREAM_FIT_MAX_RESIDENT_BYTES``; unknown
+    sizes stay resident."""
+    rows = ds.est_rows()
+    n = ds.est_feature_dim()
+    if rows is None or n is None:
+        return False
+    return rows * n * wire_dtype().itemsize > get_config().stream_fit_max_resident_bytes

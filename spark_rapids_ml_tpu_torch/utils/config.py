@@ -1,0 +1,60 @@
+"""Runtime knobs the port's resident PCA path reads.
+
+A copy of the knobs of ``spark_rapids_ml_tpu/utils/config.py`` and
+``spark_rapids_ml_tpu/spark/ingest.py`` that this path needs, under the same
+environment variable names and defaults, so one environment configures both
+packages. ``get_config()`` reads the environment on every call.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from spark_rapids_ml_tpu_torch.ops.linalg import PRECISIONS
+
+MIN_BUCKET_VAR = "TPU_ML_MIN_BUCKET"
+MAX_WORKERS_VAR = "TPU_ML_MAX_WORKERS"
+DEFAULT_PRECISION_VAR = "TPU_ML_DEFAULT_PRECISION"
+STREAM_CUTOVER_VAR = "TPU_ML_STREAM_FIT_MAX_RESIDENT_BYTES"
+WIRE_DTYPE_VAR = "TPU_ML_MESH_LOCAL_WIRE_DTYPE"
+
+
+def _int_env(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, default))
+    except ValueError:
+        raise ValueError(f"{name}={os.environ[name]!r} is not an integer") from None
+
+
+def _precision_env() -> str:
+    v = os.environ.get(DEFAULT_PRECISION_VAR, "highest")
+    if v not in PRECISIONS:
+        raise ValueError(
+            f"{DEFAULT_PRECISION_VAR}={v!r} must be one of {PRECISIONS}"
+        )
+    return v
+
+
+@dataclass(frozen=True)
+class RuntimeConfig:
+    min_bucket: int = field(default_factory=lambda: _int_env(MIN_BUCKET_VAR, 128))
+    max_workers: int = field(default_factory=lambda: _int_env(MAX_WORKERS_VAR, 4))
+    default_precision: str = field(default_factory=_precision_env)
+    stream_fit_max_resident_bytes: int = field(
+        default_factory=lambda: _int_env(STREAM_CUTOVER_VAR, 1 << 31)
+    )
+
+
+def get_config() -> RuntimeConfig:
+    return RuntimeConfig()
+
+
+def wire_dtype() -> np.dtype:
+    """Host-buffer dtype that sizes the resident-fit cutover."""
+    name = os.environ.get(WIRE_DTYPE_VAR, "float64")
+    if name not in ("float32", "float64"):
+        raise ValueError(f"{WIRE_DTYPE_VAR}={name!r}: expected float32 or float64")
+    return np.dtype(name)

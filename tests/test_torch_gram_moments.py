@@ -1,0 +1,125 @@
+"""The port's split-bf16 Gram + moments against the Pallas kernel.
+
+The plain PyTorch version (what the wrapper runs for a CPU tensor) is held
+against ``spark_rapids_ml_tpu.ops.pallas_gram.fused_gram_moments`` in
+interpret mode on the same f32 input, and both against an f64 oracle. The
+CUDA kernel itself runs only on the card (the ``cuda`` test below).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from spark_rapids_ml_tpu.ops.pallas_gram import fused_gram_moments as pallas_fused
+from spark_rapids_ml_tpu_torch.ops import gram_moments as G
+
+# the shapes and blocks of tests/test_pallas_gram.py
+CASES = [
+    pytest.param((2048, 256), 512, 128, id="block_aligned"),
+    pytest.param((700, 128), 512, 128, id="row_padding"),
+    pytest.param((512, 200), 256, 128, id="col_padding"),
+    pytest.param((512, 384), 256, 128, id="multi_col_blocks"),
+]
+
+
+@pytest.mark.parametrize("shape,block_rows,block_cols", CASES)
+def test_plain_version_matches_pallas_and_oracle(rng, shape, block_rows, block_cols):
+    x = rng.normal(size=shape).astype(np.float32)
+    pg, pcs, psq = (
+        np.asarray(a)
+        for a in pallas_fused(
+            jnp.asarray(x), block_rows=block_rows, block_cols=block_cols, interpret=True
+        )
+    )
+    tg, tcs, tsq = (t.numpy() for t in G.fused_gram_moments(torch.from_numpy(x)))
+
+    xf = x.astype(np.float64)
+    exact = xf.T @ xf
+    scale = np.abs(exact).max()
+    # port vs Pallas: the same bf16 products, f32 sums in another order
+    np.testing.assert_allclose(tg, pg, atol=1e-5 * scale)
+    np.testing.assert_allclose(tcs, pcs, atol=1e-5 * np.sqrt(shape[0]))
+    np.testing.assert_allclose(tsq, psq, rtol=1e-5, atol=1e-5 * np.sqrt(shape[0]))
+    # both vs the f64 oracle: split-bf16 carries ~16 mantissa bits
+    rows = shape[0]
+    for g, cs, sq in ((tg, tcs, tsq), (pg, pcs, psq)):
+        np.testing.assert_allclose(g, exact, atol=3e-5 * scale)
+        np.testing.assert_allclose(cs, xf.sum(0), rtol=1e-4, atol=2e-4 * np.sqrt(rows))
+        np.testing.assert_allclose(sq, (xf**2).sum(0), rtol=1e-4, atol=2e-4 * np.sqrt(rows))
+
+
+def test_split_precision_beats_bf16(rng):
+    x = rng.normal(size=(1024, 128)).astype(np.float32)
+    g, _, _ = G.fused_gram_moments(torch.from_numpy(x))
+    exact = x.astype(np.float64).T @ x.astype(np.float64)
+    bf = torch.from_numpy(x).to(torch.bfloat16).double().numpy()
+    err_split = np.abs(g.double().numpy() - exact).max()
+    err_bf16 = np.abs(bf.T @ bf - exact).max()
+    assert err_split < err_bf16 / 20
+
+
+def test_reference_blocks_agree(rng, monkeypatch):
+    """The plain version's row blocks change only the f32 summation order."""
+    x = torch.from_numpy(rng.normal(size=(3000, 96)).astype(np.float32))
+    monkeypatch.setattr(G, "REFERENCE_BLOCK_ROWS", 4096)
+    one = G.fused_gram_moments_reference(x)
+    monkeypatch.setattr(G, "REFERENCE_BLOCK_ROWS", 256)
+    blocked = G.fused_gram_moments_reference(x)
+    scale = one[0].abs().max().item()
+    torch.testing.assert_close(blocked[0], one[0], rtol=0, atol=1e-5 * scale)
+    torch.testing.assert_close(blocked[1], one[1], rtol=1e-5, atol=1e-5 * 3000 ** 0.5)
+    torch.testing.assert_close(blocked[2], one[2], rtol=1e-5, atol=1e-5 * 3000 ** 0.5)
+
+
+def test_cpu_tensor_does_not_count_a_launch(rng):
+    before = G.launches
+    G.fused_gram_moments(torch.from_numpy(rng.normal(size=(64, 16)).astype(np.float32)))
+    assert G.launches == before
+
+
+@pytest.mark.parametrize(
+    "make,error",
+    [
+        pytest.param(lambda: torch.zeros((8, 4), dtype=torch.float64), TypeError, id="f64"),
+        pytest.param(lambda: torch.zeros((4, 8), dtype=torch.float32).T, ValueError,
+                     id="non_contiguous"),
+        pytest.param(lambda: torch.zeros((8,), dtype=torch.float32), ValueError, id="1d"),
+    ],
+)
+def test_wrapper_rejects_bad_input(make, error):
+    with pytest.raises(error):
+        G.fused_gram_moments(make())
+
+
+def test_split_rows_fills_the_card():
+    # 65,536 x 512 on 132 SMs: 16 tiles, at least two blocks per SM
+    splits, per_split = G._split_rows(65_536, 16, 132)
+    assert splits * 16 >= 2 * 132
+    assert per_split % G.STEP == 0 and splits * per_split >= 65_536
+    assert (splits - 1) * per_split < 65_536  # no empty split
+    assert G._split_rows(0, 16, 132)[0] >= 1
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_version_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for rows, n in ((65_536, 512), (1_000, 300), (33, 7)):
+        x = torch.randn((rows, n), generator=gen, device="cuda")
+        before = G.launches
+        g, cs, sq = G.fused_gram_moments(x)
+        again = G.fused_gram_moments(x)
+        torch.cuda.synchronize()
+        assert G.launches == before + 2
+        rg, rcs, rsq = G.fused_gram_moments_reference(x)
+        scale = rg.abs().max().item()
+        torch.testing.assert_close(g, rg, rtol=0, atol=1e-5 * scale)
+        atol = 1e-5 * rows ** 0.5 * x.abs().max().item()
+        torch.testing.assert_close(cs, rcs, rtol=1e-5, atol=atol)
+        torch.testing.assert_close(sq, rsq, rtol=1e-5, atol=atol)
+        # split sums in a fixed order: two calls are bit-equal
+        for a, b in zip((g, cs, sq), again):
+            assert torch.equal(a, b)
