@@ -6,24 +6,33 @@
 Phases, each a plain function that the CPU tests also call at a tiny size:
 
 1. card: the device's name and count, and nvidia-smi's name and power limit;
-2. build: compile every CUDA source of the path and print ptxas's registers,
-   shared memory and spills;
+2. build: compile every CUDA source of the paths and print ptxas's
+   registers, shared memory and spills;
 3. kernels: hold each kernel against its plain PyTorch version on the card
-   at the main path's shape, the north-star width and a ragged shape, then
-   time kernel, plain version and a library yardstick with CUDA events;
-4. main path: fit PCA (500,000 x 512, k=50, precision "high", 8 partitions)
-   through the kernel, check it against the f64 host oracle and a
-   "highest" fit, transform every row and check the projection.
+   at the shapes its main path gives it, the north-star width and a ragged
+   shape, then time kernel, plain version and a library yardstick with CUDA
+   events;
+4. main path (resident): fit PCA (500,000 x 512, k=50, precision "high",
+   8 partitions) through fused_gram_moments, check it against the f64 host
+   oracle and a "highest" fit, transform every row and check the projection;
+5. main path (streamed): fit PCA on BASELINE config 2 whole (10,000,000 x
+   512, k=50, "high", 20 partitions), which streams above the resident
+   cutover through symmetric_gram_moments, and check it against an f64
+   oracle, a streamed "highest" fit, its device memory and its overlap;
+6. standardize: fit the resident shape with standardize=True and check it
+   against the f64 eigenvectors of the standardized scatter.
 
-The last lines are one JSON object with every kernel's numbers, the card's
-nvidia-smi line, and {"ok": true, "device": {...}}. Without a card the script
-exits nonzero and prints no result. Every failed check raises.
+Each main path reads the kernels' launch counts from 0 around exactly its
+fit. The last lines are one JSON object with every kernel's numbers, the
+card's nvidia-smi line, and {"ok": true, "device": {...}}. Without a card the
+script exits nonzero and prints no result. Every failed check raises.
 """
 
 from __future__ import annotations
 
 import json
 import subprocess
+from pathlib import Path
 import sys
 import time
 
@@ -34,15 +43,20 @@ from spark_rapids_ml_tpu_torch import PCA
 from spark_rapids_ml_tpu_torch.ops import _build
 from spark_rapids_ml_tpu_torch.ops import gram_moments as G
 from spark_rapids_ml_tpu_torch.ops import linalg as L
+from spark_rapids_ml_tpu_torch.spark import ingest
 from spark_rapids_ml_tpu_torch.utils import columnar
 
 # H100 SXM published dense peaks (NVIDIA data sheet), at the 700 W limit.
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
 
-MAIN_SHAPE = (65_536, 512)  # one partition of the main path's fit
-KERNEL_SHAPES = (MAIN_SHAPE, (131_072, 2_048), (1_000, 300))
+MAIN_SHAPE = (65_536, 512)  # one partition of the resident fit, padded
 MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS = 500_000, 512, 50, 8
+# BASELINE config 2 whole: 152 chunks of 65,536 rows and a 38,528-row tail
+STREAM_ROWS, STREAM_PARTITIONS = 10_000_000, 20
+STREAM_SHAPE = (65_536, 512)
+STREAM_TAIL_SHAPE = (STREAM_ROWS % 65_536, 512)
+STREAM_PEAK_BYTES = 1 << 30  # O(chunk + n²) device memory for 20.5 GB of input
 TIMED_LAUNCHES = 20
 COSINE_BAR = 0.9999
 
@@ -52,7 +66,34 @@ KERNELS = {
         "source": "spark_rapids_ml_tpu_torch/csrc/gram_moments.cu",
         "replaces": "spark_rapids_ml_tpu/ops/pallas_gram.py:199",
     },
+    "symmetric_gram_moments": {
+        "route": "cuda",
+        "source": "spark_rapids_ml_tpu_torch/csrc/gram_moments.cu",
+        "replaces": "spark_rapids_ml_tpu/ops/pallas_gram.py:144",
+    },
 }
+# wrapper and plain version of each kernel
+FUNCTIONS = {
+    "gram_moments": (G.fused_gram_moments, G.fused_gram_moments_reference),
+    "symmetric_gram_moments": (
+        G.symmetric_gram_moments, G.symmetric_gram_moments_reference,
+    ),
+}
+# the shape each kernel's main path gives it comes first
+KERNEL_SHAPES = {
+    "gram_moments": (MAIN_SHAPE, (131_072, 2_048), (1_000, 300)),
+    "symmetric_gram_moments": (
+        STREAM_SHAPE, STREAM_TAIL_SHAPE, (131_072, 2_048), (1_000, 300),
+    ),
+}
+
+
+def reset_launches() -> None:
+    G.launches = G.symmetric_launches = 0
+
+
+def read_launches() -> dict:
+    return {"gram_moments": G.launches, "symmetric_gram_moments": G.symmetric_launches}
 
 
 def bench_workload(rows: int, n: int, seed: int = 7) -> np.ndarray:
@@ -69,7 +110,7 @@ def gram_bound(rows: int, n: int) -> tuple[float, str]:
     it. The Gram hiᵀhi + hiᵀlo + loᵀhi is symmetric: its least work is the
     upper triangle of hiᵀhi and all of hiᵀlo (loᵀhi is its transpose),
     rows·n·(3n+1) bf16 operations, against X read once and the three outputs
-    written once."""
+    written once. Both kernels compute that same function."""
     ops_ms = float(rows) * n * (3 * n + 1) / PEAK_BF16_FLOPS * 1e3
     bytes_ms = 4.0 * (rows * n + n * n + 2 * n) / PEAK_HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
@@ -90,9 +131,10 @@ def phase_card() -> dict:
 
 
 def phase_build() -> None:
+    sources = sorted({Path(meta["source"]).stem for meta in KERNELS.values()})
     t0 = time.perf_counter()
-    logs = _build.build(list(KERNELS))
-    print(f"build: {sorted(KERNELS)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    logs = _build.build(sources)
+    print(f"build: {sources} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if "Used" in line or "spill" in line:
@@ -108,18 +150,32 @@ def _exact_split_gram(x: torch.Tensor) -> torch.Tensor:
     return hd.T @ hd + hd.T @ ld + ld.T @ hd
 
 
-def phase_kernel_check(shapes, device: torch.device, seed: int = 0) -> dict:
+def _mirrored_tiles_equal(g: torch.Tensor) -> bool:
+    """Every strict-lower TILE block bit-equal to its upper mirror's
+    transpose."""
+    tile = torch.arange(g.shape[0], device=g.device) // G.TILE
+    lower = tile[:, None] > tile[None, :]
+    return torch.equal(g[lower], g.T[lower])
+
+
+def phase_kernel_check(
+    shapes, device: torch.device, seed: int = 0, kernel: str = "gram_moments"
+) -> dict:
     """Kernel (through its wrapper) against its plain version on the same
     inputs. Both sides form exact bf16×bf16 products, so they differ only in
     the f32 summation order: gram within 1e-5·max|G|, moments within
     rtol 1e-5 and 1e-5·√rows·max|x|. The kernel's gram is also held to the
-    same 1e-5·max|G| against the split summed in f64."""
+    same 1e-5·max|G| against the split summed in f64, and a second call must
+    give bit-equal results (fixed summation order, no atomics); the
+    symmetric kernel's mirrored tiles must be bit-equal."""
+    wrapper, plain = FUNCTIONS[kernel]
     gen = torch.Generator(device=device).manual_seed(seed)
     results = {}
     for rows, n in shapes:
         x = torch.randn((rows, n), generator=gen, device=device, dtype=torch.float32)
-        g, cs, sq = G.fused_gram_moments(x)
-        rg, rcs, rsq = G.fused_gram_moments_reference(x)
+        g, cs, sq = wrapper(x)
+        again = wrapper(x)
+        rg, rcs, rsq = plain(x)
         exact = _exact_split_gram(x)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -142,12 +198,17 @@ def phase_kernel_check(shapes, device: torch.device, seed: int = 0) -> dict:
                 (cs - rcs).abs().max().item(), (sq - rsq).abs().max().item()
             ),
             "moments_atol": mom_atol,
+            "repeat_bit_equal": all(torch.equal(a, b) for a, b in zip((g, cs, sq), again)),
         }
-        print(f"kernel check: gram_moments {rows}x{n}: {json.dumps(entry)}", flush=True)
+        if kernel == "symmetric_gram_moments":
+            entry["mirror_bit_equal"] = _mirrored_tiles_equal(g)
+        print(f"kernel check: {kernel} {rows}x{n}: {json.dumps(entry)}", flush=True)
         if not (gram_err <= gram_tol and exact_err <= gram_tol and mom_excess <= 0.0):
-            raise AssertionError(f"gram_moments disagrees with its plain version: {entry}")
+            raise AssertionError(f"{kernel} disagrees with its plain version: {entry}")
+        if not (entry["repeat_bit_equal"] and entry.get("mirror_bit_equal", True)):
+            raise AssertionError(f"{kernel} is not bit-equal where it must be: {entry}")
         results[(rows, n)] = entry
-        del x, g, cs, sq, rg, rcs, rsq, exact
+        del x, g, cs, sq, again, rg, rcs, rsq, exact
     return results
 
 
@@ -164,22 +225,25 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_kernel_timing(shapes, device: torch.device, seed: int = 1) -> dict:
+def phase_kernel_timing(
+    shapes, device: torch.device, seed: int = 1, kernel: str = "gram_moments"
+) -> dict:
     """kernel_ms, plain_ms and library_ms (f32 ``x.T @ x``, a yardstick the
     port never calls) over TIMED_LAUNCHES launches after a warm-up."""
+    wrapper, plain = FUNCTIONS[kernel]
     gen = torch.Generator(device=device).manual_seed(seed)
     results = {}
     for rows, n in shapes:
         x = torch.randn((rows, n), generator=gen, device=device, dtype=torch.float32)
         bound_ms, bound_by = gram_bound(rows, n)
         entry = {
-            "kernel_ms": _time_ms(lambda: G.fused_gram_moments(x), TIMED_LAUNCHES),
-            "plain_ms": _time_ms(lambda: G.fused_gram_moments_reference(x), TIMED_LAUNCHES),
+            "kernel_ms": _time_ms(lambda: wrapper(x), TIMED_LAUNCHES),
+            "plain_ms": _time_ms(lambda: plain(x), TIMED_LAUNCHES),
             "library_ms": _time_ms(lambda: x.T @ x, TIMED_LAUNCHES),
             "bound_ms": bound_ms,
             "bound_by": bound_by,
         }
-        print(f"kernel timing: gram_moments {rows}x{n}: {json.dumps(entry)}", flush=True)
+        print(f"kernel timing: {kernel} {rows}x{n}: {json.dumps(entry)}", flush=True)
         results[(rows, n)] = entry
         del x
     return results
@@ -192,13 +256,20 @@ def _min_abs_cosine(a: np.ndarray, b: np.ndarray) -> float:
     return float(cos.min())
 
 
+def oracle_from_scatter(scatter: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
+    """(components [n, k], explainedVariance [k]) of an f64 scatter matrix
+    by the reference's definitions: eigenvectors in descending eigenvalue
+    order, and sᵢ/Σs over the full spectrum with s = √λ."""
+    evals, evecs = np.linalg.eigh(np.asarray(scatter, dtype=np.float64))
+    s = np.sqrt(np.clip(evals[::-1], 0.0, None))
+    return evecs[:, ::-1][:, :k], s[:k] / s.sum()
+
+
 def explained_variance_f64(x: np.ndarray, k: int) -> np.ndarray:
-    """The reference's explainedVariance (sᵢ/Σs over the full spectrum,
-    s = √λ of the uncentered scatter) computed in f64 on the host."""
+    """The reference's explainedVariance of the uncentered scatter, computed
+    in f64 on the host."""
     xa = np.asarray(x, dtype=np.float64)
-    evals = np.linalg.eigvalsh(xa.T @ xa)[::-1]
-    s = np.sqrt(np.clip(evals, 0.0, None))
-    return s[:k] / s.sum()
+    return oracle_from_scatter(xa.T @ xa, k)[1]
 
 
 def explained_variance_high_with_lolo(
@@ -237,7 +308,7 @@ def phase_main_path(rows: int, n: int, k: int, partitions: int, device: torch.de
     sync()
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
-    G.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     model = pca.fit(x, num_partitions=partitions)
     sync()
@@ -246,13 +317,11 @@ def phase_main_path(rows: int, n: int, k: int, partitions: int, device: torch.de
     out = model.transform(x)
     sync()
     transform_s = time.perf_counter() - t0
-    launches = G.launches
+    launches = read_launches()
 
-    expected = partitions if cuda else 0
+    expected = {"gram_moments": partitions if cuda else 0, "symmetric_gram_moments": 0}
     if launches != expected:
-        raise AssertionError(
-            f"gram_moments launched {launches} times in the fit, expected {expected}"
-        )
+        raise AssertionError(f"kernel launches in the fit {launches}, expected {expected}")
     min_cos = L.min_cosine_vs_f64_oracle(x, model.pc, k)
     if not min_cos >= COSINE_BAR:
         raise AssertionError(f"min cosine vs the f64 oracle {min_cos} < {COSINE_BAR}")
@@ -290,7 +359,7 @@ def phase_main_path(rows: int, n: int, k: int, partitions: int, device: torch.de
 
     result = {
         "rows": rows, "n": n, "k": k, "partitions": partitions,
-        "launches": {"gram_moments": launches},
+        "launches": launches,
         "min_cosine_vs_f64_oracle": min_cos,
         "min_cosine_high_vs_highest": cos_vs_highest,
         "explained_variance_rel_diff_high_vs_highest": float(ev_rel),
@@ -309,6 +378,195 @@ def phase_main_path(rows: int, n: int, k: int, partitions: int, device: torch.de
     return result
 
 
+def streamed_workload(
+    rows: int, n: int, partitions: int, device: torch.device, seed: int = 11
+) -> tuple[np.ndarray, np.ndarray]:
+    """(x [rows, n] f32 on the host, its f64 Gram), made partition by
+    partition on ``device``: one seeded rank-64 mix shared by every
+    partition (one spectrum), and a seeded generator per partition for its
+    rows and 0.1 noise. The f64 Gram is summed partition by partition, so no
+    f64 copy of x is ever made."""
+    mix = torch.randn(
+        (64, n), generator=torch.Generator(device=device).manual_seed(seed), device=device
+    )
+    x = np.empty((rows, n), dtype=np.float32)
+    gram64 = torch.zeros((n, n), dtype=torch.float64, device=device)
+    edges = np.linspace(0, rows, partitions + 1).round().astype(int)
+    for p, (lo, hi) in enumerate(zip(edges[:-1], edges[1:])):
+        gen = torch.Generator(device=device).manual_seed(seed + 1 + p)
+        base = torch.randn((hi - lo, 64), generator=gen, device=device)
+        part = base @ mix + 0.1 * torch.randn((hi - lo, n), generator=gen, device=device)
+        part64 = part.double()
+        gram64 += part64.T @ part64
+        torch.from_numpy(x[lo:hi]).copy_(part)
+        del base, part, part64
+    return x, gram64.cpu().numpy()
+
+
+def stream_layers(x: np.ndarray, chunk: int, device: torch.device) -> dict:
+    """Seconds each layer of the streamed fit takes alone over ``x``'s
+    chunks: the staging copy into pinned host memory, the finiteness scan,
+    the pinned copy to the card and the kernel; the fit runs them
+    overlapped, so its time is not their sum."""
+    rows, n = x.shape
+    bounds = [(a, min(a + chunk, rows)) for a in range(0, rows, chunk)]
+    pinned = torch.empty((chunk, n), dtype=torch.float32, pin_memory=True)
+    on_card = torch.empty((chunk, n), dtype=torch.float32, device=device)
+    layers = {}
+    t0 = time.perf_counter()
+    for a, b in bounds:
+        pinned[: b - a].copy_(torch.from_numpy(x[a:b]))
+    layers["staging_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for a, b in bounds:
+        ingest._nonfinite_rows(x[a:b])
+    layers["scan_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for a, b in bounds:
+        on_card[: b - a].copy_(pinned[: b - a], non_blocking=True)
+    torch.cuda.synchronize(device)
+    layers["h2d_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for a, b in bounds:
+        G.symmetric_gram_moments(on_card[: b - a])
+    torch.cuda.synchronize(device)
+    layers["kernel_s"] = time.perf_counter() - t0
+    layers["bytes"] = x.nbytes
+    return layers
+
+
+def phase_streamed_path(
+    rows: int, n: int, k: int, partitions: int, device: torch.device
+) -> dict:
+    """Fit at "high" through the public API on data above the resident
+    cutover, so it streams; the kernels' launch counts are read from 0
+    around exactly this fit. Then a streamed "highest" fit, both held to the
+    f64 oracle."""
+    cuda = device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    t0 = time.perf_counter()
+    x, gram64 = streamed_workload(rows, n, partitions, device)
+    make_s = time.perf_counter() - t0
+    if not columnar.use_streamed_fit(columnar.PartitionedDataset.from_any(x, None, partitions)):
+        raise AssertionError(f"{rows} x {n} does not cross the streamed-fit cutover")
+    chunk = ingest.stream_chunk_rows()
+    expected_chunks = -(-rows // chunk)
+    # warm-up: two chunks through the fold, so that the timed fit does not
+    # pay the pinned staging buffers' first allocation
+    ingest.stream_fold([x[: 2 * chunk]], L.gram_fold_step("high"), n=n,
+                       init=L.init_gram_carry(n, device), device=device)
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    model = PCA(device=device).setK(k).setPrecision("high").fit(x, num_partitions=partitions)
+    sync()
+    fit_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(device) if cuda else None
+    report = model.stream_report
+    if report is None:
+        raise AssertionError("the fit went resident instead of streaming")
+
+    oracle_pc, oracle_ev = oracle_from_scatter(gram64, k)
+    min_cos = _min_abs_cosine(model.pc, oracle_pc)
+
+    t0 = time.perf_counter()
+    highest = PCA(device=device).setK(k).setPrecision("highest").fit(
+        x, num_partitions=partitions
+    )
+    sync()
+    fit_highest_s = time.perf_counter() - t0
+    cos_vs_highest = _min_abs_cosine(model.pc, highest.pc)
+
+    result = {
+        "rows": rows, "n": n, "k": k, "partitions": partitions,
+        "chunk_rows": chunk, "chunks": report.chunks,
+        "overlapped": report.overlapped,
+        "copy_overlapped": report.copy_overlapped,
+        "overlapped_highest": highest.stream_report.overlapped,
+        "max_put_bytes": report.max_put_bytes,
+        "launches": launches,
+        "min_cosine_vs_f64_oracle": min_cos,
+        "min_cosine_high_vs_highest": cos_vs_highest,
+        "explained_variance_rel_diff_high_vs_highest": float(
+            np.abs(model.explainedVariance / highest.explainedVariance - 1).max()
+        ),
+        "explained_variance_rel_diff_highest_vs_f64": float(
+            np.abs(highest.explainedVariance / oracle_ev - 1).max()
+        ),
+        "make_data_s": make_s,
+        "fit_s": fit_s,
+        "fit_highest_s": fit_highest_s,
+        "max_memory_allocated": peak,
+    }
+    if cuda:
+        result["layers"] = stream_layers(x, chunk, device)
+        busy = result["layers"]["h2d_s"] + result["layers"]["kernel_s"]
+        result["device_idle_share_est"] = 1.0 - busy / fit_s
+    print(f"main path (streamed): {json.dumps(result)}", flush=True)
+
+    expected = {"gram_moments": 0, "symmetric_gram_moments": expected_chunks if cuda else 0}
+    if launches != expected:
+        raise AssertionError(f"kernel launches in the streamed fit {launches}, expected {expected}")
+    if report.chunks != expected_chunks or report.rows != rows:
+        raise AssertionError(f"the fit did not stream {expected_chunks} chunks: {report}")
+    if not min_cos >= COSINE_BAR:
+        raise AssertionError(f"streamed min cosine vs the f64 oracle {min_cos} < {COSINE_BAR}")
+    if not cos_vs_highest >= COSINE_BAR:
+        raise AssertionError(f"streamed 'high' vs 'highest' min cosine {cos_vs_highest}")
+    # the tolerances of the resident phase, for the same reasons
+    np.testing.assert_allclose(highest.explainedVariance, oracle_ev, rtol=1e-4)
+    np.testing.assert_allclose(model.explainedVariance, highest.explainedVariance, rtol=1e-3)
+    if cuda and not peak < STREAM_PEAK_BYTES:
+        raise AssertionError(f"streamed fit peaked at {peak} B of device memory")
+    # The fit is host-bound (staging reads and writes each chunk in host
+    # memory, the card only reads it once), so a chunk is rarely ready
+    # before the previous fold ends and ``overlapped`` is near 0 by design;
+    # what must hold is that every copy runs beside the host's staging.
+    if cuda and not report.copy_overlapped > 0:
+        raise AssertionError(f"no copy to the card overlapped the host's staging: {report}")
+    return result
+
+
+def phase_standardize(rows: int, n: int, k: int, partitions: int, device: torch.device) -> dict:
+    """Fit with standardize=True at "high" (resident) and hold its
+    components to the f64 eigenvectors of the standardized data's scatter,
+    (x − μ)/σ with the sample σ, formed directly from the rows."""
+    x = bench_workload(rows, n)
+    model = PCA(device=device).setK(k).setPrecision("high").setStandardize(True).fit(
+        x, num_partitions=partitions
+    )
+    x64 = torch.from_numpy(x).to(device=device, dtype=torch.float64)
+    mean, std = x64.mean(dim=0), x64.std(dim=0)
+    xs = (x64 - mean) / torch.where(std > 0, std, torch.ones_like(std))
+    oracle_pc, _ = oracle_from_scatter((xs.T @ xs).cpu().numpy(), k)
+    min_cos = _min_abs_cosine(model.pc, oracle_pc)
+    result = {
+        "rows": rows, "n": n, "k": k,
+        "min_cosine_vs_f64_oracle": min_cos,
+        "mean_max_abs_err": float(np.abs(model.mean - mean.cpu().numpy()).max()),
+        "std_max_rel_err": float(np.abs(model.std / std.cpu().numpy() - 1).max()),
+    }
+    print(f"standardize: {json.dumps(result)}", flush=True)
+    if not min_cos >= COSINE_BAR:
+        raise AssertionError(f"standardize min cosine vs the f64 oracle {min_cos} < {COSINE_BAR}")
+    return result
+
+
+def _timed(name: str, fn, *args, **kwargs):
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs only on the card",
@@ -319,19 +577,33 @@ def main() -> int:
     torch.set_float32_matmul_precision("highest")
     device = torch.device("cuda", 0)
 
-    card = phase_card()
-    phase_build()
-    checks = phase_kernel_check(KERNEL_SHAPES, device)
-    timings = phase_kernel_timing(KERNEL_SHAPES, device)
-    main_path = phase_main_path(MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS, device)
+    card = _timed("card", phase_card)
+    _timed("build", phase_build)
+    checks, timings = {}, {}
+    for name in KERNELS:
+        checks[name] = _timed(f"check {name}", phase_kernel_check,
+                              KERNEL_SHAPES[name], device, kernel=name)
+        timings[name] = _timed(f"timing {name}", phase_kernel_timing,
+                               KERNEL_SHAPES[name], device, kernel=name)
+    resident = _timed("main path (resident)", phase_main_path,
+                      MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS, device)
+    streamed = _timed("main path (streamed)", phase_streamed_path,
+                      STREAM_ROWS, MAIN_N, MAIN_K, STREAM_PARTITIONS, device)
+    _timed("standardize", phase_standardize, MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS, device)
+    # each kernel's launches come from the main path that runs it
+    launches = {
+        "gram_moments": resident["launches"]["gram_moments"],
+        "symmetric_gram_moments": streamed["launches"]["symmetric_gram_moments"],
+    }
 
     kernels = []
     for name, meta in KERNELS.items():
-        at_main = {**checks[MAIN_SHAPE], **timings[MAIN_SHAPE]}
+        shapes = KERNEL_SHAPES[name]
+        at_main = {**checks[name][shapes[0]], **timings[name][shapes[0]]}
         kernels.append({
             "name": name,
             **meta,
-            "launches": main_path["launches"][name],
+            "launches": launches[name],
             "max_abs_err": at_main["max_abs_err"],
             "tol": at_main["tol"],
             "ms": at_main["kernel_ms"],
@@ -340,7 +612,7 @@ def main() -> int:
             "bound_ms": at_main["bound_ms"],
             "bound_by": at_main["bound_by"],
             "library_ms": at_main["library_ms"],
-            "shapes": [{**checks[s], **timings[s]} for s in KERNEL_SHAPES],
+            "shapes": [{**checks[name][s], **timings[name][s]} for s in shapes],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card["nvidia_smi"], flush=True)

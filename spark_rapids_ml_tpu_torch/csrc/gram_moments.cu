@@ -1,9 +1,17 @@
 // Fused split-bf16 Gram + column moments of a [rows, n] f32 matrix, for
-// Hopper (sm_90a).
+// Hopper (sm_90a). Two kernels share one tile body:
 //
-// Replaces the TPU kernel spark_rapids_ml_tpu/ops/pallas_gram.py
-// ::fused_gram_moments (body _fused_kernel, prologue _pad_and_split,
-// epilogue _trim). It computes the same triple:
+// - gram_moments_launch replaces the TPU kernel
+//   spark_rapids_ml_tpu/ops/pallas_gram.py::fused_gram_moments (body
+//   _fused_kernel, prologue _pad_and_split, epilogue _trim): every tile of
+//   the n x n Gram is multiplied;
+// - symmetric_gram_moments_launch replaces
+//   spark_rapids_ml_tpu/ops/pallas_gram.py::symmetric_gram_moments (body
+//   _symmetric_kernel): only the nt(nt+1)/2 upper tile pairs bi <= bj of the
+//   nt = n_pad / 128 tile rows are multiplied, and the reduce pass mirrors
+//   the strict upper tiles into the lower half.
+//
+// Both compute the same triple:
 //
 //   gram    = hi^T hi + hi^T lo + lo^T hi   (f32 accumulation, lo^T lo dropped)
 //   col_sum = sum over rows of (hi + lo)
@@ -17,8 +25,10 @@
 // bytes of input. At 65,536 x 512 that is 5.16e10 operations, 0.052 ms at
 // 989 TFLOP/s, against 135 MB, 0.040 ms at 3.35 TB/s: the kernel is bound by
 // operations, so the design keeps every product on the tensor cores and
-// moves no extra bytes. It still forms all three products in full
-// (6 * rows * n^2 operations, twice the least work):
+// moves no extra bytes. The fused kernel forms all three products over
+// every tile (6 * rows * n^2 operations, twice the least work); the
+// symmetric one over the upper tiles only (10 of 16 at n = 512, 136 of 256
+// at n = 2048), which comes to 1.25x the least work at n = 512:
 //
 // - X is read as f32 and split into hi/lo in registers. The Pallas prologue
 //   writes hi and lo to device memory first; here they exist only in shared
@@ -35,11 +45,17 @@
 //   each split writes its own partial tile, and a second kernel sums the
 //   partials in split order. No atomics: two calls on the same data give
 //   bit-equal results.
-// - The moments are taken from hi + lo by the blocks of the first tile row
-//   (blockIdx.y == 0), as the Pallas kernel's i == 0 wave does.
+// - The moments are taken from hi + lo by one tile per column block: in the
+//   fused kernel the first tile row (as the Pallas kernel's i == 0 wave
+//   does), in the symmetric one the diagonal tiles bi == bj.
+// - The symmetric grid's x dimension enumerates the upper tile pairs row by
+//   row (bi, then bj >= bi) and its y dimension the row splits. Its reduce
+//   pass sums each upper element over the splits once and writes the sum to
+//   (i, j) and, off the diagonal tiles, to (j, i): mirrored tiles are
+//   bit-equal by construction; a diagonal tile is computed in full and is
+//   symmetric only to rounding, as in the Pallas kernel.
 //
-// Left for later: wgmma, TMA loads, a persistent tile loop and skipping the
-// mirrored lower half of the symmetric Gram.
+// Left for later: wgmma, TMA loads and a persistent tile loop.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,6 +86,10 @@ __device__ __forceinline__ void load_step(
   }
 }
 
+// One 128 x 128 tile of one row split. kSymmetric: the grid is (upper tile
+// pairs, splits) and the diagonal tiles take the moments; otherwise it is
+// (tile cols, tile rows, splits) and the first tile row takes them.
+template <bool kSymmetric>
 __global__ void __launch_bounds__(kThreads)
 gram_partial_kernel(const float* __restrict__ x, long long rows, int n,
                     int n_pad, long long rows_per_split,
@@ -85,11 +105,28 @@ gram_partial_kernel(const float* __restrict__ x, long long rows, int n,
   const int warp = tid / 32;
   const int wm = warp / 4;               // warp's 64-row band of the tile
   const int wn = warp % 4;               // warp's 32-column band of the tile
-  const int i0 = blockIdx.y * kTile;     // tile rows: features i0..i0+127
-  const int j0 = blockIdx.x * kTile;     // tile cols: features j0..j0+127
-  const long long r_begin = (long long)blockIdx.z * rows_per_split;
+  int bi, bj, split;
+  if (kSymmetric) {
+    // pair p -> (bi, bj): tile row bi holds the nt - bi pairs bj = bi..nt-1
+    int p = blockIdx.x, row_len = n_pad / kTile;
+    bi = 0;
+    while (p >= row_len) {
+      p -= row_len;
+      --row_len;
+      ++bi;
+    }
+    bj = bi + p;
+    split = blockIdx.y;
+  } else {
+    bi = blockIdx.y;
+    bj = blockIdx.x;
+    split = blockIdx.z;
+  }
+  const int i0 = bi * kTile;             // tile rows: features i0..i0+127
+  const int j0 = bj * kTile;             // tile cols: features j0..j0+127
+  const long long r_begin = (long long)split * rows_per_split;
   const long long r_end = min(rows, r_begin + rows_per_split);
-  const bool moments = blockIdx.y == 0;
+  const bool moments = kSymmetric ? bi == bj : bi == 0;
 
   // Each thread always loads the same column of both tiles, so its moment
   // sums need no exchange until the end.
@@ -171,7 +208,7 @@ gram_partial_kernel(const float* __restrict__ x, long long rows, int n,
     }
   }
 
-  float* out = partial_gram + (size_t)blockIdx.z * n_pad * n_pad;
+  float* out = partial_gram + (size_t)split * n_pad * n_pad;
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
@@ -192,7 +229,7 @@ gram_partial_kernel(const float* __restrict__ x, long long rows, int n,
         c += s_mom[0][tid + q * kTile];
         s += s_mom[1][tid + q * kTile];
       }
-      float* pm = partial_moments + (size_t)blockIdx.z * 2 * n_pad;
+      float* pm = partial_moments + (size_t)split * 2 * n_pad;
       pm[j0 + tid] = c;
       pm[n_pad + j0 + tid] = s;
     }
@@ -200,7 +237,10 @@ gram_partial_kernel(const float* __restrict__ x, long long rows, int n,
 }
 
 // Sums the per-split partials in split order: gram [n, n], then col_sum [n]
-// and sum_sq [n].
+// and sum_sq [n]. kSymmetric: only the upper tiles hold partials; each of
+// their elements is summed once and, off the diagonal tiles, written to its
+// mirror too.
+template <bool kSymmetric>
 __global__ void gram_reduce_kernel(const float* __restrict__ partial_gram,
                                    const float* __restrict__ partial_moments,
                                    int splits, int n, int n_pad,
@@ -211,11 +251,13 @@ __global__ void gram_reduce_kernel(const float* __restrict__ partial_gram,
   const long long nn = (long long)n * n;
   if (idx < nn) {
     const int i = (int)(idx / n), j = (int)(idx % n);
+    if (kSymmetric && i / kTile > j / kTile) return;  // written by its mirror
     const float* p = partial_gram + (size_t)i * n_pad + j;
     const size_t stride = (size_t)n_pad * n_pad;
     float s = 0.f;
     for (int t = 0; t < splits; ++t) s += p[t * stride];
     gram[idx] = s;
+    if (kSymmetric && i / kTile < j / kTile) gram[(size_t)j * n + i] = s;
   } else if (idx < nn + 2LL * n) {
     const int m = (int)(idx - nn);
     const int which = m / n, j = m % n;
@@ -224,6 +266,30 @@ __global__ void gram_reduce_kernel(const float* __restrict__ partial_gram,
     for (int t = 0; t < splits; ++t) s += p[(size_t)t * 2 * n_pad];
     (which ? sum_sq : col_sum)[j] = s;
   }
+}
+
+template <bool kSymmetric>
+int launch(const float* x, long long rows, int n, int n_pad, int splits,
+           long long rows_per_split, float* partial_gram,
+           float* partial_moments, float* gram, float* col_sum, float* sum_sq,
+           void* stream) {
+  if (rows < 0 || n <= 0 || n_pad < n || n_pad % kTile != 0 || splits <= 0 ||
+      rows_per_split <= 0 || rows_per_split % kStep != 0 ||
+      (long long)splits * rows_per_split < rows)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nt = n_pad / kTile;
+  const dim3 grid = kSymmetric ? dim3(nt * (nt + 1) / 2, splits, 1)
+                               : dim3(nt, nt, splits);
+  gram_partial_kernel<kSymmetric><<<grid, kThreads, 0, s>>>(
+      x, rows, n, n_pad, rows_per_split, partial_gram, partial_moments);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long total = (long long)n * n + 2LL * n;
+  const unsigned blocks = (unsigned)((total + 255) / 256);
+  gram_reduce_kernel<kSymmetric><<<blocks, 256, 0, s>>>(
+      partial_gram, partial_moments, splits, n, n_pad, gram, col_sum, sum_sq);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -239,19 +305,15 @@ extern "C" int gram_moments_launch(const float* x, long long rows, int n,
                                    float* partial_gram, float* partial_moments,
                                    float* gram, float* col_sum, float* sum_sq,
                                    void* stream) {
-  if (rows < 0 || n <= 0 || n_pad < n || n_pad % kTile != 0 || splits <= 0 ||
-      rows_per_split <= 0 || rows_per_split % kStep != 0 ||
-      (long long)splits * rows_per_split < rows)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(n_pad / kTile, n_pad / kTile, splits);
-  gram_partial_kernel<<<grid, kThreads, 0, s>>>(x, rows, n, n_pad, rows_per_split,
-                                                partial_gram, partial_moments);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long total = (long long)n * n + 2LL * n;
-  const unsigned blocks = (unsigned)((total + 255) / 256);
-  gram_reduce_kernel<<<blocks, 256, 0, s>>>(partial_gram, partial_moments, splits,
-                                            n, n_pad, gram, col_sum, sum_sq);
-  return (int)cudaGetLastError();
+  return launch<false>(x, rows, n, n_pad, splits, rows_per_split, partial_gram,
+                       partial_moments, gram, col_sum, sum_sq, stream);
+}
+
+// The same contract; only the upper tiles of partial_gram are written.
+extern "C" int symmetric_gram_moments_launch(
+    const float* x, long long rows, int n, int n_pad, int splits,
+    long long rows_per_split, float* partial_gram, float* partial_moments,
+    float* gram, float* col_sum, float* sum_sq, void* stream) {
+  return launch<true>(x, rows, n, n_pad, splits, rows_per_split, partial_gram,
+                      partial_moments, gram, col_sum, sum_sq, stream);
 }

@@ -8,15 +8,20 @@ order with each column's largest-magnitude element positive, and
 explainedVariance is sᵢ/Σs over the full singular-value spectrum (s = √λ),
 truncated to k. ``meanCentering=True`` really centers.
 
-This slice fits the resident path with solver ``"full"`` at precision
-``"highest"`` (f32 matmul) or ``"high"`` (the split-bf16 kernel). The
-options not yet ported raise ``NotImplementedError``: ``standardize=True``,
-solvers ``"randomized"``/``"svd"``/``"auto"``, precision ``"default"``, data
-above the streamed-fit cutover, and save/load.
+The fit runs solver ``"full"`` at precision ``"highest"`` (f32 matmul) or
+``"high"`` (the split-bf16 kernels). Data whose partition metadata puts it
+above the streamed-fit cutover folds chunk by chunk through
+``spark.ingest.stream_fold`` instead of going resident, and
+``standardize=True`` derives the scaler's moments from the same Gram
+statistics on both paths. The options not yet ported raise
+``NotImplementedError``: solvers ``"randomized"``/``"svd"``/``"auto"``,
+precision ``"default"``, and save/load.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import itertools
 from typing import Any
 
 import numpy as np
@@ -27,6 +32,7 @@ from spark_rapids_ml_tpu_torch.models.params import HasInputCol, HasOutputCol, P
 from spark_rapids_ml_tpu_torch.ops import linalg as L
 from spark_rapids_ml_tpu_torch.parallel.executor import run_partition_tasks
 from spark_rapids_ml_tpu_torch.parallel.tree_aggregate import tree_reduce
+from spark_rapids_ml_tpu_torch.spark import ingest
 from spark_rapids_ml_tpu_torch.telemetry import trace_range
 from spark_rapids_ml_tpu_torch.utils import columnar
 from spark_rapids_ml_tpu_torch.utils.config import get_config
@@ -55,8 +61,7 @@ class PCAParams(HasInputCol, HasOutputCol):
     standardize = Param(
         "standardize",
         "fuse StandardScaler into the fit: the decomposition runs on the "
-        "covariance of (x−μ)/σ and transform standardizes before projecting "
-        "(not ported yet)",
+        "covariance of (x−μ)/σ and transform standardizes before projecting",
         bool,
     )
     solver = Param(
@@ -121,74 +126,104 @@ class PCA(PCAParams, Estimator):
             )
         return self._set(solver=value)
 
+    def _stream_gram_stats(
+        self, ds: columnar.PartitionedDataset, k: int, precision: str
+    ) -> ingest.StreamFold:
+        """Out-of-core Gram statistics: the partitions drain lazily through
+        ``spark.ingest.stream_fold`` into one carry on the card, updated in
+        place (``linalg.gram_fold_step``), so the rows are never resident at
+        once, host or device."""
+        it = ds.matrices()
+        first = next(it)
+        n_cols = first.shape[1]
+        if k > n_cols:
+            raise ValueError(f"k={k} must be <= number of features {n_cols}")
+
+        return ingest.stream_fold(
+            itertools.chain([first], it),
+            L.gram_fold_step(precision),
+            n=n_cols,
+            init=L.init_gram_carry(n_cols, self.device),
+            device=self.device,
+        )
+
+    def _resident_gram_stats(
+        self, ds: columnar.PartitionedDataset, k: int, precision: str
+    ) -> L.GramStats:
+        """Per-partition Gram statistics on the card and a tree reduction of
+        them."""
+        mats = list(ds.matrices())
+        n_cols = mats[0].shape[1]
+        for m in mats[1:]:
+            if m.shape[1] != n_cols:
+                raise ValueError(f"inconsistent feature dim: {m.shape[1]} != {n_cols}")
+        if k > n_cols:
+            raise ValueError(f"k={k} must be <= number of features {n_cols}")
+        device = self.device
+
+        def partition_task(mat):
+            padded, true_rows = columnar.pad_rows(mat)
+            stats = L.gram_stats(_to_device(padded, device), precision=precision)
+            # padding adds zero rows: fix only the count
+            return L.GramStats(
+                stats.xtx, stats.col_sum, torch.full_like(stats.count, true_rows)
+            )
+
+        return tree_reduce(run_partition_tasks(partition_task, mats), L.combine_gram_stats)
+
     def fit(self, dataset: Any, num_partitions: int | None = None) -> "PCAModel":
-        """Per-partition Gram statistics on the card, a tree reduction of
-        them, then one eigendecomposition."""
+        """Gram statistics on the card, resident or streamed above the
+        ``TPU_ML_STREAM_FIT_MAX_RESIDENT_BYTES`` cutover, then one
+        eigendecomposition. A streamed fit's model keeps the fold's
+        ``StreamFold`` record (without the carry) as ``stream_report``."""
         input_col = self._paramMap.get("inputCol") or self._defaultParamMap.get("inputCol")
         ds = columnar.PartitionedDataset.from_any(dataset, input_col, num_partitions)
         k = self.getK()
         mean_centering = self.getMeanCentering()
         solver = self.getOrDefault("solver")
         precision = self.getOrDefault("precision")
-        if self.getOrDefault("standardize"):
-            raise NotImplementedError(
-                "standardize=True is not ported yet (queued after the "
-                "streamed-fold slice, with ops/scaler.py finalize_moments)"
-            )
         if solver != "full":
             raise NotImplementedError(
-                f"solver {solver!r} is not ported yet (queued after the "
-                "streamed-fold slice); use solver='full'"
-            )
-        if columnar.use_streamed_fit(ds):
-            raise NotImplementedError(
-                "this dataset exceeds the resident-fit cutover "
-                "(TPU_ML_STREAM_FIT_MAX_RESIDENT_BYTES) and needs the "
-                "streamed fold, which is the next slice of the port; it is "
-                "not run resident instead"
+                f"solver {solver!r} is not ported yet (queued as the next "
+                "slice); use solver='full'"
             )
         device = self.device
 
+        report = None
         with trace_range("compute cov", device):
-            mats = list(ds.matrices())
-            n_cols = mats[0].shape[1]
-            for m in mats[1:]:
-                if m.shape[1] != n_cols:
-                    raise ValueError(
-                        f"inconsistent feature dim: {m.shape[1]} != {n_cols}"
-                    )
-            if k > n_cols:
-                raise ValueError(f"k={k} must be <= number of features {n_cols}")
+            if columnar.use_streamed_fit(ds):
+                report = self._stream_gram_stats(ds, k, precision)
+                stats = report.carry
+            else:
+                stats = self._resident_gram_stats(ds, k, precision)
 
-            def partition_task(mat):
-                padded, true_rows = columnar.pad_rows(mat)
-                stats = L.gram_stats(_to_device(padded, device), precision=precision)
-                # padding adds zero rows: fix only the count
-                return L.GramStats(
-                    stats.xtx, stats.col_sum, torch.full_like(stats.count, true_rows)
-                )
-
-            partials = run_partition_tasks(partition_task, mats)
-            stats = tree_reduce(partials, L.combine_gram_stats)
-
+        mean = std = None
         with trace_range("eigh", device):
-            cov = L.covariance_from_stats(stats, mean_centering=mean_centering)
+            if self.getOrDefault("standardize"):
+                cov, mean, std = L.standardized_cov_from_stats(stats)
+            else:
+                cov = L.covariance_from_stats(stats, mean_centering=mean_centering)
             pc, explained = L.pca_fit_from_cov(cov, k, solver=solver)
 
         model = PCAModel(
             uid=self.uid,
             pc=pc.cpu().numpy(),
             explainedVariance=explained.cpu().numpy(),
+            mean=None if mean is None else mean.cpu().numpy(),
+            std=None if std is None else std.cpu().numpy(),
             device=device,
         )
+        if report is not None:
+            model.stream_report = dataclasses.replace(report, carry=None)
         return self._copyValues(model)
 
 
 class PCAModel(PCAParams, Model):
     """Fitted PCA model: ``pc`` [n, k] and ``explainedVariance`` [k] as host
     arrays, and ``mean``/``std`` for a model fitted with standardize=True.
-    ``transform`` projects on ``device``; ``transform_rows`` is the row-at-a-
-    time host path."""
+    ``stream_report`` is the streamed fold's record for a streamed fit, else
+    None. ``transform`` projects on ``device``; ``transform_rows`` is the
+    row-at-a-time host path."""
 
     def __init__(
         self,
@@ -206,6 +241,7 @@ class PCAModel(PCAParams, Model):
         )
         self.mean = None if mean is None else np.asarray(mean)
         self.std = None if std is None else np.asarray(std)
+        self.stream_report: ingest.StreamFold | None = None
 
     def _project_matrix(self, mat: np.ndarray) -> np.ndarray:
         padded, true_rows = columnar.pad_rows(

@@ -1,8 +1,8 @@
-"""Fused split-bf16 Gram + column moments: the Hopper kernel and its plain
-version.
+"""Fused split-bf16 Gram + column moments: the Hopper kernels and their
+plain versions.
 
-Counterpart of ``spark_rapids_ml_tpu/ops/pallas_gram.py``. One read of a
-[rows, n] f32 matrix X gives
+Counterpart of ``spark_rapids_ml_tpu/ops/pallas_gram.py``, which holds both
+TPU kernels. One read of a [rows, n] f32 matrix X gives
 
 - ``gram`` = hiᵀhi + hiᵀlo + loᵀhi, accumulated in f32, where hi = bf16(X)
   and lo = bf16(X − hi), both rounded to nearest even; the loᵀlo term
@@ -10,9 +10,17 @@ Counterpart of ``spark_rapids_ml_tpu/ops/pallas_gram.py``. One read of a
 - ``col_sum`` = Σ(hi + lo) and ``sum_sq`` = Σ(hi + lo)² over rows.
 
 The split carries ~16 mantissa bits through bf16 tensor-core products, the
-arithmetic of the ``"high"`` precision tier. ``fused_gram_moments`` launches
-the CUDA kernel in ``csrc/gram_moments.cu`` for a tensor on the card and runs
-``fused_gram_moments_reference`` for a tensor on the CPU.
+arithmetic of the ``"high"`` precision tier. Two kernels in
+``csrc/gram_moments.cu`` compute it:
+
+- ``fused_gram_moments`` multiplies every 128-column tile pair (the resident
+  fit's Gram pass);
+- ``symmetric_gram_moments`` multiplies the upper tile pairs only and mirrors
+  the strict upper tiles into the lower half, so mirrored tiles are
+  bit-equal (the streamed fold's Gram pass).
+
+Each wrapper launches its kernel for a tensor on the card and runs its plain
+version (``*_reference``) for a tensor on the CPU.
 """
 
 from __future__ import annotations
@@ -29,8 +37,10 @@ STEP = 32   # rows per k-step of the kernel (kStep)
 BLOCKS_PER_SM = 2  # split the rows until the grid has this many blocks per SM
 REFERENCE_BLOCK_ROWS = 1024  # the TPU kernel's default row block
 
-# Kernel launches since import (or since a caller reset it to 0).
+# Kernel launches since import (or since a caller reset them to 0):
+# ``fused_gram_moments``'s and ``symmetric_gram_moments``'s.
 launches = 0
+symmetric_launches = 0
 _launch_lock = threading.Lock()
 
 
@@ -60,6 +70,25 @@ def fused_gram_moments_reference(
     return gram, col_sum, sum_sq
 
 
+def symmetric_gram_moments_reference(
+    x: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of the symmetric kernel: the fused plain version,
+    then every strict-lower ``TILE`` block replaced by the transpose of its
+    upper mirror, as the kernel's reduce pass writes it. Diagonal blocks stay
+    as computed (symmetric to rounding only)."""
+    gram, col_sum, sum_sq = fused_gram_moments_reference(x)
+    tile = torch.arange(gram.shape[0], device=x.device) // TILE
+    lower = tile[:, None] > tile[None, :]
+    return torch.where(lower, gram.T, gram), col_sum, sum_sq
+
+
+def upper_tiles(n: int) -> int:
+    """Tile pairs bi <= bj the symmetric kernel multiplies for n columns."""
+    nt = -(-n // TILE)
+    return nt * (nt + 1) // 2
+
+
 def _split_rows(rows: int, tiles: int, sm_count: int) -> tuple[int, int]:
     """(splits, rows_per_split) so the grid has about BLOCKS_PER_SM blocks on
     each SM; rows_per_split is a multiple of STEP."""
@@ -84,13 +113,13 @@ def _check(x: torch.Tensor) -> None:
         raise ValueError(f"unsupported device {x.device}")
 
 
-_launch = None  # the C entry point, set up once at its first use
+_entries: dict[str, object] = {}  # C entry points, set up once at first use
 
 
-def _launch_fn():
-    global _launch
-    if _launch is None:
-        fn = _build.load_library("gram_moments").gram_moments_launch
+def _entry(symbol: str):
+    fn = _entries.get(symbol)
+    if fn is None:
+        fn = getattr(_build.load_library("gram_moments"), symbol)
         fn.argtypes = [
             ctypes.c_void_p,      # x
             ctypes.c_longlong,    # rows
@@ -106,8 +135,39 @@ def _launch_fn():
             ctypes.c_void_p,      # stream
         ]
         fn.restype = ctypes.c_int
-        _launch = fn
-    return _launch
+        _entries[symbol] = fn
+    return fn
+
+
+def _launch(
+    x: torch.Tensor, symbol: str, tiles: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Run one C entry point on the current stream; ``tiles``, the output
+    tiles its grid multiplies, sizes the row splits."""
+    rows, n = x.shape
+    n_pad = -(-n // TILE) * TILE
+    sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
+    splits, per_split = _split_rows(rows, tiles, sm_count)
+    new = dict(dtype=torch.float32, device=x.device)
+    partial_gram = torch.empty((splits, n_pad, n_pad), **new)
+    partial_moments = torch.empty((splits, 2, n_pad), **new)
+    gram = torch.empty((n, n), **new)
+    col_sum = torch.empty((n,), **new)
+    sum_sq = torch.empty((n,), **new)
+    launch = _entry(symbol)
+    with torch.cuda.device(x.device):
+        err = launch(
+            x.data_ptr(), rows, n, n_pad, splits, per_split,
+            partial_gram.data_ptr(), partial_moments.data_ptr(),
+            gram.data_ptr(), col_sum.data_ptr(), sum_sq.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"{symbol} failed with CUDA error {err} "
+            f"(x {tuple(x.shape)}, splits {splits})"
+        )
+    return gram, col_sum, sum_sq
 
 
 def fused_gram_moments(
@@ -122,30 +182,26 @@ def fused_gram_moments(
     _check(x)
     if x.device.type == "cpu":
         return fused_gram_moments_reference(x)
-
-    rows, n = x.shape
-    n_pad = -(-n // TILE) * TILE
-    sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits, per_split = _split_rows(rows, (n_pad // TILE) ** 2, sm_count)
-    new = dict(dtype=torch.float32, device=x.device)
-    partial_gram = torch.empty((splits, n_pad, n_pad), **new)
-    partial_moments = torch.empty((splits, 2, n_pad), **new)
-    gram = torch.empty((n, n), **new)
-    col_sum = torch.empty((n,), **new)
-    sum_sq = torch.empty((n,), **new)
-    launch = _launch_fn()
-    with torch.cuda.device(x.device):
-        err = launch(
-            x.data_ptr(), rows, n, n_pad, splits, per_split,
-            partial_gram.data_ptr(), partial_moments.data_ptr(),
-            gram.data_ptr(), col_sum.data_ptr(), sum_sq.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"gram_moments kernel launch failed with CUDA error {err} "
-            f"(x {tuple(x.shape)}, splits {splits})"
-        )
+    out = _launch(x, "gram_moments_launch", (-(-x.shape[1] // TILE)) ** 2)
     with _launch_lock:
         launches += 1
-    return gram, col_sum, sum_sq
+    return out
+
+
+def symmetric_gram_moments(
+    x: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``fused_gram_moments``'s triple from the upper tile pairs only, each
+    strict upper tile mirrored bit-equal into the lower half.
+
+    On the card this launches the symmetric kernel on the current stream and
+    returns without synchronising; on the CPU it runs the plain version.
+    """
+    global symmetric_launches
+    _check(x)
+    if x.device.type == "cpu":
+        return symmetric_gram_moments_reference(x)
+    out = _launch(x, "symmetric_gram_moments_launch", upper_tiles(x.shape[1]))
+    with _launch_lock:
+        symmetric_launches += 1
+    return out

@@ -1,15 +1,18 @@
 """PCA linear algebra on torch tensors.
 
-Counterpart of ``spark_rapids_ml_tpu/ops/linalg.py`` for the resident fit:
-per-partition sufficient statistics, their monoid combine, the covariance,
-the refined descending eigensolve with the reference's sign rule, the
-explained variance and the projection. Functions take tensors on any device
-and compute in their dtype; the estimators pass f32 tensors.
+Counterpart of ``spark_rapids_ml_tpu/ops/linalg.py`` for the PCA fit:
+per-partition sufficient statistics, their monoid combine, the streamed
+fit's fold step, the covariance (standardized or not), the refined
+descending eigensolve with the reference's sign rule, the explained variance
+and the projection. Functions take tensors on any device and compute in
+their dtype; the estimators pass f32 tensors.
 
-Precision tiers of the Gram pass (``gram_stats``):
+Precision tiers of the Gram pass (``gram_stats`` for the resident fit,
+``gram_stats_weighted`` for the streamed fold):
 
 - ``"highest"``: an f32 ``torch.matmul`` with TF32 off;
-- ``"high"``: the split-bf16 kernel ``ops.gram_moments.fused_gram_moments``;
+- ``"high"``: the split-bf16 kernels, ``ops.gram_moments.fused_gram_moments``
+  resident and ``symmetric_gram_moments`` streamed;
 - ``"default"``: not ported yet.
 """
 
@@ -20,7 +23,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from spark_rapids_ml_tpu_torch.ops.gram_moments import fused_gram_moments
+from spark_rapids_ml_tpu_torch.ops import scaler as S
+from spark_rapids_ml_tpu_torch.ops.gram_moments import (
+    fused_gram_moments,
+    symmetric_gram_moments,
+)
 
 PRECISIONS = ("highest", "high", "default")
 
@@ -52,6 +59,15 @@ def gram(x: torch.Tensor) -> torch.Tensor:
     return x.T @ x
 
 
+def _unported_precision(precision: str) -> Exception:
+    if precision == "default":
+        return NotImplementedError(
+            "precision 'default' (one bf16 pass with an f32 result) is not "
+            "ported yet; use 'high' or 'highest'"
+        )
+    return ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+
+
 def gram_stats(x: torch.Tensor, *, precision: str = "highest") -> GramStats:
     """The sufficient-statistics triple of one partition."""
     count = torch.tensor(x.shape[0], dtype=x.dtype, device=x.device)
@@ -60,17 +76,80 @@ def gram_stats(x: torch.Tensor, *, precision: str = "highest") -> GramStats:
     if precision == "high":
         xtx, col_sum, _ = fused_gram_moments(x)
         return GramStats(xtx, col_sum, count)
-    if precision == "default":
-        raise NotImplementedError(
-            "precision 'default' (one bf16 pass with an f32 result) is not "
-            "ported yet; use 'high' or 'highest'"
-        )
-    raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+    raise _unported_precision(precision)
 
 
 def combine_gram_stats(a: GramStats, b: GramStats) -> GramStats:
     """Monoid combine: elementwise sum of the triples."""
     return GramStats(a.xtx + b.xtx, a.col_sum + b.col_sum, a.count + b.count)
+
+
+def gram_stats_weighted(
+    x: torch.Tensor, w: torch.Tensor, *, precision: str = "highest"
+) -> GramStats:
+    """GramStats of one chunk under the masking convention: ``w`` carries
+    instance weights on true rows and 0.0 on pad rows, so xᵀ(x·w), the
+    weighted column sums and the weight-sum count are exact over padded
+    chunks.
+
+    - ``"highest"``: that arithmetic, with an f32 matmul; ``w`` may lie on
+      the host and is copied to ``x``'s device.
+    - ``"high"``: the symmetric split-bf16 kernel under a unit-weight
+      contract: every weight must be 1, so pass only the chunk's true rows
+      (PCA has no weight column). The weights are read where they lie: a
+      host tensor costs no device sync, which is why the streamed fold keeps
+      them on the host.
+    """
+    if precision == "highest":
+        _require_f32_matmul()
+        w = w.to(device=x.device, dtype=x.dtype, non_blocking=True)
+        xw = x * w[:, None]
+        return GramStats(x.T @ xw, xw.sum(dim=0), w.sum())
+    if precision == "high":
+        if w.shape != (x.shape[0],) or not bool(torch.all(w == 1)):
+            raise ValueError(
+                "precision 'high' folds unit weights only: pass the chunk's "
+                "true rows with weight 1 (weighted 'high' folds are not "
+                "ported)"
+            )
+        xtx, col_sum, _ = symmetric_gram_moments(x)
+        count = torch.full((), float(x.shape[0]), dtype=x.dtype, device=x.device)
+        return GramStats(xtx, col_sum, count)
+    raise _unported_precision(precision)
+
+
+def fold_gram_stats(
+    carry: GramStats, x: torch.Tensor, w: torch.Tensor, *, precision: str = "highest"
+) -> GramStats:
+    """One streamed-fit fold step, out of place: carry + the chunk's weighted
+    stats."""
+    return combine_gram_stats(carry, gram_stats_weighted(x, w, precision=precision))
+
+
+def init_gram_carry(n: int, device: torch.device | str) -> GramStats:
+    """Zero f32 GramStats carry on ``device`` for ``gram_fold_step``."""
+    new = dict(dtype=torch.float32, device=device)
+    return GramStats(torch.zeros((n, n), **new), torch.zeros((n,), **new),
+                     torch.zeros((), **new))
+
+
+def gram_fold_step(precision: str = "highest"):
+    """The streamed fit's fold step ``step(carry, x, w) -> carry``: adds the
+    chunk's weighted stats into ``carry`` **in place** and returns it. This
+    is the counterpart of the JAX step's donated carry: a stream of any
+    length keeps one set of carry buffers, and every update is queued on the
+    current stream without a sync."""
+    if precision not in ("highest", "high"):
+        raise _unported_precision(precision)
+
+    def step(carry: GramStats, x: torch.Tensor, w: torch.Tensor) -> GramStats:
+        stats = gram_stats_weighted(x, w, precision=precision)
+        carry.xtx.add_(stats.xtx)
+        carry.col_sum.add_(stats.col_sum)
+        carry.count.add_(stats.count)
+        return carry
+
+    return step
 
 
 def covariance_from_stats(stats: GramStats, *, mean_centering: bool) -> torch.Tensor:
@@ -80,6 +159,23 @@ def covariance_from_stats(stats: GramStats, *, mean_centering: bool) -> torch.Te
         return stats.xtx
     denom = torch.clamp(stats.count, min=1.0)
     return stats.xtx - torch.outer(stats.col_sum, stats.col_sum) / denom
+
+
+def standardized_cov_from_stats(
+    stats: GramStats,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(scatter of the standardized X, mean, sample std) from raw GramStats:
+    with Xs = (X − μ)/σ, XsᵀXs = D⁻¹(XᵀX − m·μμᵀ)D⁻¹, D = diag(σ), so the
+    fused StandardScaler → PCA pipeline needs no second pass over the data.
+    μ and σ come from ``scaler.finalize_moments`` on (count, col_sum,
+    diag(XᵀX)); zero-variance features are left unscaled."""
+    mean, std = S.finalize_moments(
+        S.MomentStats(stats.count, stats.col_sum, torch.diagonal(stats.xtx))
+    )
+    m = torch.clamp(stats.count, min=1.0)
+    safe = torch.where(std > 0, std, torch.ones_like(std))
+    centered = stats.xtx - m * torch.outer(mean, mean)
+    return centered / torch.outer(safe, safe), mean, std
 
 
 def sign_flip(u: torch.Tensor) -> torch.Tensor:
@@ -148,8 +244,8 @@ def pca_fit_from_cov(
     """Covariance → (pc [n, k], explained variance [k])."""
     if solver in ("randomized", "svd", "auto"):
         raise NotImplementedError(
-            f"solver {solver!r} is not ported yet (queued after the "
-            "streamed-fold slice); use solver='full'"
+            f"solver {solver!r} is not ported yet (queued as the next "
+            "slice); use solver='full'"
         )
     if solver != "full":
         raise ValueError(f"unknown solver {solver!r}")

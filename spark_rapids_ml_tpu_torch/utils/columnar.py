@@ -15,7 +15,7 @@ from typing import Any, Iterator
 
 import numpy as np
 
-from spark_rapids_ml_tpu_torch.utils.config import get_config, wire_dtype
+from spark_rapids_ml_tpu_torch.utils.config import get_config
 
 try:  # keep the core importable without pyarrow
     import pyarrow as pa
@@ -177,11 +177,13 @@ class PartitionedDataset:
 
 
 def use_streamed_fit(ds: PartitionedDataset) -> bool:
-    """True when partition metadata proves the resident array (rows × n at
-    the wire dtype) exceeds ``TPU_ML_STREAM_FIT_MAX_RESIDENT_BYTES``; unknown
-    sizes stay resident."""
+    """True when partition metadata proves the resident array would exceed
+    ``TPU_ML_STREAM_FIT_MAX_RESIDENT_BYTES`` (``spark.ingest.use_streamed_fit``);
+    unknown sizes stay resident."""
     rows = ds.est_rows()
     n = ds.est_feature_dim()
     if rows is None or n is None:
         return False
-    return rows * n * wire_dtype().itemsize > get_config().stream_fit_max_resident_bytes
+    from spark_rapids_ml_tpu_torch.spark.ingest import use_streamed_fit as _cutover
+
+    return _cutover(rows, n)

@@ -1,9 +1,13 @@
-"""Runtime knobs the port's resident PCA path reads.
+"""Runtime knobs the port's PCA paths read.
 
 A copy of the knobs of ``spark_rapids_ml_tpu/utils/config.py`` and
-``spark_rapids_ml_tpu/spark/ingest.py`` that this path needs, under the same
+``spark_rapids_ml_tpu/spark/ingest.py`` that these paths need, under the same
 environment variable names and defaults, so one environment configures both
 packages. ``get_config()`` reads the environment on every call.
+
+``TPU_ML_MESH_LOCAL_WIRE_DTYPE`` only sizes the streamed-fit cutover, as the
+JAX package's wire would be sized: the port stages and computes in f32
+whatever it says (``wire_dtype``).
 """
 
 from __future__ import annotations
@@ -20,6 +24,11 @@ MAX_WORKERS_VAR = "TPU_ML_MAX_WORKERS"
 DEFAULT_PRECISION_VAR = "TPU_ML_DEFAULT_PRECISION"
 STREAM_CUTOVER_VAR = "TPU_ML_STREAM_FIT_MAX_RESIDENT_BYTES"
 WIRE_DTYPE_VAR = "TPU_ML_MESH_LOCAL_WIRE_DTYPE"
+STREAM_CHUNK_VAR = "TPU_ML_STREAM_CHUNK_ROWS"
+NONFINITE_POLICY_VAR = "TPU_ML_NONFINITE_POLICY"
+
+DEFAULT_STREAM_CHUNK = 65_536
+VALID_NONFINITE_POLICIES = ("raise", "skip", "allow")
 
 
 def _int_env(name: str, default: int) -> int:
@@ -38,6 +47,15 @@ def _precision_env() -> str:
     return v
 
 
+def _nonfinite_env() -> str:
+    v = os.environ.get(NONFINITE_POLICY_VAR, "raise")
+    if v not in VALID_NONFINITE_POLICIES:
+        raise ValueError(
+            f"{NONFINITE_POLICY_VAR}={v!r} must be one of {VALID_NONFINITE_POLICIES}"
+        )
+    return v
+
+
 @dataclass(frozen=True)
 class RuntimeConfig:
     min_bucket: int = field(default_factory=lambda: _int_env(MIN_BUCKET_VAR, 128))
@@ -46,6 +64,10 @@ class RuntimeConfig:
     stream_fit_max_resident_bytes: int = field(
         default_factory=lambda: _int_env(STREAM_CUTOVER_VAR, 1 << 31)
     )
+    stream_chunk_rows: int = field(
+        default_factory=lambda: _int_env(STREAM_CHUNK_VAR, DEFAULT_STREAM_CHUNK)
+    )
+    nonfinite_policy: str = field(default_factory=_nonfinite_env)
 
 
 def get_config() -> RuntimeConfig:
@@ -53,7 +75,8 @@ def get_config() -> RuntimeConfig:
 
 
 def wire_dtype() -> np.dtype:
-    """Host-buffer dtype that sizes the resident-fit cutover."""
+    """Wire dtype that sizes the resident-fit cutover; the port itself stages
+    in f32 whatever it says."""
     name = os.environ.get(WIRE_DTYPE_VAR, "float64")
     if name not in ("float32", "float64"):
         raise ValueError(f"{WIRE_DTYPE_VAR}={name!r}: expected float32 or float64")

@@ -21,13 +21,73 @@ def test_kernel_check_phase_on_cpu():
     for entry in results.values():
         assert entry["max_abs_err"] <= entry["tol"]
         assert entry["max_abs_err_vs_f64"] <= entry["tol"]
+        assert entry["repeat_bit_equal"]
+
+
+def test_symmetric_kernel_check_phase_on_cpu():
+    # 300 columns: three 128-column tiles, so three mirrored tile pairs
+    shapes = [(500, 300), (130, 200), (33, 7)]
+    results = chip_smoke.phase_kernel_check(shapes, CPU, kernel="symmetric_gram_moments")
+    assert set(results) == set(shapes)
+    for entry in results.values():
+        assert entry["max_abs_err"] <= entry["tol"]
+        assert entry["max_abs_err_vs_f64"] <= entry["tol"]
+        assert entry["mirror_bit_equal"] and entry["repeat_bit_equal"]
+
+
+def test_mirror_check_catches_a_broken_mirror():
+    g = chip_smoke.G.symmetric_gram_moments(torch.randn(50, 260))[0]
+    assert chip_smoke._mirrored_tiles_equal(g)
+    g[200, 3] = torch.nextafter(g[200, 3], torch.tensor(float("inf")))
+    assert not chip_smoke._mirrored_tiles_equal(g)
+
+
+def test_kernel_shapes_follow_the_main_paths():
+    assert chip_smoke.KERNEL_SHAPES["gram_moments"][0] == chip_smoke.MAIN_SHAPE
+    chunk, tail = chip_smoke.KERNEL_SHAPES["symmetric_gram_moments"][:2]
+    rows = chip_smoke.STREAM_ROWS
+    assert chunk == (65_536, 512) and tail == (38_528, 512)
+    assert (rows // chunk[0]) * chunk[0] + tail[0] == rows  # 152 chunks and a tail
+    assert set(chip_smoke.KERNELS) == set(chip_smoke.FUNCTIONS) == set(chip_smoke.KERNEL_SHAPES)
 
 
 def test_main_path_phase_on_cpu():
     result = chip_smoke.phase_main_path(3000, 96, 5, 3, CPU)
-    assert result["launches"] == {"gram_moments": 0}  # plain version on the CPU
+    # plain versions on the CPU
+    assert result["launches"] == {"gram_moments": 0, "symmetric_gram_moments": 0}
     assert result["min_cosine_vs_f64_oracle"] >= chip_smoke.COSINE_BAR
     assert result["transform_max_abs_err"] <= result["transform_tol"]
+
+
+def test_streamed_path_phase_on_cpu(monkeypatch):
+    monkeypatch.setenv("TPU_ML_STREAM_FIT_MAX_RESIDENT_BYTES", str(1 << 20))
+    monkeypatch.setenv("TPU_ML_STREAM_CHUNK_ROWS", "512")
+    result = chip_smoke.phase_streamed_path(4096, 64, 5, 4, CPU)
+    assert result["chunks"] == 8 and result["chunk_rows"] == 512
+    assert result["launches"] == {"gram_moments": 0, "symmetric_gram_moments": 0}
+    assert result["max_put_bytes"] == 512 * 64 * 4
+    assert result["min_cosine_vs_f64_oracle"] >= chip_smoke.COSINE_BAR
+    assert result["min_cosine_high_vs_highest"] >= chip_smoke.COSINE_BAR
+
+
+def test_streamed_path_phase_refuses_resident_data():
+    with pytest.raises(AssertionError, match="cutover"):
+        chip_smoke.phase_streamed_path(1024, 16, 3, 2, CPU)
+
+
+def test_streamed_workload_is_seeded_and_its_gram_exact():
+    x, g = chip_smoke.streamed_workload(1000, 24, 3, CPU)
+    x2, _ = chip_smoke.streamed_workload(1000, 24, 3, CPU)
+    assert x.dtype == np.float32 and x.shape == (1000, 24)
+    np.testing.assert_array_equal(x, x2)
+    xd = x.astype(np.float64)
+    np.testing.assert_allclose(g, xd.T @ xd, rtol=1e-12)
+
+
+def test_standardize_phase_on_cpu():
+    result = chip_smoke.phase_standardize(3000, 96, 5, 3, CPU)
+    assert result["min_cosine_vs_f64_oracle"] >= chip_smoke.COSINE_BAR
+    assert result["std_max_rel_err"] < 1e-4
 
 
 def test_bound_at_main_shape():

@@ -1,9 +1,10 @@
-"""The port's split-bf16 Gram + moments against the Pallas kernel.
+"""The port's split-bf16 Gram + moments against the Pallas kernels.
 
-The plain PyTorch version (what the wrapper runs for a CPU tensor) is held
-against ``spark_rapids_ml_tpu.ops.pallas_gram.fused_gram_moments`` in
-interpret mode on the same f32 input, and both against an f64 oracle. The
-CUDA kernel itself runs only on the card (the ``cuda`` test below).
+The plain PyTorch versions (what the wrappers run for a CPU tensor) are held
+against ``spark_rapids_ml_tpu.ops.pallas_gram.fused_gram_moments`` and
+``symmetric_gram_moments`` in interpret mode on the same f32 input, and both
+against an f64 oracle. The CUDA kernels themselves run only on the card
+(the ``cuda`` tests below).
 """
 
 import jax.numpy as jnp
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from spark_rapids_ml_tpu.ops.pallas_gram import fused_gram_moments as pallas_fused
+from spark_rapids_ml_tpu.ops.pallas_gram import symmetric_gram_moments as pallas_symmetric
 from spark_rapids_ml_tpu_torch.ops import gram_moments as G
 
 # the shapes and blocks of tests/test_pallas_gram.py
@@ -72,12 +74,50 @@ def test_reference_blocks_agree(rng, monkeypatch):
     torch.testing.assert_close(blocked[2], one[2], rtol=1e-5, atol=1e-5 * 3000 ** 0.5)
 
 
-def test_cpu_tensor_does_not_count_a_launch(rng):
-    before = G.launches
-    G.fused_gram_moments(torch.from_numpy(rng.normal(size=(64, 16)).astype(np.float32)))
-    assert G.launches == before
+@pytest.mark.parametrize(
+    "shape", [pytest.param((700, 300), id="three_tiles"), pytest.param((512, 128), id="one_tile")]
+)
+def test_symmetric_plain_version_matches_pallas_and_oracle(rng, shape):
+    x = rng.normal(size=shape).astype(np.float32)
+    pg, pcs, psq = (
+        np.asarray(a)
+        for a in pallas_symmetric(jnp.asarray(x), block_rows=256, block_cols=128, interpret=True)
+    )
+    tg, tcs, tsq = (t.numpy() for t in G.symmetric_gram_moments(torch.from_numpy(x)))
+
+    xf = x.astype(np.float64)
+    exact = xf.T @ xf
+    scale = np.abs(exact).max()
+    for g in (tg, pg):
+        np.testing.assert_allclose(g, exact, atol=3e-5 * scale)
+    np.testing.assert_allclose(tg, pg, atol=3e-5 * scale)
+    # tests/test_pallas_gram.py's moment tolerances
+    for cs, sq in ((tcs, tsq), (pcs, psq)):
+        np.testing.assert_allclose(cs, xf.sum(0), rtol=1e-4, atol=6e-3)
+        np.testing.assert_allclose(sq, (xf**2).sum(0), rtol=1e-4, atol=6e-3)
+    # strict upper tiles mirrored bit-equal, as in the Pallas kernel
+    np.testing.assert_array_equal(tg[128:, :128], tg[:128, 128:].T)
+    np.testing.assert_array_equal(tg[256:, 128:256], tg[128:256, 256:].T)
 
 
+def test_symmetric_plain_version_is_the_fused_one_mirrored(rng):
+    x = torch.from_numpy(rng.normal(size=(300, 260)).astype(np.float32))
+    sg, scs, ssq = G.symmetric_gram_moments_reference(x)
+    fg, fcs, fsq = G.fused_gram_moments_reference(x)
+    upper = (torch.arange(260) // G.TILE)[:, None] <= (torch.arange(260) // G.TILE)[None, :]
+    assert torch.equal(sg[upper], fg[upper])
+    assert torch.equal(sg, torch.where(upper, sg, sg.T))
+    assert torch.equal(scs, fcs) and torch.equal(ssq, fsq)
+
+
+@pytest.mark.parametrize("kernel", ["fused_gram_moments", "symmetric_gram_moments"])
+def test_cpu_tensor_does_not_count_a_launch(rng, kernel):
+    before = (G.launches, G.symmetric_launches)
+    getattr(G, kernel)(torch.from_numpy(rng.normal(size=(64, 16)).astype(np.float32)))
+    assert (G.launches, G.symmetric_launches) == before
+
+
+@pytest.mark.parametrize("kernel", ["fused_gram_moments", "symmetric_gram_moments"])
 @pytest.mark.parametrize(
     "make,error",
     [
@@ -87,9 +127,9 @@ def test_cpu_tensor_does_not_count_a_launch(rng):
         pytest.param(lambda: torch.zeros((8,), dtype=torch.float32), ValueError, id="1d"),
     ],
 )
-def test_wrapper_rejects_bad_input(make, error):
+def test_wrapper_rejects_bad_input(make, error, kernel):
     with pytest.raises(error):
-        G.fused_gram_moments(make())
+        getattr(G, kernel)(make())
 
 
 def test_split_rows_fills_the_card():
@@ -99,6 +139,43 @@ def test_split_rows_fills_the_card():
     assert per_split % G.STEP == 0 and splits * per_split >= 65_536
     assert (splits - 1) * per_split < 65_536  # no empty split
     assert G._split_rows(0, 16, 132)[0] >= 1
+
+
+@pytest.mark.parametrize("n,tiles", [(512, 10), (2048, 136), (300, 6), (7, 1), (129, 3)])
+def test_symmetric_splits_come_from_the_upper_tiles(n, tiles):
+    assert G.upper_tiles(n) == tiles
+    # 65,536 x 512: 10 upper tiles need 27 splits for two blocks per SM,
+    # where the fused kernel's 16 tiles need 17
+    splits, per_split = G._split_rows(65_536, G.upper_tiles(n), 132)
+    assert (splits - 1) * per_split < 65_536 <= splits * per_split
+    if n == 512:
+        assert splits == 27 and G._split_rows(65_536, 16, 132)[0] == 17
+
+
+@pytest.mark.cuda
+def test_symmetric_kernel_matches_plain_version_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for rows, n in ((65_536, 512), (38_528, 512), (1_000, 300), (33, 7)):
+        x = torch.randn((rows, n), generator=gen, device="cuda")
+        before = G.symmetric_launches
+        g, cs, sq = G.symmetric_gram_moments(x)
+        again = G.symmetric_gram_moments(x)
+        torch.cuda.synchronize()
+        assert G.symmetric_launches == before + 2
+        rg, rcs, rsq = G.symmetric_gram_moments_reference(x)
+        scale = rg.abs().max().item()
+        torch.testing.assert_close(g, rg, rtol=0, atol=1e-5 * scale)
+        atol = 1e-5 * rows ** 0.5 * x.abs().max().item()
+        torch.testing.assert_close(cs, rcs, rtol=1e-5, atol=atol)
+        torch.testing.assert_close(sq, rsq, rtol=1e-5, atol=atol)
+        tile = torch.arange(n, device="cuda") // G.TILE
+        lower = tile[:, None] > tile[None, :]
+        assert torch.equal(g[lower], g.T[lower])  # the mirror is bit-equal
+        for a, b in zip((g, cs, sq), again):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -3,7 +3,10 @@
 Both estimators get the same f32 data in the same container; the port runs
 with device="cpu". Components must agree to min |cosine| >= 0.9999,
 explainedVariance to rtol 1e-4, and transforms to 1e-4·max|out| (sign_flip
-orients both sides' components the same way).
+orients both sides' components the same way). Streamed fits are forced by
+dropping the resident cutover (the JAX package's config and the port's
+environment variable) and run 128-row chunks; a standardize fit's mean and
+std agree at rtol 1e-5.
 """
 
 import numpy as np
@@ -13,6 +16,8 @@ import pytest
 import torch
 
 from spark_rapids_ml_tpu import PCA as JaxPCA
+from spark_rapids_ml_tpu.utils.config import get_config as jax_config
+from spark_rapids_ml_tpu.utils.config import set_config as set_jax_config
 from spark_rapids_ml_tpu_torch import PCA, PCAModel
 from spark_rapids_ml_tpu_torch.convert import pca_model_from_arrays
 
@@ -142,10 +147,99 @@ def test_k_larger_than_features_raises(x):
         PCA(device="cpu").setK(N + 1).fit(x)
 
 
+@pytest.fixture
+def streamed(monkeypatch):
+    """Every fit of both packages streams, in 128-row chunks (the rows do
+    not divide them), with the JAX tuner off."""
+    monkeypatch.setenv("TPU_ML_STREAM_FIT_MAX_RESIDENT_BYTES", "1")
+    monkeypatch.setenv("TPU_ML_STREAM_CHUNK_ROWS", "128")
+    monkeypatch.setenv("TPU_ML_AUTOTUNE", "off")
+    old = jax_config().stream_fit_max_resident_bytes
+    set_jax_config(stream_fit_max_resident_bytes=1)
+    yield
+    set_jax_config(stream_fit_max_resident_bytes=old)
+
+
+def _fit_both(x, precision, partitions=3, **params):
+    ref = JaxPCA(**params).setInputCol("features").setK(K).setPrecision(precision).fit(
+        x, num_partitions=partitions
+    )
+    port = PCA(device="cpu", **params).setInputCol("features").setK(K).setPrecision(
+        precision
+    ).fit(x, num_partitions=partitions)
+    return port, ref
+
+
+@pytest.mark.parametrize("center", [False, True])
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_streamed_fit_matches_jax_and_the_resident_fit(x, streamed, center, precision):
+    port, ref = _fit_both(x, precision, meanCentering=center)
+    assert port.stream_report is not None
+    assert port.stream_report.chunks == -(-ROWS // 128) and port.stream_report.rows == ROWS
+    _assert_models_agree(port, ref)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("TPU_ML_STREAM_FIT_MAX_RESIDENT_BYTES", str(1 << 31))
+        resident = PCA(device="cpu").setK(K).setMeanCentering(center).setPrecision(
+            precision
+        ).fit(x, num_partitions=3)
+    assert resident.stream_report is None
+    _assert_models_agree(port, resident)
+
+
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_streamed_fit_counts_skipped_rows(x, streamed, monkeypatch, precision):
+    bad = x.copy()
+    bad[[5, 400]] = np.nan
+    monkeypatch.setenv("TPU_ML_NONFINITE_POLICY", "skip")
+    port = PCA(device="cpu").setK(K).setPrecision(precision).fit(bad, num_partitions=3)
+    clean = PCA(device="cpu").setK(K).setPrecision(precision).fit(
+        np.delete(x, [5, 400], axis=0), num_partitions=3
+    )
+    assert port.stream_report.skipped_rows == 2 and port.stream_report.rows == ROWS - 2
+    _assert_models_agree(port, clean)
+    monkeypatch.setenv("TPU_ML_NONFINITE_POLICY", "raise")
+    with pytest.raises(ValueError, match="non-finite"):
+        PCA(device="cpu").setK(K).setPrecision(precision).fit(bad, num_partitions=3)
+
+
+def _assert_standardized_agree(port, ref, x):
+    _assert_models_agree(port, ref)
+    # at "high" the port's column sums are Σ(hi + lo), the kernel's, which
+    # carries 16 mantissa bits: off Σx by at most 2⁻¹⁷·Σ|x|
+    np.testing.assert_allclose(port.mean, ref.mean, rtol=1e-5,
+                               atol=2.0**-17 * np.abs(x).mean(axis=0).max())
+    np.testing.assert_allclose(port.std, ref.std, rtol=1e-5)
+    out = port.transform(x)
+    expected = np.asarray(ref.transform(x))
+    np.testing.assert_allclose(out, expected, rtol=0, atol=1e-4 * np.abs(expected).max())
+
+
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_standardize_matches_jax(x, precision):
+    port, ref = _fit_both(x, precision, standardize=True)
+    assert port.stream_report is None
+    _assert_standardized_agree(port, ref, x)
+
+
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_streamed_standardize_matches_jax(x, streamed, precision):
+    port, ref = _fit_both(x, precision, standardize=True)
+    assert port.stream_report is not None
+    _assert_standardized_agree(port, ref, x)
+
+
+def test_standardize_leaves_constant_features_unscaled(x):
+    xc = x.copy()
+    xc[:, 3] = 2.0
+    xc[:, 7] += 10.0
+    port, ref = _fit_both(xc, "highest", standardize=True)
+    assert port.std[3] == 0.0
+    _assert_standardized_agree(port, ref, xc)
+
+
 @pytest.mark.parametrize(
     "configure,match",
     [
-        pytest.param(lambda p: p.setStandardize(True), "standardize", id="standardize"),
         pytest.param(lambda p: p.setSolver("randomized"), "randomized", id="randomized"),
         pytest.param(lambda p: p.setSolver("svd"), "svd", id="svd"),
         pytest.param(lambda p: p.setSolver("auto"), "auto", id="auto"),
@@ -156,12 +250,6 @@ def test_unported_options_raise(x, configure, match):
     pca = configure(PCA(device="cpu").setK(K))
     with pytest.raises(NotImplementedError, match=match):
         pca.fit(x)
-
-
-def test_streamed_cutover_raises(x, monkeypatch):
-    monkeypatch.setenv("TPU_ML_STREAM_FIT_MAX_RESIDENT_BYTES", str(x.nbytes))
-    with pytest.raises(NotImplementedError, match="streamed fold"):
-        PCA(device="cpu").setK(K).fit(x)
 
 
 def test_save_load_raise(x, tmp_path):

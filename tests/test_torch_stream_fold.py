@@ -1,0 +1,224 @@
+"""The port's streamed fold against the JAX package's.
+
+The same f32 chunks, partitions of uneven size whose rows do not divide the
+chunk, go through ``spark_rapids_ml_tpu.spark.ingest.stream_fold`` with the
+JAX fold step and through the port's ``stream_fold`` with its own, on the
+CPU. The suite runs JAX with x64, so the JAX carry is f64 under the default
+wire dtype; the port's is f32. The carries agree to 1e-5·max|G| at
+"highest" (f32 products) and 3e-5·max|G| at "high" (the split-bf16 plain
+version, ~16 mantissa bits), with the count exact.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax import lax
+
+from spark_rapids_ml_tpu.ops import linalg as JL
+from spark_rapids_ml_tpu.spark import ingest as JI
+from spark_rapids_ml_tpu_torch.ops import linalg as TL
+from spark_rapids_ml_tpu_torch.spark import ingest as TI
+
+CPU = torch.device("cpu")
+ROWS, N, CHUNK = 1100, 12, 128
+JAX_PRECISION = {"highest": lax.Precision.HIGHEST, "high": lax.Precision.HIGH}
+TOL = {"highest": 1e-5, "high": 3e-5}
+
+
+@pytest.fixture(autouse=True)
+def _static_chunks(monkeypatch):
+    # the JAX tuner may not change the chunk geometry under test
+    monkeypatch.setenv("TPU_ML_AUTOTUNE", "off")
+
+
+@pytest.fixture(scope="module")
+def parts():
+    rng = np.random.default_rng(17)
+    x = rng.normal(size=(ROWS, N)).astype(np.float32)
+    return np.split(x, [100, 550, 900])  # 100, 450, 350 and 200 rows
+
+
+def _port_fold(parts, precision="highest", **kw):
+    return TI.stream_fold(
+        iter(parts), TL.gram_fold_step(precision), n=N,
+        init=TL.init_gram_carry(N, CPU), device=CPU, **kw,
+    )
+
+
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_stream_fold_matches_jax(parts, precision):
+    ref = JI.stream_fold(
+        iter(parts), JL.gram_fold_step(JAX_PRECISION[precision]), n=N,
+        init=JL.init_gram_carry(N, JI.wire_dtype()), chunk_rows=CHUNK,
+    )
+    out = _port_fold(parts, precision, chunk_rows=CHUNK)
+    assert (out.rows, out.chunks) == (ref.rows, ref.chunks) == (ROWS, -(-ROWS // CHUNK))
+    xtx = np.asarray(ref.carry.xtx)
+    scale = np.abs(xtx).max()
+    np.testing.assert_allclose(out.carry.xtx.numpy(), xtx, rtol=0, atol=TOL[precision] * scale)
+    np.testing.assert_allclose(
+        out.carry.col_sum.numpy(), np.asarray(ref.carry.col_sum),
+        rtol=0, atol=TOL[precision] * np.abs(np.concatenate(parts)).sum(0).max(),
+    )
+    assert out.carry.count.item() == float(ref.carry.count) == ROWS
+
+
+def test_stream_fold_matches_one_resident_pass(parts):
+    """Chunking changes only the f32 summation order."""
+    x = torch.from_numpy(np.concatenate(parts))
+    out = _port_fold(parts, chunk_rows=CHUNK)
+    whole = TL.gram_stats(x)
+    scale = whole.xtx.abs().max().item()
+    torch.testing.assert_close(out.carry.xtx, whole.xtx, rtol=0, atol=1e-6 * scale)
+    torch.testing.assert_close(out.carry.col_sum, whole.col_sum, rtol=1e-5, atol=1e-4)
+
+
+def test_chunk_rows_default_and_bucketing(monkeypatch):
+    for raw in ("65536", "100", "1000", "1"):
+        monkeypatch.setenv("TPU_ML_STREAM_CHUNK_ROWS", raw)
+        assert TI.stream_chunk_rows() == JI.stream_chunk_rows()
+    monkeypatch.delenv("TPU_ML_STREAM_CHUNK_ROWS")
+    assert TI.stream_chunk_rows() == JI.stream_chunk_rows() == 65_536
+    monkeypatch.setenv("TPU_ML_STREAM_CHUNK_ROWS", "0")
+    with pytest.raises(ValueError, match="TPU_ML_STREAM_CHUNK_ROWS"):
+        TI.stream_chunk_rows()
+
+
+@pytest.mark.parametrize("rows,n", [(1000, 512), (524_288, 512), (524_289, 512), (10**7, 512)])
+def test_cutover_matches_jax(rows, n):
+    assert TI.use_streamed_fit(rows, n) == JI.use_streamed_fit(rows, n)
+
+
+def test_empty_stream_raises():
+    with pytest.raises(ValueError, match="empty"):
+        _port_fold([])
+    with pytest.raises(ValueError, match="empty"):
+        _port_fold([np.zeros((0, N), np.float32)])
+
+
+def test_changed_width_raises(parts):
+    with pytest.raises(ValueError, match="feature dimension"):
+        _port_fold([parts[0], np.zeros((5, N + 1), np.float32)])
+
+
+def _with_nonfinite(parts):
+    bad = [p.copy() for p in parts]
+    bad[1][3, 2] = np.nan
+    bad[2][7, 0] = np.inf
+    bad[2][8, 5] = -np.inf
+    return bad
+
+
+def test_nonfinite_rows_raise_by_default(parts):
+    with pytest.raises(ValueError, match="non-finite"):
+        _port_fold(_with_nonfinite(parts), chunk_rows=CHUNK)
+
+
+def test_nonfinite_policy_comes_from_the_environment(parts, monkeypatch):
+    monkeypatch.setenv("TPU_ML_NONFINITE_POLICY", "skip")
+    assert _port_fold(_with_nonfinite(parts), chunk_rows=CHUNK).skipped_rows == 3
+    monkeypatch.setenv("TPU_ML_NONFINITE_POLICY", "drop")
+    with pytest.raises(ValueError, match="TPU_ML_NONFINITE_POLICY"):
+        _port_fold(parts, chunk_rows=CHUNK)
+
+
+def test_nonfinite_rows_skipped_and_counted(parts):
+    bad = _with_nonfinite(parts)
+    out = _port_fold(bad, chunk_rows=CHUNK, nonfinite="skip")
+    ref = JI.stream_fold(
+        iter(bad), JL.gram_fold_step(lax.Precision.HIGHEST), n=N,
+        init=JL.init_gram_carry(N, JI.wire_dtype()), chunk_rows=CHUNK, nonfinite="skip",
+    )
+    assert out.skipped_rows == ref.skipped_rows == 3
+    assert out.rows == ref.rows == ROWS - 3
+    clean = _port_fold([p[np.isfinite(p).all(axis=1)] for p in bad], chunk_rows=CHUNK)
+    assert torch.equal(out.carry.xtx, clean.carry.xtx)
+    assert out.carry.count.item() == ROWS - 3
+
+
+def test_nonfinite_allow_skips_the_scan(parts):
+    out = _port_fold(_with_nonfinite(parts), chunk_rows=CHUNK, nonfinite="allow")
+    assert out.skipped_rows == 0 and not torch.isfinite(out.carry.xtx).all()
+
+
+def test_finite_values_whose_sum_overflows_are_kept():
+    x = np.full((4, N), 3e38, np.float32)  # finite, but their sum is not
+    out = _port_fold([x], chunk_rows=CHUNK, precision="highest")
+    assert out.rows == 4 and out.skipped_rows == 0
+
+
+def test_puts_are_one_chunk(parts):
+    out = _port_fold(parts, chunk_rows=CHUNK)
+    assert out.max_put_bytes == CHUNK * N * 4  # f32, never the whole set
+    assert out.overlapped == 0  # the CPU folds synchronously
+
+
+def test_host_chunks_of_any_float_dtype_and_layout(parts):
+    x = np.concatenate(parts)
+    ref = _port_fold([x], chunk_rows=CHUNK)
+    for chunks in ([x.astype(np.float64)], [np.asfortranarray(x)], [x[::-1][::-1]]):
+        out = _port_fold(chunks, chunk_rows=CHUNK)
+        torch.testing.assert_close(out.carry.xtx, ref.carry.xtx, rtol=0, atol=0)
+    ro = x.copy()
+    ro.flags.writeable = False
+    out = _port_fold([ro], chunk_rows=CHUNK)
+    assert torch.equal(out.carry.xtx, ref.carry.xtx)
+
+
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_gram_stats_weighted_matches_jax(parts, precision):
+    x = np.concatenate(parts)[:300]
+    w = np.ones(300, np.float32)
+    if precision == "highest":
+        w = np.random.default_rng(3).uniform(0.5, 2.0, 300).astype(np.float32)
+        w[250:] = 0.0  # pad rows
+    ref = JL.gram_stats_weighted(jnp.asarray(x), jnp.asarray(w), precision=JAX_PRECISION[precision])
+    out = TL.gram_stats_weighted(torch.from_numpy(x), torch.from_numpy(w), precision=precision)
+    scale = np.abs(np.asarray(ref.xtx)).max()
+    np.testing.assert_allclose(out.xtx.numpy(), np.asarray(ref.xtx), rtol=0,
+                               atol=TOL[precision] * scale)
+    np.testing.assert_allclose(out.col_sum.numpy(), np.asarray(ref.col_sum), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(out.count.item(), float(ref.count), rtol=1e-6)
+
+
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_fold_gram_stats_matches_jax_and_the_in_place_step(parts, precision):
+    x0, x1 = (p[:90] for p in parts[:2])
+    w = np.ones(90, np.float32)
+    jp = JAX_PRECISION[precision]
+    ref = JL.init_gram_carry(N, jnp.float32)
+    port = TL.init_gram_carry(N, CPU)
+    stepped = TL.init_gram_carry(N, CPU)
+    step = TL.gram_fold_step(precision)
+    for xc in (x0, x1):
+        ref = JL.fold_gram_stats(ref, jnp.asarray(xc), jnp.asarray(w), precision=jp)
+        port = TL.fold_gram_stats(port, torch.from_numpy(xc), torch.from_numpy(w),
+                                  precision=precision)
+        out = step(stepped, torch.from_numpy(xc), torch.from_numpy(w))
+        assert out is stepped  # updated in place
+    scale = np.abs(np.asarray(ref.xtx)).max()
+    np.testing.assert_allclose(port.xtx.numpy(), np.asarray(ref.xtx), rtol=0,
+                               atol=TOL[precision] * scale)
+    assert port.count.item() == float(ref.count) == 180
+    for a, b in zip(port, stepped):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize(
+    "w", [pytest.param([1.0, 0.5, 1.0], id="fractional"), pytest.param([1.0, 1.0, 0.0], id="pad_row"),
+          pytest.param([1.0, 1.0], id="wrong_length")]
+)
+def test_high_folds_unit_weights_only(w):
+    x = torch.ones((3, N))
+    with pytest.raises(ValueError, match="unit weights"):
+        TL.gram_stats_weighted(x, torch.tensor(w), precision="high")
+    with pytest.raises(ValueError, match="unit weights"):
+        TL.gram_fold_step("high")(TL.init_gram_carry(N, CPU), x, torch.tensor(w))
+
+
+def test_fold_step_rejects_unported_precisions():
+    with pytest.raises(NotImplementedError, match="default"):
+        TL.gram_fold_step("default")
+    with pytest.raises(ValueError, match="precision"):
+        TL.gram_fold_step("fast")
