@@ -6,12 +6,14 @@
 Phases, each a plain function that the CPU tests also call at a tiny size:
 
 1. card: the device's name and count, and nvidia-smi's name and power limit;
-2. build: compile every CUDA source of the paths and print ptxas's
-   registers, shared memory and spills;
-3. kernels: hold each kernel against its plain PyTorch version on the card
-   at the shapes its main path gives it, the north-star width and a ragged
-   shape, then time kernel, plain version and a library yardstick with CUDA
-   events;
+2. build: compile every CUDA source of the paths, print each Gram
+   instance's ptxas line (registers, spills) and its count of HGMMA (wgmma)
+   instructions in the built library, and fail on a spill or on no HGMMA;
+3. kernels: print each kernel's schedule at its main shape, hold the kernel
+   against its plain PyTorch version on the card at the shapes its main path
+   gives it, the north-star width, a main-path row count at 129 columns
+   (the plain-load route, where TMA cannot go) and a ragged shape, then time
+   kernel, plain version and a library yardstick with CUDA events;
 4. main path (resident): fit PCA (500,000 x 512, k=50, precision "high",
    8 partitions) through fused_gram_moments, check it against the f64 host
    oracle and a "highest" fit, transform every row and check the projection;
@@ -31,6 +33,8 @@ script exits nonzero and prints no result. Every failed check raises.
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import subprocess
 from pathlib import Path
 import sys
@@ -81,10 +85,16 @@ FUNCTIONS = {
 }
 # the shape each kernel's main path gives it comes first
 KERNEL_SHAPES = {
-    "gram_moments": (MAIN_SHAPE, (131_072, 2_048), (1_000, 300)),
+    "gram_moments": (MAIN_SHAPE, (131_072, 2_048), (65_536, 129), (1_000, 300)),
     "symmetric_gram_moments": (
-        STREAM_SHAPE, STREAM_TAIL_SHAPE, (131_072, 2_048), (1_000, 300),
+        STREAM_SHAPE, STREAM_TAIL_SHAPE, (131_072, 2_048), (65_536, 129), (1_000, 300),
     ),
+}
+# the Gram kernel instance of each kernel in the built library (its
+# mangled name holds gram_partial_kernel<false> or <true>)
+INSTANCES = {
+    "gram_moments": "gram_partial_kernelILb0E",
+    "symmetric_gram_moments": "gram_partial_kernelILb1E",
 }
 
 
@@ -130,15 +140,63 @@ def phase_card() -> dict:
     return card
 
 
-def phase_build() -> None:
+def build_report(log: str, sass: str) -> dict:
+    """Each Gram instance's ptxas lines (from ``-Xptxas -v``'s log), its
+    spill bytes, and its count of HGMMA instructions in ``cuobjdump -sass``'s
+    listing of the built library."""
+    report = {}
+    for kernel, mangled in INSTANCES.items():
+        ptxas, current = [], False
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                current = mangled in line
+            elif current and ("Used" in line or "spill" in line):
+                ptxas.append(line.strip())
+        hgmma, current = 0, False
+        for line in sass.splitlines():
+            if "Function :" in line:
+                current = mangled in line
+            elif current and "HGMMA" in line:
+                hgmma += 1
+        spills = sum(
+            int(b) for line in ptxas for b in re.findall(r"(\d+) bytes spill", line)
+        )
+        report[kernel] = {"ptxas": ptxas, "spill_bytes": spills, "hgmma": hgmma}
+    return report
+
+
+def phase_build() -> dict:
     sources = sorted({Path(meta["source"]).stem for meta in KERNELS.values()})
     t0 = time.perf_counter()
     logs = _build.build(sources)
     print(f"build: {sources} in {time.perf_counter() - t0:.1f} s", flush=True)
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"build: {name}: {line.strip()}", flush=True)
+    cuobjdump = shutil.which("cuobjdump") or str(Path(_build._nvcc()).parent / "cuobjdump")
+    sass = subprocess.run(
+        [cuobjdump, "-sass", str(_build.library_path("gram_moments"))],
+        capture_output=True, text=True, check=True, timeout=300,
+    ).stdout
+    report = build_report(logs["gram_moments"], sass)
+    for kernel, entry in report.items():
+        for line in entry["ptxas"]:
+            print(f"build: {kernel}: {line}", flush=True)
+        print(f"build: {kernel}: {entry['hgmma']} HGMMA instructions", flush=True)
+        if not entry["ptxas"] or entry["spill_bytes"] or not entry["hgmma"] > 0:
+            raise AssertionError(f"{kernel}: no ptxas line, a spill or no HGMMA: {entry}")
+    return report
+
+
+def schedule_summary(rows: int, n: int, symmetric: bool, sm_count: int) -> dict:
+    """The kernel's work list at one shape: items, blocks, items and row
+    steps per block (SM)."""
+    plan = G.schedule(rows, n, symmetric, sm_count)
+    per_block = np.diff(plan.block_items)
+    steps = plan.steps_per_block()
+    return {
+        "shape": [rows, n], "tiles": len(plan.tiles), "items": len(plan.items),
+        "blocks": plan.blocks, "sm_count": sm_count,
+        "items_per_sm": [int(per_block.min()), int(per_block.max())],
+        "steps_per_sm": [min(steps), max(steps)],
+    }
 
 
 def _exact_split_gram(x: torch.Tensor) -> torch.Tensor:
@@ -190,6 +248,7 @@ def phase_kernel_check(
         )
         entry = {
             "shape": [rows, n],
+            "route": G.load_route(x),
             "max_abs_err": gram_err,
             "tol": gram_tol,
             "max_abs_err_vs_f64": exact_err,
@@ -275,9 +334,10 @@ def explained_variance_f64(x: np.ndarray, k: int) -> np.ndarray:
 def explained_variance_high_with_lolo(
     x: np.ndarray, k: int, partitions: int, device: torch.device
 ) -> np.ndarray:
-    """explainedVariance of the "high" fit's path with the dropped loᵀlo term
-    added back to each partition's Gram: the fit at "high" differs from it
-    in that term alone."""
+    """explainedVariance of the "high" fit's path with the off-diagonal part
+    of the dropped loᵀlo term added back to each partition's Gram (its
+    diagonal already holds Σ(hi + lo)², which has no one-sided drop): the fit
+    at "high" differs from it in that term alone."""
     total = None
     for part in np.array_split(x, partitions):
         padded, _ = columnar.pad_rows(part)
@@ -285,7 +345,9 @@ def explained_variance_high_with_lolo(
         stats = L.gram_stats(xt, precision="high")
         hi = xt.to(torch.bfloat16)
         lo = (xt - hi.float()).to(torch.bfloat16).float()
-        stats = L.GramStats(stats.xtx + lo.T @ lo, stats.col_sum, stats.count)
+        lolo = lo.T @ lo
+        lolo.diagonal().zero_()
+        stats = L.GramStats(stats.xtx + lolo, stats.col_sum, stats.count)
         total = stats if total is None else L.combine_gram_stats(total, stats)
     cov = L.covariance_from_stats(total, mean_centering=False)
     return L.pca_fit_from_cov(cov, k)[1].cpu().numpy()
@@ -336,11 +398,12 @@ def phase_main_path(rows: int, n: int, k: int, partitions: int, device: torch.de
     if not cos_vs_highest >= COSINE_BAR:
         raise AssertionError(f"'high' vs 'highest' min cosine {cos_vs_highest} < {COSINE_BAR}")
     # "highest" (f32 products) must give the f64 oracle's explainedVariance.
-    # "high" drops loᵀlo, ~2⁻¹⁹·⁶ of each diagonal element of XᵀX, which
-    # lowers every noise-floor eigenvalue; explainedVariance divides by Σ√λ
-    # over the full spectrum (448 of 512 values are that floor here), so all
-    # its ratios shift together: rtol 1e-3 between tiers. That the shift is
-    # this term's is checked: with loᵀlo added back the gap is within 1e-4.
+    # "high" drops the off-diagonal part of loᵀlo (its diagonal is the
+    # kernel's Σ(hi + lo)², which drops nothing one-sided). explainedVariance
+    # divides by Σ√λ over the full spectrum (448 of 512 values are the noise
+    # floor here), so a shift of the floor moves all its ratios together:
+    # rtol 1e-3 between tiers. That any gap is this term's is checked: with
+    # the off-diagonal loᵀlo added back it is within 1e-4.
     ev_oracle = explained_variance_f64(x, k)
     np.testing.assert_allclose(highest.explainedVariance, ev_oracle, rtol=1e-4)
     np.testing.assert_allclose(model.explainedVariance, highest.explainedVariance, rtol=1e-3)
@@ -578,11 +641,20 @@ def main() -> int:
     device = torch.device("cuda", 0)
 
     card = _timed("card", phase_card)
-    _timed("build", phase_build)
+    build = _timed("build", phase_build)
+    sm_count = torch.cuda.get_device_properties(device).multi_processor_count
+    schedules = {}
+    for name in KERNELS:
+        rows, n = KERNEL_SHAPES[name][0]
+        schedules[name] = schedule_summary(rows, n, name == "symmetric_gram_moments", sm_count)
+        print(f"schedule: {name}: {json.dumps(schedules[name])}", flush=True)
     checks, timings = {}, {}
     for name in KERNELS:
         checks[name] = _timed(f"check {name}", phase_kernel_check,
                               KERNEL_SHAPES[name], device, kernel=name)
+        routes = {entry["route"] for entry in checks[name].values()}
+        if routes != {"tma", "plain"}:
+            raise AssertionError(f"{name}'s checks took the load routes {routes}, not both")
         timings[name] = _timed(f"timing {name}", phase_kernel_timing,
                                KERNEL_SHAPES[name], device, kernel=name)
     resident = _timed("main path (resident)", phase_main_path,
@@ -612,6 +684,9 @@ def main() -> int:
             "bound_ms": at_main["bound_ms"],
             "bound_by": at_main["bound_by"],
             "library_ms": at_main["library_ms"],
+            "hgmma": build[name]["hgmma"],
+            "ptxas": build[name]["ptxas"],
+            "schedule": schedules[name],
             "shapes": [{**checks[name][s], **timings[name][s]} for s in shapes],
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -26,15 +26,17 @@ version (``*_reference``) for a tensor on the CPU.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from spark_rapids_ml_tpu_torch.ops import _build
 
 TILE = 128  # output tile edge of the kernel (csrc/gram_moments.cu kTile)
-STEP = 32   # rows per k-step of the kernel (kStep)
-BLOCKS_PER_SM = 2  # split the rows until the grid has this many blocks per SM
+STEP = 32   # rows per ring stage of the kernel (kStep)
 REFERENCE_BLOCK_ROWS = 1024  # the TPU kernel's default row block
 
 # Kernel launches since import (or since a caller reset them to 0):
@@ -83,19 +85,76 @@ def symmetric_gram_moments_reference(
     return torch.where(lower, gram.T, gram), col_sum, sum_sq
 
 
-def upper_tiles(n: int) -> int:
-    """Tile pairs bi <= bj the symmetric kernel multiplies for n columns."""
+def tile_pairs(n: int, symmetric: bool) -> list[tuple[int, int]]:
+    """The output tiles a kernel multiplies, in its order: every (bi, bj)
+    row by row, or only bi <= bj for the symmetric kernel."""
     nt = -(-n // TILE)
-    return nt * (nt + 1) // 2
+    return [(bi, bj) for bi in range(nt) for bj in range(bi if symmetric else 0, nt)]
 
 
-def _split_rows(rows: int, tiles: int, sm_count: int) -> tuple[int, int]:
-    """(splits, rows_per_split) so the grid has about BLOCKS_PER_SM blocks on
-    each SM; rows_per_split is a multiple of STEP."""
-    splits = max(1, -(-BLOCKS_PER_SM * sm_count // tiles))
-    per_split = -(-max(rows, 1) // splits)
-    per_split = -(-per_split // STEP) * STEP
-    return max(1, -(-rows // per_split)), per_split
+class Schedule(NamedTuple):
+    """The kernel's static work list (int32 tables).
+
+    - ``items`` [num_items, 4]: (bi, bj, step_begin, step_end), one tile and
+      a range of ``STEP``-row steps, sorted by tile and then by row;
+    - ``tiles`` [num_tiles, 4]: (bi, bj, first item, end item), the items
+      the reduce pass sums for each tile, in that order;
+    - ``block_items`` [blocks + 1]: block b walks items
+      ``block_items[b]:block_items[b + 1]``.
+    """
+
+    items: np.ndarray
+    tiles: np.ndarray
+    block_items: np.ndarray
+
+    @property
+    def blocks(self) -> int:
+        return len(self.block_items) - 1
+
+    def steps_per_block(self) -> list[int]:
+        """Row steps each block walks, over all its items."""
+        steps = self.items[:, 3] - self.items[:, 2]
+        return [int(steps[a:b].sum()) for a, b in zip(self.block_items[:-1], self.block_items[1:])]
+
+
+@functools.lru_cache(maxsize=64)
+def schedule(rows: int, n: int, symmetric: bool, sm_count: int) -> Schedule:
+    """Cut the tile-major line of (tile, row step) pairs into ``sm_count``
+    equal shares, one per resident block, so every SM gets the same number
+    of steps to within one and no wave runs part-empty. A share that crosses
+    a tile's end becomes two items."""
+    pairs = tile_pairs(n, symmetric)
+    steps = -(-rows // STEP)
+    total = len(pairs) * steps
+    blocks = min(sm_count, total)
+    items, block_items = [], [0]
+    for b in range(blocks):
+        pos, end = b * total // blocks, (b + 1) * total // blocks
+        while pos < end:
+            t, s0 = divmod(pos, steps)
+            s1 = min(steps, s0 + end - pos)
+            items.append((*pairs[t], s0, s1))
+            pos += s1 - s0
+        block_items.append(len(items))
+    tiles, it = [], 0
+    for bi, bj in pairs:
+        begin = it
+        while it < len(items) and items[it][:2] == (bi, bj):
+            it += 1
+        tiles.append((bi, bj, begin, it))
+    tables = (np.asarray(items, np.int32).reshape(-1, 4),
+              np.asarray(tiles, np.int32).reshape(-1, 4),
+              np.asarray(block_items, np.int32))
+    for table in tables:
+        table.setflags(write=False)  # shared by every caller of the cache
+    return Schedule(*tables)
+
+
+def load_route(x: torch.Tensor) -> str:
+    """How the kernel brings X's tiles in: ``"tma"`` where the tensor map
+    allows it (row stride a multiple of 16 bytes, 16-byte-aligned base),
+    else ``"plain"`` (masked loads into the same ring)."""
+    return "tma" if x.shape[1] % 4 == 0 and x.data_ptr() % 16 == 0 else "plain"
 
 
 def _check(x: torch.Tensor) -> None:
@@ -124,9 +183,12 @@ def _entry(symbol: str):
             ctypes.c_void_p,      # x
             ctypes.c_longlong,    # rows
             ctypes.c_int,         # n
-            ctypes.c_int,         # n_pad
-            ctypes.c_int,         # splits
-            ctypes.c_longlong,    # rows_per_split
+            ctypes.c_int,         # use_tma
+            ctypes.c_void_p,      # items
+            ctypes.c_void_p,      # tiles
+            ctypes.c_int,         # num_tiles
+            ctypes.c_void_p,      # block_items
+            ctypes.c_int,         # blocks
             ctypes.c_void_p,      # partial_gram
             ctypes.c_void_p,      # partial_moments
             ctypes.c_void_p,      # gram
@@ -139,25 +201,43 @@ def _entry(symbol: str):
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=64)
+def _device_tables(
+    rows: int, n: int, symmetric: bool, sm_count: int, device: torch.device
+) -> tuple[Schedule, torch.Tensor]:
+    """The schedule and its three tables in one int32 tensor on the card,
+    copied once per shape: the streamed fit's chunks reuse it without a
+    host-to-device copy each."""
+    plan = schedule(rows, n, symmetric, sm_count)
+    flat = np.concatenate([plan.items.ravel(), plan.tiles.ravel(), plan.block_items])
+    return plan, torch.from_numpy(flat).to(device)
+
+
 def _launch(
-    x: torch.Tensor, symbol: str, tiles: int
+    x: torch.Tensor, symbol: str, symmetric: bool
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Run one C entry point on the current stream; ``tiles``, the output
-    tiles its grid multiplies, sizes the row splits."""
+    """Run one C entry point on the current stream over its schedule."""
     rows, n = x.shape
-    n_pad = -(-n // TILE) * TILE
-    sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits, per_split = _split_rows(rows, tiles, sm_count)
+    plan, table = _device_tables(rows, n, symmetric, _sm_count(x.device), x.device)
+    num_items, num_tiles = len(plan.items), len(plan.tiles)
+    base = table.data_ptr()
     new = dict(dtype=torch.float32, device=x.device)
-    partial_gram = torch.empty((splits, n_pad, n_pad), **new)
-    partial_moments = torch.empty((splits, 2, n_pad), **new)
+    partial_gram = torch.empty((max(num_items, 1), TILE, TILE), **new)
+    partial_moments = torch.empty((max(num_items, 1), 2, TILE), **new)
     gram = torch.empty((n, n), **new)
     col_sum = torch.empty((n,), **new)
     sum_sq = torch.empty((n,), **new)
     launch = _entry(symbol)
     with torch.cuda.device(x.device):
         err = launch(
-            x.data_ptr(), rows, n, n_pad, splits, per_split,
+            x.data_ptr(), rows, n, int(load_route(x) == "tma"),
+            base, base + 16 * num_items, num_tiles,
+            base + 16 * (num_items + num_tiles), plan.blocks,
             partial_gram.data_ptr(), partial_moments.data_ptr(),
             gram.data_ptr(), col_sum.data_ptr(), sum_sq.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream,
@@ -165,7 +245,7 @@ def _launch(
     if err != 0:
         raise RuntimeError(
             f"{symbol} failed with CUDA error {err} "
-            f"(x {tuple(x.shape)}, splits {splits})"
+            f"(x {tuple(x.shape)}, {num_items} items on {plan.blocks} blocks)"
         )
     return gram, col_sum, sum_sq
 
@@ -182,7 +262,7 @@ def fused_gram_moments(
     _check(x)
     if x.device.type == "cpu":
         return fused_gram_moments_reference(x)
-    out = _launch(x, "gram_moments_launch", (-(-x.shape[1] // TILE)) ** 2)
+    out = _launch(x, "gram_moments_launch", symmetric=False)
     with _launch_lock:
         launches += 1
     return out
@@ -201,7 +281,7 @@ def symmetric_gram_moments(
     _check(x)
     if x.device.type == "cpu":
         return symmetric_gram_moments_reference(x)
-    out = _launch(x, "symmetric_gram_moments_launch", upper_tiles(x.shape[1]))
+    out = _launch(x, "symmetric_gram_moments_launch", symmetric=True)
     with _launch_lock:
         symmetric_launches += 1
     return out

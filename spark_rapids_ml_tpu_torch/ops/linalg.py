@@ -12,7 +12,10 @@ Precision tiers of the Gram pass (``gram_stats`` for the resident fit,
 
 - ``"highest"``: an f32 ``torch.matmul`` with TF32 off;
 - ``"high"``: the split-bf16 kernels, ``ops.gram_moments.fused_gram_moments``
-  resident and ``symmetric_gram_moments`` streamed;
+  resident and ``symmetric_gram_moments`` streamed. Their Gram drops loᵀlo,
+  whose diagonal Σlo² is one-sided (~2⁻¹⁸ of Σx²) and would bias σ by
+  (μ² + σ²)/σ² times that for a feature far from zero; so the diagonal is
+  replaced by the kernels' Σ(hi + lo)², which drops nothing one-sided;
 - ``"default"``: not ported yet.
 """
 
@@ -74,7 +77,8 @@ def gram_stats(x: torch.Tensor, *, precision: str = "highest") -> GramStats:
     if precision == "highest":
         return GramStats(gram(x), x.sum(dim=0), count)
     if precision == "high":
-        xtx, col_sum, _ = fused_gram_moments(x)
+        xtx, col_sum, sum_sq = fused_gram_moments(x)
+        xtx.diagonal().copy_(sum_sq)  # see the module note on "high"
         return GramStats(xtx, col_sum, count)
     raise _unported_precision(precision)
 
@@ -112,7 +116,8 @@ def gram_stats_weighted(
                 "true rows with weight 1 (weighted 'high' folds are not "
                 "ported)"
             )
-        xtx, col_sum, _ = symmetric_gram_moments(x)
+        xtx, col_sum, sum_sq = symmetric_gram_moments(x)
+        xtx.diagonal().copy_(sum_sq)  # see the module note on "high"
         count = torch.full((), float(x.shape[0]), dtype=x.dtype, device=x.device)
         return GramStats(xtx, col_sum, count)
     raise _unported_precision(precision)

@@ -106,3 +106,49 @@ def test_main_refuses_to_run_without_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert chip_smoke.main() != 0
     assert '"ok"' not in capsys.readouterr().out
+
+
+PTXAS_LOG = """ptxas info    : Compiling entry function '_ZN4_GLOBAL19gram_partial_kernelILb1EEEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _ZN4_GLOBAL19gram_partial_kernelILb1EEEvPKf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 3 barriers
+ptxas info    : Compiling entry function '_ZN4_GLOBAL19gram_partial_kernelILb0EEEvPKf' for 'sm_90a'
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 168 registers, used 3 barriers
+"""
+SASS = """	code for sm_90a
+		Function : _ZN4_GLOBAL19gram_partial_kernelILb0EEEvPKf
+        /*0100*/   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+        /*0110*/   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], R24 ;
+		Function : _ZN4_GLOBAL18gram_reduce_kernelILb1EEEvPKf
+        /*0100*/   FADD R1, R2, R3 ;
+		Function : _ZN4_GLOBAL19gram_partial_kernelILb1EEEvPKf
+        /*0100*/   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+"""
+
+
+def test_build_report_reads_each_instance():
+    report = chip_smoke.build_report(PTXAS_LOG, SASS)
+    fused, symmetric = report["gram_moments"], report["symmetric_gram_moments"]
+    assert fused["hgmma"] == 2 and symmetric["hgmma"] == 1
+    assert fused["spill_bytes"] == 12 and symmetric["spill_bytes"] == 0
+    assert any("168 registers" in line for line in symmetric["ptxas"])
+    assert chip_smoke.build_report("", "") == {
+        k: {"ptxas": [], "spill_bytes": 0, "hgmma": 0} for k in chip_smoke.INSTANCES
+    }
+
+
+def test_schedule_summary_at_the_main_shapes():
+    fused = chip_smoke.schedule_summary(65_536, 512, False, 132)
+    assert fused["blocks"] == 132 and fused["tiles"] == 16
+    assert fused["steps_per_sm"] == [248, 249]
+    symmetric = chip_smoke.schedule_summary(65_536, 512, True, 132)
+    assert symmetric["tiles"] == 10 and symmetric["steps_per_sm"] == [155, 156]
+    assert symmetric["items_per_sm"][0] >= 1
+
+
+def test_kernel_checks_take_both_load_routes():
+    for name, shapes in chip_smoke.KERNEL_SHAPES.items():
+        routes = {"tma" if n % 4 == 0 else "plain" for _, n in shapes}
+        assert routes == {"tma", "plain"}, name
+        assert (65_536, 129) in shapes

@@ -133,23 +133,150 @@ def test_wrapper_rejects_bad_input(make, error, kernel):
 
 
 def test_split_rows_fills_the_card():
-    # 65,536 x 512 on 132 SMs: 16 tiles, at least two blocks per SM
-    splits, per_split = G._split_rows(65_536, 16, 132)
-    assert splits * 16 >= 2 * 132
-    assert per_split % G.STEP == 0 and splits * per_split >= 65_536
-    assert (splits - 1) * per_split < 65_536  # no empty split
-    assert G._split_rows(0, 16, 132)[0] >= 1
+    # 65,536 x 512 on 132 SMs: one persistent block per SM, none idle, each
+    # with 248 or 249 of the 16 tiles x 2,048 steps
+    plan = G.schedule(65_536, 512, False, 132)
+    assert plan.blocks == 132
+    steps = plan.steps_per_block()
+    assert sum(steps) == 16 * 65_536 // G.STEP and (min(steps), max(steps)) == (248, 249)
+    assert G.schedule(0, 16, False, 132).blocks == 0  # no rows: no partial kernel
 
 
 @pytest.mark.parametrize("n,tiles", [(512, 10), (2048, 136), (300, 6), (7, 1), (129, 3)])
 def test_symmetric_splits_come_from_the_upper_tiles(n, tiles):
-    assert G.upper_tiles(n) == tiles
-    # 65,536 x 512: 10 upper tiles need 27 splits for two blocks per SM,
-    # where the fused kernel's 16 tiles need 17
-    splits, per_split = G._split_rows(65_536, G.upper_tiles(n), 132)
-    assert (splits - 1) * per_split < 65_536 <= splits * per_split
+    pairs = G.tile_pairs(n, True)
+    nt = -(-n // G.TILE)
+    assert len(pairs) == tiles and all(bi <= bj < nt for bi, bj in pairs)
+    plan = G.schedule(65_536, n, True, 132)
+    assert [tuple(t[:2]) for t in plan.tiles.tolist()] == pairs
+    # the symmetric line is tiles x 2,048 steps, where the fused one is nt² x 2,048
+    assert sum(plan.steps_per_block()) == tiles * 65_536 // G.STEP
     if n == 512:
-        assert splits == 27 and G._split_rows(65_536, 16, 132)[0] == 17
+        assert len(plan.items) == 140 and len(G.schedule(65_536, n, False, 132).items) == 144
+
+
+# chip_smoke.py's kernel shapes, and ragged ones
+SCHEDULE_SHAPES = [
+    (65_536, 512), (38_528, 512), (131_072, 2_048), (65_536, 129), (1_000, 300),
+    (33, 7), (1, 1), (95, 257), (4_097, 640),
+]
+
+
+@pytest.mark.parametrize("symmetric", [False, True], ids=["fused", "symmetric"])
+@pytest.mark.parametrize("rows,n", SCHEDULE_SHAPES)
+def test_schedule_covers_every_tile_step_once(rows, n, symmetric):
+    plan = G.schedule(rows, n, symmetric, 132)
+    steps = -(-rows // G.STEP)
+    pairs = G.tile_pairs(n, symmetric)
+    seen = {}
+    for bi, bj, s0, s1 in plan.items.tolist():
+        assert 0 <= s0 < s1 <= steps
+        for s in range(s0, s1):
+            seen[(bi, bj, s)] = seen.get((bi, bj, s), 0) + 1
+    assert set(seen) == {(bi, bj, s) for bi, bj in pairs for s in range(steps)}
+    assert set(seen.values()) == {1}
+    # each tile's items are contiguous and in row order: the reduce order
+    for (bi, bj, first, end), pair in zip(plan.tiles.tolist(), pairs):
+        assert (bi, bj) == pair
+        run = plan.items[first:end]
+        assert (run[:, :2] == pair).all()
+        assert run[0, 2] == 0 and run[-1, 3] == steps
+        assert (run[1:, 2] == run[:-1, 3]).all()
+
+
+@pytest.mark.parametrize("symmetric", [False, True], ids=["fused", "symmetric"])
+@pytest.mark.parametrize("rows,n", SCHEDULE_SHAPES)
+def test_schedule_balances_the_sms_to_one_step(rows, n, symmetric):
+    plan = G.schedule(rows, n, symmetric, 132)
+    steps = plan.steps_per_block()
+    assert plan.blocks == min(132, len(G.tile_pairs(n, symmetric)) * -(-rows // G.STEP))
+    assert max(steps) - min(steps) <= 1 and min(steps) >= 1
+    # a block's items cross at most the tile ends inside its share
+    assert (np.diff(plan.block_items) >= 1).all()
+    assert len(plan.items) <= plan.blocks + len(plan.tiles) - 1
+
+
+def test_schedule_is_deterministic():
+    for args in ((131_072, 2_048, True, 132), (4_097, 640, False, 7)):
+        a, b = G.schedule.__wrapped__(*args), G.schedule.__wrapped__(*args)
+        for x, y in zip(a, b):
+            assert x.dtype == np.int32 and np.array_equal(x, y)
+
+
+@pytest.mark.parametrize("x_cols,expected", [(512, "tma"), (300, "tma"), (129, "plain"), (7, "plain")])
+def test_load_route_follows_the_tensor_map_rules(x_cols, expected):
+    assert G.load_route(torch.zeros((8, x_cols))) == expected
+    # a view that starts 4 bytes in is not 16-byte aligned
+    assert G.load_route(torch.zeros((9, 512)).view(-1)[1:1 + 8 * 512].view(8, 512)) == "plain"
+
+
+def _emulate(x, symmetric, sm_count):
+    """The kernel's arithmetic in plain PyTorch, item by item: each step's
+    three products of the split (f32 sums of exact bf16 products) added into
+    the item's f32 partial, moments per step then into the item's sums, and
+    each tile's items summed in the reduce pass's order; the symmetric
+    instance writes each strict upper tile to its mirror."""
+    rows, n = x.shape
+    plan = G.schedule(rows, n, symmetric, sm_count)
+    steps = -(-rows // G.STEP)
+    n_pad = -(-n // G.TILE) * G.TILE
+    xp = torch.zeros((steps * G.STEP, n_pad))
+    xp[:rows, :n] = x
+    hi = xp.to(torch.bfloat16).float()
+    lo = (xp - hi).to(torch.bfloat16).float()
+
+    def block(t, b, s0, s1):
+        return t[s0 * G.STEP:s1 * G.STEP, b * G.TILE:(b + 1) * G.TILE].reshape(
+            s1 - s0, G.STEP, G.TILE)
+
+    partials, moments = [], []
+    for bi, bj, s0, s1 in plan.items.tolist():
+        ah, al, bh, bl = (block(t, b, s0, s1) for t, b in ((hi, bi), (lo, bi), (hi, bj), (lo, bj)))
+        prods = ah.transpose(1, 2) @ bh + ah.transpose(1, 2) @ bl + al.transpose(1, 2) @ bh
+        acc = torch.zeros((G.TILE, G.TILE))
+        for p in prods:
+            acc += p
+        v = bh + bl
+        cs, sq = torch.zeros(G.TILE), torch.zeros(G.TILE)
+        for step_v in v:
+            cs += step_v.sum(0)
+            sq += (step_v * step_v).sum(0)
+        partials.append(acc)
+        moments.append((cs, sq))
+    gram = torch.zeros((n_pad, n_pad))
+    col_sum, sum_sq = torch.zeros(n_pad), torch.zeros(n_pad)
+    for bi, bj, first, end in plan.tiles.tolist():
+        tile = torch.zeros((G.TILE, G.TILE))
+        cs, sq = torch.zeros(G.TILE), torch.zeros(G.TILE)
+        for it in range(first, end):
+            tile += partials[it]
+            cs += moments[it][0]
+            sq += moments[it][1]
+        i, j = bi * G.TILE, bj * G.TILE
+        gram[i:i + G.TILE, j:j + G.TILE] = tile
+        if symmetric and bi < bj:
+            gram[j:j + G.TILE, i:i + G.TILE] = tile.T
+        if (bi == bj) if symmetric else (bi == 0):
+            col_sum[j:j + G.TILE], sum_sq[j:j + G.TILE] = cs, sq
+    return gram[:n, :n], col_sum[:n], sum_sq[:n]
+
+
+@pytest.mark.parametrize("symmetric", [False, True], ids=["fused", "symmetric"])
+@pytest.mark.parametrize("rows,n,sm_count", [(700, 300, 132), (2_000, 260, 7), (33, 7, 132)])
+def test_emulated_schedule_matches_the_plain_version(rng, rows, n, sm_count, symmetric):
+    x = torch.from_numpy(rng.normal(size=(rows, n)).astype(np.float32))
+    g, cs, sq = _emulate(x, symmetric, sm_count)
+    plain = G.symmetric_gram_moments_reference if symmetric else G.fused_gram_moments_reference
+    rg, rcs, rsq = plain(x)
+    scale = rg.abs().max().item()
+    torch.testing.assert_close(g, rg, rtol=0, atol=1e-5 * scale)
+    atol = 1e-5 * rows ** 0.5 * x.abs().max().item()
+    torch.testing.assert_close(cs, rcs, rtol=1e-5, atol=atol)
+    torch.testing.assert_close(sq, rsq, rtol=1e-5, atol=atol)
+    if symmetric:
+        tile = torch.arange(n) // G.TILE
+        lower = tile[:, None] > tile[None, :]
+        assert torch.equal(g[lower], g.T[lower])
 
 
 @pytest.mark.cuda
@@ -158,7 +285,7 @@ def test_symmetric_kernel_matches_plain_version_on_card():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for rows, n in ((65_536, 512), (38_528, 512), (1_000, 300), (33, 7)):
+    for rows, n in ((65_536, 512), (38_528, 512), (65_536, 129), (1_000, 300), (33, 7)):
         x = torch.randn((rows, n), generator=gen, device="cuda")
         before = G.symmetric_launches
         g, cs, sq = G.symmetric_gram_moments(x)
@@ -184,7 +311,7 @@ def test_kernel_matches_plain_version_on_card():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for rows, n in ((65_536, 512), (1_000, 300), (33, 7)):
+    for rows, n in ((65_536, 512), (65_536, 129), (1_000, 300), (33, 7)):
         x = torch.randn((rows, n), generator=gen, device="cuda")
         before = G.launches
         g, cs, sq = G.fused_gram_moments(x)

@@ -237,6 +237,49 @@ def test_standardize_leaves_constant_features_unscaled(x):
     _assert_standardized_agree(port, ref, xc)
 
 
+FAR_ROWS, FAR_N, FAR_K = 65_536, 4, 3
+
+
+@pytest.mark.parametrize("path", ["resident", "streamed"])
+def test_high_standardize_of_a_feature_far_from_zero_matches_jax(path, monkeypatch):
+    """σ at "high" for a feature whose mean lies 10σ from zero.
+
+    The split-bf16 Gram drops Σlo², where lo = bf16(x − bf16(x)) is up to
+    2⁻⁹|x|: a one-sided cut of about 2⁻¹⁸ of Σx² on the diagonal. The
+    variance (Σx² − m·μ²)/(m − 1) amplifies a relative error of Σx² by
+    (μ² + σ²)/σ² = 101 here, so σ would be off by about 2⁻¹⁸·101/2 ≈ 2e-4
+    (1.6e-4 measured before the repair), twenty times the rtol 1e-5 the
+    parity tests hold. The random part of the f32 sums falls as 1/√rows and
+    stays below 1e-5 at 65,536 rows; the one-sided cut does not fall. The
+    JAX package's "high" computes this Gram in f32 on the CPU backend, and
+    the port's diagonal must agree: it comes from the kernel's Σ(hi + lo)².
+    """
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(FAR_ROWS, FAR_N)).astype(np.float32)
+    x[:, 1] = x[:, 1] * 0.5 + 5.0  # σ 0.5, mean 10σ
+    old = jax_config().stream_fit_max_resident_bytes
+    if path == "streamed":
+        monkeypatch.setenv("TPU_ML_STREAM_FIT_MAX_RESIDENT_BYTES", "1")
+        monkeypatch.setenv("TPU_ML_STREAM_CHUNK_ROWS", "16384")
+        monkeypatch.setenv("TPU_ML_AUTOTUNE", "off")
+        set_jax_config(stream_fit_max_resident_bytes=1)
+    try:
+        ref = JaxPCA(standardize=True).setInputCol("features").setK(FAR_K).setPrecision(
+            "high"
+        ).fit(x, num_partitions=2)
+        port = PCA(device="cpu", standardize=True).setInputCol("features").setK(
+            FAR_K
+        ).setPrecision("high").fit(x, num_partitions=2)
+    finally:
+        set_jax_config(stream_fit_max_resident_bytes=old)
+    assert (port.stream_report is not None) == (path == "streamed")
+    np.testing.assert_allclose(port.mean, ref.mean, rtol=1e-5,
+                               atol=2.0**-17 * np.abs(x).mean(axis=0).max())
+    np.testing.assert_allclose(port.std, ref.std, rtol=1e-5)
+    assert _min_abs_cosine(port.pc, ref.pc) >= COSINE_BAR
+    np.testing.assert_allclose(port.explainedVariance, ref.explainedVariance, rtol=1e-4)
+
+
 @pytest.mark.parametrize(
     "configure,match",
     [
