@@ -9,20 +9,30 @@ Phases, each a plain function that the CPU tests also call at a tiny size:
 2. build: compile every CUDA source of the paths, print each Gram
    instance's ptxas line (registers, spills) and its count of HGMMA (wgmma)
    instructions in the built library, and fail on a spill or on no HGMMA;
-3. kernels: print each kernel's schedule at its main shape, hold the kernel
-   against its plain PyTorch version on the card at the shapes its main path
-   gives it, the north-star width, a main-path row count at 129 columns
-   (the plain-load route, where TMA cannot go) and a ragged shape, then time
-   kernel, plain version and a library yardstick with CUDA events;
+3. kernels: the four Gram instances (fused and symmetric, each with the
+   split's three bf16 products and with one bf16 pass): print each one's
+   schedule at its main shape, hold it against its plain PyTorch version on
+   the card at the shapes its main path gives it, the north-star width, a
+   main-path row count at 129 columns (the plain-load route, where TMA
+   cannot go) and a ragged shape, then time kernel, plain version and a
+   library yardstick with CUDA events;
 4. main path (resident): fit PCA (500,000 x 512, k=50, precision "high",
    8 partitions) through fused_gram_moments, check it against the f64 host
    oracle and a "highest" fit, transform every row and check the projection;
-5. main path (streamed): fit PCA on BASELINE config 2 whole (10,000,000 x
+5. solvers: the resident fit with solvers "svd", "randomized" and "auto"
+   ("auto" must be the randomized fit, bit for bit), each gated against an
+   f64 reference, and the decomposition stage timed alone per solver;
+6. one pass (resident): the resident fit at precision "default" through
+   the fused one-product instance, against the f64 oracle;
+7. standardize: fit the resident shape with standardize=True and check it
+   against the f64 eigenvectors of the standardized scatter;
+8. main path (streamed): fit PCA on BASELINE config 2 whole (10,000,000 x
    512, k=50, "high", 20 partitions), which streams above the resident
    cutover through symmetric_gram_moments, and check it against an f64
    oracle, a streamed "highest" fit, its device memory and its overlap;
-6. standardize: fit the resident shape with standardize=True and check it
-   against the f64 eigenvectors of the standardized scatter.
+9. one pass (streamed): the same data at "default" through the symmetric
+   one-product instance, and its first 1,000,000 rows at "highest" under
+   TPU_ML_PRECISION_POLICY=bf16_f32acc, both against their f64 oracles.
 
 Each main path reads the kernels' launch counts from 0 around exactly its
 fit. The last lines are one JSON object with every kernel's numbers, the
@@ -32,6 +42,7 @@ script exits nonzero and prints no result. Every failed check raises.
 
 from __future__ import annotations
 
+import functools
 import json
 import re
 import shutil
@@ -64,64 +75,107 @@ STREAM_PEAK_BYTES = 1 << 30  # O(chunk + n²) device memory for 20.5 GB of input
 TIMED_LAUNCHES = 20
 COSINE_BAR = 0.9999
 
+_GRAM_SOURCE = "spark_rapids_ml_tpu_torch/csrc/gram_moments.cu"
 KERNELS = {
     "gram_moments": {
         "route": "cuda",
-        "source": "spark_rapids_ml_tpu_torch/csrc/gram_moments.cu",
+        "source": _GRAM_SOURCE,
         "replaces": "spark_rapids_ml_tpu/ops/pallas_gram.py:199",
     },
     "symmetric_gram_moments": {
         "route": "cuda",
-        "source": "spark_rapids_ml_tpu_torch/csrc/gram_moments.cu",
+        "source": _GRAM_SOURCE,
         "replaces": "spark_rapids_ml_tpu/ops/pallas_gram.py:144",
     },
+    # no Pallas kernel: the one-bf16-pass Gram the JAX package leaves to
+    # XLA (policy_matmul's bf16_f32acc, and Precision.DEFAULT's)
+    "gram_moments_1pass": {
+        "route": "cuda",
+        "source": _GRAM_SOURCE,
+        "replaces": "spark_rapids_ml_tpu/ops/linalg.py:65",
+    },
+    "symmetric_gram_moments_1pass": {
+        "route": "cuda",
+        "source": _GRAM_SOURCE,
+        "replaces": "spark_rapids_ml_tpu/ops/linalg.py:65",
+    },
 }
+# each kernel's count of products and whether it is the symmetric kernel
+PRODUCTS = {"gram_moments": 3, "symmetric_gram_moments": 3,
+            "gram_moments_1pass": 1, "symmetric_gram_moments_1pass": 1}
+SYMMETRIC = {"symmetric_gram_moments", "symmetric_gram_moments_1pass"}
 # wrapper and plain version of each kernel
 FUNCTIONS = {
-    "gram_moments": (G.fused_gram_moments, G.fused_gram_moments_reference),
-    "symmetric_gram_moments": (
-        G.symmetric_gram_moments, G.symmetric_gram_moments_reference,
-    ),
+    name: (
+        functools.partial(
+            G.symmetric_gram_moments if name in SYMMETRIC else G.fused_gram_moments,
+            products=PRODUCTS[name],
+        ),
+        functools.partial(
+            G.symmetric_gram_moments_reference if name in SYMMETRIC
+            else G.fused_gram_moments_reference,
+            products=PRODUCTS[name],
+        ),
+    )
+    for name in KERNELS
 }
 # the shape each kernel's main path gives it comes first
+_FUSED_SHAPES = (MAIN_SHAPE, (131_072, 2_048), (65_536, 129), (1_000, 300))
+_SYMMETRIC_SHAPES = (
+    STREAM_SHAPE, STREAM_TAIL_SHAPE, (131_072, 2_048), (65_536, 129), (1_000, 300),
+)
 KERNEL_SHAPES = {
-    "gram_moments": (MAIN_SHAPE, (131_072, 2_048), (65_536, 129), (1_000, 300)),
-    "symmetric_gram_moments": (
-        STREAM_SHAPE, STREAM_TAIL_SHAPE, (131_072, 2_048), (65_536, 129), (1_000, 300),
-    ),
+    name: _SYMMETRIC_SHAPES if name in SYMMETRIC else _FUSED_SHAPES for name in KERNELS
 }
-# the Gram kernel instance of each kernel in the built library (its
-# mangled name holds gram_partial_kernel<false> or <true>)
+# the Gram kernel instance of each kernel in the built library: its mangled
+# name holds gram_partial_kernel<symmetric, products>
 INSTANCES = {
-    "gram_moments": "gram_partial_kernelILb0E",
-    "symmetric_gram_moments": "gram_partial_kernelILb1E",
+    name: f"gram_partial_kernelILb{int(name in SYMMETRIC)}ELi{PRODUCTS[name]}E"
+    for name in KERNELS
+}
+# each kernel's launch counter in ops/gram_moments.py
+COUNTERS = {
+    "gram_moments": "launches",
+    "symmetric_gram_moments": "symmetric_launches",
+    "gram_moments_1pass": "launches_1pass",
+    "symmetric_gram_moments_1pass": "symmetric_launches_1pass",
 }
 
 
 def reset_launches() -> None:
-    G.launches = G.symmetric_launches = 0
+    for counter in COUNTERS.values():
+        setattr(G, counter, 0)
 
 
 def read_launches() -> dict:
-    return {"gram_moments": G.launches, "symmetric_gram_moments": G.symmetric_launches}
+    return {name: getattr(G, counter) for name, counter in COUNTERS.items()}
 
 
+def expected_launches(**counts: int) -> dict:
+    """Every kernel's launch count: those named, the others 0."""
+    return {name: counts.get(name, 0) for name in KERNELS}
+
+
+@functools.lru_cache(maxsize=1)
 def bench_workload(rows: int, n: int, seed: int = 7) -> np.ndarray:
     """The bench's correlated-spectrum data: a rank-64 mix plus 0.1 noise,
-    f32. Its eigenvalues are well separated, so components compare."""
+    f32. Its eigenvalues are well separated, so components compare. The
+    last one made is kept, so the resident phases share it (read only)."""
     rng = np.random.default_rng(seed)
     base = rng.normal(size=(rows, 64)).astype(np.float32)
     mix = rng.normal(size=(64, n)).astype(np.float32)
     return base @ mix + 0.1 * rng.normal(size=(rows, n)).astype(np.float32)
 
 
-def gram_bound(rows: int, n: int) -> tuple[float, str]:
+def gram_bound(rows: int, n: int, products: int = 3) -> tuple[float, str]:
     """Least time (ms) an H100 needs for the kernel's work, and what bounds
-    it. The Gram hiᵀhi + hiᵀlo + loᵀhi is symmetric: its least work is the
-    upper triangle of hiᵀhi and all of hiᵀlo (loᵀhi is its transpose),
-    rows·n·(3n+1) bf16 operations, against X read once and the three outputs
-    written once. Both kernels compute that same function."""
-    ops_ms = float(rows) * n * (3 * n + 1) / PEAK_BF16_FLOPS * 1e3
+    it. The Gram is symmetric: its least work is the upper triangle of hiᵀhi,
+    rows·n·(n+1) bf16 operations, and with three products all of hiᵀlo too
+    (loᵀhi is its transpose), 2·rows·n² more: rows·n·(n+1) +
+    (products − 1)·rows·n² in all, against X read once and the three outputs
+    written once. The fused and symmetric kernels of one count of products
+    compute that same function."""
+    ops_ms = float(rows) * n * (n + 1 + (products - 1) * n) / PEAK_BF16_FLOPS * 1e3
     bytes_ms = 4.0 * (rows * n + n * n + 2 * n) / PEAK_HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
 
@@ -199,12 +253,15 @@ def schedule_summary(rows: int, n: int, symmetric: bool, sm_count: int) -> dict:
     }
 
 
-def _exact_split_gram(x: torch.Tensor) -> torch.Tensor:
-    """hiᵀhi + hiᵀlo + loᵀhi summed in f64: the split's gram without the
-    f32 summation error either side carries."""
+def _exact_split_gram(x: torch.Tensor, products: int = 3) -> torch.Tensor:
+    """hiᵀhi + hiᵀlo + loᵀhi (or hiᵀhi alone, with one product) summed in
+    f64: the kernel's gram without the f32 summation error either side
+    carries."""
     hi = x.to(torch.bfloat16)
-    lo = (x - hi.float()).to(torch.bfloat16)
-    hd, ld = hi.double(), lo.double()
+    hd = hi.double()
+    if products == 1:
+        return hd.T @ hd
+    ld = (x - hi.float()).to(torch.bfloat16).double()
     return hd.T @ hd + hd.T @ ld + ld.T @ hd
 
 
@@ -234,7 +291,7 @@ def phase_kernel_check(
         g, cs, sq = wrapper(x)
         again = wrapper(x)
         rg, rcs, rsq = plain(x)
-        exact = _exact_split_gram(x)
+        exact = _exact_split_gram(x, PRODUCTS[kernel])
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         gram_err = (g - rg).abs().max().item()
@@ -259,7 +316,7 @@ def phase_kernel_check(
             "moments_atol": mom_atol,
             "repeat_bit_equal": all(torch.equal(a, b) for a, b in zip((g, cs, sq), again)),
         }
-        if kernel == "symmetric_gram_moments":
+        if kernel in SYMMETRIC:
             entry["mirror_bit_equal"] = _mirrored_tiles_equal(g)
         print(f"kernel check: {kernel} {rows}x{n}: {json.dumps(entry)}", flush=True)
         if not (gram_err <= gram_tol and exact_err <= gram_tol and mom_excess <= 0.0):
@@ -287,24 +344,28 @@ def _time_ms(fn, reps: int) -> float:
 def phase_kernel_timing(
     shapes, device: torch.device, seed: int = 1, kernel: str = "gram_moments"
 ) -> dict:
-    """kernel_ms, plain_ms and library_ms (f32 ``x.T @ x``, a yardstick the
-    port never calls) over TIMED_LAUNCHES launches after a warm-up."""
+    """kernel_ms, plain_ms and library_ms over TIMED_LAUNCHES launches after a
+    warm-up. The library yardstick, which the port never calls, is cuBLAS's
+    f32 ``x.T @ x`` for the three-product kernels and its bf16 ``hi.T @ hi``
+    (hi = bf16(x), made before the timing) for the one-product ones."""
     wrapper, plain = FUNCTIONS[kernel]
+    products = PRODUCTS[kernel]
     gen = torch.Generator(device=device).manual_seed(seed)
     results = {}
     for rows, n in shapes:
         x = torch.randn((rows, n), generator=gen, device=device, dtype=torch.float32)
-        bound_ms, bound_by = gram_bound(rows, n)
+        lib_in = x if products == 3 else x.to(torch.bfloat16)
+        bound_ms, bound_by = gram_bound(rows, n, products)
         entry = {
             "kernel_ms": _time_ms(lambda: wrapper(x), TIMED_LAUNCHES),
             "plain_ms": _time_ms(lambda: plain(x), TIMED_LAUNCHES),
-            "library_ms": _time_ms(lambda: x.T @ x, TIMED_LAUNCHES),
+            "library_ms": _time_ms(lambda: lib_in.T @ lib_in, TIMED_LAUNCHES),
             "bound_ms": bound_ms,
             "bound_by": bound_by,
         }
         print(f"kernel timing: {kernel} {rows}x{n}: {json.dumps(entry)}", flush=True)
         results[(rows, n)] = entry
-        del x
+        del x, lib_in
     return results
 
 
@@ -381,7 +442,7 @@ def phase_main_path(rows: int, n: int, k: int, partitions: int, device: torch.de
     transform_s = time.perf_counter() - t0
     launches = read_launches()
 
-    expected = {"gram_moments": partitions if cuda else 0, "symmetric_gram_moments": 0}
+    expected = expected_launches(gram_moments=partitions if cuda else 0)
     if launches != expected:
         raise AssertionError(f"kernel launches in the fit {launches}, expected {expected}")
     min_cos = L.min_cosine_vs_f64_oracle(x, model.pc, k)
@@ -500,12 +561,13 @@ def stream_layers(x: np.ndarray, chunk: int, device: torch.device) -> dict:
 
 
 def phase_streamed_path(
-    rows: int, n: int, k: int, partitions: int, device: torch.device
+    rows: int, n: int, k: int, partitions: int, device: torch.device, data=None
 ) -> dict:
     """Fit at "high" through the public API on data above the resident
     cutover, so it streams; the kernels' launch counts are read from 0
     around exactly this fit. Then a streamed "highest" fit, both held to the
-    f64 oracle."""
+    f64 oracle. ``data`` is ``streamed_workload``'s (x, f64 Gram), made here
+    when not given."""
     cuda = device.type == "cuda"
 
     def sync():
@@ -513,7 +575,7 @@ def phase_streamed_path(
             torch.cuda.synchronize(device)
 
     t0 = time.perf_counter()
-    x, gram64 = streamed_workload(rows, n, partitions, device)
+    x, gram64 = streamed_workload(rows, n, partitions, device) if data is None else data
     make_s = time.perf_counter() - t0
     if not columnar.use_streamed_fit(columnar.PartitionedDataset.from_any(x, None, partitions)):
         raise AssertionError(f"{rows} x {n} does not cross the streamed-fit cutover")
@@ -575,7 +637,7 @@ def phase_streamed_path(
         result["device_idle_share_est"] = 1.0 - busy / fit_s
     print(f"main path (streamed): {json.dumps(result)}", flush=True)
 
-    expected = {"gram_moments": 0, "symmetric_gram_moments": expected_chunks if cuda else 0}
+    expected = expected_launches(symmetric_gram_moments=expected_chunks if cuda else 0)
     if launches != expected:
         raise AssertionError(f"kernel launches in the streamed fit {launches}, expected {expected}")
     if report.chunks != expected_chunks or report.rows != rows:
@@ -595,6 +657,280 @@ def phase_streamed_path(
     # what must hold is that every copy runs beside the host's staging.
     if cuda and not report.copy_overlapped > 0:
         raise AssertionError(f"no copy to the card overlapped the host's staging: {report}")
+    return result
+
+
+def scatter_f64(x: np.ndarray, device: torch.device, chunk: int = 65_536) -> np.ndarray:
+    """XᵀX of a host f32 matrix, summed in f64 on ``device`` a chunk of rows
+    at a time (no f64 copy of x on the host)."""
+    n = x.shape[1]
+    total = torch.zeros((n, n), dtype=torch.float64, device=device)
+    for a in range(0, x.shape[0], chunk):
+        part = torch.from_numpy(x[a:a + chunk]).to(device=device, dtype=torch.float64)
+        total += part.T @ part
+    return total.cpu().numpy()
+
+
+def randomized_f64(
+    scatter: np.ndarray, k: int, omega: np.ndarray, power_iters: int = 2
+) -> tuple[np.ndarray, np.ndarray]:
+    """The randomized solver's steps (HMT subspace iteration, Rayleigh–Ritz,
+    the trace-based tail estimate of explainedVariance) in f64 with numpy on
+    the host, on a given sketch: (components [n, k], explainedVariance [k]),
+    held to the same orientation rule as the port's."""
+    a = np.asarray(scatter, np.float64)
+    n, l = omega.shape
+    q, _ = np.linalg.qr(a @ omega)
+    for _ in range(power_iters):
+        q, _ = np.linalg.qr(a @ q)
+    b = q.T @ a @ q
+    evals, v = np.linalg.eigh(0.5 * (b + b.T))
+    evals, v = evals[::-1], v[:, ::-1][:, :k]
+    u = q @ v
+    u = u * np.where(u[np.argmax(np.abs(u), axis=0), np.arange(k)] < 0, -1.0, 1.0)
+    s = np.sqrt(np.clip(evals, 0.0, None))
+    tail = np.sqrt(max(np.trace(a) - (s**2).sum(), 0.0) * (n - l))
+    return u, (s / (s.sum() + tail))[:k]
+
+
+def _host_ms(fn, device: torch.device, reps: int = 5) -> list[float]:
+    """Wall times (ms) of ``fn`` after a warm-up, each ended by a
+    synchronise: the decomposition stage as a fit sees it, host syncs
+    inside the solvers included."""
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    fn()
+    sync()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def phase_solvers(rows: int, n: int, k: int, partitions: int, device: torch.device) -> dict:
+    """Fit the resident shape at "high" with solvers "svd", "randomized" and
+    "auto" through the public API; "auto" must take the randomized route
+    (bit-equal fits: n ≥ 256 and k + 10 ≤ n/4). Then the decomposition stage
+    alone, timed after the statistics, for "full", "randomized" and "svd".
+
+    Gates: "svd" against the f64 eigen-oracle (min |cos| ≥ 0.9999); the
+    randomized fit against the same HMT steps in f64 on the host on the same
+    sketch Ω (min |cos| ≥ 0.9999, explainedVariance rtol 1e-4). At k = 50 on
+    this rank-64 data the sketch of l = 60 columns cannot converge the
+    trailing Ritz vectors, so the randomized fit's cosine against the exact
+    oracle is printed, not gated."""
+    x = bench_workload(rows, n)
+    cuda = device.type == "cuda"
+    scatter = scatter_f64(x, device)
+    oracle_pc, _ = oracle_from_scatter(scatter, k)
+    fits, fit_s, launches = {}, {}, {}
+    for solver in ("svd", "randomized", "auto"):
+        pca = PCA(device=device).setK(k).setPrecision("high").setSolver(solver)
+        reset_launches()
+        t0 = time.perf_counter()
+        fits[solver] = pca.fit(x, num_partitions=partitions)
+        if cuda:
+            torch.cuda.synchronize(device)
+        fit_s[solver] = time.perf_counter() - t0
+        launches[solver] = read_launches()
+
+    # the decomposition stage alone, on the fit's own statistics
+    pca = PCA(device=device).setK(k).setPrecision("high")
+    mats = list(columnar.PartitionedDataset.from_any(x, None, partitions).matrices())
+    cov = L.covariance_from_stats(pca._resident_gram_stats(mats, "high"), mean_centering=False)
+    r = pca._reduce_r(mats, False)
+    decomposition_ms = {
+        "full": _host_ms(lambda: L.pca_fit_from_cov(cov, k, solver="full"), device),
+        "randomized": _host_ms(lambda: L.pca_fit_from_cov(cov, k, solver="randomized"), device),
+        "svd": _host_ms(lambda: L.svd_from_r(r, k), device),
+    }
+
+    # the fit's sketch is the seeded one the smoke draws here
+    l = k + 10
+    omega = torch.randn((n, l), generator=torch.Generator(device=device).manual_seed(0),
+                        device=device)
+    seeded = L.randomized_eigh_descending(cov, k)
+    given = L.randomized_eigh_descending(cov, k, omega=omega)
+    same_sketch = all(torch.equal(a, b) for a, b in zip(seeded, given))
+    hmt_pc, hmt_ev = randomized_f64(scatter, k, omega.cpu().double().numpy())
+    rand = fits["randomized"]
+    result = {
+        "rows": rows, "n": n, "k": k, "partitions": partitions,
+        "launches": launches,
+        "fit_s": fit_s,
+        "decomposition_ms": decomposition_ms,
+        "auto_bit_equal_randomized": bool(
+            np.array_equal(fits["auto"].pc, rand.pc)
+            and np.array_equal(fits["auto"].explainedVariance, rand.explainedVariance)
+        ),
+        "same_sketch": same_sketch,
+        "svd_min_cosine_vs_f64_oracle": _min_abs_cosine(fits["svd"].pc, oracle_pc),
+        "randomized_min_cosine_vs_f64_hmt": _min_abs_cosine(rand.pc, hmt_pc),
+        "randomized_explained_variance_rel_diff_vs_f64_hmt": float(
+            np.abs(rand.explainedVariance / hmt_ev - 1).max()
+        ),
+        "randomized_min_cosine_vs_f64_oracle": _min_abs_cosine(rand.pc, oracle_pc),
+        "randomized_cosine_vs_f64_oracle_first_10": float(
+            _min_abs_cosine(rand.pc[:, :10], oracle_pc[:, :10])
+        ),
+    }
+    print(f"solvers: {json.dumps(result)}", flush=True)
+    if not result["auto_bit_equal_randomized"]:
+        raise AssertionError("solver 'auto' did not take the randomized route")
+    if not same_sketch:
+        raise AssertionError("the seeded sketch differs from the one the smoke drew")
+    if not result["svd_min_cosine_vs_f64_oracle"] >= COSINE_BAR:
+        raise AssertionError(f"svd fit vs the f64 oracle: {result}")
+    if not result["randomized_min_cosine_vs_f64_hmt"] >= COSINE_BAR:
+        raise AssertionError(f"randomized fit vs the f64 HMT steps: {result}")
+    np.testing.assert_allclose(rand.explainedVariance, hmt_ev, rtol=1e-4)
+    expected = expected_launches(gram_moments=partitions if cuda else 0)
+    for solver, expect in (("svd", expected_launches()), ("randomized", expected),
+                           ("auto", expected)):
+        if launches[solver] != expect:
+            raise AssertionError(f"{solver} fit launched {launches[solver]}, expected {expect}")
+    return result
+
+
+def phase_one_pass(rows: int, n: int, k: int, partitions: int, device: torch.device) -> dict:
+    """Fit the resident shape at precision "default" (one bf16 pass) through
+    the public API; its launches are read from 0 around exactly this fit and
+    must all be the fused one-product instance's. Gate: min |cos| against
+    the f64 oracle ≥ 0.9999 (by estimate the bf16 Gram's error is about 4e-4
+    of the eigengap at 500,000 rows). The explainedVariance gaps to a
+    "highest" fit and to the f64 oracle are printed, and the latter also for
+    the same Gram with its unrepaired diagonal Σhi²."""
+    x = bench_workload(rows, n)
+    cuda = device.type == "cuda"
+    reset_launches()
+    t0 = time.perf_counter()
+    model = PCA(device=device).setK(k).setPrecision("default").fit(x, num_partitions=partitions)
+    if cuda:
+        torch.cuda.synchronize(device)
+    fit_s = time.perf_counter() - t0
+    launches = read_launches()
+    highest = PCA(device=device).setK(k).setPrecision("highest").fit(x, num_partitions=partitions)
+    oracle_pc, oracle_ev = oracle_from_scatter(scatter_f64(x, device), k)
+    # the same fit's Gram with the kernel's own diagonal Σhi², not the Σx²
+    # the tier writes there: what the diagonal rule does to explainedVariance
+    unrepaired = sum(
+        G.fused_gram_moments(torch.from_numpy(columnar.pad_rows(part)[0]).to(device),
+                             products=1)[0]
+        for part in np.array_split(x, partitions)
+    )
+    ev_unrepaired = L.pca_fit_from_cov(unrepaired, k)[1].cpu().numpy()
+    result = {
+        "rows": rows, "n": n, "k": k, "partitions": partitions,
+        "launches": launches,
+        "fit_s": fit_s,
+        "min_cosine_vs_f64_oracle": _min_abs_cosine(model.pc, oracle_pc),
+        "explained_variance_rel_diff_default_vs_highest": float(
+            np.abs(model.explainedVariance / highest.explainedVariance - 1).max()
+        ),
+        "explained_variance_rel_diff_default_vs_f64": float(
+            np.abs(model.explainedVariance / oracle_ev - 1).max()
+        ),
+        "explained_variance_rel_diff_sum_hi_sq_diagonal_vs_f64": float(
+            np.abs(ev_unrepaired / oracle_ev - 1).max()
+        ),
+    }
+    print(f"one pass (resident): {json.dumps(result)}", flush=True)
+    expected = expected_launches(gram_moments_1pass=partitions if cuda else 0)
+    if launches != expected:
+        raise AssertionError(
+            f"kernel launches in the 'default' fit {launches}, expected {expected}"
+        )
+    if not result["min_cosine_vs_f64_oracle"] >= COSINE_BAR:
+        raise AssertionError(f"'default' fit vs the f64 oracle: {result}")
+    return result
+
+
+POLICY_ROWS = 1_000_000  # the policy's streamed fit: above the cutover at 512 columns
+
+
+def phase_streamed_one_pass(
+    data, k: int, partitions: int, device: torch.device, policy_rows: int = POLICY_ROWS
+) -> dict:
+    """On ``streamed_workload``'s (x, f64 Gram): a streamed fit at precision
+    "default", whose launches (read from 0 around exactly it) must all be
+    the symmetric one-product instance's, one per chunk; then a streamed fit
+    at "highest" under TPU_ML_PRECISION_POLICY=bf16_f32acc on the first
+    ``policy_rows`` rows, which runs the same instance. Both are held to the
+    f64 oracle of their rows (min |cos| ≥ 0.9999); the explainedVariance gap
+    to a streamed "highest" fit is printed. The environment is restored."""
+    import os
+
+    x, gram64 = data
+    rows, n = x.shape
+    cuda = device.type == "cuda"
+    chunk = ingest.stream_chunk_rows()
+    reset_launches()
+    t0 = time.perf_counter()
+    model = PCA(device=device).setK(k).setPrecision("default").fit(x, num_partitions=partitions)
+    if cuda:
+        torch.cuda.synchronize(device)
+    fit_s = time.perf_counter() - t0
+    launches = read_launches()
+    highest = PCA(device=device).setK(k).setPrecision("highest").fit(x, num_partitions=partitions)
+    oracle_pc, oracle_ev = oracle_from_scatter(gram64, k)
+
+    x_policy = x[:policy_rows]
+    before = os.environ.get("TPU_ML_PRECISION_POLICY")
+    os.environ["TPU_ML_PRECISION_POLICY"] = "bf16_f32acc"
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        policy_model = PCA(device=device).setK(k).setPrecision("highest").fit(
+            x_policy, num_partitions=2
+        )
+        if cuda:
+            torch.cuda.synchronize(device)
+        policy_fit_s = time.perf_counter() - t0
+        policy_launches = read_launches()
+    finally:
+        if before is None:
+            del os.environ["TPU_ML_PRECISION_POLICY"]
+        else:
+            os.environ["TPU_ML_PRECISION_POLICY"] = before
+    policy_pc, _ = oracle_from_scatter(scatter_f64(x_policy, device), k)
+    result = {
+        "rows": rows, "n": n, "k": k, "partitions": partitions,
+        "launches": launches,
+        "chunks": model.stream_report.chunks if model.stream_report else None,
+        "fit_s": fit_s,
+        "min_cosine_vs_f64_oracle": _min_abs_cosine(model.pc, oracle_pc),
+        "explained_variance_rel_diff_default_vs_highest": float(
+            np.abs(model.explainedVariance / highest.explainedVariance - 1).max()
+        ),
+        "explained_variance_rel_diff_default_vs_f64": float(
+            np.abs(model.explainedVariance / oracle_ev - 1).max()
+        ),
+        "policy_rows": policy_rows,
+        "policy_launches": policy_launches,
+        "policy_chunks": (policy_model.stream_report.chunks
+                          if policy_model.stream_report else None),
+        "policy_fit_s": policy_fit_s,
+        "policy_min_cosine_vs_f64_oracle": _min_abs_cosine(policy_model.pc, policy_pc),
+    }
+    print(f"one pass (streamed): {json.dumps(result)}", flush=True)
+    expected = expected_launches(symmetric_gram_moments_1pass=-(-rows // chunk) if cuda else 0)
+    if launches != expected or model.stream_report is None:
+        raise AssertionError(f"streamed 'default' fit launched {launches}, expected {expected}")
+    policy_expected = expected_launches(
+        symmetric_gram_moments_1pass=-(-policy_rows // chunk) if cuda else 0
+    )
+    if policy_launches != policy_expected or policy_model.stream_report is None:
+        raise AssertionError(
+            f"streamed fit under the policy launched {policy_launches}, expected {policy_expected}"
+        )
+    for key in ("min_cosine_vs_f64_oracle", "policy_min_cosine_vs_f64_oracle"):
+        if not result[key] >= COSINE_BAR:
+            raise AssertionError(f"{key} {result[key]} < {COSINE_BAR}: {result}")
     return result
 
 
@@ -646,7 +982,7 @@ def main() -> int:
     schedules = {}
     for name in KERNELS:
         rows, n = KERNEL_SHAPES[name][0]
-        schedules[name] = schedule_summary(rows, n, name == "symmetric_gram_moments", sm_count)
+        schedules[name] = schedule_summary(rows, n, name in SYMMETRIC, sm_count)
         print(f"schedule: {name}: {json.dumps(schedules[name])}", flush=True)
     checks, timings = {}, {}
     for name in KERNELS:
@@ -659,13 +995,24 @@ def main() -> int:
                                KERNEL_SHAPES[name], device, kernel=name)
     resident = _timed("main path (resident)", phase_main_path,
                       MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS, device)
-    streamed = _timed("main path (streamed)", phase_streamed_path,
-                      STREAM_ROWS, MAIN_N, MAIN_K, STREAM_PARTITIONS, device)
+    _timed("solvers", phase_solvers, MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS, device)
+    one_pass = _timed("one pass (resident)", phase_one_pass,
+                      MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS, device)
     _timed("standardize", phase_standardize, MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS, device)
+    bench_workload.cache_clear()
+    stream_data = _timed("make streamed data", streamed_workload,
+                         STREAM_ROWS, MAIN_N, STREAM_PARTITIONS, device)
+    streamed = _timed("main path (streamed)", phase_streamed_path,
+                      STREAM_ROWS, MAIN_N, MAIN_K, STREAM_PARTITIONS, device, stream_data)
+    streamed_one_pass = _timed("one pass (streamed)", phase_streamed_one_pass,
+                               stream_data, MAIN_K, STREAM_PARTITIONS, device)
     # each kernel's launches come from the main path that runs it
     launches = {
         "gram_moments": resident["launches"]["gram_moments"],
         "symmetric_gram_moments": streamed["launches"]["symmetric_gram_moments"],
+        "gram_moments_1pass": one_pass["launches"]["gram_moments_1pass"],
+        "symmetric_gram_moments_1pass":
+            streamed_one_pass["launches"]["symmetric_gram_moments_1pass"],
     }
 
     kernels = []

@@ -5,9 +5,14 @@ It imports torch and nothing of JAX or of the JAX package. Its entry points
 run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; without a card the default raises.
 
-It ports the PCA fit, resident or streamed above the cutover and with or
-without the fused standardize, and the transform, with the split-bf16
-Gram + moments kernels written by hand for Hopper (``csrc/gram_moments.cu``).
+It ports PCA whole: the fit with every solver (``full``, ``randomized``,
+``svd``, ``auto``) and every precision tier (``highest``, ``high``,
+``default``), resident or streamed above the cutover (under the fold's
+``TPU_ML_PRECISION_POLICY``) and with or without the fused standardize; the
+transform; and save/load in the JAX package's native and Spark ML layouts
+(host-side, with pyarrow). The Gram + moments kernels are written by hand
+for Hopper (``csrc/gram_moments.cu``): the split's three bf16 products for
+``high``, one bf16 pass for ``default`` and the ``bf16_f32acc`` policy.
 """
 
 from spark_rapids_ml_tpu_torch.models.pca import PCA, PCAModel

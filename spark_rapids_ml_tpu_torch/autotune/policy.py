@@ -1,0 +1,65 @@
+"""Precision policies: how a fold's matmuls treat operand and accumulator
+dtypes.
+
+Copy of ``PrecisionPolicy``, ``POLICIES``, ``FOLD_POLICIES``,
+``validate_policy`` and ``resolve_policy`` from
+``spark_rapids_ml_tpu/autotune/policy.py``, under the same environment
+variable (``TPU_ML_PRECISION_POLICY``, default ``f32``). The tuner that
+searches over these policies is not ported.
+
+The invariant every policy keeps: accumulators stay f32. ``bf16_f32acc``
+rounds only the matmul operands to bf16 and accumulates their exact
+products in f32 (``ops.linalg.policy_matmul``; the streamed fold's unit-weight
+Gram runs the one-product kernel instances of ``ops.gram_moments``).
+"""
+
+from __future__ import annotations
+
+import enum
+import os
+
+PRECISION_POLICY_VAR = "TPU_ML_PRECISION_POLICY"
+
+
+class PrecisionPolicy(str, enum.Enum):
+    """Named mixed-precision kernel policies.
+
+    - ``F32``: full-precision operands (the ``precision`` tier still
+      applies); the default everywhere.
+    - ``BF16_F32ACC``: matmul operands rounded to bf16, their products
+      accumulated in f32, the result f32.
+    - ``INT8_DIST``: int8 quantization of the distance cross term of k-means
+      and k-NN scoring only, never of a Gram; nothing in the port uses it
+      yet.
+    """
+
+    F32 = "f32"
+    BF16_F32ACC = "bf16_f32acc"
+    INT8_DIST = "int8_dist"
+
+
+POLICIES: tuple[str, ...] = tuple(p.value for p in PrecisionPolicy)
+
+#: Policies meaningful for accumulation kernels (Gram and moment folds);
+#: ``int8_dist`` applies only to distance scoring and is rejected there.
+FOLD_POLICIES: tuple[str, ...] = (
+    PrecisionPolicy.F32.value,
+    PrecisionPolicy.BF16_F32ACC.value,
+)
+
+
+def validate_policy(policy: str, *, allowed: tuple[str, ...] = POLICIES) -> str:
+    """Canonicalize ``policy`` (str or ``PrecisionPolicy``) or raise."""
+    value = policy.value if isinstance(policy, PrecisionPolicy) else policy
+    if value not in allowed:
+        raise ValueError(f"precision policy {value!r} must be one of {allowed}")
+    return value
+
+
+def resolve_policy(policy: str | None, *, allowed: tuple[str, ...] = POLICIES) -> str:
+    """An explicit policy, or for ``None`` the process default from
+    ``TPU_ML_PRECISION_POLICY`` (default ``f32``), read at each call so that
+    a fold step built after a change of the environment follows it."""
+    if policy is None:
+        policy = os.environ.get(PRECISION_POLICY_VAR, PrecisionPolicy.F32.value)
+    return validate_policy(policy, allowed=allowed)

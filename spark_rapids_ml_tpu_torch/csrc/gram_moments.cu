@@ -18,7 +18,21 @@
 //   col_sum = sum over rows of (hi + lo)
 //   sum_sq  = sum over rows of (hi + lo)^2
 //
-// with hi = bf16_rn(x) and lo = bf16_rn(x - hi).
+// with hi = bf16_rn(x) and lo = bf16_rn(x - hi): three products, the "high"
+// precision tier. Each kernel also has a one-product instance (template
+// argument kProducts = 1; entry points gram_moments_1pass_launch and
+// symmetric_gram_moments_1pass_launch), the "default" tier and the
+// bf16_f32acc fold policy, which have no Pallas kernel (the JAX package
+// leaves them to XLA, spark_rapids_ml_tpu/ops/linalg.py:65-85):
+//
+//   gram    = hi^T hi                       (f32 accumulation, no lo written)
+//   col_sum = sum over rows of x,  sum_sq = sum over rows of x^2  (in f32)
+//
+// It keeps the same schedule, ring, load routes, shared-memory layout and
+// reduce pass, and issues one wgmma per 16-row slice instead of three. Its
+// least work is the upper triangle of hi^T hi, rows * n * (n + 1)
+// operations: at n = 512 that is 2.6e5 operations per row (0.27 ns) against
+// 2,048 bytes (0.61 ns), so it is bound by bytes.
 //
 // Bound on an H100 SXM. The least work is the upper triangle of hi^T hi and
 // all of hi^T lo, rows * n * (3n + 1) bf16 operations, against rows * n * 4
@@ -69,7 +83,12 @@
 //
 // Left for later: promotion once per several steps where accuracy allows,
 // a coalesced (transposing) mirror write in the reduce pass, and 2-CTA
-// clusters that share one TMA load of a column block.
+// clusters that share one TMA load of a column block. On an H100 the
+// one-product instances take about as long as the three-product ones
+// (PERF.md), so what sets a step's time is what both share (the split's
+// f32 reads and bf16 writes, the per-step wait, barrier and promotion), not
+// the tensor cores; a ring and split tuned for one product are left for
+// later too.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -222,8 +241,9 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
 // hi and lo: warp w takes rows w, w + 8, ..., lane l features 4l..4l+3, so a
 // thread keeps the same four features for the whole item and its moment
 // sums need no exchange until the item ends. Row r lands in the 128-byte
-// line r of its atom, with its 16-byte chunk index xor r % 8 (= w).
-template <bool kMoments>
+// line r of its atom, with its 16-byte chunk index xor r % 8 (= w). With
+// one product only hi is written, and the moments are taken from x itself.
+template <bool kMoments, int kProducts>
 __device__ __forceinline__ void split_operand(const float* __restrict__ src, uint8_t* hi,
                                               uint8_t* lo, int warp, int lane,
                                               float (&cs)[4], float (&sq)[4]) {
@@ -237,20 +257,27 @@ __device__ __forceinline__ void split_operand(const float* __restrict__ src, uin
     const float4 v = reinterpret_cast<const float4*>(src)[r * (kTile / 4) + lane];
     const __nv_bfloat162 h01 = __floats2bfloat162_rn(v.x, v.y);
     const __nv_bfloat162 h23 = __floats2bfloat162_rn(v.z, v.w);
-    const float2 f01 = __bfloat1622float2(h01), f23 = __bfloat1622float2(h23);
-    const __nv_bfloat162 l01 = __floats2bfloat162_rn(v.x - f01.x, v.y - f01.y);
-    const __nv_bfloat162 l23 = __floats2bfloat162_rn(v.z - f23.x, v.w - f23.y);
     const int off = r * 128 + line_off;
-    uint2 hv, lv;
+    uint2 hv;
     hv.x = *reinterpret_cast<const uint32_t*>(&h01);
     hv.y = *reinterpret_cast<const uint32_t*>(&h23);
-    lv.x = *reinterpret_cast<const uint32_t*>(&l01);
-    lv.y = *reinterpret_cast<const uint32_t*>(&l23);
     *reinterpret_cast<uint2*>(hi + off) = hv;
-    *reinterpret_cast<uint2*>(lo + off) = lv;
-    if (kMoments) {
+    float s[4] = {v.x, v.y, v.z, v.w};
+    if (kProducts == 3) {
+      const float2 f01 = __bfloat1622float2(h01), f23 = __bfloat1622float2(h23);
+      const __nv_bfloat162 l01 = __floats2bfloat162_rn(v.x - f01.x, v.y - f01.y);
+      const __nv_bfloat162 l23 = __floats2bfloat162_rn(v.z - f23.x, v.w - f23.y);
+      uint2 lv;
+      lv.x = *reinterpret_cast<const uint32_t*>(&l01);
+      lv.y = *reinterpret_cast<const uint32_t*>(&l23);
+      *reinterpret_cast<uint2*>(lo + off) = lv;
       const float2 g01 = __bfloat1622float2(l01), g23 = __bfloat1622float2(l23);
-      const float s[4] = {f01.x + g01.x, f01.y + g01.y, f23.x + g23.x, f23.y + g23.y};
+      s[0] = f01.x + g01.x;
+      s[1] = f01.y + g01.y;
+      s[2] = f23.x + g23.x;
+      s[3] = f23.y + g23.y;
+    }
+    if (kMoments) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         step_cs[e] += s[e];
@@ -274,13 +301,14 @@ __device__ __forceinline__ void split_operand(const float* __restrict__ src, uin
 // step_end). Threads 0..255 are the consumers (warpgroups 0 and 1, output
 // rows 0..63 and 64..127 of the tile), 256..383 the producer. kSymmetric
 // changes only which tiles take the moments: the diagonal ones, otherwise
-// the first tile row.
-template <bool kSymmetric>
+// the first tile row. kProducts (3 or 1) is the split's count of products.
+template <bool kSymmetric, int kProducts>
 __global__ void __launch_bounds__(kThreads, 1)
 gram_partial_kernel(const __grid_constant__ CUtensorMap x_map, const float* __restrict__ x,
                     long long rows, int n, int use_tma, const int* __restrict__ items,
                     const int* __restrict__ block_items, float* __restrict__ partial_gram,
                     float* __restrict__ partial_moments) {
+  static_assert(kProducts == 1 || kProducts == 3, "one product or the three of the split");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kBarOffset);
@@ -363,10 +391,10 @@ gram_partial_kernel(const __grid_constant__ CUtensorMap x_map, const float* __re
         uint8_t* b_hi = set + 2 * kBf16Operand;
         uint8_t* b_lo = set + 3 * kBf16Operand;
         if (moments)
-          split_operand<true>(b_src, b_hi, b_lo, warp, lane, cs, sq);
+          split_operand<true, kProducts>(b_src, b_hi, b_lo, warp, lane, cs, sq);
         else
-          split_operand<false>(b_src, b_hi, b_lo, warp, lane, cs, sq);
-        if (!diag) split_operand<false>(a_src, a_hi, a_lo, warp, lane, cs, sq);
+          split_operand<false, kProducts>(b_src, b_hi, b_lo, warp, lane, cs, sq);
+        if (!diag) split_operand<false, kProducts>(a_src, a_hi, a_lo, warp, lane, cs, sq);
         __syncwarp();
         if (lane == 0) mbar_arrive(empty0 + 8 * stage);
 
@@ -389,8 +417,10 @@ gram_partial_kernel(const __grid_constant__ CUtensorMap x_map, const float* __re
         for (int kk = 0; kk < kStep / 16; ++kk) {
           const uint32_t off = kk * 16 * 128;  // two 8-row groups of 128 bytes
           wgmma_m64n128k16(stage_acc, mn_desc(ahi + off), mn_desc(bhi + off), kk);
-          wgmma_m64n128k16(stage_acc, mn_desc(ahi + off), mn_desc(blo + off), 1);
-          wgmma_m64n128k16(stage_acc, mn_desc(alo + off), mn_desc(bhi + off), 1);
+          if (kProducts == 3) {
+            wgmma_m64n128k16(stage_acc, mn_desc(ahi + off), mn_desc(blo + off), 1);
+            wgmma_m64n128k16(stage_acc, mn_desc(alo + off), mn_desc(bhi + off), 1);
+          }
         }
         wgmma_commit();
         fence_operands(stage_acc);
@@ -491,7 +521,7 @@ EncodeTiled encoder() {
   return fn;
 }
 
-template <bool kSymmetric>
+template <bool kSymmetric, int kProducts>
 int launch(const float* x, long long rows, int n, int use_tma, const int* items,
            const int* tiles, int num_tiles, const int* block_items, int blocks,
            float* partial_gram, float* partial_moments, float* gram, float* col_sum,
@@ -526,12 +556,12 @@ int launch(const float* x, long long rows, int n, int use_tma, const int* items,
     cudaError_t err = cudaGetDevice(&device);
     if (err != cudaSuccess) return (int)err;
     if (device >= 64 || !attribute_set[device]) {
-      err = cudaFuncSetAttribute(gram_partial_kernel<kSymmetric>,
+      err = cudaFuncSetAttribute(gram_partial_kernel<kSymmetric, kProducts>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
       if (err != cudaSuccess) return (int)err;
       if (device < 64) attribute_set[device] = true;
     }
-    gram_partial_kernel<kSymmetric><<<blocks, kThreads, kSmemBytes, s>>>(
+    gram_partial_kernel<kSymmetric, kProducts><<<blocks, kThreads, kSmemBytes, s>>>(
         map, x, rows, n, use_tma, items, block_items, partial_gram, partial_moments);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -557,8 +587,8 @@ extern "C" int gram_moments_launch(const float* x, long long rows, int n, int us
                                    const int* block_items, int blocks, float* partial_gram,
                                    float* partial_moments, float* gram, float* col_sum,
                                    float* sum_sq, void* stream) {
-  return launch<false>(x, rows, n, use_tma, items, tiles, num_tiles, block_items, blocks,
-                       partial_gram, partial_moments, gram, col_sum, sum_sq, stream);
+  return launch<false, 3>(x, rows, n, use_tma, items, tiles, num_tiles, block_items, blocks,
+                          partial_gram, partial_moments, gram, col_sum, sum_sq, stream);
 }
 
 // The same contract over the upper tiles; the reduce pass fills the lower.
@@ -568,6 +598,29 @@ extern "C" int symmetric_gram_moments_launch(const float* x, long long rows, int
                                              int blocks, float* partial_gram,
                                              float* partial_moments, float* gram,
                                              float* col_sum, float* sum_sq, void* stream) {
-  return launch<true>(x, rows, n, use_tma, items, tiles, num_tiles, block_items, blocks,
-                      partial_gram, partial_moments, gram, col_sum, sum_sq, stream);
+  return launch<true, 3>(x, rows, n, use_tma, items, tiles, num_tiles, block_items, blocks,
+                         partial_gram, partial_moments, gram, col_sum, sum_sq, stream);
+}
+
+// The one-product instances: gram = hi^T hi, col_sum and sum_sq of x itself,
+// under the same contract as the two entry points above.
+extern "C" int gram_moments_1pass_launch(const float* x, long long rows, int n, int use_tma,
+                                         const int* items, const int* tiles, int num_tiles,
+                                         const int* block_items, int blocks,
+                                         float* partial_gram, float* partial_moments,
+                                         float* gram, float* col_sum, float* sum_sq,
+                                         void* stream) {
+  return launch<false, 1>(x, rows, n, use_tma, items, tiles, num_tiles, block_items, blocks,
+                          partial_gram, partial_moments, gram, col_sum, sum_sq, stream);
+}
+
+extern "C" int symmetric_gram_moments_1pass_launch(const float* x, long long rows, int n,
+                                                   int use_tma, const int* items,
+                                                   const int* tiles, int num_tiles,
+                                                   const int* block_items, int blocks,
+                                                   float* partial_gram, float* partial_moments,
+                                                   float* gram, float* col_sum, float* sum_sq,
+                                                   void* stream) {
+  return launch<true, 1>(x, rows, n, use_tma, items, tiles, num_tiles, block_items, blocks,
+                         partial_gram, partial_moments, gram, col_sum, sum_sq, stream);
 }

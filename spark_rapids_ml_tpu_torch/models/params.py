@@ -2,8 +2,8 @@
 
 Copy of ``Param``, ``Params``, ``HasInputCol`` and ``HasOutputCol`` from
 ``spark_rapids_ml_tpu/models/params.py``: typed params with defaults, fluent
-setters, constructor keyword params (``PCA(k=3)`` is ``PCA().setK(3)``) and
-``copy`` that keeps the uid.
+setters, constructor keyword params (``PCA(k=3)`` is ``PCA().setK(3)``),
+``copy`` that keeps the uid, and the param state that a save records.
 """
 
 from __future__ import annotations
@@ -122,6 +122,14 @@ class Params(metaclass=_ParamsMeta):
             cur = self._paramMap.get(p.name, self._defaultParamMap.get(p.name))
             lines.append(f"{p.name}: {p.doc} (current: {cur})")
         return "\n".join(lines)
+
+    # -- persistence hooks (see utils.persistence) --------------------------
+    def _paramState(self) -> dict:
+        return {"paramMap": dict(self._paramMap), "defaultParamMap": dict(self._defaultParamMap)}
+
+    def _restoreParamState(self, state: dict) -> None:
+        self._paramMap.update(state.get("paramMap", {}))
+        self._defaultParamMap.update(state.get("defaultParamMap", {}))
 
 
 class HasInputCol(Params):

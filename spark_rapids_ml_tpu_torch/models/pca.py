@@ -8,14 +8,17 @@ order with each column's largest-magnitude element positive, and
 explainedVariance is sᵢ/Σs over the full singular-value spectrum (s = √λ),
 truncated to k. ``meanCentering=True`` really centers.
 
-The fit runs solver ``"full"`` at precision ``"highest"`` (f32 matmul) or
-``"high"`` (the split-bf16 kernels). Data whose partition metadata puts it
-above the streamed-fit cutover folds chunk by chunk through
-``spark.ingest.stream_fold`` instead of going resident, and
+The covariance solvers (``"full"``, ``"randomized"``, ``"auto"``) take the
+Gram statistics at precision ``"highest"`` (f32 matmul), ``"high"`` (the
+split-bf16 kernels) or ``"default"`` (the kernels' one-bf16-pass
+instances). Data whose partition metadata puts it above the streamed-fit
+cutover folds chunk by chunk through ``spark.ingest.stream_fold`` instead
+of going resident (under the fold's ``TPU_ML_PRECISION_POLICY``), and
 ``standardize=True`` derives the scaler's moments from the same Gram
-statistics on both paths. The options not yet ported raise
-``NotImplementedError``: solvers ``"randomized"``/``"svd"``/``"auto"``,
-precision ``"default"``, and save/load.
+statistics on both paths. Solver ``"svd"`` never streams: it reduces the
+partitions' R factors (QR on the card, a tree of stacked-pair QRs) and
+takes the SVD of R. Models save and load in the JAX package's two layouts
+(``models/base.py``; host-side, needs pyarrow).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from spark_rapids_ml_tpu_torch.parallel.tree_aggregate import tree_reduce
 from spark_rapids_ml_tpu_torch.spark import ingest
 from spark_rapids_ml_tpu_torch.telemetry import trace_range
 from spark_rapids_ml_tpu_torch.utils import columnar
+from spark_rapids_ml_tpu_torch.utils import persistence as P
 from spark_rapids_ml_tpu_torch.utils.config import get_config
 from spark_rapids_ml_tpu_torch.utils.device import resolve_device
 
@@ -54,8 +58,8 @@ class PCAParams(HasInputCol, HasOutputCol):
         "precision",
         "matmul precision for the Gram pass: 'highest' (f32 with TF32 off, "
         "default), 'high' (split-bf16 tensor-core kernel: three bf16 "
-        "products, ~16 mantissa bits), or 'default' (one bf16 pass; not "
-        "ported yet)",
+        "products, ~16 mantissa bits), or 'default' (the same kernel's one "
+        "bf16 pass with an f32 result, ~8 mantissa bits)",
         str,
     )
     standardize = Param(
@@ -67,7 +71,9 @@ class PCAParams(HasInputCol, HasOutputCol):
     solver = Param(
         "solver",
         "decomposition solver: 'full' (exact refined eigh, reference "
-        "parity); 'randomized', 'svd' and 'auto' are not ported yet",
+        "parity), 'randomized' (HMT subspace iteration, O(n²(k+10))), 'svd' "
+        "(TSQR + SVD of R: never forms XᵀX, works at cond(X)), or 'auto' "
+        "(randomized when n ≥ 256 and k+10 ≤ n/4, else full)",
         str,
     )
 
@@ -120,7 +126,7 @@ class PCA(PCAParams, Estimator):
         return self._set(precision=value)
 
     def setSolver(self, value: str) -> "PCA":
-        if value not in ("full", "randomized", "svd", "auto"):
+        if value not in L.SOLVERS:
             raise ValueError(
                 "solver must be 'full', 'randomized', 'svd', or 'auto'"
             )
@@ -147,11 +153,9 @@ class PCA(PCAParams, Estimator):
             device=self.device,
         )
 
-    def _resident_gram_stats(
-        self, ds: columnar.PartitionedDataset, k: int, precision: str
-    ) -> L.GramStats:
-        """Per-partition Gram statistics on the card and a tree reduction of
-        them."""
+    @staticmethod
+    def _resident_matrices(ds: columnar.PartitionedDataset, k: int) -> list[np.ndarray]:
+        """Every partition's host matrix, checked for one width and k."""
         mats = list(ds.matrices())
         n_cols = mats[0].shape[1]
         for m in mats[1:]:
@@ -159,6 +163,11 @@ class PCA(PCAParams, Estimator):
                 raise ValueError(f"inconsistent feature dim: {m.shape[1]} != {n_cols}")
         if k > n_cols:
             raise ValueError(f"k={k} must be <= number of features {n_cols}")
+        return mats
+
+    def _resident_gram_stats(self, mats: list[np.ndarray], precision: str) -> L.GramStats:
+        """Per-partition Gram statistics on the card and a tree reduction of
+        them."""
         device = self.device
 
         def partition_task(mat):
@@ -171,39 +180,69 @@ class PCA(PCAParams, Estimator):
 
         return tree_reduce(run_partition_tasks(partition_task, mats), L.combine_gram_stats)
 
+    def _reduce_r(self, mats: list[np.ndarray], mean_centering: bool) -> torch.Tensor:
+        """The direct fit's reduction: each partition's R factor on the card
+        (``linalg.qr_r``), tree-reduced with ``linalg.combine_r``. Centering
+        takes the global mean first, in f64 on the host, and subtracts it
+        before padding, so pad rows stay zero and R stays unchanged by
+        them."""
+        mean = None
+        if mean_centering:
+            count = max(sum(m.shape[0] for m in mats), 1)
+            mean = sum(m.sum(axis=0, dtype=np.float64) for m in mats) / count
+        device = self.device
+
+        def partition_task(mat):
+            if mean is not None:
+                mat = mat - mean.astype(mat.dtype)[None, :]
+            padded, _ = columnar.pad_rows(mat)
+            return L.qr_r(_to_device(padded, device))
+
+        return tree_reduce(run_partition_tasks(partition_task, mats), L.combine_r)
+
     def fit(self, dataset: Any, num_partitions: int | None = None) -> "PCAModel":
         """Gram statistics on the card, resident or streamed above the
         ``TPU_ML_STREAM_FIT_MAX_RESIDENT_BYTES`` cutover, then one
-        eigendecomposition. A streamed fit's model keeps the fold's
-        ``StreamFold`` record (without the carry) as ``stream_report``."""
+        decomposition by the solver; or, for solver ``"svd"``, always
+        resident, the partitions' reduced R factor and its SVD. A streamed
+        fit's model keeps the fold's ``StreamFold`` record (without the
+        carry) as ``stream_report``."""
         input_col = self._paramMap.get("inputCol") or self._defaultParamMap.get("inputCol")
         ds = columnar.PartitionedDataset.from_any(dataset, input_col, num_partitions)
         k = self.getK()
         mean_centering = self.getMeanCentering()
         solver = self.getOrDefault("solver")
         precision = self.getOrDefault("precision")
-        if solver != "full":
-            raise NotImplementedError(
-                f"solver {solver!r} is not ported yet (queued as the next "
-                "slice); use solver='full'"
+        standardize = self.getOrDefault("standardize")
+        if standardize and solver == "svd":
+            raise ValueError(
+                "standardize=True derives the scaled covariance from "
+                "GramStats and so requires a covariance solver "
+                "('full'/'randomized'/'auto'); solver='svd' decomposes "
+                "R factors of the raw rows"
             )
         device = self.device
 
         report = None
         with trace_range("compute cov", device):
-            if columnar.use_streamed_fit(ds):
+            if solver != "svd" and columnar.use_streamed_fit(ds):
                 report = self._stream_gram_stats(ds, k, precision)
                 stats = report.carry
+            elif solver == "svd":
+                r = self._reduce_r(self._resident_matrices(ds, k), mean_centering)
             else:
-                stats = self._resident_gram_stats(ds, k, precision)
+                stats = self._resident_gram_stats(self._resident_matrices(ds, k), precision)
 
         mean = std = None
         with trace_range("eigh", device):
-            if self.getOrDefault("standardize"):
-                cov, mean, std = L.standardized_cov_from_stats(stats)
+            if solver == "svd":
+                pc, explained = L.svd_from_r(r, k)
             else:
-                cov = L.covariance_from_stats(stats, mean_centering=mean_centering)
-            pc, explained = L.pca_fit_from_cov(cov, k, solver=solver)
+                if standardize:
+                    cov, mean, std = L.standardized_cov_from_stats(stats)
+                else:
+                    cov = L.covariance_from_stats(stats, mean_centering=mean_centering)
+                pc, explained = L.pca_fit_from_cov(cov, k, solver=solver)
 
         model = PCAModel(
             uid=self.uid,
@@ -269,3 +308,74 @@ class PCAModel(PCAParams, Model):
         )
         pct = self.pc.T
         return [pct @ r for r in mat]
+
+    # -- persistence ----------------------------------------------------------
+    def _saveData(self) -> dict[str, np.ndarray]:
+        out = {"pc": self.pc, "explainedVariance": self.explainedVariance}
+        if self.mean is not None:
+            out["mean"] = self.mean
+            out["std"] = self.std
+        return out
+
+    @classmethod
+    def _fromSaved(
+        cls, uid: str, data: dict[str, np.ndarray], device: str | torch.device
+    ) -> "PCAModel":
+        return cls(
+            uid=uid,
+            pc=data["pc"],
+            explainedVariance=data["explainedVariance"],
+            mean=data.get("mean"),
+            std=data.get("std"),
+            device=device,
+        )
+
+    # Stock Spark's PCAModel writer persists Row(pc: DenseMatrix,
+    # explainedVariance: DenseVector) under data/ plus DefaultParamsWriter
+    # metadata. Only params stock Spark's PCAModel knows may appear in the
+    # metadata (its loader rejects unknown names).
+    _SPARK_ML_CLASS = "org.apache.spark.ml.feature.PCAModel"
+    _SPARK_ML_PARAMS = ("k", "inputCol", "outputCol")
+
+    def _checkSparkML(self) -> None:
+        if self.mean is not None:
+            raise NotImplementedError(
+                "stock Spark ML's PCAModel cannot represent a "
+                "standardize=True model's scaling state (mean/std); save "
+                "with the native layout, or fit an explicit "
+                "StandardScaler + PCA pipeline for Spark interop"
+            )
+
+    def _saveSparkML(self, path: str) -> None:
+        from spark_rapids_ml_tpu_torch.models.base import spark_set_params
+
+        params = {k: v for k, v in spark_set_params(self).items() if k in self._SPARK_ML_PARAMS}
+        params.setdefault("k", int(self.pc.shape[1]))
+        P.save_spark_ml_metadata(
+            path, class_name=self._SPARK_ML_CLASS, uid=self.uid, param_map=params
+        )
+        P.save_spark_ml_data(
+            path,
+            {
+                "pc": P._dense_matrix_struct(self.pc),
+                "explainedVariance": P._dense_vector_struct(self.explainedVariance),
+            },
+            {
+                "type": "struct",
+                "fields": [
+                    {"name": "pc", "type": P._matrix_udt_json(), "nullable": True,
+                     "metadata": {}},
+                    {"name": "explainedVariance", "type": P._vector_udt_json(),
+                     "nullable": True, "metadata": {}},
+                ],
+            },
+        )
+
+    @classmethod
+    def _fromSparkML(cls, meta: dict, table, device: str | torch.device) -> "PCAModel":
+        return cls(
+            uid=meta["uid"],
+            pc=P.struct_to_matrix(table.column("pc")[0].as_py()),
+            explainedVariance=P.struct_to_vector(table.column("explainedVariance")[0].as_py()),
+            device=device,
+        )

@@ -1,17 +1,25 @@
-"""Fused split-bf16 Gram + column moments: the Hopper kernels and their
-plain versions.
+"""Fused bf16 Gram + column moments: the Hopper kernels and their plain
+versions.
 
 Counterpart of ``spark_rapids_ml_tpu/ops/pallas_gram.py``, which holds both
-TPU kernels. One read of a [rows, n] f32 matrix X gives
+TPU kernels. One read of a [rows, n] f32 matrix X gives, with ``products=3``
+(the split, the ``"high"`` precision tier),
 
 - ``gram`` = hiᵀhi + hiᵀlo + loᵀhi, accumulated in f32, where hi = bf16(X)
   and lo = bf16(X − hi), both rounded to nearest even; the loᵀlo term
   (~2⁻¹⁶ relative) is dropped;
-- ``col_sum`` = Σ(hi + lo) and ``sum_sq`` = Σ(hi + lo)² over rows.
+- ``col_sum`` = Σ(hi + lo) and ``sum_sq`` = Σ(hi + lo)² over rows;
 
-The split carries ~16 mantissa bits through bf16 tensor-core products, the
-arithmetic of the ``"high"`` precision tier. Two kernels in
-``csrc/gram_moments.cu`` compute it:
+and with ``products=1`` (one bf16 pass with an f32 result: the ``"default"``
+tier and the ``bf16_f32acc`` fold policy, which the JAX package leaves to
+XLA and no Pallas kernel computes)
+
+- ``gram`` = hiᵀhi, accumulated in f32;
+- ``col_sum`` = Σx and ``sum_sq`` = Σx² over rows, in f32.
+
+The split carries ~16 mantissa bits through bf16 tensor-core products, one
+pass ~8. Two kernels in ``csrc/gram_moments.cu`` compute either, one
+instance per count of products:
 
 - ``fused_gram_moments`` multiplies every 128-column tile pair (the resident
   fit's Gram pass);
@@ -39,47 +47,66 @@ TILE = 128  # output tile edge of the kernel (csrc/gram_moments.cu kTile)
 STEP = 32   # rows per ring stage of the kernel (kStep)
 REFERENCE_BLOCK_ROWS = 1024  # the TPU kernel's default row block
 
-# Kernel launches since import (or since a caller reset them to 0):
-# ``fused_gram_moments``'s and ``symmetric_gram_moments``'s.
+PRODUCTS = (3, 1)  # the split's three products, or one bf16 pass
+
+# Kernel launches since import (or since a caller reset them to 0), one
+# count per instance: ``fused_gram_moments``'s and
+# ``symmetric_gram_moments``'s with three products, and the ``_1pass``
+# counts with one.
 launches = 0
 symmetric_launches = 0
+launches_1pass = 0
+symmetric_launches_1pass = 0
 _launch_lock = threading.Lock()
+
+# (symmetric, products) -> the instance's C entry point and launch counter
+_INSTANCES = {
+    (False, 3): ("gram_moments_launch", "launches"),
+    (True, 3): ("symmetric_gram_moments_launch", "symmetric_launches"),
+    (False, 1): ("gram_moments_1pass_launch", "launches_1pass"),
+    (True, 1): ("symmetric_gram_moments_1pass_launch", "symmetric_launches_1pass"),
+}
 
 
 def fused_gram_moments_reference(
-    x: torch.Tensor,
+    x: torch.Tensor, *, products: int = 3
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The plain PyTorch version of the kernel: the same RNE hi/lo split,
-    three f32 matrix products of the bf16 values per block of
-    ``REFERENCE_BLOCK_ROWS`` rows, summed in f32 block after block as the TPU
-    kernel's grid does, and moments from hi + lo.
+    """The plain PyTorch version of the kernel, per block of
+    ``REFERENCE_BLOCK_ROWS`` rows summed in f32 block after block as the TPU
+    kernel's grid does: with three products the same RNE hi/lo split, three
+    f32 matrix products of the bf16 values and moments from hi + lo; with
+    one, hi = bf16(x), the f32 product hiᵀhi and moments from x itself.
 
     The blocks bound each f32 summation chain: one product over 10⁵ rows
     sums them in one chain, whose error (~√rows·2⁻²⁴ relative) would be
     as large as the tolerance the kernel is held to."""
+    _check_products(products)
     n = x.shape[1]
     gram = torch.zeros((n, n), dtype=torch.float32, device=x.device)
     col_sum = torch.zeros((n,), dtype=torch.float32, device=x.device)
     sum_sq = torch.zeros((n,), dtype=torch.float32, device=x.device)
     for block in torch.split(x, REFERENCE_BLOCK_ROWS):
-        hi = block.to(torch.bfloat16)
-        lo = (block - hi.float()).to(torch.bfloat16)
-        hf, lf = hi.float(), lo.float()
-        gram += hf.T @ hf + hf.T @ lf + lf.T @ hf
-        xb = hf + lf
+        hf = block.to(torch.bfloat16).float()
+        if products == 3:
+            lf = (block - hf).to(torch.bfloat16).float()
+            gram += hf.T @ hf + hf.T @ lf + lf.T @ hf
+            xb = hf + lf
+        else:
+            gram += hf.T @ hf
+            xb = block
         col_sum += xb.sum(dim=0)
         sum_sq += (xb * xb).sum(dim=0)
     return gram, col_sum, sum_sq
 
 
 def symmetric_gram_moments_reference(
-    x: torch.Tensor,
+    x: torch.Tensor, *, products: int = 3
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain version of the symmetric kernel: the fused plain version,
     then every strict-lower ``TILE`` block replaced by the transpose of its
     upper mirror, as the kernel's reduce pass writes it. Diagonal blocks stay
     as computed (symmetric to rounding only)."""
-    gram, col_sum, sum_sq = fused_gram_moments_reference(x)
+    gram, col_sum, sum_sq = fused_gram_moments_reference(x, products=products)
     tile = torch.arange(gram.shape[0], device=x.device) // TILE
     lower = tile[:, None] > tile[None, :]
     return torch.where(lower, gram.T, gram), col_sum, sum_sq
@@ -157,6 +184,11 @@ def load_route(x: torch.Tensor) -> str:
     return "tma" if x.shape[1] % 4 == 0 and x.data_ptr() % 16 == 0 else "plain"
 
 
+def _check_products(products: int) -> None:
+    if products not in PRODUCTS:
+        raise ValueError(f"products must be one of {PRODUCTS}, got {products!r}")
+
+
 def _check(x: torch.Tensor) -> None:
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"expected a torch.Tensor, got {type(x).__name__}")
@@ -219,9 +251,13 @@ def _device_tables(
 
 
 def _launch(
-    x: torch.Tensor, symbol: str, symmetric: bool
+    x: torch.Tensor, symmetric: bool, products: int
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Run one C entry point on the current stream over its schedule."""
+    """Run one instance's C entry point on the current stream over its
+    schedule and count the launch. The library comes first: where it does
+    not build or load, this raises before anything else is done."""
+    symbol, counter = _INSTANCES[(symmetric, products)]
+    launch = _entry(symbol)
     rows, n = x.shape
     plan, table = _device_tables(rows, n, symmetric, _sm_count(x.device), x.device)
     num_items, num_tiles = len(plan.items), len(plan.tiles)
@@ -232,7 +268,6 @@ def _launch(
     gram = torch.empty((n, n), **new)
     col_sum = torch.empty((n,), **new)
     sum_sq = torch.empty((n,), **new)
-    launch = _entry(symbol)
     with torch.cuda.device(x.device):
         err = launch(
             x.data_ptr(), rows, n, int(load_route(x) == "tma"),
@@ -247,41 +282,38 @@ def _launch(
             f"{symbol} failed with CUDA error {err} "
             f"(x {tuple(x.shape)}, {num_items} items on {plan.blocks} blocks)"
         )
+    with _launch_lock:
+        globals()[counter] += 1
     return gram, col_sum, sum_sq
 
 
 def fused_gram_moments(
-    x: torch.Tensor,
+    x: torch.Tensor, *, products: int = 3
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(gram [n, n], col_sum [n], sum_sq [n]) of a contiguous [rows, n] f32 X.
+    """(gram [n, n], col_sum [n], sum_sq [n]) of a contiguous [rows, n] f32 X,
+    from the split's three products or from one bf16 pass (``products``).
 
-    On the card this launches the kernel on the current stream and returns
+    On the card this launches the instance on the current stream and returns
     without synchronising; on the CPU it runs the plain version.
     """
-    global launches
+    _check_products(products)
     _check(x)
     if x.device.type == "cpu":
-        return fused_gram_moments_reference(x)
-    out = _launch(x, "gram_moments_launch", symmetric=False)
-    with _launch_lock:
-        launches += 1
-    return out
+        return fused_gram_moments_reference(x, products=products)
+    return _launch(x, symmetric=False, products=products)
 
 
 def symmetric_gram_moments(
-    x: torch.Tensor,
+    x: torch.Tensor, *, products: int = 3
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``fused_gram_moments``'s triple from the upper tile pairs only, each
     strict upper tile mirrored bit-equal into the lower half.
 
-    On the card this launches the symmetric kernel on the current stream and
-    returns without synchronising; on the CPU it runs the plain version.
+    On the card this launches the symmetric instance on the current stream
+    and returns without synchronising; on the CPU it runs the plain version.
     """
-    global symmetric_launches
+    _check_products(products)
     _check(x)
     if x.device.type == "cpu":
-        return symmetric_gram_moments_reference(x)
-    out = _launch(x, "symmetric_gram_moments_launch", symmetric=True)
-    with _launch_lock:
-        symmetric_launches += 1
-    return out
+        return symmetric_gram_moments_reference(x, products=products)
+    return _launch(x, symmetric=True, products=products)

@@ -2,8 +2,9 @@
 
 Counterpart of ``spark_rapids_ml_tpu/ops/linalg.py`` for the PCA fit:
 per-partition sufficient statistics, their monoid combine, the streamed
-fit's fold step, the covariance (standardized or not), the refined
-descending eigensolve with the reference's sign rule, the explained variance
+fit's fold steps, the covariance (standardized or not), the decomposition
+stage with its three solvers (the refined eigensolve, the randomized
+subspace iteration and the QR → SVD direct path), the explained variance
 and the projection. Functions take tensors on any device and compute in
 their dtype; the estimators pass f32 tensors.
 
@@ -11,12 +12,23 @@ Precision tiers of the Gram pass (``gram_stats`` for the resident fit,
 ``gram_stats_weighted`` for the streamed fold):
 
 - ``"highest"``: an f32 ``torch.matmul`` with TF32 off;
-- ``"high"``: the split-bf16 kernels, ``ops.gram_moments.fused_gram_moments``
-  resident and ``symmetric_gram_moments`` streamed. Their Gram drops loᵀlo,
-  whose diagonal Σlo² is one-sided (~2⁻¹⁸ of Σx²) and would bias σ by
+- ``"high"``: the split-bf16 kernels (three bf16 products),
+  ``ops.gram_moments.fused_gram_moments`` resident and
+  ``symmetric_gram_moments`` streamed. Their Gram drops loᵀlo, whose
+  diagonal Σlo² is one-sided (~2⁻¹⁸ of Σx²) and would bias σ by
   (μ² + σ²)/σ² times that for a feature far from zero; so the diagonal is
   replaced by the kernels' Σ(hi + lo)², which drops nothing one-sided;
-- ``"default"``: not ported yet.
+- ``"default"``: one bf16 pass with an f32 result, the same kernels'
+  one-product instances (``products=1``): hiᵀhi with hi = bf16(x). Its
+  diagonal Σhi² = Σx²(1 + 2δ + δ²), with δ the relative rounding of x, has
+  the one-sided part Σx²δ² (about 2⁻¹⁸·Σx²/3 for RNE), so under the same
+  rule the diagonal is replaced by the kernels' exact f32 Σx².
+
+The fold's precision policy (``TPU_ML_PRECISION_POLICY``,
+``autotune/policy.py``) ``bf16_f32acc`` rounds the fold's matmul operands to
+bf16 whatever the tier: the same function as ``"default"``, so it runs the
+same instances. ``policy_matmul`` computes it for what the kernels do not
+take (weights other than 1).
 """
 
 from __future__ import annotations
@@ -26,6 +38,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from spark_rapids_ml_tpu_torch.autotune.policy import (
+    FOLD_POLICIES,
+    PrecisionPolicy,
+    resolve_policy,
+    validate_policy,
+)
 from spark_rapids_ml_tpu_torch.ops import scaler as S
 from spark_rapids_ml_tpu_torch.ops.gram_moments import (
     fused_gram_moments,
@@ -33,6 +51,11 @@ from spark_rapids_ml_tpu_torch.ops.gram_moments import (
 )
 
 PRECISIONS = ("highest", "high", "default")
+# the kernels' count of products for each tier they compute
+_KERNEL_PRODUCTS = {"high": 3, "default": 1}
+
+DEFAULT_POLICY = PrecisionPolicy.F32.value
+_BF16_F32ACC = PrecisionPolicy.BF16_F32ACC.value
 
 
 class GramStats(NamedTuple):
@@ -62,25 +85,46 @@ def gram(x: torch.Tensor) -> torch.Tensor:
     return x.T @ x
 
 
-def _unported_precision(precision: str) -> Exception:
-    if precision == "default":
-        return NotImplementedError(
-            "precision 'default' (one bf16 pass with an f32 result) is not "
-            "ported yet; use 'high' or 'highest'"
-        )
-    return ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+def policy_matmul(
+    a: torch.Tensor, b: torch.Tensor, *, policy: str = DEFAULT_POLICY
+) -> torch.Tensor:
+    """The policy-aware product a·b. ``f32``: an f32 matmul with TF32 off.
+    ``bf16_f32acc``: the operands rounded to bf16, their products (exact in
+    f32) summed in f32 and the result in ``a``'s dtype, which is what the
+    JAX package's ``preferred_element_type=f32`` product of bf16 operands
+    computes. The port's kernels compute the unit-weight Gram under this
+    policy; this product serves the rest (weighted folds)."""
+    _require_f32_matmul()
+    policy = validate_policy(policy, allowed=FOLD_POLICIES)
+    if policy == _BF16_F32ACC:
+        return (a.to(torch.bfloat16).float() @ b.to(torch.bfloat16).float()).to(a.dtype)
+    return a @ b
+
+
+def _check_precision(precision: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+
+
+def _kernel_gram(
+    x: torch.Tensor, precision: str, *, symmetric: bool
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(XᵀX, column sums) from the Gram kernel instance of a kernel tier
+    (``"high"`` or ``"default"``), the diagonal replaced by the kernel's
+    Σx² of that tier (see the module note)."""
+    kernel = symmetric_gram_moments if symmetric else fused_gram_moments
+    xtx, col_sum, sum_sq = kernel(x, products=_KERNEL_PRODUCTS[precision])
+    xtx.diagonal().copy_(sum_sq)
+    return xtx, col_sum
 
 
 def gram_stats(x: torch.Tensor, *, precision: str = "highest") -> GramStats:
     """The sufficient-statistics triple of one partition."""
+    _check_precision(precision)
     count = torch.tensor(x.shape[0], dtype=x.dtype, device=x.device)
     if precision == "highest":
         return GramStats(gram(x), x.sum(dim=0), count)
-    if precision == "high":
-        xtx, col_sum, sum_sq = fused_gram_moments(x)
-        xtx.diagonal().copy_(sum_sq)  # see the module note on "high"
-        return GramStats(xtx, col_sum, count)
-    raise _unported_precision(precision)
+    return GramStats(*_kernel_gram(x, precision, symmetric=False), count)
 
 
 def combine_gram_stats(a: GramStats, b: GramStats) -> GramStats:
@@ -88,47 +132,63 @@ def combine_gram_stats(a: GramStats, b: GramStats) -> GramStats:
     return GramStats(a.xtx + b.xtx, a.col_sum + b.col_sum, a.count + b.count)
 
 
+def _fold_tier(precision: str, policy: str) -> str:
+    """The tier a fold computes: ``bf16_f32acc`` rounds the operands to bf16
+    whatever the tier, which is the one pass of ``"default"``."""
+    _check_precision(precision)
+    policy = validate_policy(policy, allowed=FOLD_POLICIES)
+    return "default" if policy == _BF16_F32ACC else precision
+
+
 def gram_stats_weighted(
-    x: torch.Tensor, w: torch.Tensor, *, precision: str = "highest"
+    x: torch.Tensor, w: torch.Tensor, *, precision: str = "highest",
+    policy: str = DEFAULT_POLICY,
 ) -> GramStats:
     """GramStats of one chunk under the masking convention: ``w`` carries
     instance weights on true rows and 0.0 on pad rows, so xᵀ(x·w), the
     weighted column sums and the weight-sum count are exact over padded
-    chunks.
+    chunks. The policy ``bf16_f32acc`` makes any tier the one-pass tier.
 
     - ``"highest"``: that arithmetic, with an f32 matmul; ``w`` may lie on
       the host and is copied to ``x``'s device.
-    - ``"high"``: the symmetric split-bf16 kernel under a unit-weight
-      contract: every weight must be 1, so pass only the chunk's true rows
-      (PCA has no weight column). The weights are read where they lie: a
+    - ``"high"`` and ``"default"`` with unit weights (pass only the chunk's
+      true rows with weight 1; PCA has no weight column): the symmetric
+      kernel's instance of the tier. The weights are read where they lie: a
       host tensor costs no device sync, which is why the streamed fold keeps
       them on the host.
+    - ``"default"`` with other weights: xᵀ(x·w) by ``policy_matmul``'s bf16
+      product. Weighted ``"high"`` folds are not ported and raise.
     """
-    if precision == "highest":
+    tier = _fold_tier(precision, policy)
+    if tier == "highest":
         _require_f32_matmul()
         w = w.to(device=x.device, dtype=x.dtype, non_blocking=True)
         xw = x * w[:, None]
         return GramStats(x.T @ xw, xw.sum(dim=0), w.sum())
-    if precision == "high":
-        if w.shape != (x.shape[0],) or not bool(torch.all(w == 1)):
-            raise ValueError(
-                "precision 'high' folds unit weights only: pass the chunk's "
-                "true rows with weight 1 (weighted 'high' folds are not "
-                "ported)"
-            )
-        xtx, col_sum, sum_sq = symmetric_gram_moments(x)
-        xtx.diagonal().copy_(sum_sq)  # see the module note on "high"
+    if w.shape == (x.shape[0],) and bool(torch.all(w == 1)):
+        xtx, col_sum = _kernel_gram(x, tier, symmetric=True)
         count = torch.full((), float(x.shape[0]), dtype=x.dtype, device=x.device)
         return GramStats(xtx, col_sum, count)
-    raise _unported_precision(precision)
+    if tier == "high" or w.shape != (x.shape[0],):
+        raise ValueError(
+            f"precision {tier!r} folds unit weights only: pass the chunk's "
+            "true rows with weight 1 (weighted 'high' folds are not ported; "
+            f"got weights of shape {tuple(w.shape)} for {x.shape[0]} rows)"
+        )
+    w = w.to(device=x.device, dtype=x.dtype, non_blocking=True)
+    xw = x * w[:, None]
+    return GramStats(policy_matmul(x.T, xw, policy=_BF16_F32ACC), xw.sum(dim=0), w.sum())
 
 
 def fold_gram_stats(
-    carry: GramStats, x: torch.Tensor, w: torch.Tensor, *, precision: str = "highest"
+    carry: GramStats, x: torch.Tensor, w: torch.Tensor, *, precision: str = "highest",
+    policy: str = DEFAULT_POLICY,
 ) -> GramStats:
     """One streamed-fit fold step, out of place: carry + the chunk's weighted
     stats."""
-    return combine_gram_stats(carry, gram_stats_weighted(x, w, precision=precision))
+    return combine_gram_stats(
+        carry, gram_stats_weighted(x, w, precision=precision, policy=policy)
+    )
 
 
 def init_gram_carry(n: int, device: torch.device | str) -> GramStats:
@@ -138,21 +198,40 @@ def init_gram_carry(n: int, device: torch.device | str) -> GramStats:
                      torch.zeros((), **new))
 
 
-def gram_fold_step(precision: str = "highest"):
+def gram_fold_step(precision: str = "highest", policy: str | None = None):
     """The streamed fit's fold step ``step(carry, x, w) -> carry``: adds the
     chunk's weighted stats into ``carry`` **in place** and returns it. This
     is the counterpart of the JAX step's donated carry: a stream of any
     length keeps one set of carry buffers, and every update is queued on the
-    current stream without a sync."""
-    if precision not in ("highest", "high"):
-        raise _unported_precision(precision)
+    current stream without a sync. ``policy=None`` is the process default
+    (``TPU_ML_PRECISION_POLICY``), resolved here, once, when the step is
+    made."""
+    _check_precision(precision)
+    policy = resolve_policy(policy, allowed=FOLD_POLICIES)
 
     def step(carry: GramStats, x: torch.Tensor, w: torch.Tensor) -> GramStats:
-        stats = gram_stats_weighted(x, w, precision=precision)
+        stats = gram_stats_weighted(x, w, precision=precision, policy=policy)
         carry.xtx.add_(stats.xtx)
         carry.col_sum.add_(stats.col_sum)
         carry.count.add_(stats.count)
         return carry
+
+    return step
+
+
+def gram_fold_xtx_step(precision: str = "highest", policy: str | None = None):
+    """The fold step of the bare [n, n] Gram ``step(carry, x) -> carry``,
+    in place (the JAX package's TruncatedSVD accumulator: no column sums or
+    count; pad rows are zero, so no mask). The tiers and the policy as in
+    ``gram_fold_step``: ``"highest"`` an f32 matmul, the others the symmetric
+    kernel's instance."""
+    _check_precision(precision)
+    tier = _fold_tier(precision, resolve_policy(policy, allowed=FOLD_POLICIES))
+
+    def step(carry: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        if tier == "highest":
+            return carry.add_(gram(x))
+        return carry.add_(_kernel_gram(x, tier, symmetric=True)[0])
 
     return step
 
@@ -243,15 +322,100 @@ def explained_variance(singular_values: torch.Tensor, k: int) -> torch.Tensor:
     return (singular_values / safe_total)[:k]
 
 
+def randomized_eigh_descending(
+    cov: torch.Tensor,
+    k: int,
+    *,
+    oversample: int = 10,
+    power_iters: int = 2,
+    seed: int = 0,
+    omega: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Randomized top-k eigendecomposition of a PSD matrix, descending
+    (Halko–Martinsson–Tropp subspace iteration): Y = A·Ω, then
+    ``power_iters`` times Q ← qr(A·Q), and Rayleigh–Ritz on the l = k +
+    oversample columns, O(n²·l) instead of the full eigh's O(n³).
+
+    Ω [n, l] is standard normal from a ``torch.Generator`` on ``cov``'s
+    device seeded with ``seed``; it cannot reproduce the JAX package's
+    ``jax.random`` stream, so a caller that needs a given sketch passes it
+    as ``omega``. The subspace, and so the result, does not depend on the
+    signs QR chooses. Matmuls are f32 with TF32 off.
+
+    Returns (components [n, k] sign-flipped, singular values √max(λ, 0) of
+    all l Ritz values, tail_count = n − l)."""
+    _require_f32_matmul()
+    n = cov.shape[0]
+    l = min(n, k + oversample)
+    if omega is None:
+        gen = torch.Generator(device=cov.device).manual_seed(seed)
+        omega = torch.randn((n, l), generator=gen, dtype=cov.dtype, device=cov.device)
+    elif tuple(omega.shape) != (n, l):
+        raise ValueError(f"omega must be [{n}, {l}], got {tuple(omega.shape)}")
+    omega = omega.to(device=cov.device, dtype=cov.dtype)
+    q = torch.linalg.qr(cov @ omega).Q
+    for _ in range(power_iters):
+        q = torch.linalg.qr(cov @ q).Q
+    b = q.T @ (cov @ q)
+    b = 0.5 * (b + b.T)
+    evals, v = torch.linalg.eigh(b)  # ascending
+    evals = evals.flip(0)
+    v = v.flip(1)[:, :k]
+    u = sign_flip(q @ v)
+    singular_values = torch.sqrt(torch.clamp(evals, min=0.0))
+    return u, singular_values, torch.tensor(n - l, dtype=cov.dtype, device=cov.device)
+
+
+def explained_variance_from_partial(
+    singular_values: torch.Tensor, trace: torch.Tensor, tail_count: torch.Tensor
+) -> torch.Tensor:
+    """The reference's explainedVariance from a partial spectrum: the unseen
+    tail's Σ√λ is estimated from the leftover trace as √(tail_count · Σλ_tail)
+    (by concavity an upper bound, exact for a flat tail). Ratios for all
+    given values; callers cut to k."""
+    top_sum = torch.sum(singular_values)
+    top_eval_sum = torch.sum(singular_values**2)
+    tail_eval_sum = torch.clamp(trace - top_eval_sum, min=0.0)
+    tail_sum = torch.sqrt(tail_eval_sum * torch.clamp(tail_count, min=0.0))
+    total = top_sum + tail_sum
+    safe_total = torch.where(total > 0, total, torch.ones_like(total))
+    return singular_values / safe_total
+
+
+def randomized_profitable(n: int, k: int, *, oversample: int = 10) -> bool:
+    """The ``"auto"`` solver's rule, the JAX package's predicate unchanged:
+    the subspace iteration is taken when n ≥ 256 and the captured subspace
+    l = k + oversample is at most n/4."""
+    return n >= 256 and (k + oversample) * 4 <= n
+
+
+SOLVERS = ("full", "randomized", "svd", "auto")
+
+
 def pca_fit_from_cov(
-    cov: torch.Tensor, k: int, *, solver: str = "full"
+    cov: torch.Tensor,
+    k: int,
+    *,
+    solver: str = "full",
+    oversample: int = 10,
+    power_iters: int = 2,
+    seed: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Covariance → (pc [n, k], explained variance [k])."""
-    if solver in ("randomized", "svd", "auto"):
-        raise NotImplementedError(
-            f"solver {solver!r} is not ported yet (queued as the next "
-            "slice); use solver='full'"
+    """Decomposition stage: covariance → (pc [n, k], explained variance [k]).
+
+    - ``"full"``: the refined eigensolve (``eigh_descending``);
+    - ``"randomized"``: ``randomized_eigh_descending``, explained variance
+      with the trace-based tail estimate;
+    - ``"auto"``: randomized where ``randomized_profitable``, else full.
+    """
+    n = cov.shape[0]
+    if solver == "auto":
+        solver = "randomized" if randomized_profitable(n, k, oversample=oversample) else "full"
+    if solver == "randomized":
+        u, s, tail_count = randomized_eigh_descending(
+            cov, k, oversample=oversample, power_iters=power_iters, seed=seed
         )
+        return u, explained_variance_from_partial(s, torch.trace(cov), tail_count)[:k]
     if solver != "full":
         raise ValueError(f"unknown solver {solver!r}")
     components, s = eigh_descending(cov)
@@ -262,10 +426,51 @@ def pca_fit_local(
     x: torch.Tensor, k: int, *, mean_centering: bool = False,
     precision: str = "highest",
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Single-block fit: rows → (pc, explained variance)."""
+    """Single-block fit: rows → (pc, explained variance), the Gram pass at
+    ``precision``."""
     stats = gram_stats(x, precision=precision)
     cov = covariance_from_stats(stats, mean_centering=mean_centering)
     return pca_fit_from_cov(cov, k)
+
+
+def qr_r(x: torch.Tensor) -> torch.Tensor:
+    """R factor [n, n] of a row block (RᵀR = XᵀX, without squaring the
+    condition number). A block of fewer than n rows is zero-padded to n,
+    which leaves R's content unchanged."""
+    rows, n = x.shape
+    if rows < n:
+        x = torch.cat([x, x.new_zeros((n - rows, n))])
+    return torch.linalg.qr(x, mode="r").R
+
+
+def combine_r(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Associative combine of R factors: R of the stacked pair, so
+    RᵀR sums as the Gram does."""
+    return torch.linalg.qr(torch.cat([a, b]), mode="r").R
+
+
+def svd_components_from_r(r: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """R → (components [n, k] sign-flipped, singular values [n]), both of X:
+    R's singular values are X's."""
+    _, s, vh = torch.linalg.svd(r, full_matrices=False)  # descending
+    return sign_flip(vh.T[:, :k]), s
+
+
+def svd_from_r(r: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Decomposition stage of the direct path: R → (pc [n, k], explained
+    variance [k]) by the reference's definition, without forming XᵀX."""
+    components, s = svd_components_from_r(r, k)
+    return components, explained_variance(s, k)
+
+
+def pca_fit_local_svd(
+    x: torch.Tensor, k: int, *, mean_centering: bool = False
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Single-block direct fit: rows → QR → SVD(R) → (pc, explained
+    variance), at cond(X) rather than the Gram's cond(X)²."""
+    if mean_centering:
+        x = x - x.mean(dim=0, keepdim=True)
+    return svd_from_r(qr_r(x), k)
 
 
 def project(x: torch.Tensor, pc: torch.Tensor) -> torch.Tensor:

@@ -27,8 +27,7 @@ On the CPU the fold reads the staging buffer directly.
 
 Not ported yet (``ROADMAP.md``): the autotuner, checkpoint and resume, retry
 and fault-injection sites, OOM bisection, the stderr heartbeat, the registry
-counters, the bounded wait, label and intercept columns, and
-``gram_fold_xtx_step``.
+counters, the bounded wait, and label and intercept columns.
 """
 
 from __future__ import annotations

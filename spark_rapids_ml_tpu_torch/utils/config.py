@@ -7,7 +7,9 @@ packages. ``get_config()`` reads the environment on every call.
 
 ``TPU_ML_MESH_LOCAL_WIRE_DTYPE`` only sizes the streamed-fit cutover, as the
 JAX package's wire would be sized: the port stages and computes in f32
-whatever it says (``wire_dtype``).
+whatever it says (``wire_dtype``). ``TPU_ML_PRECISION_POLICY`` is the fold's
+default precision policy (``autotune/policy.py``, which the fold step
+resolves itself).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from spark_rapids_ml_tpu_torch.autotune.policy import resolve_policy
 from spark_rapids_ml_tpu_torch.ops.linalg import PRECISIONS
 
 MIN_BUCKET_VAR = "TPU_ML_MIN_BUCKET"
@@ -68,6 +71,7 @@ class RuntimeConfig:
         default_factory=lambda: _int_env(STREAM_CHUNK_VAR, DEFAULT_STREAM_CHUNK)
     )
     nonfinite_policy: str = field(default_factory=_nonfinite_env)
+    precision_policy: str = field(default_factory=lambda: resolve_policy(None))
 
 
 def get_config() -> RuntimeConfig:

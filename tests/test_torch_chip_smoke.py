@@ -5,6 +5,8 @@ script's shapes, control flow and checks, not the kernels; the script itself
 refuses to run without a card.
 """
 
+import os
+
 import jax  # noqa: F401  (imported at the top of every port test file)
 import numpy as np
 import pytest
@@ -54,7 +56,7 @@ def test_kernel_shapes_follow_the_main_paths():
 def test_main_path_phase_on_cpu():
     result = chip_smoke.phase_main_path(3000, 96, 5, 3, CPU)
     # plain versions on the CPU
-    assert result["launches"] == {"gram_moments": 0, "symmetric_gram_moments": 0}
+    assert result["launches"] == {name: 0 for name in chip_smoke.KERNELS}
     assert result["min_cosine_vs_f64_oracle"] >= chip_smoke.COSINE_BAR
     assert result["transform_max_abs_err"] <= result["transform_tol"]
 
@@ -64,7 +66,7 @@ def test_streamed_path_phase_on_cpu(monkeypatch):
     monkeypatch.setenv("TPU_ML_STREAM_CHUNK_ROWS", "512")
     result = chip_smoke.phase_streamed_path(4096, 64, 5, 4, CPU)
     assert result["chunks"] == 8 and result["chunk_rows"] == 512
-    assert result["launches"] == {"gram_moments": 0, "symmetric_gram_moments": 0}
+    assert result["launches"] == {name: 0 for name in chip_smoke.KERNELS}
     assert result["max_put_bytes"] == 512 * 64 * 4
     assert result["min_cosine_vs_f64_oracle"] >= chip_smoke.COSINE_BAR
     assert result["min_cosine_high_vs_highest"] >= chip_smoke.COSINE_BAR
@@ -108,31 +110,44 @@ def test_main_refuses_to_run_without_a_card(monkeypatch, capsys):
     assert '"ok"' not in capsys.readouterr().out
 
 
-PTXAS_LOG = """ptxas info    : Compiling entry function '_ZN4_GLOBAL19gram_partial_kernelILb1EEEvPKf' for 'sm_90a'
-ptxas info    : Function properties for _ZN4_GLOBAL19gram_partial_kernelILb1EEEvPKf
+PTXAS_LOG = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119gram_partial_kernelILb1ELi3EEEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119gram_partial_kernelILb1ELi3EEEvPKf
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 168 registers, used 3 barriers
-ptxas info    : Compiling entry function '_ZN4_GLOBAL19gram_partial_kernelILb0EEEvPKf' for 'sm_90a'
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119gram_partial_kernelILb0ELi3EEEvPKf' for 'sm_90a'
     0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
 ptxas info    : Used 168 registers, used 3 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119gram_partial_kernelILb0ELi1EEEvPKf' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 160 registers, used 3 barriers
 """
 SASS = """	code for sm_90a
-		Function : _ZN4_GLOBAL19gram_partial_kernelILb0EEEvPKf
+		Function : _ZN12_GLOBAL__N_119gram_partial_kernelILb0ELi3EEEvPKf
         /*0100*/   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
         /*0110*/   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], R24 ;
-		Function : _ZN4_GLOBAL18gram_reduce_kernelILb1EEEvPKf
+		Function : _ZN12_GLOBAL__N_118gram_reduce_kernelILb1EEEvPKf
         /*0100*/   FADD R1, R2, R3 ;
-		Function : _ZN4_GLOBAL19gram_partial_kernelILb1EEEvPKf
+		Function : _ZN12_GLOBAL__N_119gram_partial_kernelILb1ELi3EEEvPKf
         /*0100*/   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+		Function : _ZN12_GLOBAL__N_119gram_partial_kernelILb1ELi1EEEvPKf
+        /*0100*/   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+        /*0110*/   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], R24 ;
+        /*0120*/   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR12], R24 ;
 """
 
 
 def test_build_report_reads_each_instance():
+    """Each kernel's instance by its template arguments <symmetric,
+    products> in the mangled name: a one-product instance is not read as
+    its three-product twin, nor the reverse."""
     report = chip_smoke.build_report(PTXAS_LOG, SASS)
     fused, symmetric = report["gram_moments"], report["symmetric_gram_moments"]
     assert fused["hgmma"] == 2 and symmetric["hgmma"] == 1
     assert fused["spill_bytes"] == 12 and symmetric["spill_bytes"] == 0
     assert any("168 registers" in line for line in symmetric["ptxas"])
+    one, sym_one = report["gram_moments_1pass"], report["symmetric_gram_moments_1pass"]
+    assert one["hgmma"] == 0 and any("160 registers" in line for line in one["ptxas"])
+    assert sym_one["hgmma"] == 3 and sym_one["ptxas"] == []
     assert chip_smoke.build_report("", "") == {
         k: {"ptxas": [], "spill_bytes": 0, "hgmma": 0} for k in chip_smoke.INSTANCES
     }
@@ -152,3 +167,84 @@ def test_kernel_checks_take_both_load_routes():
         routes = {"tma" if n % 4 == 0 else "plain" for _, n in shapes}
         assert routes == {"tma", "plain"}, name
         assert (65_536, 129) in shapes
+
+
+@pytest.mark.parametrize("kernel", ["gram_moments_1pass", "symmetric_gram_moments_1pass"])
+def test_one_pass_kernel_check_phase_on_cpu(kernel):
+    shapes = [(500, 300), (130, 200), (33, 7)]
+    results = chip_smoke.phase_kernel_check(shapes, CPU, kernel=kernel)
+    for entry in results.values():
+        assert entry["max_abs_err"] <= entry["tol"]
+        assert entry["max_abs_err_vs_f64"] <= entry["tol"]
+        assert entry["repeat_bit_equal"] and entry.get("mirror_bit_equal", True)
+    assert ("mirror_bit_equal" in results[(33, 7)]) == (kernel in chip_smoke.SYMMETRIC)
+
+
+def test_four_kernels_each_with_its_instance_and_counter():
+    assert set(chip_smoke.KERNELS) == set(chip_smoke.INSTANCES) == set(chip_smoke.COUNTERS)
+    assert len(set(chip_smoke.INSTANCES.values())) == 4
+    assert chip_smoke.INSTANCES["symmetric_gram_moments_1pass"] == "gram_partial_kernelILb1ELi1E"
+    for name, counter in chip_smoke.COUNTERS.items():
+        assert hasattr(chip_smoke.G, counter), name
+    shapes = chip_smoke.KERNEL_SHAPES
+    assert shapes["gram_moments_1pass"] == shapes["gram_moments"]
+    chip_smoke.reset_launches()
+    assert chip_smoke.read_launches() == chip_smoke.expected_launches()
+    assert chip_smoke.expected_launches(gram_moments_1pass=8)["gram_moments_1pass"] == 8
+
+
+def test_one_pass_bound_at_main_shape():
+    """One product over the upper triangle, rows·n·(n+1) operations, against
+    X read once: 65,536 × 512 is bound by its bytes."""
+    bound_ms, bound_by = chip_smoke.gram_bound(65_536, 512, products=1)
+    assert bound_by == "bytes"
+    nbytes = 4.0 * (65_536 * 512 + 512 * 512 + 2 * 512)
+    assert bound_ms == pytest.approx(nbytes / 3.35e12 * 1e3)
+    assert 65_536 * 512 * 513 / 989e12 * 1e3 == pytest.approx(0.0174, rel=1e-2)
+    assert bound_ms == pytest.approx(0.0401, rel=1e-2)
+
+
+def test_solvers_phase_on_cpu():
+    result = chip_smoke.phase_solvers(3000, 256, 6, 3, CPU)
+    assert result["auto_bit_equal_randomized"] and result["same_sketch"]
+    assert result["svd_min_cosine_vs_f64_oracle"] >= chip_smoke.COSINE_BAR
+    assert result["randomized_min_cosine_vs_f64_hmt"] >= chip_smoke.COSINE_BAR
+    assert set(result["decomposition_ms"]) == {"full", "randomized", "svd"}
+
+
+def test_randomized_f64_is_the_ports_solver_in_f64():
+    """The smoke's host reference of the randomized steps against the port's
+    solver run in f64 on the same sketch."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(400, 40)) @ rng.normal(size=(40, 40))
+    scatter = x.T @ x
+    omega = rng.normal(size=(40, 15))
+    pc, ev = chip_smoke.randomized_f64(scatter, 5, omega)
+    tpc, tev = chip_smoke.L.pca_fit_from_cov(torch.from_numpy(scatter), 5, solver="randomized")
+    u, s, tail = chip_smoke.L.randomized_eigh_descending(
+        torch.from_numpy(scatter), 5, omega=torch.from_numpy(omega))
+    np.testing.assert_allclose(pc, u.numpy(), rtol=0, atol=1e-10)
+    ref_ev = chip_smoke.L.explained_variance_from_partial(
+        s, torch.trace(torch.from_numpy(scatter)), tail)[:5]
+    np.testing.assert_allclose(ev, ref_ev.numpy(), rtol=1e-10)
+    np.testing.assert_allclose(chip_smoke.scatter_f64(x.astype(np.float32), CPU, chunk=64),
+                               x.astype(np.float32).astype(np.float64).T
+                               @ x.astype(np.float32).astype(np.float64), rtol=1e-12)
+
+
+def test_one_pass_phase_on_cpu():
+    result = chip_smoke.phase_one_pass(3000, 96, 5, 3, CPU)
+    assert result["launches"] == chip_smoke.expected_launches()
+    assert result["min_cosine_vs_f64_oracle"] >= chip_smoke.COSINE_BAR
+
+
+def test_streamed_one_pass_phase_on_cpu(monkeypatch):
+    monkeypatch.setenv("TPU_ML_STREAM_FIT_MAX_RESIDENT_BYTES", str(1 << 20))
+    monkeypatch.setenv("TPU_ML_STREAM_CHUNK_ROWS", "512")
+    monkeypatch.delenv("TPU_ML_PRECISION_POLICY", raising=False)
+    data = chip_smoke.streamed_workload(4096, 64, 4, CPU)
+    result = chip_smoke.phase_streamed_one_pass(data, 5, 4, CPU, policy_rows=3000)
+    assert result["chunks"] == 8 and result["policy_chunks"] == 6
+    assert result["min_cosine_vs_f64_oracle"] >= chip_smoke.COSINE_BAR
+    assert result["policy_min_cosine_vs_f64_oracle"] >= chip_smoke.COSINE_BAR
+    assert "TPU_ML_PRECISION_POLICY" not in os.environ

@@ -1,10 +1,14 @@
-"""The port's split-bf16 Gram + moments against the Pallas kernels.
+"""The port's bf16 Gram + moments against the Pallas kernels and JAX.
 
-The plain PyTorch versions (what the wrappers run for a CPU tensor) are held
-against ``spark_rapids_ml_tpu.ops.pallas_gram.fused_gram_moments`` and
+The plain PyTorch versions (what the wrappers run for a CPU tensor) of the
+three-product (split-bf16) instances are held against
+``spark_rapids_ml_tpu.ops.pallas_gram.fused_gram_moments`` and
 ``symmetric_gram_moments`` in interpret mode on the same f32 input, and both
-against an f64 oracle. The CUDA kernels themselves run only on the card
-(the ``cuda`` tests below).
+against an f64 oracle. The one-product instances have no Pallas kernel:
+their plain versions are held against the one-bf16-pass product written in
+JAX (bf16 operands, ``preferred_element_type=f32``) and against the JAX
+package's ``policy_matmul(..., policy="bf16_f32acc")``. The CUDA kernels
+themselves run only on the card (the ``cuda`` tests below).
 """
 
 import jax.numpy as jnp
@@ -12,8 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+from spark_rapids_ml_tpu.ops import linalg as JL
 from spark_rapids_ml_tpu.ops.pallas_gram import fused_gram_moments as pallas_fused
 from spark_rapids_ml_tpu.ops.pallas_gram import symmetric_gram_moments as pallas_symmetric
+from spark_rapids_ml_tpu_torch.ops import _build
 from spark_rapids_ml_tpu_torch.ops import gram_moments as G
 
 # the shapes and blocks of tests/test_pallas_gram.py
@@ -110,11 +116,111 @@ def test_symmetric_plain_version_is_the_fused_one_mirrored(rng):
     assert torch.equal(scs, fcs) and torch.equal(ssq, fsq)
 
 
+COUNTERS = ("launches", "symmetric_launches", "launches_1pass", "symmetric_launches_1pass")
+
+
+def _counts():
+    return tuple(getattr(G, c) for c in COUNTERS)
+
+
 @pytest.mark.parametrize("kernel", ["fused_gram_moments", "symmetric_gram_moments"])
 def test_cpu_tensor_does_not_count_a_launch(rng, kernel):
-    before = (G.launches, G.symmetric_launches)
+    before = _counts()
     getattr(G, kernel)(torch.from_numpy(rng.normal(size=(64, 16)).astype(np.float32)))
-    assert (G.launches, G.symmetric_launches) == before
+    getattr(G, kernel)(torch.from_numpy(rng.normal(size=(64, 16)).astype(np.float32)), products=1)
+    assert _counts() == before
+
+
+@pytest.mark.parametrize("shape,block_rows,block_cols", CASES)
+@pytest.mark.parametrize("kernel", ["fused_gram_moments", "symmetric_gram_moments"])
+def test_one_pass_plain_version_matches_jax_one_pass(rng, shape, block_rows, block_cols, kernel):
+    """hiᵀhi with hi = bf16(x): every product of two bf16 values is exact in
+    f32, so the port's plain version and JAX's bf16 product with f32
+    accumulation differ only in the f32 summation order (1e-5·max|G|, the
+    tolerance of the three-product instances). The moments are Σx and Σx² of
+    x itself, held to the f64 sums at rtol 1e-5 and 1e-5·√rows·max|x|."""
+    x = rng.normal(size=shape).astype(np.float32)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    one_pass = np.asarray(jnp.matmul(xb.T, xb, preferred_element_type=jnp.float32))
+    policy = np.asarray(JL.policy_matmul(jnp.asarray(x).T, jnp.asarray(x), policy="bf16_f32acc"))
+    g, cs, sq = (t.numpy() for t in getattr(G, kernel)(torch.from_numpy(x), products=1))
+    scale = np.abs(one_pass).max()
+    np.testing.assert_allclose(g, one_pass, rtol=0, atol=1e-5 * scale)
+    np.testing.assert_allclose(g, policy, rtol=0, atol=1e-5 * scale)
+    hi = np.asarray(xb.astype(jnp.float64))
+    np.testing.assert_allclose(g, hi.T @ hi, rtol=0, atol=1e-5 * scale)
+    xf = x.astype(np.float64)
+    atol = 1e-5 * np.sqrt(shape[0]) * np.abs(x).max()
+    np.testing.assert_allclose(cs, xf.sum(0), rtol=1e-5, atol=atol)
+    np.testing.assert_allclose(sq, (xf**2).sum(0), rtol=1e-5, atol=atol)
+    if kernel == "symmetric_gram_moments" and shape[1] > 128:
+        np.testing.assert_array_equal(g[128:, :128], g[:128, 128:].T)
+
+
+def test_one_pass_is_the_tier_between(rng):
+    """One bf16 pass carries ~8 mantissa bits: its Gram is further from the
+    f64 one than the split's, and closer than nothing (bf16 rounding of the
+    f64 Gram's scale)."""
+    x = rng.normal(size=(1024, 128)).astype(np.float32)
+    exact = x.astype(np.float64).T @ x.astype(np.float64)
+    split = G.fused_gram_moments(torch.from_numpy(x))[0].double().numpy()
+    one = G.fused_gram_moments(torch.from_numpy(x), products=1)[0].double().numpy()
+    err_split, err_one = np.abs(split - exact).max(), np.abs(one - exact).max()
+    assert err_split < err_one / 20
+    assert err_one < 2.0**-7 * np.abs(exact).max()
+
+
+def test_symmetric_one_pass_plain_version_is_the_fused_one_mirrored(rng):
+    x = torch.from_numpy(rng.normal(size=(300, 260)).astype(np.float32))
+    sg, scs, ssq = G.symmetric_gram_moments_reference(x, products=1)
+    fg, fcs, fsq = G.fused_gram_moments_reference(x, products=1)
+    upper = (torch.arange(260) // G.TILE)[:, None] <= (torch.arange(260) // G.TILE)[None, :]
+    assert torch.equal(sg[upper], fg[upper])
+    assert torch.equal(sg, torch.where(upper, sg, sg.T))
+    assert torch.equal(scs, fcs) and torch.equal(ssq, fsq)
+    assert torch.equal(fcs, torch.stack([b.sum(0) for b in torch.split(x, 1024)]).sum(0))
+
+
+@pytest.mark.parametrize("products", [0, 2, "3"])
+def test_products_must_be_one_or_three(products):
+    x = torch.zeros((8, 4))
+    for fn in (G.fused_gram_moments, G.symmetric_gram_moments,
+               G.fused_gram_moments_reference, G.symmetric_gram_moments_reference):
+        with pytest.raises(ValueError, match="products"):
+            fn(x, products=products)
+
+
+class _CudaLooking(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: what a wrapper sees for a
+    tensor on the card, here where there is none."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("products", [1, 3])
+@pytest.mark.parametrize("kernel", ["fused_gram_moments", "symmetric_gram_moments"])
+def test_wrapper_raises_instead_of_falling_back(monkeypatch, kernel, products):
+    """A tensor on the card launches the kernel or raises: when the library
+    does not load, neither the plain version nor a library product runs in
+    its place, and no launch is counted."""
+    def fail(name):
+        raise OSError(f"cannot load the {name} library")
+
+    def no_fallback(*args, **kwargs):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(_build, "load_library", fail)
+    monkeypatch.setattr(G, "_entries", {})
+    monkeypatch.setattr(G, "fused_gram_moments_reference", no_fallback)
+    monkeypatch.setattr(G, "symmetric_gram_moments_reference", no_fallback)
+    monkeypatch.setattr(torch.Tensor, "__matmul__", no_fallback)
+    x = torch.zeros((64, 16)).as_subclass(_CudaLooking)
+    before = _counts()
+    with pytest.raises(OSError, match="gram_moments"):
+        getattr(G, kernel)(x, products=products)
+    assert _counts() == before
 
 
 @pytest.mark.parametrize("kernel", ["fused_gram_moments", "symmetric_gram_moments"])
@@ -210,12 +316,13 @@ def test_load_route_follows_the_tensor_map_rules(x_cols, expected):
     assert G.load_route(torch.zeros((9, 512)).view(-1)[1:1 + 8 * 512].view(8, 512)) == "plain"
 
 
-def _emulate(x, symmetric, sm_count):
+def _emulate(x, symmetric, sm_count, products=3):
     """The kernel's arithmetic in plain PyTorch, item by item: each step's
-    three products of the split (f32 sums of exact bf16 products) added into
-    the item's f32 partial, moments per step then into the item's sums, and
-    each tile's items summed in the reduce pass's order; the symmetric
-    instance writes each strict upper tile to its mirror."""
+    three products of the split, or its one product hiᵀhi (f32 sums of exact
+    bf16 products), added into the item's f32 partial, moments (of hi + lo,
+    or of x) per step then into the item's sums, and each tile's items
+    summed in the reduce pass's order; the symmetric instance writes each
+    strict upper tile to its mirror."""
     rows, n = x.shape
     plan = G.schedule(rows, n, symmetric, sm_count)
     steps = -(-rows // G.STEP)
@@ -232,11 +339,13 @@ def _emulate(x, symmetric, sm_count):
     partials, moments = [], []
     for bi, bj, s0, s1 in plan.items.tolist():
         ah, al, bh, bl = (block(t, b, s0, s1) for t, b in ((hi, bi), (lo, bi), (hi, bj), (lo, bj)))
-        prods = ah.transpose(1, 2) @ bh + ah.transpose(1, 2) @ bl + al.transpose(1, 2) @ bh
+        prods = ah.transpose(1, 2) @ bh
+        if products == 3:
+            prods = prods + ah.transpose(1, 2) @ bl + al.transpose(1, 2) @ bh
         acc = torch.zeros((G.TILE, G.TILE))
         for p in prods:
             acc += p
-        v = bh + bl
+        v = bh + bl if products == 3 else block(xp, bj, s0, s1)
         cs, sq = torch.zeros(G.TILE), torch.zeros(G.TILE)
         for step_v in v:
             cs += step_v.sum(0)
@@ -264,10 +373,20 @@ def _emulate(x, symmetric, sm_count):
 @pytest.mark.parametrize("symmetric", [False, True], ids=["fused", "symmetric"])
 @pytest.mark.parametrize("rows,n,sm_count", [(700, 300, 132), (2_000, 260, 7), (33, 7, 132)])
 def test_emulated_schedule_matches_the_plain_version(rng, rows, n, sm_count, symmetric):
+    _check_emulated_schedule(rng, rows, n, sm_count, symmetric, products=3)
+
+
+@pytest.mark.parametrize("symmetric", [False, True], ids=["fused", "symmetric"])
+@pytest.mark.parametrize("rows,n,sm_count", [(700, 300, 132), (2_000, 260, 7), (33, 7, 132)])
+def test_emulated_one_pass_schedule_matches_the_plain_version(rng, rows, n, sm_count, symmetric):
+    _check_emulated_schedule(rng, rows, n, sm_count, symmetric, products=1)
+
+
+def _check_emulated_schedule(rng, rows, n, sm_count, symmetric, products):
     x = torch.from_numpy(rng.normal(size=(rows, n)).astype(np.float32))
-    g, cs, sq = _emulate(x, symmetric, sm_count)
+    g, cs, sq = _emulate(x, symmetric, sm_count, products)
     plain = G.symmetric_gram_moments_reference if symmetric else G.fused_gram_moments_reference
-    rg, rcs, rsq = plain(x)
+    rg, rcs, rsq = plain(x, products=products)
     scale = rg.abs().max().item()
     torch.testing.assert_close(g, rg, rtol=0, atol=1e-5 * scale)
     atol = 1e-5 * rows ** 0.5 * x.abs().max().item()
@@ -325,5 +444,38 @@ def test_kernel_matches_plain_version_on_card():
         torch.testing.assert_close(cs, rcs, rtol=1e-5, atol=atol)
         torch.testing.assert_close(sq, rsq, rtol=1e-5, atol=atol)
         # split sums in a fixed order: two calls are bit-equal
+        for a, b in zip((g, cs, sq), again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fused_gram_moments", "symmetric_gram_moments"])
+def test_one_pass_kernel_matches_plain_version_on_card(kernel):
+    """Both load routes (TMA at 512 and 300 columns, plain loads at 129 and
+    7) at the tolerances of the three-product kernels' card tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wrapper = getattr(G, kernel)
+    plain = getattr(G, f"{kernel}_reference")
+    counter = "symmetric_launches_1pass" if kernel.startswith("symmetric") else "launches_1pass"
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for rows, n in ((65_536, 512), (38_528, 512), (65_536, 129), (1_000, 300), (33, 7)):
+        x = torch.randn((rows, n), generator=gen, device="cuda")
+        before = dict(zip(COUNTERS, _counts()))
+        g, cs, sq = wrapper(x, products=1)
+        again = wrapper(x, products=1)
+        torch.cuda.synchronize()
+        assert dict(zip(COUNTERS, _counts())) == {**before, counter: before[counter] + 2}
+        rg, rcs, rsq = plain(x, products=1)
+        scale = rg.abs().max().item()
+        torch.testing.assert_close(g, rg, rtol=0, atol=1e-5 * scale)
+        atol = 1e-5 * rows ** 0.5 * x.abs().max().item()
+        torch.testing.assert_close(cs, rcs, rtol=1e-5, atol=atol)
+        torch.testing.assert_close(sq, rsq, rtol=1e-5, atol=atol)
+        if kernel.startswith("symmetric"):
+            tile = torch.arange(n, device="cuda") // G.TILE
+            lower = tile[:, None] > tile[None, :]
+            assert torch.equal(g[lower], g.T[lower])
         for a, b in zip((g, cs, sq), again):
             assert torch.equal(a, b)

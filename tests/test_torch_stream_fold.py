@@ -7,6 +7,12 @@ CPU. The suite runs JAX with x64, so the JAX carry is f64 under the default
 wire dtype; the port's is f32. The carries agree to 1e-5·max|G| at
 "highest" (f32 products) and 3e-5·max|G| at "high" (the split-bf16 plain
 version, ~16 mantissa bits), with the count exact.
+
+The one-bf16-pass folds (precision "default", or any precision under the
+``bf16_f32acc`` policy) are held against the JAX fold under that policy,
+which computes the one-pass semantics on the CPU: off the diagonal both sum
+the same exact bf16 products (1e-5·max|G|); on it the port holds the exact
+Σx², within ONE_PASS_DIAG_RTOL of JAX's Σhi².
 """
 
 import jax.numpy as jnp
@@ -22,8 +28,13 @@ from spark_rapids_ml_tpu_torch.spark import ingest as TI
 
 CPU = torch.device("cpu")
 ROWS, N, CHUNK = 1100, 12, 128
-JAX_PRECISION = {"highest": lax.Precision.HIGHEST, "high": lax.Precision.HIGH}
+JAX_PRECISION = {
+    "highest": lax.Precision.HIGHEST, "high": lax.Precision.HIGH,
+    "default": lax.Precision.DEFAULT,
+}
 TOL = {"highest": 1e-5, "high": 3e-5}
+# bf16 rounds x by a relative δ with |δ| ≤ 2⁻⁹: Σhi² = Σx²(1 + 2δ + δ²)
+ONE_PASS_DIAG_RTOL = 2.0**-8 + 2.0**-18
 
 
 @pytest.fixture(autouse=True)
@@ -217,8 +228,113 @@ def test_high_folds_unit_weights_only(w):
         TL.gram_fold_step("high")(TL.init_gram_carry(N, CPU), x, torch.tensor(w))
 
 
-def test_fold_step_rejects_unported_precisions():
-    with pytest.raises(NotImplementedError, match="default"):
-        TL.gram_fold_step("default")
+def _assert_one_pass_carry(port_xtx, jax_xtx):
+    off = ~np.eye(port_xtx.shape[0], dtype=bool)
+    scale = np.abs(jax_xtx).max()
+    np.testing.assert_allclose(port_xtx[off], jax_xtx[off], rtol=0, atol=1e-5 * scale)
+    np.testing.assert_allclose(np.diag(port_xtx), np.diag(jax_xtx), rtol=ONE_PASS_DIAG_RTOL)
+
+
+def test_fold_step_rejects_unported_precisions(parts):
+    """Precision "default" is ported: the in-place fold step against the JAX
+    fold of the same chunks under ``bf16_f32acc`` (the one-pass semantics);
+    unknown precisions and non-fold policies still raise."""
+    ref = JI.stream_fold(
+        iter(parts), JL.gram_fold_step(lax.Precision.DEFAULT, policy="bf16_f32acc"), n=N,
+        init=JL.init_gram_carry(N, JI.wire_dtype()), chunk_rows=CHUNK,
+    )
+    out = _port_fold(parts, "default", chunk_rows=CHUNK)
+    _assert_one_pass_carry(out.carry.xtx.numpy(), np.asarray(ref.carry.xtx))
+    x = np.concatenate(parts).astype(np.float64)
+    np.testing.assert_allclose(out.carry.xtx.numpy().diagonal(), (x**2).sum(0), rtol=1e-5)
+    np.testing.assert_allclose(out.carry.col_sum.numpy(), np.asarray(ref.carry.col_sum),
+                               rtol=0, atol=1e-5 * np.abs(x).sum(0).max())
+    assert out.carry.count.item() == float(ref.carry.count) == ROWS
     with pytest.raises(ValueError, match="precision"):
         TL.gram_fold_step("fast")
+    with pytest.raises(ValueError, match="policy"):
+        TL.gram_fold_step("highest", policy="int8_dist")
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_stream_fold_under_the_policy_matches_jax(parts, monkeypatch, precision):
+    """TPU_ML_PRECISION_POLICY=bf16_f32acc makes every tier's fold one bf16
+    pass, in both packages; each fold step resolves it when it is made."""
+    monkeypatch.setenv("TPU_ML_PRECISION_POLICY", "bf16_f32acc")
+    ref = JI.stream_fold(
+        iter(parts), JL.gram_fold_step(JAX_PRECISION[precision]), n=N,
+        init=JL.init_gram_carry(N, JI.wire_dtype()), chunk_rows=CHUNK,
+    )
+    step = TL.gram_fold_step(precision)
+    monkeypatch.delenv("TPU_ML_PRECISION_POLICY")  # the step keeps its policy
+    out = TI.stream_fold(iter(parts), step, n=N, init=TL.init_gram_carry(N, CPU), device=CPU,
+                         chunk_rows=CHUNK)
+    _assert_one_pass_carry(out.carry.xtx.numpy(), np.asarray(ref.carry.xtx))
+    default = _port_fold(parts, "default", chunk_rows=CHUNK)
+    assert torch.equal(out.carry.xtx, default.carry.xtx)
+    assert out.carry.count.item() == float(ref.carry.count) == ROWS
+
+
+def test_policy_knob_reads_the_environment(monkeypatch):
+    from spark_rapids_ml_tpu.autotune import policy as JP
+    from spark_rapids_ml_tpu_torch.autotune import policy as TP
+    from spark_rapids_ml_tpu_torch.utils.config import get_config
+
+    assert TP.POLICIES == JP.POLICIES and TP.FOLD_POLICIES == JP.FOLD_POLICIES
+    assert TP.PRECISION_POLICY_VAR == JP.PRECISION_POLICY_VAR
+    monkeypatch.delenv("TPU_ML_PRECISION_POLICY", raising=False)
+    assert get_config().precision_policy == TP.resolve_policy(None) == "f32"
+    monkeypatch.setenv("TPU_ML_PRECISION_POLICY", "bf16_f32acc")
+    assert get_config().precision_policy == TP.resolve_policy(None) == JP.resolve_policy(None)
+    assert TP.validate_policy(TP.PrecisionPolicy.BF16_F32ACC) == "bf16_f32acc"
+    monkeypatch.setenv("TPU_ML_PRECISION_POLICY", "int8_dist")
+    assert TP.resolve_policy(None) == "int8_dist"
+    with pytest.raises(ValueError, match="policy"):
+        TL.gram_fold_step("highest")
+    monkeypatch.setenv("TPU_ML_PRECISION_POLICY", "fp4")
+    with pytest.raises(ValueError, match="policy"):
+        get_config()
+
+
+def test_weighted_one_pass_fold_matches_jax(parts):
+    """Weights other than 1 (and pad rows at 0) at the one-pass tier: the
+    port's ``policy_matmul`` of x and x·w, the JAX package's own arithmetic,
+    diagonal included."""
+    x = np.concatenate(parts)[:300]
+    w = np.random.default_rng(3).uniform(0.5, 2.0, 300).astype(np.float32)
+    w[250:] = 0.0
+    ref = JL.gram_stats_weighted(jnp.asarray(x), jnp.asarray(w), policy="bf16_f32acc")
+    for precision, policy in (("default", "f32"), ("highest", "bf16_f32acc")):
+        out = TL.gram_stats_weighted(torch.from_numpy(x), torch.from_numpy(w),
+                                     precision=precision, policy=policy)
+        scale = np.abs(np.asarray(ref.xtx)).max()
+        np.testing.assert_allclose(out.xtx.numpy(), np.asarray(ref.xtx), rtol=0, atol=1e-5 * scale)
+        np.testing.assert_allclose(out.col_sum.numpy(), np.asarray(ref.col_sum), rtol=1e-5,
+                                   atol=1e-4)
+        np.testing.assert_allclose(out.count.item(), float(ref.count), rtol=1e-6)
+    with pytest.raises(ValueError, match="unit weights"):
+        TL.gram_stats_weighted(torch.from_numpy(x), torch.ones(299), precision="default")
+
+
+@pytest.mark.parametrize("precision,policy", [
+    ("highest", None), ("high", None), ("default", None), ("highest", "bf16_f32acc"),
+])
+def test_gram_fold_xtx_step_matches_jax(parts, precision, policy):
+    """The bare-Gram fold step, in place, against the JAX one (its carry
+    f64 under x64): "highest" at 1e-5·max|G|, "high" at 3e-5·max|G|, the
+    one-pass tier off the diagonal at 1e-5·max|G| and on it at
+    ONE_PASS_DIAG_RTOL."""
+    jstep = JL.gram_fold_xtx_step(JAX_PRECISION[precision],
+                                  policy="bf16_f32acc" if precision == "default" else policy)
+    tstep = TL.gram_fold_xtx_step(precision, policy=policy)
+    ref = jnp.zeros((N, N), jnp.float64)
+    carry = torch.zeros((N, N))
+    for p in parts:
+        ref = jstep(ref, jnp.asarray(p))
+        assert tstep(carry, torch.from_numpy(p)) is carry
+    ref = np.asarray(ref)
+    if precision == "default" or policy == "bf16_f32acc":
+        _assert_one_pass_carry(carry.numpy(), ref)
+    else:
+        np.testing.assert_allclose(carry.numpy(), ref, rtol=0,
+                                   atol=TOL[precision] * np.abs(ref).max())
