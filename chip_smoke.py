@@ -32,7 +32,22 @@ Phases, each a plain function that the CPU tests also call at a tiny size:
    oracle, a streamed "highest" fit, its device memory and its overlap;
 9. one pass (streamed): the same data at "default" through the symmetric
    one-product instance, and its first 1,000,000 rows at "highest" under
-   TPU_ML_PRECISION_POLICY=bf16_f32acc, both against their f64 oracles.
+   TPU_ML_PRECISION_POLICY=bf16_f32acc, both against their f64 oracles;
+10. serving: phase 4's model (pca512), phase 7's standardized model and
+   pca512's bf16_f32acc variant (picked through a tuning-cache file)
+   registered over the whole bucket ladder, one CUDA graph per rung; each
+   rung's replay held bit for bit against an eager projection of the same
+   padded block (and the model's transform at that bucket) and timed
+   against it; then the HTTP server with a UDS socket: 1,000 sequential
+   one-row requests on each of four wires (in-process client, HTTP binary,
+   UDS JSON, fast lane), 4,000 mixed requests (1 to 4,096 rows,
+   log-uniform) from 16 threads over HTTP binary and the fast lane, 300
+   one-row requests direct and through a batcher alone (with the configured
+   window and with none), and 200
+   requests alternating between two models under an HBM budget that holds
+   one, so that they page. Every answer is checked against the eager
+   transform and the f64 projection; so are the capture, JSON-codec,
+   coalescing and paging counters.
 
 Each main path reads the kernels' launch counts from 0 around exactly its
 fit. The last lines are one JSON object with every kernel's numbers, the
@@ -42,11 +57,18 @@ script exits nonzero and prints no result. Every failed check raises.
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import functools
+import http.client
 import json
+import os
 import re
 import shutil
+import socket
 import subprocess
+import tempfile
+import threading
 from pathlib import Path
 import sys
 import time
@@ -58,7 +80,18 @@ from spark_rapids_ml_tpu_torch import PCA
 from spark_rapids_ml_tpu_torch.ops import _build
 from spark_rapids_ml_tpu_torch.ops import gram_moments as G
 from spark_rapids_ml_tpu_torch.ops import linalg as L
+from spark_rapids_ml_tpu_torch.autotune import cache as tuning_cache
+from spark_rapids_ml_tpu_torch.autotune.policy import TuningConfig
+from spark_rapids_ml_tpu_torch.serving import buckets as B
+from spark_rapids_ml_tpu_torch.serving import client as serve_client
+from spark_rapids_ml_tpu_torch.serving import fastlane as FL
+from spark_rapids_ml_tpu_torch.serving import hbm
+from spark_rapids_ml_tpu_torch.serving import registry as R
+from spark_rapids_ml_tpu_torch.serving import server as S
+from spark_rapids_ml_tpu_torch.serving.batcher import MicroBatcher
 from spark_rapids_ml_tpu_torch.spark import ingest
+from spark_rapids_ml_tpu_torch.telemetry.registry import REGISTRY
+from spark_rapids_ml_tpu_torch.telemetry.timeline import TIMELINE
 from spark_rapids_ml_tpu_torch.utils import columnar
 
 # H100 SXM published dense peaks (NVIDIA data sheet), at the 700 W limit.
@@ -499,6 +532,7 @@ def phase_main_path(rows: int, n: int, k: int, partitions: int, device: torch.de
         "max_memory_allocated": torch.cuda.max_memory_allocated(device) if cuda else None,
     }
     print(f"main path: {json.dumps(result)}", flush=True)
+    result["model"] = model  # served by phase 10
     return result
 
 
@@ -956,7 +990,537 @@ def phase_standardize(rows: int, n: int, k: int, partitions: int, device: torch.
     print(f"standardize: {json.dumps(result)}", flush=True)
     if not min_cos >= COSINE_BAR:
         raise AssertionError(f"standardize min cosine vs the f64 oracle {min_cos} < {COSINE_BAR}")
+    result["model"] = model  # served by phase 10
     return result
+
+
+# -- phase 10: serving -------------------------------------------------------
+
+SERVE_REL_TOL = 1e-5  # max abs error ≤ SERVE_REL_TOL × max |expected|
+SERVE_POOL_ROWS = 65_536
+SERVE_TIMED_REPS = 200
+
+
+@contextlib.contextmanager
+def _env(**values: str | None):
+    """Set (or, for None, unset) environment variables for the block."""
+    before = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def eager_at_bucket(model, rows: np.ndarray, bucket: int) -> np.ndarray:
+    """The model's eager transform of ``rows`` with its padding bucket set
+    to ``bucket`` (rows ≤ bucket), the shape a serve rung computes."""
+    with _env(TPU_ML_MIN_BUCKET=str(bucket)):
+        return model.transform(rows)
+
+
+def f64_projection(entry, rows: np.ndarray) -> np.ndarray:
+    """The f64 reference of a served answer: the model's standardization
+    and projection in f64; for the bf16 variant, the f64 product of the
+    bf16-rounded operands."""
+    m = entry.model
+    x = rows.astype(np.float64)
+    if m.mean is not None:
+        x = (x - m.mean) / np.where(m.std > 0, m.std, 1.0)
+    pc = np.asarray(m.pc, dtype=np.float64)
+    if entry.policy == "bf16_f32acc":
+        def bf16(a):
+            return torch.from_numpy(np.asarray(a, np.float32)).bfloat16().double().numpy()
+
+        return bf16(x.astype(np.float32)) @ bf16(pc)
+    return x @ pc
+
+
+def _rel_err(got: np.ndarray, expected: np.ndarray) -> float:
+    return float(np.abs(got - expected).max() / max(np.abs(expected).max(), 1e-30))
+
+
+def _pcts(samples_s: list[float]) -> dict:
+    a = np.asarray(samples_s) * 1e3
+    return {"n": len(a), "p50_ms": float(np.percentile(a, 50)),
+            "p99_ms": float(np.percentile(a, 99)), "mean_ms": float(a.mean())}
+
+
+def serve_rung_checks(reg, device: torch.device, pool: np.ndarray, reps: int) -> dict:
+    """Per model and rung: the graph's answer on a full block of pool rows
+    against the eager kernel on the same padded block (bit for bit), the
+    model's transform at that bucket (bit for bit, f32 models) and the f64
+    projection (relative bound); then the replay and the eager kernel timed
+    with CUDA events (device ms per launch) and the whole dispatch against
+    the eager path (host ms: staging, copies, product, copy back)."""
+    cuda = device.type == "cuda"
+    out = {}
+    for name in reg.names():
+        entry = reg.get(name)
+        rungs, first_rows = [], {}
+        for b in sorted(entry.warm_buckets):
+            rows = pool[:b]
+            padded = entry.prepare(rows).astype(np.float32)
+            served = reg.dispatch_padded(entry, padded, b)
+            xd = torch.from_numpy(padded).to(device)
+            eager = entry.kernel(entry.params, xd).cpu().numpy()
+            row = {"bucket": b, "bitwise_vs_eager_kernel": bool(np.array_equal(served, eager)),
+                   "rel_err_vs_f64": _rel_err(served, f64_projection(entry, rows))}
+            if entry.policy == "f32":
+                row["bitwise_vs_transform"] = bool(
+                    np.array_equal(served, eager_at_bucket(entry.model, rows, b))
+                )
+            first_rows[b] = served[0]
+            if cuda:
+                rung = entry.rungs[b]
+                with rung.lock:
+                    for label, fn in (("replay", rung.graph.replay),
+                                      ("eager", lambda: entry.kernel(entry.params, rung.x))):
+                        fn()
+                        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                        start.record()
+                        for _ in range(reps):
+                            fn()
+                        stop.record()
+                        stop.synchronize()
+                        row[f"{label}_device_ms"] = start.elapsed_time(stop) / reps
+
+            def eager_path():
+                return entry.kernel(entry.params, torch.from_numpy(padded).to(device)).cpu().numpy()
+
+            for label, fn in (("dispatch", lambda: reg.dispatch_padded(entry, padded, b)),
+                              ("eager_path", eager_path)):
+                fn()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                row[f"{label}_host_ms"] = (time.perf_counter() - t0) / reps * 1e3
+            rungs.append(row)
+        base = first_rows[min(first_rows)]
+        out[name] = {
+            "policy": entry.policy,
+            "rungs": rungs,
+            # whether one row's answer was the same bits at every bucket
+            "row_bitwise_equal_across_buckets": all(
+                np.array_equal(r, base) for r in first_rows.values()
+            ),
+        }
+        for r in rungs:
+            if not r["bitwise_vs_eager_kernel"] or not r.get("bitwise_vs_transform", True):
+                raise AssertionError(f"{name}: rung {r['bucket']} differs from eager: {r}")
+            if not r["rel_err_vs_f64"] <= SERVE_REL_TOL:
+                raise AssertionError(f"{name}: rung {r['bucket']} f64 error {r}")
+    return out
+
+
+def _uds_path(directory: str) -> str:
+    """A socket path in ``directory``, or, where that path is too long for
+    AF_UNIX, a name relative to the working directory."""
+    path = os.path.join(directory, "s.sock")
+    return path if len(path) < 100 else f".serve-{os.getpid()}.sock"
+
+
+def _read_exact(rfile, n: int) -> bytes:
+    data = rfile.read(n)
+    if len(data) != n:
+        raise EOFError("server closed mid-frame")
+    return data
+
+
+class _Wires:
+    """One caller's connections to the four wires of a running server."""
+
+    def __init__(self, srv):
+        self.http = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=60)
+        self.client = serve_client.ServeClient(srv.batcher)
+        self.uds = socket.socket(socket.AF_UNIX)
+        self.uds.connect(srv.uds_path)
+        self.uds_r = self.uds.makefile("rb")
+
+    def close(self):
+        self.http.close()
+        self.uds_r.close()
+        self.uds.close()
+
+    def inproc(self, model: str, rows: np.ndarray) -> np.ndarray:
+        return self.client.predict(model, rows)
+
+    def http_binary(self, model: str, rows: np.ndarray) -> np.ndarray:
+        """One request on the caller's persistent HTTP/1.1 connection."""
+        self.http.request("POST", f"/v1/models/{model}:predict", body=rows.tobytes(), headers={
+            "Content-Type": S.BINARY_CONTENT_TYPE, "Accept": S.BINARY_CONTENT_TYPE,
+            S.SHAPE_HEADER: f"{rows.shape[0]},{rows.shape[1]}",
+        })
+        resp = self.http.getresponse()
+        body = resp.read()
+        if resp.status != 200:
+            raise AssertionError(f"HTTP {resp.status}: {body[:200]!r}")
+        shape = [int(d) for d in resp.getheader(S.SHAPE_HEADER).split(",")]
+        return np.frombuffer(body, dtype="<f4").reshape(shape)
+
+    def uds_json(self, model: str, rows: np.ndarray) -> np.ndarray:
+        raw = json.dumps({"model": model, "wire": "json", "instances": rows.tolist()}).encode()
+        self.uds.sendall(len(raw).to_bytes(4, "big") + raw)
+        n = int.from_bytes(_read_exact(self.uds_r, 4), "big")
+        resp = json.loads(_read_exact(self.uds_r, n))
+        if not resp["ok"]:
+            raise AssertionError(f"UDS error: {resp}")
+        return np.asarray(resp["predictions"], dtype=np.float32)
+
+    def fast(self, model: str, rows: np.ndarray) -> np.ndarray:
+        self.uds.sendall(FL.pack_request(model, rows))
+        return FL.read_response(lambda n: _read_exact(self.uds_r, n))
+
+
+WIRES = ("inproc", "http_binary", "uds_json", "fast")
+
+
+def span_breakdown(events: list[dict]) -> dict:
+    """Where each traced request's server-side time went, from the flight
+    recorder's spans (µs, p50/p99): ``prepare`` (request span start to
+    queueing: body read, validation, prepare, the f32 cast), ``queue`` (the
+    coalescing wait), ``assemble`` (late join, concatenation, padding),
+    ``dispatch`` (staging, H2D, replay, D2H, sync) and ``after`` (finalize,
+    the waiting thread's wake-up, booking)."""
+    requests, dispatches = {}, {}
+    for e in events:
+        args = e.get("args", {})
+        if e["name"] == "serve.request" and "span_id" in args:
+            requests[args["span_id"]] = e
+        elif e["name"] == "serve.dispatch":
+            for token in args.get("links", "").split():
+                dispatches[token.partition(":")[2]] = e
+    parts: dict[str, list] = {k: [] for k in ("prepare", "queue", "assemble", "dispatch", "after")}
+    for q in events:
+        if q["name"] != "serve.queue":
+            continue
+        r = requests.get(q["args"].get("parent_id"))
+        d = dispatches.get(q["args"].get("parent_id"))
+        if r is None or d is None:
+            continue
+        parts["prepare"].append(q["ts"] - r["ts"])
+        parts["queue"].append(q["dur"])
+        parts["assemble"].append(d["ts"] - q["ts"] - q["dur"])
+        parts["dispatch"].append(d["dur"])
+        parts["after"].append(r["ts"] + r["dur"] - d["ts"] - d["dur"])
+    return {
+        k: {"n": len(v), "p50_us": float(np.percentile(v, 50)), "p99_us": float(np.percentile(v, 99))}
+        for k, v in parts.items() if v
+    }
+
+
+def serve_latency_traffic(srv, reg, model: str, pool: np.ndarray, requests: int,
+                          seed: int) -> dict:
+    """``requests`` sequential one-row requests on each wire. Every answer
+    is held bit for bit against the eager transform at bucket 8 (each
+    request dispatches alone) and to the f64 projection; no capture may
+    happen, and the fast lane may not touch the JSON codec."""
+    entry = reg.get(model)
+    idx = np.random.default_rng(seed).integers(0, len(pool), size=requests)
+    rows = pool[idx]
+    b0 = B.serve_bucket(1)
+    eager = np.concatenate([eager_at_bucket(entry.model, rows[i:i + 1], b0)
+                            for i in range(requests)])
+    ref64 = f64_projection(entry, rows)
+    tol = SERVE_REL_TOL * float(np.abs(ref64).max())
+    wires = _Wires(srv)
+    out = {}
+    try:
+        before = REGISTRY.snapshot()
+        for wire in WIRES:
+            call = getattr(wires, wire)
+            call(model, rows[:1])  # the connection's first request is not timed
+            snap, seq = REGISTRY.snapshot(), TIMELINE.seq()
+            lat, mismatched, max_err = [], 0, 0.0
+            for i in range(requests):
+                t0 = time.perf_counter()
+                got = call(model, rows[i:i + 1])
+                lat.append(time.perf_counter() - t0)
+                mismatched += not np.array_equal(got, eager[i:i + 1])
+                max_err = max(max_err, float(np.abs(got - ref64[i:i + 1]).max()))
+            delta = REGISTRY.snapshot().delta(snap)
+            out[wire] = {**_pcts(lat), "bitwise_mismatches": mismatched,
+                         "max_abs_err_vs_f64": max_err, "tol": tol,
+                         "json_codec": delta.counter("serve.json_codec"),
+                         "batches": delta.counter("serve.batches"),
+                         "queue_delay_us": delta.hist("serve.queue_delay_us").to_dict(),
+                         "server_latency": delta.hist("serve.latency").to_dict(),
+                         "window_s": delta.hist("serve.window_effective_seconds").to_dict(),
+                         "spans": span_breakdown(TIMELINE.events(since_seq=seq))}
+            if mismatched or not max_err <= tol:
+                raise AssertionError(f"{wire}: {out[wire]}")
+        delta = REGISTRY.snapshot().delta(before)
+    finally:
+        wires.close()
+    if out["fast"]["json_codec"] != 0:
+        raise AssertionError(f"the fast lane touched the JSON codec: {out['fast']}")
+    captures = delta.counter("compile.graph_captures") + delta.counter("serve.cold_compiles")
+    if captures:
+        raise AssertionError(f"{captures} captures during the latency traffic")
+    return out
+
+
+def serve_batcher_alone(reg, model: str, pool: np.ndarray, requests: int) -> dict:
+    """What the batcher adds to a lone one-row request: ``requests``
+    sequential requests through ``predict`` directly, through a batcher with
+    the configured window, and through one with a zero window (p50/p99)."""
+    out = {}
+    for label in ("direct", "batcher", "batcher_zero_window"):
+        batcher = None
+        if label != "direct":
+            batcher = MicroBatcher(reg, max_delay_s=0.0 if label.endswith("window") else None)
+            batcher.start()
+        try:
+            lat = []
+            for i in range(requests + 1):
+                rows = pool[i:i + 1]
+                t0 = time.perf_counter()
+                if batcher is None:
+                    reg.predict(model, rows)
+                else:
+                    batcher.submit(model, rows).result(30.0)
+                if i:  # the first request is not timed
+                    lat.append(time.perf_counter() - t0)
+        finally:
+            if batcher is not None:
+                batcher.stop()
+        out[label] = _pcts(lat)
+    return out
+
+
+def serve_mixed_traffic(srv, reg, model: str, pool: np.ndarray, requests: int, threads: int,
+                        seed: int) -> dict:
+    """``requests`` requests of 1 to the ladder cap rows, log-uniform, from
+    ``threads`` threads, alternating HTTP binary and the fast lane. Every
+    answer is held to the f64 projection; a sample of them is compared bit
+    for bit with the eager transform at the request's own bucket (not a
+    gate: coalescing may put a request in a larger bucket). There must be
+    fewer dispatches than requests and no capture."""
+    entry = reg.get(model)
+    ref64_pool = f64_projection(entry, pool)
+    tol = SERVE_REL_TOL * float(np.abs(ref64_pool).max())
+    cap = B.max_batch_rows()
+    per_thread = requests // threads
+    results: list[list] = [[] for _ in range(threads)]
+    errors: list[BaseException] = []
+
+    def worker(t: int) -> None:
+        rng = np.random.default_rng(seed + t)
+        wires = None
+        try:
+            wires = _Wires(srv)
+            for i in range(per_thread):
+                r = min(cap, int(np.exp(rng.uniform(0.0, np.log(cap + 1)))))
+                off = int(rng.integers(0, len(pool) - r + 1))
+                wire = "http_binary" if (t + i) % 2 == 0 else "fast"
+                t0 = time.perf_counter()
+                got = getattr(wires, wire)(model, pool[off:off + r])
+                lat = time.perf_counter() - t0
+                err = float(np.abs(got - ref64_pool[off:off + r]).max())
+                keep = got if i % 10 == 0 else None
+                results[t].append((wire, r, off, lat, err, keep))
+        except BaseException as e:  # noqa: BLE001 - reported by the main thread
+            errors.append(e)
+        finally:
+            if wires is not None:
+                wires.close()
+
+    snap, seq = REGISTRY.snapshot(), TIMELINE.seq()
+    t0 = time.perf_counter()
+    pool_threads = [threading.Thread(target=worker, args=(t,)) for t in range(threads)]
+    for th in pool_threads:
+        th.start()
+    for th in pool_threads:
+        th.join(600)
+    wall = time.perf_counter() - t0
+    delta = REGISTRY.snapshot().delta(snap)
+    if errors:
+        raise errors[0]
+    if any(th.is_alive() for th in pool_threads):
+        raise AssertionError("mixed traffic did not finish in 600 s")
+    flat = [x for r in results for x in r]
+    if len(flat) != per_thread * threads:
+        raise AssertionError(f"{len(flat)} of {per_thread * threads} mixed requests answered")
+    rows_total = sum(x[1] for x in flat)
+    max_err = max(x[4] for x in flat)
+    sample = [x for x in flat if x[5] is not None]
+    same = sum(
+        np.array_equal(x[5], eager_at_bucket(entry.model, pool[x[2]:x[2] + x[1]],
+                                             B.serve_bucket(x[1])))
+        for x in sample
+    )
+    out = {
+        "requests": len(flat), "threads": threads, "rows": rows_total, "wall_s": wall,
+        "rows_per_s": rows_total / wall, "requests_per_s": len(flat) / wall,
+        **_pcts([x[3] for x in flat]),
+        "by_wire": {w: _pcts([x[3] for x in flat if x[0] == w]) for w in ("http_binary", "fast")},
+        "max_abs_err_vs_f64": max_err, "tol": tol,
+        "batches": delta.counter("serve.batches"),
+        "batch_rows": delta.hist("serve.batch_rows").to_dict(),
+        "queue_delay_us": delta.hist("serve.queue_delay_us").to_dict(),
+        "server_latency": delta.hist("serve.latency").to_dict(),
+        # the ring keeps the last TPU_ML_TIMELINE_EVENTS events: a sample
+        "spans": span_breakdown(TIMELINE.events(since_seq=seq)),
+        "joined_in_flight": delta.counter("serve.joined_in_flight"),
+        "sampled": len(sample), "sampled_bitwise_equal_at_own_bucket": int(same),
+        "captures": delta.counter("compile.graph_captures"),
+        "cold_compiles": delta.counter("serve.cold_compiles"),
+        "errors": delta.counter("serve.errors"),
+    }
+    if not max_err <= tol:
+        raise AssertionError(f"mixed traffic error {max_err} > {tol}")
+    if out["errors"] or out["captures"] or out["cold_compiles"]:
+        raise AssertionError(f"mixed traffic: {out}")
+    if not out["batches"] < out["requests"]:
+        raise AssertionError(f"no coalescing: {out['batches']} dispatches for {out['requests']}")
+    return out
+
+
+def serve_paging(device: torch.device, model_a, model_b, pool: np.ndarray, requests: int) -> dict:
+    """Two models under an HBM budget that holds one; ``requests`` one-row
+    requests alternate between them through the in-process client, so each
+    pages the other out, and every answer is held bit for bit against the
+    eager transform and to the f64 projection; then as many requests from
+    four threads at once, each answer held to the f64 projection."""
+    R.reset_for_tests()
+    reg = R.ModelRegistry(device)
+    budget = int(1.5 * 4 * model_a.pc.size)
+    client = serve_client.ServeClient(registry=reg)
+    try:
+        with _env(TPU_ML_SERVE_HBM_BUDGET_BYTES=str(budget)):
+            snap = REGISTRY.snapshot()
+            reg.register("page_a", model_a)
+            reg.register("page_b", model_b)
+            b0 = B.serve_bucket(1)
+            lat, max_rel, mismatched = [], 0.0, 0
+            for i in range(requests):
+                name = ("page_a", "page_b")[i % 2]
+                entry = reg.get(name)
+                rows = pool[i:i + 1]
+                t0 = time.perf_counter()
+                got = client.predict(name, rows)
+                lat.append(time.perf_counter() - t0)
+                mismatched += not np.array_equal(got, eager_at_bucket(entry.model, rows, b0))
+                max_rel = max(max_rel, _rel_err(got, f64_projection(entry, rows)))
+
+            # the same alternation from four threads at once, half through
+            # the batcher and half direct, so page-outs land while other
+            # threads replay: every answer to the f64 bound
+            def hammer(t: int) -> float:
+                worst = 0.0
+                for i in range(requests // 4):
+                    name = ("page_a", "page_b")[(i + t) % 2]
+                    off = (t * requests + i) % (len(pool) - 3)
+                    rows = pool[off:off + 1 + i % 3]
+                    got = client.predict(name, rows) if i % 2 else reg.predict(name, rows)
+                    worst = max(worst, _rel_err(got, f64_projection(reg.get(name), rows)))
+                return worst
+
+            with concurrent.futures.ThreadPoolExecutor(4) as workers:
+                concurrent_rel = max(workers.map(hammer, range(4), timeout=600))
+            delta = REGISTRY.snapshot().delta(snap)
+            stats = hbm.get_fleet().stats()
+    finally:
+        client.close()
+        R.reset_for_tests()
+    page_in_s = delta.hist("compile.graph_capture_seconds", reason="page_in")
+    out = {
+        "budget_bytes": budget, "requests": requests, **_pcts(lat),
+        "page_out": delta.counter("serve.page_out"), "page_in": delta.counter("serve.page_in"),
+        "graph_recaptures": delta.counter("serve.graph_recaptures"),
+        "recapture_s_total": page_in_s.total, "bitwise_mismatches": mismatched,
+        "max_rel_err_vs_f64": max_rel, "concurrent_max_rel_err_vs_f64": concurrent_rel,
+        "resident_bytes": stats["resident_bytes"],
+    }
+    if not (out["page_out"] > 0 and out["page_in"] > 0):
+        raise AssertionError(f"the models did not page: {out}")
+    if mismatched or not max(max_rel, concurrent_rel) <= SERVE_REL_TOL:
+        raise AssertionError(f"paged answers wrong: {out}")
+    return out
+
+
+def phase_serving(model, std_model, device: torch.device, *, latency_requests: int = 1000,
+                  mixed_requests: int = 4000, threads: int = 16, paging_requests: int = 200,
+                  pool_rows: int = SERVE_POOL_ROWS, reps: int = SERVE_TIMED_REPS,
+                  seed: int = 11) -> dict:
+    """Register the three servables over the whole ladder, check and time
+    every rung, serve the traffic of the four wires and the mixed load,
+    then page two models under a budget (see the module note, phase 10)."""
+    cuda = device.type == "cuda"
+    n = model.pc.shape[0]
+    pool = bench_workload(pool_rows, n, seed=seed)
+    R.reset_for_tests()
+    reg = R.ModelRegistry(device)
+    ladder = B.bucket_ladder()
+    snap = REGISTRY.snapshot()
+    capture_s = {}
+    for name, m in (("pca512", model), ("pca512_std", std_model)):
+        t0 = time.perf_counter()
+        reg.register(name, m)
+        capture_s[name] = time.perf_counter() - t0
+    # the bf16 variant is picked the way the JAX package picks it: by a
+    # blessed entry in the tuning-cache file
+    cache_dir = tempfile.mkdtemp(prefix="tuning")
+    try:
+        with _env(TPU_ML_TUNING_CACHE_PATH=os.path.join(cache_dir, "tuning.json")):
+            tuning_cache.reset()
+            tuning_cache.store(
+                tuning_cache.cache_key("serve.pca", n=n, device=tuning_cache.device_kind(device)),
+                TuningConfig(policy="bf16_f32acc"),
+            )
+            tuning_cache.reset()  # the registry reads the entry back from the file
+            t0 = time.perf_counter()
+            reg.register("pca512_bf16", model)
+            capture_s["pca512_bf16"] = time.perf_counter() - t0
+    finally:
+        tuning_cache.reset()
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    delta = REGISTRY.snapshot().delta(snap)
+    policies = {name: reg.get(name).policy for name in reg.names()}
+    if policies != {"pca512": "f32", "pca512_std": "f32", "pca512_bf16": "bf16_f32acc"}:
+        raise AssertionError(f"serve policies {policies}")
+    expected_captures = len(ladder) * 3 if cuda else 0
+    registration = {
+        "ladder": list(ladder), "capture_s": capture_s,
+        "aot_compiles": delta.counter("serve.aot_compiles"),
+        "graph_captures": delta.counter("compile.graph_captures", reason="register"),
+        "capture_s_per_graph": delta.hist("compile.graph_capture_seconds").to_dict(),
+    }
+    print(f"serving registration: {json.dumps(registration)}", flush=True)
+    if registration["aot_compiles"] != expected_captures or (
+        registration["graph_captures"] != expected_captures
+    ):
+        raise AssertionError(f"captures after registration {registration}, "
+                             f"expected {expected_captures}")
+    rungs = serve_rung_checks(reg, device, pool, reps)
+    for name, r in rungs.items():
+        print(f"serving rungs {name}: {json.dumps(r)}", flush=True)
+
+    uds_dir = tempfile.mkdtemp(prefix="serve")
+    srv = S.start_serving(0, registry=reg, uds_path=_uds_path(uds_dir))
+    try:
+        latency = serve_latency_traffic(srv, reg, "pca512", pool, latency_requests, seed)
+        print(f"serving latency: {json.dumps(latency)}", flush=True)
+        mixed = serve_mixed_traffic(srv, reg, "pca512", pool, mixed_requests, threads, seed)
+        print(f"serving mixed: {json.dumps(mixed)}", flush=True)
+        alone = serve_batcher_alone(reg, "pca512", pool, min(latency_requests, 300))
+        print(f"serving batcher alone: {json.dumps(alone)}", flush=True)
+        summary = S.serve_summary(REGISTRY.snapshot().delta(snap))
+    finally:
+        S.stop_serving()
+        shutil.rmtree(uds_dir, ignore_errors=True)
+    paging = serve_paging(device, model, std_model, pool, paging_requests)
+    print(f"serving paging: {json.dumps(paging)}", flush=True)
+    return {"registration": registration, "rungs": rungs, "latency": latency,
+            "mixed": mixed, "batcher_alone": alone, "paging": paging, "summary": summary}
 
 
 def _timed(name: str, fn, *args, **kwargs):
@@ -998,7 +1562,8 @@ def main() -> int:
     _timed("solvers", phase_solvers, MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS, device)
     one_pass = _timed("one pass (resident)", phase_one_pass,
                       MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS, device)
-    _timed("standardize", phase_standardize, MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS, device)
+    standardized = _timed("standardize", phase_standardize,
+                          MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS, device)
     bench_workload.cache_clear()
     stream_data = _timed("make streamed data", streamed_workload,
                          STREAM_ROWS, MAIN_N, STREAM_PARTITIONS, device)
@@ -1006,6 +1571,8 @@ def main() -> int:
                       STREAM_ROWS, MAIN_N, MAIN_K, STREAM_PARTITIONS, device, stream_data)
     streamed_one_pass = _timed("one pass (streamed)", phase_streamed_one_pass,
                                stream_data, MAIN_K, STREAM_PARTITIONS, device)
+    del stream_data
+    _timed("serving", phase_serving, resident["model"], standardized["model"], device)
     # each kernel's launches come from the main path that runs it
     launches = {
         "gram_moments": resident["launches"]["gram_moments"],

@@ -1,1 +1,2 @@
-"""The precision policies of the port's folds."""
+"""The precision policies of the port's folds, and the tuning cache that
+selects the serving variant."""

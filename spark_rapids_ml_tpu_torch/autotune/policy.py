@@ -2,10 +2,12 @@
 dtypes.
 
 Copy of ``PrecisionPolicy``, ``POLICIES``, ``FOLD_POLICIES``,
-``validate_policy`` and ``resolve_policy`` from
+``validate_policy``, ``resolve_policy`` and ``TuningConfig`` from
 ``spark_rapids_ml_tpu/autotune/policy.py``, under the same environment
 variable (``TPU_ML_PRECISION_POLICY``, default ``f32``). The tuner that
-searches over these policies is not ported.
+searches over these policies is not ported; its blessed winners are read
+through ``autotune/cache.py`` (the serving registry's ``bf16_f32acc``
+variant is selected that way).
 
 The invariant every policy keeps: accumulators stay f32. ``bf16_f32acc``
 rounds only the matmul operands to bf16 and accumulates their exact
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import enum
 import os
+from dataclasses import dataclass
 
 PRECISION_POLICY_VAR = "TPU_ML_PRECISION_POLICY"
 
@@ -63,3 +66,44 @@ def resolve_policy(policy: str | None, *, allowed: tuple[str, ...] = POLICIES) -
     if policy is None:
         policy = os.environ.get(PRECISION_POLICY_VAR, PrecisionPolicy.F32.value)
     return validate_policy(policy, allowed=allowed)
+
+
+#: Memory layouts a tuned fold may pin (the JAX package's search space).
+LAYOUTS: tuple[str, ...] = ("row", "col")
+
+
+@dataclass(frozen=True)
+class TuningConfig:
+    """One point in the tuner's search space for one kernel signature, as
+    the tuning cache stores it. ``chunk_rows=None`` keeps the static knob;
+    ``donate_carry`` is recorded for the JAX package's ledger and means
+    nothing to the port."""
+
+    chunk_rows: int | None = None
+    layout: str = "row"
+    policy: str = PrecisionPolicy.F32.value
+    donate_carry: bool = True
+
+    def __post_init__(self) -> None:
+        if self.layout not in LAYOUTS:
+            raise ValueError(f"layout {self.layout!r} must be one of {LAYOUTS}")
+        validate_policy(self.policy)
+        if self.chunk_rows is not None and self.chunk_rows < 1:
+            raise ValueError(f"chunk_rows must be >= 1, got {self.chunk_rows}")
+
+    def to_dict(self) -> dict:
+        return {
+            "chunk_rows": self.chunk_rows,
+            "layout": self.layout,
+            "policy": self.policy,
+            "donate_carry": self.donate_carry,
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "TuningConfig":
+        return cls(
+            chunk_rows=d.get("chunk_rows"),
+            layout=d.get("layout", "row"),
+            policy=d.get("policy", PrecisionPolicy.F32.value),
+            donate_carry=bool(d.get("donate_carry", True)),
+        )

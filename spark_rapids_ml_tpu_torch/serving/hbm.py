@@ -1,0 +1,207 @@
+"""Multi-model HBM fleet manager: resident parameter accounting and LRU
+paging.
+
+Port of ``spark_rapids_ml_tpu/serving/hbm.py``. A registry that captures
+every model it is handed promises the card can hold every model's
+parameters forever; this module keeps the serving side within a budget:
+
+- **Byte accounting.** Each registered servable's parameters are measured
+  (``param_bytes``) and booked against the budget:
+  ``TPU_ML_SERVE_HBM_BUDGET_BYTES`` when set, else the card's total memory
+  × 0.92 (the JAX package's default HBM watermark). The resident total is
+  the ``serve.hbm_bytes`` gauge. A CPU registry has no budget unless the
+  knob sets one.
+- **LRU paging.** Admitting a model past the budget pages the
+  least-recently-used resident models out (``serve.page_out``); a request
+  for a paged-out model pages it back in before dispatch
+  (``serve.page_in``), evicting colder ones.
+
+**Paging and CUDA graphs.** JAX's executables are shape-keyed and survive
+paging untouched. A CUDA graph instead holds the device addresses of the
+parameters it read at capture. So ``ServableEntry.page_out`` first drops
+the model's graphs, each under its rung's lock (an in-flight replay
+finishes before its graph goes), then copies the parameters to pinned host
+memory and frees them on the card; ``page_in`` copies them back to new
+device memory and recaptures every warm rung, booked as
+``serve.graph_recaptures{reason=page_in}`` and
+``compile.graph_captures{reason=page_in}``. No graph ever outlives the
+memory it reads.
+
+**Admission.** ``check_admission`` is the SLO-burn load-shedding hook
+(HTTP 503 through ``ServeShed``). The JAX package sheds only while its
+health monitor runs; the port has none yet (``telemetry/health.py`` comes
+with the fit-telemetry slice), so every request is admitted, as the JAX
+code does while ``get_monitor()`` is None.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import threading
+from typing import Any
+
+import torch
+
+from spark_rapids_ml_tpu_torch.telemetry import compilemon
+from spark_rapids_ml_tpu_torch.telemetry.registry import REGISTRY
+from spark_rapids_ml_tpu_torch.utils.config import SERVE_HBM_BUDGET_BYTES_VAR
+
+logger = logging.getLogger("spark_rapids_ml_tpu_torch.serving")
+
+#: Share of the card's memory the fleet may fill (the JAX package's default
+#: ``TPU_ML_HEALTH_HBM_WATERMARK``).
+HBM_WATERMARK = 0.92
+
+
+class ServeShed(RuntimeError):
+    """A serve request shed by the admission policy (HTTP 503)."""
+
+
+def param_bytes(params: Any) -> int:
+    """Total bytes of a tuple of parameter tensors."""
+    return int(sum(t.numel() * t.element_size() for t in params))
+
+
+def budget_bytes(device: torch.device | None = None) -> int | None:
+    """The fleet's resident-parameter budget: ``TPU_ML_SERVE_HBM_BUDGET_BYTES``
+    when set, else the total memory of ``device`` (a CUDA device) ×
+    ``HBM_WATERMARK``; None (no accounting) for the CPU without the knob."""
+    raw = os.environ.get(SERVE_HBM_BUDGET_BYTES_VAR, "").strip()
+    if raw:
+        try:
+            return max(0, int(raw))
+        except ValueError:
+            logger.warning("ignoring non-integer %s=%r", SERVE_HBM_BUDGET_BYTES_VAR, raw)
+    if device is None or device.type != "cuda":
+        return None
+    stats = compilemon.sample_device_memory().get(f"cuda:{device.index}")
+    if not stats or not stats.get("bytes_limit"):
+        return None
+    return int(stats["bytes_limit"] * HBM_WATERMARK)
+
+
+class _Resident:
+    __slots__ = ("entry", "nbytes", "seq")
+
+    def __init__(self, entry: Any, nbytes: int, seq: int):
+        self.entry = entry
+        self.nbytes = nbytes
+        self.seq = seq
+
+    @property
+    def resident(self) -> bool:
+        return self.entry.resident
+
+
+class HbmFleetManager:
+    """Tracks every registered servable's parameter bytes against the budget
+    and pages cold models to host."""
+
+    def __init__(self):
+        self._lock = threading.RLock()
+        self._models: dict[str, _Resident] = {}
+        self._seq = 0
+
+    def account(self, entry: Any) -> None:
+        """Admit a (re-)registered servable: measure its parameters, mark it
+        most recently used, and page colder models out until the fleet fits
+        the budget again."""
+        with self._lock:
+            self._seq += 1
+            self._models[entry.name] = _Resident(entry, param_bytes(entry.params), self._seq)
+            self._evict_to_fit(protect=entry.name)
+            self._publish()
+
+    def _publish(self) -> None:
+        REGISTRY.gauge_set(
+            "serve.hbm_bytes",
+            sum(r.nbytes for r in self._models.values() if r.resident),
+        )
+
+    def ensure_resident(self, entry: Any) -> None:
+        """Dispatch-path hook: touch the model's LRU clock and page its
+        parameters back in if a colder model's pressure evicted them. An
+        entry the fleet no longer books (a replaced version) pages itself
+        in without accounting."""
+        with self._lock:
+            rec = self._models.get(entry.name)
+            if rec is None or rec.entry is not entry:
+                if not entry.resident:
+                    self._page_in(entry)
+                return
+            self._seq += 1
+            rec.seq = self._seq
+            if rec.resident:
+                return
+            self._page_in(entry)
+            self._evict_to_fit(protect=entry.name)
+            self._publish()
+
+    def _page_in(self, entry: Any) -> None:
+        entry.page_in()
+        REGISTRY.counter_inc("serve.page_in", model=entry.name)
+        logger.info("paged in servable %s", entry.name)
+
+    def _page_out(self, rec: _Resident) -> None:
+        rec.entry.page_out()
+        REGISTRY.counter_inc("serve.page_out", model=rec.entry.name)
+        logger.info("paged out servable %s (%d bytes)", rec.entry.name, rec.nbytes)
+
+    def _evict_to_fit(self, protect: str) -> None:
+        """Page out least-recently-used residents (never ``protect``) until
+        the resident total fits the budget."""
+        budget = budget_bytes(self._models[protect].entry.device)
+        if budget is None:
+            return
+        used = sum(r.nbytes for r in self._models.values() if r.resident)
+        victims = sorted(
+            (r for k, r in self._models.items() if r.resident and k != protect),
+            key=lambda r: r.seq,
+        )
+        for rec in victims:
+            if used <= budget:
+                break
+            self._page_out(rec)
+            used -= rec.nbytes
+        if used > budget:
+            logger.warning(
+                "HBM fleet over budget even after paging: %d > %d bytes "
+                "(the active model alone exceeds the budget)", used, budget
+            )
+
+    def check_admission(self, model: str) -> None:
+        """SLO-burn load shedding: admits every request while no health
+        monitor exists, which is always so in the port for now."""
+
+    def stats(self) -> dict:
+        with self._lock:
+            devices = {r.entry.device for r in self._models.values()}
+            return {
+                "budget_bytes": budget_bytes(next(iter(devices)) if len(devices) == 1 else None),
+                "resident_bytes": sum(r.nbytes for r in self._models.values() if r.resident),
+                "models": {
+                    name: {"bytes": r.nbytes, "resident": r.resident, "lru_seq": r.seq}
+                    for name, r in sorted(self._models.items())
+                },
+            }
+
+
+_FLEET_LOCK = threading.Lock()
+_FLEET: HbmFleetManager | None = None
+
+
+def get_fleet() -> HbmFleetManager:
+    """The process-wide fleet manager the registry consults."""
+    global _FLEET
+    with _FLEET_LOCK:
+        if _FLEET is None:
+            _FLEET = HbmFleetManager()
+        return _FLEET
+
+
+def reset_fleet() -> None:
+    """Drop the singleton (tests)."""
+    global _FLEET
+    with _FLEET_LOCK:
+        _FLEET = None

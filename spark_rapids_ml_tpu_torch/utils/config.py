@@ -5,6 +5,13 @@ A copy of the knobs of ``spark_rapids_ml_tpu/utils/config.py`` and
 environment variable names and defaults, so one environment configures both
 packages. ``get_config()`` reads the environment on every call.
 
+The serving runtime's knobs (``TPU_ML_SERVE_*``, ``TPU_ML_TRACE_*``,
+``TPU_ML_TIMELINE_EVENTS``, ``TPU_ML_TUNING_CACHE_PATH``) are copies of
+``spark_rapids_ml_tpu/utils/knobs.py``'s, names and defaults alike. Their
+modules read them at each use through ``lenient_int``/``lenient_float``,
+which take an unset, empty or malformed value as the default, as the JAX
+package's serving modules do.
+
 ``TPU_ML_MESH_LOCAL_WIRE_DTYPE`` only sizes the streamed-fit cutover, as the
 JAX package's wire would be sized: the port stages and computes in f32
 whatever it says (``wire_dtype``). ``TPU_ML_PRECISION_POLICY`` is the fold's
@@ -30,6 +37,18 @@ WIRE_DTYPE_VAR = "TPU_ML_MESH_LOCAL_WIRE_DTYPE"
 STREAM_CHUNK_VAR = "TPU_ML_STREAM_CHUNK_ROWS"
 NONFINITE_POLICY_VAR = "TPU_ML_NONFINITE_POLICY"
 
+# serving (spark_rapids_ml_tpu/utils/knobs.py:186-242), with their defaults
+SERVE_MIN_BUCKET_VAR, DEFAULT_SERVE_MIN_BUCKET = "TPU_ML_SERVE_MIN_BUCKET", 8
+SERVE_MAX_BATCH_ROWS_VAR, DEFAULT_SERVE_MAX_BATCH_ROWS = "TPU_ML_SERVE_MAX_BATCH_ROWS", 4096
+SERVE_MAX_DELAY_US_VAR, DEFAULT_SERVE_MAX_DELAY_US = "TPU_ML_SERVE_MAX_DELAY_US", 2000.0
+SERVE_ADAPTIVE_WINDOW_VAR, DEFAULT_SERVE_ADAPTIVE_WINDOW = "TPU_ML_SERVE_ADAPTIVE_WINDOW", "1"
+SERVE_UDS_PATH_VAR = "TPU_ML_SERVE_UDS_PATH"  # empty: no UDS listener
+SERVE_HBM_BUDGET_BYTES_VAR = "TPU_ML_SERVE_HBM_BUDGET_BYTES"  # empty: from the card
+TRACE_SAMPLE_VAR, DEFAULT_TRACE_SAMPLE = "TPU_ML_TRACE_SAMPLE", 1.0
+TRACE_EXEMPLARS_VAR, DEFAULT_TRACE_EXEMPLARS = "TPU_ML_TRACE_EXEMPLARS", 4
+TIMELINE_EVENTS_VAR, DEFAULT_TIMELINE_EVENTS = "TPU_ML_TIMELINE_EVENTS", 4096
+TUNING_CACHE_PATH_VAR = "TPU_ML_TUNING_CACHE_PATH"  # empty: in-process only
+
 DEFAULT_STREAM_CHUNK = 65_536
 VALID_NONFINITE_POLICIES = ("raise", "skip", "allow")
 
@@ -39,6 +58,26 @@ def _int_env(name: str, default: int) -> int:
         return int(os.environ.get(name, default))
     except ValueError:
         raise ValueError(f"{name}={os.environ[name]!r} is not an integer") from None
+
+
+def lenient_int(name: str, default: int) -> int:
+    """``int`` of the variable, or ``default`` when it is unset, empty or
+    malformed."""
+    raw = os.environ.get(name, "").strip()
+    try:
+        return int(raw) if raw else default
+    except ValueError:
+        return default
+
+
+def lenient_float(name: str, default: float) -> float:
+    """``float`` of the variable, or ``default`` when it is unset, empty or
+    malformed."""
+    raw = os.environ.get(name, "").strip()
+    try:
+        return float(raw) if raw else default
+    except ValueError:
+        return default
 
 
 def _precision_env() -> str:

@@ -248,3 +248,63 @@ def test_streamed_one_pass_phase_on_cpu(monkeypatch):
     assert result["min_cosine_vs_f64_oracle"] >= chip_smoke.COSINE_BAR
     assert result["policy_min_cosine_vs_f64_oracle"] >= chip_smoke.COSINE_BAR
     assert "TPU_ML_PRECISION_POLICY" not in os.environ
+
+
+def test_serving_phase_on_cpu(monkeypatch):
+    """Phase 10 at a tiny size: no graphs on the CPU, so no captures are
+    expected; every other gate (bit for bit against the eager transform at
+    each rung and on the one-row wires, the f64 bound, the fast lane's zero
+    JSON, coalescing under threads, paging) holds here as on the card."""
+    monkeypatch.setenv("TPU_ML_SERVE_MAX_BATCH_ROWS", "64")
+    x = chip_smoke.bench_workload(2000, 32)
+    model = chip_smoke.PCA(device=CPU).setK(4).fit(x)
+    std_model = chip_smoke.PCA(device=CPU).setK(4).setStandardize(True).fit(x)
+    result = chip_smoke.phase_serving(
+        model, std_model, CPU, latency_requests=12, mixed_requests=48, threads=4,
+        paging_requests=8, pool_rows=512, reps=2,
+    )
+    reg = result["registration"]
+    assert reg["ladder"] == [8, 16, 32, 64] and reg["aot_compiles"] == 0
+    assert set(result["rungs"]) == {"pca512", "pca512_std", "pca512_bf16"}
+    assert result["rungs"]["pca512_bf16"]["policy"] == "bf16_f32acc"
+    for wire in chip_smoke.WIRES:
+        assert result["latency"][wire]["n"] == 12
+        assert result["latency"][wire]["bitwise_mismatches"] == 0
+    assert result["latency"]["fast"]["json_codec"] == 0
+    assert result["mixed"]["requests"] == 48
+    assert result["mixed"]["batches"] < 48
+    assert set(result["batcher_alone"]) == {"direct", "batcher", "batcher_zero_window"}
+    assert all(v["n"] == 12 for v in result["batcher_alone"].values())
+    assert result["paging"]["page_out"] > 0 and result["paging"]["page_in"] > 0
+    assert chip_smoke.hbm.get_fleet().stats()["models"] == {}
+
+
+def test_serving_gates_catch_a_wrong_answer(monkeypatch):
+    monkeypatch.setenv("TPU_ML_SERVE_MAX_BATCH_ROWS", "16")
+    x = chip_smoke.bench_workload(500, 16)
+    model = chip_smoke.PCA(device=CPU).setK(3).fit(x)
+    reg = chip_smoke.R.ModelRegistry(CPU)
+    entry = reg.register("p", model)
+    entry.params = (entry.params[0] * (1 + 1e-6),)  # off by one part in a million
+    try:
+        with pytest.raises(AssertionError, match="differs from eager|f64 error"):
+            chip_smoke.serve_rung_checks(reg, CPU, x, reps=1)
+    finally:
+        chip_smoke.R.reset_for_tests()
+
+
+def test_span_breakdown_joins_a_request_to_its_queue_and_dispatch():
+    def span(name, ts, dur, **args):
+        return {"name": name, "ph": "X", "ts": ts, "dur": dur, "args": args}
+
+    events = [
+        span("serve.queue", 110, 40, trace_id="t", span_id="q1", parent_id="r1"),
+        span("serve.dispatch", 160, 30, links="t:r1 u:r2"),
+        span("serve.request", 100, 120, trace_id="t", span_id="r1"),
+        span("serve.queue", 5, 1, trace_id="v", span_id="q9", parent_id="gone"),
+    ]
+    out = chip_smoke.span_breakdown(events)
+    assert {k: v["p50_us"] for k, v in out.items()} == {
+        "prepare": 10, "queue": 40, "assemble": 10, "dispatch": 30, "after": 30,
+    }
+    assert all(v["n"] == 1 for v in out.values())

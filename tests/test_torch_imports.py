@@ -83,3 +83,15 @@ def test_blocked_import_pattern():
     assert IMPORT_RE.search("import spark_rapids_ml_tpu\n")
     assert not IMPORT_RE.search("from spark_rapids_ml_tpu_torch.ops import linalg")
     assert not IMPORT_RE.search("import jaxtyping")
+
+
+def test_serving_and_telemetry_modules_are_covered():
+    """The serving runtime and the telemetry core are among the modules the
+    blocked-import run imports."""
+    modules = set(_port_modules())
+    for name in ("buckets", "registry", "batcher", "hbm", "fastlane", "server", "client",
+                 "__init__"):
+        assert f"spark_rapids_ml_tpu_torch.serving.{name}" in modules
+    for name in ("__init__", "registry", "timeline", "tracectx", "compilemon", "httpd"):
+        assert f"spark_rapids_ml_tpu_torch.telemetry.{name}" in modules
+    assert "spark_rapids_ml_tpu_torch.autotune.cache" in modules
