@@ -47,7 +47,23 @@ Phases, each a plain function that the CPU tests also call at a tiny size:
    requests alternating between two models under an HBM budget that holds
    one, so that they page. Every answer is checked against the eager
    transform and the f64 projection; so are the capture, JSON-codec,
-   coalescing and paging counters.
+   coalescing and paging counters. Beside them: phase 11's StandardScaler
+   model registered over the whole ladder (each rung's replay bit for bit
+   the eager standardize of its block, every answer within the f64 bound);
+   the exporter and the health monitor (/healthz, /slo, /report, which
+   holds phase 11's fits); and an objective that cannot be met, under
+   which one-row requests get HTTP 503 with TPU_ML_ADMISSION_POLICY=refuse
+   and never with off;
+11. BASELINE config 4 (resident, before phase 10): Pipeline([StandardScaler
+   (withMean, withStd), PCA(k=50, "high")]) on phase 4's 500,000 x 512 rows
+   in 8 partitions, fused_gram_moments launched 8 times in the fit, its
+   components held to the f64 eigenvectors of the standardized scatter and
+   to phase 7's model, every row transformed and held to the f64 pipeline;
+   the same with Normalizer(p=2) against the f64 scatter of the normalized
+   rows; each FitReport printed and gated (rows, peak device memory, wall
+   time); and, on phase 8's 10,000,000 x 512 data before it is freed, a
+   streamed StandardScaler fit (the moments fold, no Gram kernel) held to
+   f64 moments.
 
 Each main path reads the kernels' launch counts from 0 around exactly its
 fit. The last lines are one JSON object with every kernel's numbers, the
@@ -76,7 +92,7 @@ import time
 import numpy as np
 import torch
 
-from spark_rapids_ml_tpu_torch import PCA
+from spark_rapids_ml_tpu_torch import PCA, Normalizer, Pipeline, StandardScaler
 from spark_rapids_ml_tpu_torch.ops import _build
 from spark_rapids_ml_tpu_torch.ops import gram_moments as G
 from spark_rapids_ml_tpu_torch.ops import linalg as L
@@ -90,6 +106,7 @@ from spark_rapids_ml_tpu_torch.serving import registry as R
 from spark_rapids_ml_tpu_torch.serving import server as S
 from spark_rapids_ml_tpu_torch.serving.batcher import MicroBatcher
 from spark_rapids_ml_tpu_torch.spark import ingest
+from spark_rapids_ml_tpu_torch.telemetry import health, httpd, slo
 from spark_rapids_ml_tpu_torch.telemetry.registry import REGISTRY
 from spark_rapids_ml_tpu_torch.telemetry.timeline import TIMELINE
 from spark_rapids_ml_tpu_torch.utils import columnar
@@ -991,6 +1008,175 @@ def phase_standardize(rows: int, n: int, k: int, partitions: int, device: torch.
     if not min_cos >= COSINE_BAR:
         raise AssertionError(f"standardize min cosine vs the f64 oracle {min_cos} < {COSINE_BAR}")
     result["model"] = model  # served by phase 10
+    result["oracle_pc"] = oracle_pc  # phase 11's oracle
+    return result
+
+
+# -- phase 11: BASELINE config 4 ---------------------------------------------
+
+# The streamed scaler's moments against f64 host moments. The fold adds
+# 153 chunk sums into an f32 carry: each chunk's sum of 65,536 values by
+# the card's tree reduction, each carry add one f32 rounding (2⁻²⁴). Σx² of
+# a column (about 6.4e8 here) is then off by at most 153·2⁻²⁴ relative from
+# the adds (9e-6) and far less from the tree sums; a centred column's std
+# carries half of it: rtol 1e-5. The mean is off by at most
+# Σ|partial sums| · 153·2⁻²⁴ / rows, under 1e-7 σ here: gated at 1e-5 σ.
+STREAM_SCALER_STD_RTOL = 1e-5
+STREAM_SCALER_MEAN_TOL_SIGMAS = 1e-5
+
+
+def column_sums_f64(x: np.ndarray, device: torch.device, chunk: int = 65_536) -> np.ndarray:
+    """Σx per column of a host f32 matrix, in f64 on ``device`` a chunk of
+    rows at a time."""
+    total = torch.zeros(x.shape[1], dtype=torch.float64, device=device)
+    for a in range(0, x.shape[0], chunk):
+        total += torch.from_numpy(x[a:a + chunk]).to(device).double().sum(dim=0)
+    return total.cpu().numpy()
+
+
+def _fit_report_gates(report, caller_s: float, rows: int, device: torch.device) -> None:
+    """A FitReport's rows, peak device memory and wall time, held to what
+    the caller knows."""
+    if report.rows_ingested != rows:
+        raise AssertionError(f"{report.estimator} report ingested {report.rows_ingested} rows, "
+                             f"not {rows}")
+    if device.type == "cuda":
+        total = torch.cuda.get_device_properties(device).total_memory
+        if not 0 < report.peak_device_bytes < total:
+            raise AssertionError(f"{report.estimator} report peak {report.peak_device_bytes} B "
+                                 f"outside (0, {total})")
+    if not report.wall_seconds <= caller_s:
+        raise AssertionError(f"{report.estimator} report wall {report.wall_seconds} s > the "
+                             f"caller's {caller_s} s")
+
+
+def phase_pipeline(rows: int, n: int, k: int, partitions: int, device: torch.device,
+                   standardized: dict) -> dict:
+    """BASELINE config 4 through the public API: Pipeline([StandardScaler,
+    PCA]) and Pipeline([Normalizer, PCA]) at "high", each fit with the
+    kernels' launch counts read from 0 around exactly it, then every row
+    transformed. ``standardized`` is phase 7's result (its model and its
+    f64 oracle)."""
+    x = bench_workload(rows, n)
+    cuda = device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    ds = columnar.PartitionedDataset.from_any(x, None, partitions)
+    x64 = torch.from_numpy(x).to(device=device, dtype=torch.float64)
+    norms = torch.linalg.vector_norm(x64, dim=1, keepdim=True)
+    xn = x64 / torch.where(norms > 0, norms, torch.ones_like(norms))
+    normalized_oracle, _ = oracle_from_scatter((xn.T @ xn).cpu().numpy(), k)
+    del xn
+    cases = {
+        "scaler": (StandardScaler(device=device, withMean=True, withStd=True),
+                   standardized["oracle_pc"]),
+        "normalizer": (Normalizer(device=device, p=2.0), normalized_oracle),
+    }
+    results = {}
+    for name, (pre, oracle_pc) in cases.items():
+        pca = PCA(device=device).setK(k).setPrecision("high")
+        sync()
+        reset_launches()
+        t0 = time.perf_counter()
+        model = Pipeline(stages=[pre, pca]).fit(ds)
+        sync()
+        fit_s = time.perf_counter() - t0
+        launches = read_launches()
+        t0 = time.perf_counter()
+        out = model.transform(x)
+        sync()
+        transform_s = time.perf_counter() - t0
+
+        stage0, fitted_pca = model.stages
+        pc = fitted_pca.pc
+        if name == "scaler":
+            mean = torch.from_numpy(stage0.mean).to(device, torch.float64)
+            std = torch.from_numpy(stage0.std).to(device, torch.float64)
+            pre64 = (x64 - mean) / torch.where(std > 0, std, torch.ones_like(std))
+        else:
+            pre64 = x64 / torch.where(norms > 0, norms, torch.ones_like(norms))
+        ref = (pre64 @ torch.from_numpy(pc).to(device, torch.float64)).cpu().numpy()
+        del pre64
+        report = model.fit_report
+        result = {
+            "rows": rows, "n": n, "k": k, "partitions": partitions, "launches": launches,
+            "min_cosine_vs_f64_oracle": _min_abs_cosine(pc, oracle_pc),
+            "transform_max_abs_err": float(np.abs(out - ref).max()),
+            "transform_tol": 1e-4 * float(np.abs(ref).max()),
+            "fit_s": fit_s, "transform_s": transform_s,
+            "stage_fit_s": {type(s).__name__: s.fit_report.wall_seconds
+                            for s in model.stages if getattr(s, "fit_report", None)},
+            "stage_transform_s": {type(s).__name__: s.transform_report.wall_seconds
+                                  for s in model.stages},
+        }
+        if name == "scaler":
+            result["min_cosine_vs_standardize_fit"] = _min_abs_cosine(
+                pc, standardized["model"].pc)
+        print(f"config 4 ({name}): {json.dumps(result)}", flush=True)
+        print(f"config 4 ({name}) fit report: {json.dumps(report.to_dict())}", flush=True)
+
+        expected = expected_launches(gram_moments=partitions if cuda else 0)
+        if launches != expected:
+            raise AssertionError(f"config 4 ({name}) launches {launches}, expected {expected}")
+        for key in ("min_cosine_vs_f64_oracle", "min_cosine_vs_standardize_fit"):
+            if key in result and not result[key] >= COSINE_BAR:
+                raise AssertionError(f"config 4 ({name}) {key} {result[key]} < {COSINE_BAR}")
+        if out.shape != (rows, k) or not np.isfinite(out).all():
+            raise AssertionError(f"config 4 ({name}) transform gave {out.shape} or non-finite")
+        if not result["transform_max_abs_err"] <= result["transform_tol"]:
+            raise AssertionError(f"config 4 ({name}) transform error {result}")
+        _fit_report_gates(report, fit_s, rows, device)
+        result["model"] = model
+        result["fit_id"] = report.fit_id
+        results[name] = result
+    return results
+
+
+def phase_streamed_scaler(data, partitions: int, device: torch.device) -> dict:
+    """StandardScaler on phase 8's streamed data: above the cutover it folds
+    the moments chunk by chunk (``stream_fold`` + ``moment_fold_step``), no
+    Gram kernel; count, mean and std held to f64 host moments."""
+    x, gram64 = data
+    rows, n = x.shape
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    model = StandardScaler(device=device).fit(x, num_partitions=partitions)
+    if cuda:
+        torch.cuda.synchronize(device)
+    fit_s = time.perf_counter() - t0
+    launches = read_launches()
+    rep, report = model.stream_report, model.fit_report
+    if rep is None:
+        raise AssertionError("the scaler fit went resident instead of streaming")
+    mean64 = column_sums_f64(x, device) / rows
+    std64 = np.sqrt((np.diag(gram64) - rows * mean64 ** 2) / (rows - 1))
+    result = {
+        "rows": rows, "n": n, "chunks": rep.chunks, "fit_s": fit_s, "launches": launches,
+        "mean_max_err_in_sigmas": float(np.max(np.abs(model.mean - mean64) / std64)),
+        "std_max_rel_err": float(np.max(np.abs(model.std / std64 - 1))),
+        "overlap_fraction": report.overlap_fraction, "h2d_bytes": report.h2d_bytes,
+        "rows_ingested": report.rows_ingested,
+        "copy_overlapped": rep.copy_overlapped,
+    }
+    print(f"streamed scaler: {json.dumps(result)}", flush=True)
+    print(f"streamed scaler fit report: {json.dumps(report.to_dict())}", flush=True)
+    if launches != expected_launches():
+        raise AssertionError(f"the moments fold launched a Gram kernel: {launches}")
+    if rep.rows != rows or rep.chunks != -(-rows // ingest.stream_chunk_rows()):
+        raise AssertionError(f"the scaler fold did not take every row once: {rep}")
+    if report.h2d_bytes != (x.nbytes if cuda else 0):
+        raise AssertionError(f"h2d_bytes {report.h2d_bytes}, expected {x.nbytes}")
+    if not result["mean_max_err_in_sigmas"] <= STREAM_SCALER_MEAN_TOL_SIGMAS:
+        raise AssertionError(f"streamed scaler mean off: {result}")
+    if not result["std_max_rel_err"] <= STREAM_SCALER_STD_RTOL:
+        raise AssertionError(f"streamed scaler std off: {result}")
+    _fit_report_gates(report, fit_s, rows, device)
     return result
 
 
@@ -1030,9 +1216,13 @@ def eager_at_bucket(model, rows: np.ndarray, bucket: int) -> np.ndarray:
 def f64_projection(entry, rows: np.ndarray) -> np.ndarray:
     """The f64 reference of a served answer: the model's standardization
     and projection in f64; for the bf16 variant, the f64 product of the
-    bf16-rounded operands."""
+    bf16-rounded operands; for a scaler, its standardize in f64."""
     m = entry.model
     x = rows.astype(np.float64)
+    if entry.family == "scaler":
+        if m.getWithMean():
+            x = x - m.mean
+        return x / np.where(m.std > 0, m.std, 1.0) if m.getWithStd() else x
     if m.mean is not None:
         x = (x - m.mean) / np.where(m.std > 0, m.std, 1.0)
     pc = np.asarray(m.pc, dtype=np.float64)
@@ -1447,13 +1637,98 @@ def serve_paging(device: torch.device, model_a, model_b, pool: np.ndarray, reque
     return out
 
 
-def phase_serving(model, std_model, device: torch.device, *, latency_requests: int = 1000,
+def _get_json(port: int, path: str) -> tuple[int, dict]:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def serve_exporter_checks(fit_ids: tuple[str, ...]) -> dict:
+    """Bring up the exporter and the health monitor; /healthz, /slo and
+    /report answer with JSON, and /report holds the fits ``fit_ids``."""
+    srv = httpd.start_http_server(0)
+    try:
+        out = {}
+        for path in ("/healthz", "/slo", "/report"):
+            code, body = _get_json(srv.port, path)
+            out[path] = {"status": code, "keys": sorted(body)}
+            if code != 200:
+                raise AssertionError(f"{path} answered {code}: {body}")
+            if path == "/healthz":
+                out[path]["state"] = body["state"]
+            if path == "/report":
+                held = [r.get("fit_id") for r in body["reports"]]
+                out[path]["fit_ids"] = [f for f in fit_ids if f in held]
+    finally:
+        httpd.stop_http_server()
+    if out["/report"]["fit_ids"] != list(fit_ids):
+        raise AssertionError(f"/report lacks phase 11's fits {fit_ids}: {out}")
+    if out["/healthz"]["state"] not in ("OK", "DEGRADED"):
+        raise AssertionError(f"/healthz: {out}")
+    return out
+
+
+# an objective no request can meet: a p50 latency of 1 ns
+SHED_OBJECTIVE = "serve.latency:p50:1e-9"
+
+
+def serve_shedding(srv, model: str, pool: np.ndarray, requests: int) -> dict:
+    """Under ``SHED_OBJECTIVE`` and a monitor polling every 20 ms, one-row
+    HTTP JSON requests (each on a connection of its own, 5 ms apart):
+    under TPU_ML_ADMISSION_POLICY=refuse at least one answers 503 and
+    ``serve.shed`` counts it; under off none does, though the objective
+    burns all the same."""
+    out = {}
+    for policy in ("refuse", "off"):
+        with _env(TPU_ML_ADMISSION_POLICY=policy):
+            mon = health.start_monitor(interval_s=0.02, slo_engine=slo.SloEngine(
+                slo.parse_objectives(SHED_OBJECTIVE), burn=1, window_s=60.0))
+            snap = REGISTRY.snapshot()
+            codes: dict[int, int] = {}
+            try:
+                for i in range(requests):
+                    body = json.dumps({"instances": pool[i:i + 1].tolist()}).encode()
+                    conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=60)
+                    try:
+                        conn.request("POST", f"/v1/models/{model}:predict", body=body,
+                                     headers={"Content-Type": "application/json"})
+                        resp = conn.getresponse()
+                        resp.read()
+                    finally:
+                        conn.close()
+                    codes[resp.status] = codes.get(resp.status, 0) + 1
+                    time.sleep(0.005)
+                breaches = mon.slo.total_breaches()
+            finally:
+                health.stop_monitor()
+            shed = REGISTRY.snapshot().delta(snap).counter("serve.shed")
+        out[policy] = {"codes": {str(c): v for c, v in sorted(codes.items())},
+                       "slo_breaches": breaches, "serve_shed": shed}
+    print(f"serving shedding: {json.dumps(out)}", flush=True)
+    refuse, off = out["refuse"], out["off"]
+    if not (refuse["codes"].get("503", 0) >= 1 and refuse["serve_shed"] > 0):
+        raise AssertionError(f"no request shed under refuse: {out}")
+    if set(refuse["codes"]) - {"200", "503"} or set(off["codes"]) != {"200"}:
+        raise AssertionError(f"unexpected answers: {out}")
+    if off["serve_shed"] != 0 or not off["slo_breaches"] > 0:
+        raise AssertionError(f"shedding under off: {out}")
+    return out
+
+
+def phase_serving(model, std_model, device: torch.device, *, scaler_model=None,
+                  report_fit_ids: tuple[str, ...] = (), latency_requests: int = 1000,
                   mixed_requests: int = 4000, threads: int = 16, paging_requests: int = 200,
-                  pool_rows: int = SERVE_POOL_ROWS, reps: int = SERVE_TIMED_REPS,
-                  seed: int = 11) -> dict:
-    """Register the three servables over the whole ladder, check and time
-    every rung, serve the traffic of the four wires and the mixed load,
-    then page two models under a budget (see the module note, phase 10)."""
+                  shed_requests: int = 200, pool_rows: int = SERVE_POOL_ROWS,
+                  reps: int = SERVE_TIMED_REPS, seed: int = 11) -> dict:
+    """Register the servables (and phase 11's scaler, when given) over the
+    whole ladder, check the exporter, check and time every rung, serve the
+    traffic of the four wires and the mixed load, shed under an objective
+    that cannot be met, then page two models under a budget (see the
+    module note, phase 10)."""
     cuda = device.type == "cuda"
     n = model.pc.shape[0]
     pool = bench_workload(pool_rows, n, seed=seed)
@@ -1462,7 +1737,10 @@ def phase_serving(model, std_model, device: torch.device, *, latency_requests: i
     ladder = B.bucket_ladder()
     snap = REGISTRY.snapshot()
     capture_s = {}
-    for name, m in (("pca512", model), ("pca512_std", std_model)):
+    served = [("pca512", model), ("pca512_std", std_model)]
+    if scaler_model is not None:
+        served.append(("scaler512", scaler_model))
+    for name, m in served:
         t0 = time.perf_counter()
         reg.register(name, m)
         capture_s[name] = time.perf_counter() - t0
@@ -1485,9 +1763,12 @@ def phase_serving(model, std_model, device: torch.device, *, latency_requests: i
         shutil.rmtree(cache_dir, ignore_errors=True)
     delta = REGISTRY.snapshot().delta(snap)
     policies = {name: reg.get(name).policy for name in reg.names()}
-    if policies != {"pca512": "f32", "pca512_std": "f32", "pca512_bf16": "bf16_f32acc"}:
+    expected_policies = {"pca512": "f32", "pca512_std": "f32", "pca512_bf16": "bf16_f32acc"}
+    if scaler_model is not None:
+        expected_policies["scaler512"] = "f32"
+    if policies != expected_policies:
         raise AssertionError(f"serve policies {policies}")
-    expected_captures = len(ladder) * 3 if cuda else 0
+    expected_captures = len(ladder) * len(expected_policies) if cuda else 0
     registration = {
         "ladder": list(ladder), "capture_s": capture_s,
         "aot_compiles": delta.counter("serve.aot_compiles"),
@@ -1500,6 +1781,10 @@ def phase_serving(model, std_model, device: torch.device, *, latency_requests: i
     ):
         raise AssertionError(f"captures after registration {registration}, "
                              f"expected {expected_captures}")
+    # before the rung checks, whose transforms would push the fits out of
+    # /report's ring of recent reports
+    exporter = serve_exporter_checks(report_fit_ids)
+    print(f"serving exporter: {json.dumps(exporter)}", flush=True)
     rungs = serve_rung_checks(reg, device, pool, reps)
     for name, r in rungs.items():
         print(f"serving rungs {name}: {json.dumps(r)}", flush=True)
@@ -1514,13 +1799,15 @@ def phase_serving(model, std_model, device: torch.device, *, latency_requests: i
         alone = serve_batcher_alone(reg, "pca512", pool, min(latency_requests, 300))
         print(f"serving batcher alone: {json.dumps(alone)}", flush=True)
         summary = S.serve_summary(REGISTRY.snapshot().delta(snap))
+        shedding = serve_shedding(srv, "pca512", pool, shed_requests)
     finally:
         S.stop_serving()
         shutil.rmtree(uds_dir, ignore_errors=True)
     paging = serve_paging(device, model, std_model, pool, paging_requests)
     print(f"serving paging: {json.dumps(paging)}", flush=True)
-    return {"registration": registration, "rungs": rungs, "latency": latency,
-            "mixed": mixed, "batcher_alone": alone, "paging": paging, "summary": summary}
+    return {"registration": registration, "exporter": exporter, "rungs": rungs,
+            "latency": latency, "mixed": mixed, "batcher_alone": alone, "shedding": shedding,
+            "paging": paging, "summary": summary}
 
 
 def _timed(name: str, fn, *args, **kwargs):
@@ -1571,8 +1858,13 @@ def main() -> int:
                       STREAM_ROWS, MAIN_N, MAIN_K, STREAM_PARTITIONS, device, stream_data)
     streamed_one_pass = _timed("one pass (streamed)", phase_streamed_one_pass,
                                stream_data, MAIN_K, STREAM_PARTITIONS, device)
+    _timed("streamed scaler", phase_streamed_scaler, stream_data, STREAM_PARTITIONS, device)
     del stream_data
-    _timed("serving", phase_serving, resident["model"], standardized["model"], device)
+    config4 = _timed("config 4 pipelines", phase_pipeline,
+                     MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS, device, standardized)
+    _timed("serving", phase_serving, resident["model"], standardized["model"], device,
+           scaler_model=config4["scaler"]["model"].stages[0],
+           report_fit_ids=tuple(r["fit_id"] for r in config4.values()))
     # each kernel's launches come from the main path that runs it
     launches = {
         "gram_moments": resident["launches"]["gram_moments"],

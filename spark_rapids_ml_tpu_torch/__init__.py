@@ -13,10 +13,50 @@ transform; and save/load in the JAX package's native and Spark ML layouts
 (host-side, with pyarrow). The Gram + moments kernels are written by hand
 for Hopper (``csrc/gram_moments.cu``): the split's three bf16 products for
 ``high``, one bf16 pass for ``default`` and the ``bf16_f32acc`` policy.
+
+Beside PCA: the scaler family (``models/scaler.py``), ``Pipeline``
+(BASELINE config 4, ``Pipeline([StandardScaler, PCA])``), the quantile
+discretizer and the variance selector; every fit books a ``FitReport``
+(``telemetry/``), and serving has a health monitor and SLO shedding.
 """
 
+from spark_rapids_ml_tpu_torch.models.discretizer import (
+    Bucketizer,
+    QuantileDiscretizer,
+    QuantileDiscretizerModel,
+)
 from spark_rapids_ml_tpu_torch.models.pca import PCA, PCAModel
+from spark_rapids_ml_tpu_torch.models.pipeline import Pipeline, PipelineModel
+from spark_rapids_ml_tpu_torch.models.scaler import (
+    DCT,
+    Binarizer,
+    ElementwiseProduct,
+    Imputer,
+    ImputerModel,
+    MaxAbsScaler,
+    MaxAbsScalerModel,
+    MinMaxScaler,
+    MinMaxScalerModel,
+    Normalizer,
+    PolynomialExpansion,
+    RobustScaler,
+    RobustScalerModel,
+    StandardScaler,
+    StandardScalerModel,
+    VectorSlicer,
+)
+from spark_rapids_ml_tpu_torch.models.selector import (
+    VarianceThresholdSelector,
+    VarianceThresholdSelectorModel,
+)
 
 __version__ = "0.1.0"
 
-__all__ = ["PCA", "PCAModel", "__version__"]
+__all__ = [
+    "DCT", "Binarizer", "Bucketizer", "ElementwiseProduct", "Imputer", "ImputerModel",
+    "MaxAbsScaler", "MaxAbsScalerModel", "MinMaxScaler", "MinMaxScalerModel", "Normalizer",
+    "PCA", "PCAModel", "Pipeline", "PipelineModel", "PolynomialExpansion",
+    "QuantileDiscretizer", "QuantileDiscretizerModel", "RobustScaler", "RobustScalerModel",
+    "StandardScaler", "StandardScalerModel", "VarianceThresholdSelector",
+    "VarianceThresholdSelectorModel", "VectorSlicer", "__version__",
+]

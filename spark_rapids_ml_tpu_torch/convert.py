@@ -1,36 +1,71 @@
-"""Carry a fitted PCA model from the JAX package into the port.
+"""Carry fitted models from the JAX package into the port.
 
-``pca_model_from_arrays`` takes the dict that
-``spark_rapids_ml_tpu.models.pca.PCAModel._saveData()`` returns (numpy
-``pc`` and ``explainedVariance``, and ``mean``/``std`` for a model fitted
-with standardize=True) and builds the port's ``PCAModel`` from it. Nothing
-of the JAX package is imported: the dict holds plain numpy arrays.
+Each function here takes the dict that the JAX model's ``_saveData()`` returns,
+plain numpy arrays, so nothing of the JAX package is imported:
+
+- ``pca_model_from_arrays``: ``pc`` and ``explainedVariance``, and
+  ``mean``/``std`` for a model fitted with standardize=True;
+- ``model_from_arrays``: any model or stage the port has, named by its
+  class name (``"StandardScalerModel"``: ``mean``/``std``;
+  ``"MinMaxScalerModel"``: ``originalMin``/``originalMax``;
+  ``"RobustScalerModel"``: ``median``/``range``; ``"ImputerModel"``:
+  ``surrogate``; ``"QuantileDiscretizerModel"``: ``splits``;
+  ``"VarianceThresholdSelectorModel"``: ``selectedFeatures``; a stateless
+  stage such as ``"Normalizer"``: nothing), with the params the JAX model
+  had set (its ``_paramMap``), which ``_saveData`` does not hold;
+- ``pipeline_model_from_arrays``: a ``PipelineModel`` from a list of
+  ``{"class", "data", "params"}`` dicts, one per stage, in order.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
 
+from spark_rapids_ml_tpu_torch.models.base import port_class
 from spark_rapids_ml_tpu_torch.models.pca import PCAModel
+from spark_rapids_ml_tpu_torch.models.pipeline import PipelineModel
 
 
 def pca_model_from_arrays(
     data: Mapping[str, np.ndarray],
     device: str | torch.device = "cuda",
 ) -> PCAModel:
-    """A port ``PCAModel`` holding the given components (and scaling)."""
+    """A port ``PCAModel`` holding the given components (and scaling):
+    ``model_from_arrays("PCAModel", data, device)`` after a check that the
+    arrays are whole."""
     missing = {"pc", "explainedVariance"} - set(data)
     if missing:
         raise KeyError(f"model arrays lack {sorted(missing)}")
     if ("mean" in data) != ("std" in data):
         raise KeyError("model arrays must hold both 'mean' and 'std', or neither")
-    return PCAModel(
-        pc=np.asarray(data["pc"]),
-        explainedVariance=np.asarray(data["explainedVariance"]),
-        mean=data.get("mean"),
-        std=data.get("std"),
-        device=device,
+    return model_from_arrays("PCAModel", data, device)
+
+
+def model_from_arrays(
+    model_class: str,
+    data: Mapping[str, np.ndarray],
+    device: str | torch.device = "cuda",
+    params: Mapping[str, Any] | None = None,
+) -> Any:
+    """The port's ``model_class`` holding ``data`` (the JAX model's
+    ``_saveData()``), with ``params`` set."""
+    model = port_class(model_class)._fromSaved(
+        None, {k: np.asarray(v) for k, v in data.items()}, device
     )
+    if params:
+        model._set(**params)
+    return model
+
+
+def pipeline_model_from_arrays(
+    stages: Sequence[Mapping[str, Any]], device: str | torch.device = "cuda"
+) -> PipelineModel:
+    """A ``PipelineModel`` of the stages ``[{"class": ..., "data": ...,
+    "params": ...}, ...]`` (``data`` and ``params`` may be left out)."""
+    return PipelineModel(stages=[
+        model_from_arrays(s["class"], s.get("data", {}), device, s.get("params"))
+        for s in stages
+    ])

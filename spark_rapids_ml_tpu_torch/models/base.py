@@ -1,7 +1,18 @@
-"""Estimator / Model bases of the port, with save and load.
+"""Estimator / Transformer / Model bases of the port: fit and transform
+telemetry, save and load.
 
-Counterpart of ``spark_rapids_ml_tpu/models/base.py`` without its fit and
-transform telemetry. Persistence writes the JAX package's two layouts
+Counterpart of ``spark_rapids_ml_tpu/models/base.py``.
+
+**Telemetry.** ``Estimator.__init_subclass__`` wraps every subclass's own
+``fit`` (``_instrumented_fit``) and ``Transformer.__init_subclass__`` every
+``transform`` (``_instrumented_transform``): each call opens a capture
+window (``telemetry/report.py``), and the fitted model gets its
+``fit_report``, the transformer its ``transform_report``. A per-thread
+depth makes only the outermost call export its report and timeline to the
+JSONL sinks, so a pipeline's fit is one line. The wrappers change nothing
+in the body they wrap: the same arguments, the same result.
+
+**Persistence** writes the JAX package's two layouts
 (``utils/persistence.py``): the native ``metadata.json`` + ``data.parquet``
 and ``layout="spark"``, stock Spark ML's shape. ``load`` tells them apart.
 
@@ -21,33 +32,69 @@ Loading runs on the host; the loaded stage runs on ``device`` (default
 
 from __future__ import annotations
 
+import functools
 import importlib
+import threading
 from typing import Any
 
 import numpy as np
 import torch
 
+from spark_rapids_ml_tpu_torch import telemetry
 from spark_rapids_ml_tpu_torch.models.params import Params
-from spark_rapids_ml_tpu_torch.utils import persistence
+from spark_rapids_ml_tpu_torch.utils import columnar, persistence
 
-_PCA_MODULE = "spark_rapids_ml_tpu_torch.models.pca"
+_PORT_MODELS = "spark_rapids_ml_tpu_torch.models"
 
 # Stock Spark ML class name -> the port's class, for Spark-layout saves.
 _SPARK_ML_CLASSES: dict[str, str] = {
-    "org.apache.spark.ml.feature.PCAModel": f"{_PCA_MODULE}.PCAModel",
+    f"org.apache.spark.ml.feature.{name}": f"{_PORT_MODELS}.{module}.{name}"
+    for module, name in (
+        ("pca", "PCAModel"),
+        ("scaler", "StandardScalerModel"),
+        ("scaler", "MinMaxScalerModel"),
+        ("scaler", "MaxAbsScalerModel"),
+        ("scaler", "RobustScalerModel"),
+        ("selector", "VarianceThresholdSelectorModel"),
+    )
 }
 
-# A JAX-package class recorded in a native save -> the port's counterpart.
+# The port's classes by module. A JAX-package class recorded in a native
+# save maps to the port's counterpart, which has the same module and class
+# name.
 _JAX_PACKAGE = "spark_rapids_ml_tpu"
+_PORTED_CLASSES: dict[str, tuple[str, ...]] = {
+    "pca": ("PCA", "PCAModel"),
+    "scaler": (
+        "StandardScaler", "StandardScalerModel", "MinMaxScaler", "MinMaxScalerModel",
+        "MaxAbsScaler", "MaxAbsScalerModel", "Normalizer", "Binarizer", "RobustScaler",
+        "RobustScalerModel", "Imputer", "ImputerModel", "ElementwiseProduct", "VectorSlicer",
+        "DCT", "PolynomialExpansion",
+    ),
+    "pipeline": ("Pipeline", "PipelineModel"),
+    "discretizer": ("Bucketizer", "QuantileDiscretizer", "QuantileDiscretizerModel"),
+    "selector": ("VarianceThresholdSelector", "VarianceThresholdSelectorModel"),
+}
+_PORT_CLASS_PATHS: dict[str, str] = {
+    name: f"{module}.{name}" for module, names in _PORTED_CLASSES.items() for name in names
+}
 _JAX_CLASSES: dict[str, str] = {
-    "spark_rapids_ml_tpu.models.pca.PCA": f"{_PCA_MODULE}.PCA",
-    "spark_rapids_ml_tpu.models.pca.PCAModel": f"{_PCA_MODULE}.PCAModel",
+    f"{_JAX_PACKAGE}.models.{path}": f"{_PORT_MODELS}.{path}"
+    for path in _PORT_CLASS_PATHS.values()
 }
 
 
 def _import_class(name: str):
     module, _, qualname = name.rpartition(".")
     return getattr(importlib.import_module(module), qualname)
+
+
+def port_class(name: str):
+    """The port's class of a bare class name (``"StandardScalerModel"``)."""
+    path = _PORT_CLASS_PATHS.get(name)
+    if path is None:
+        raise KeyError(f"the port has no {name!r} (ported: {sorted(_PORT_CLASS_PATHS)})")
+    return _import_class(f"{_PORT_MODELS}.{path}")
 
 
 def _native_class(recorded: str, path: str):
@@ -110,12 +157,12 @@ class Saveable(Params):
         # overwrite never deletes the old save and then fails to write
         if layout not in ("native", "spark"):
             raise ValueError("layout must be 'native' or 'spark'")
-        if layout == "spark" and type(self)._saveSparkML is Saveable._saveSparkML:
-            raise NotImplementedError(
-                f"{type(self).__name__} has no stock Spark ML twin; use the native layout"
-            )
         if layout == "spark":
             self._checkSparkML()
+            if type(self)._saveSparkML is Saveable._saveSparkML:
+                raise NotImplementedError(
+                    f"{type(self).__name__} has no stock Spark ML twin; use the native layout"
+                )
         data = self._saveData() if layout == "native" else {}
         if layout == "spark" or data:
             persistence._require_pyarrow()
@@ -154,12 +201,19 @@ class Saveable(Params):
             return cls._load_spark_layout(path, device)
         meta = persistence.load_metadata(path)
         klass = _resolve_load_class(cls, _native_class(meta["class"], path), path)
+        instance = klass._loadNative(path, meta, device)
+        instance._restoreParamState(meta)
+        return instance
+
+    @classmethod
+    def _loadNative(cls, path: str, meta: dict, device: str | torch.device) -> Any:
+        """The instance a native save at ``path`` holds, before its params
+        are restored: its ``data.parquet`` arrays through ``_fromSaved``.
+        A pipeline overrides it to load its stages."""
         data = {}
         if persistence._FS(path).exists("data.parquet"):
             data = persistence.load_arrays(path)
-        instance = klass._fromSaved(meta["uid"], data, device)
-        instance._restoreParamState(meta)
-        return instance
+        return cls._fromSaved(meta["uid"], data, device)
 
     @classmethod
     def _load_spark_layout(cls, path: str, device: str | torch.device) -> Any:
@@ -203,11 +257,116 @@ def spark_set_params(instance: Params) -> dict:
     return {k: persistence._jsonable(v) for k, v in instance._paramMap.items()}
 
 
+# Nesting depth of fits and transforms per thread (a pipeline's stages run
+# inside its fit): every level gets a report, only the outermost exports.
+_fit_depth = threading.local()
+_transform_depth = threading.local()
+
+
+def _dataset_arg(args: tuple, kwargs: dict) -> Any:
+    return args[0] if args else kwargs.get("dataset")
+
+
+def _instrumented_fit(fit):
+    """Wrap one class's ``fit`` in a fit window (``telemetry.begin_fit`` /
+    ``end_fit``); the model gets the ``FitReport`` as ``fit_report``."""
+
+    @functools.wraps(fit)
+    def fit_with_telemetry(self, *args, **kwargs):
+        depth = getattr(_fit_depth, "value", 0)
+        _fit_depth.value = depth + 1
+        rows, nbytes = columnar.dataset_size(_dataset_arg(args, kwargs))
+        try:
+            cap = telemetry.begin_fit(
+                type(self).__name__, getattr(self, "uid", "") or "",
+                rows=rows, nbytes=nbytes, device=getattr(self, "device", None),
+                outermost=depth == 0,
+            )
+        except BaseException:
+            # a refused fit must not leave the depth raised, or every later
+            # fit of this thread would count as nested and never export
+            _fit_depth.value = depth
+            raise
+        try:
+            model = fit(self, *args, **kwargs)
+        finally:
+            _fit_depth.value = depth
+            report = telemetry.end_fit(cap)
+        telemetry.attach_report(model, report)
+        if depth == 0:
+            telemetry.export_fit_report(report)
+            telemetry.export_timeline(
+                telemetry.TIMELINE.events(since_seq=cap.tl_seq),
+                fit_id=report.fit_id, estimator=report.estimator, uid=report.uid,
+                overlap_fraction=report.overlap_fraction,
+            )
+        return model
+
+    fit_with_telemetry._telemetry_wrapped = True
+    return fit_with_telemetry
+
+
+def _instrumented_transform(transform):
+    """Wrap one class's ``transform`` in a transform window; the
+    transformer gets the ``TransformReport`` as ``transform_report``."""
+
+    @functools.wraps(transform)
+    def transform_with_telemetry(self, *args, **kwargs):
+        depth = getattr(_transform_depth, "value", 0)
+        _transform_depth.value = depth + 1
+        rows, nbytes = columnar.dataset_size(_dataset_arg(args, kwargs))
+        cap = telemetry.begin_transform(
+            type(self).__name__, getattr(self, "uid", "") or "", rows=rows, nbytes=nbytes
+        )
+        try:
+            out = transform(self, *args, **kwargs)
+        finally:
+            _transform_depth.value = depth
+            report = telemetry.end_transform(cap)
+            telemetry.attach_transform_report(self, report)
+        if depth == 0:
+            telemetry.export_transform_report(report)
+            telemetry.export_timeline(
+                telemetry.TIMELINE.events(since_seq=cap.tl_seq),
+                transform_id=report.transform_id, estimator=report.transformer,
+                uid=report.uid,
+            )
+        return out
+
+    transform_with_telemetry._telemetry_wrapped = True
+    return transform_with_telemetry
+
+
+class Transformer(Saveable):
+    """A pipeline stage with ``transform``. ``transform_report`` is the
+    ``TransformReport`` of this instance's last transform (None before)."""
+
+    transform_report = None
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        transform = cls.__dict__.get("transform")
+        if transform is not None and not getattr(transform, "_telemetry_wrapped", False):
+            cls.transform = _instrumented_transform(transform)
+
+    def transform(self, dataset: Any) -> Any:
+        raise NotImplementedError
+
+
 class Estimator(Saveable):
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        fit = cls.__dict__.get("fit")
+        if fit is not None and not getattr(fit, "_telemetry_wrapped", False):
+            cls.fit = _instrumented_fit(fit)
+
     def fit(self, dataset: Any) -> "Model":
         raise NotImplementedError
 
 
-class Model(Saveable):
-    def transform(self, dataset: Any) -> Any:
-        raise NotImplementedError
+class Model(Transformer):
+    """A fitted Transformer made by an Estimator. ``fit_report`` is the
+    ``FitReport`` of the fit that made it; None on a loaded model (a report
+    describes a fit, not a file)."""
+
+    fit_report = None

@@ -1,9 +1,12 @@
 """A Spark-ML-shaped Params system.
 
-Copy of ``Param``, ``Params``, ``HasInputCol`` and ``HasOutputCol`` from
-``spark_rapids_ml_tpu/models/params.py``: typed params with defaults, fluent
-setters, constructor keyword params (``PCA(k=3)`` is ``PCA().setK(3)``),
-``copy`` that keeps the uid, and the param state that a save records.
+Copy of ``Param``, ``Params``, ``HasInputCol``, ``HasOutputCol`` and
+``HasFeaturesCol`` from ``spark_rapids_ml_tpu/models/params.py``: typed
+params with defaults, fluent setters, constructor keyword params
+(``PCA(k=3)`` is ``PCA().setK(3)``), ``copy`` that keeps the uid, and the
+param state that a save records. ``HasDevice`` is the port's own: the
+device a stage computes on, an attribute and not a param, so a save does
+not record it.
 """
 
 from __future__ import annotations
@@ -11,6 +14,10 @@ from __future__ import annotations
 import copy as _copy
 import uuid
 from typing import Any, Callable, Generic, TypeVar
+
+import torch
+
+from spark_rapids_ml_tpu_torch.utils.device import resolve_device
 
 T = TypeVar("T")
 
@@ -150,3 +157,22 @@ class HasOutputCol(Params):
 
     def getOutputCol(self) -> str:
         return self.getOrDefault("outputCol")
+
+
+class HasFeaturesCol(Params):
+    featuresCol = Param("featuresCol", "name of the features ArrayType column", str)
+
+    def setFeaturesCol(self, value: str):
+        return self._set(featuresCol=value)
+
+    def getFeaturesCol(self) -> str:
+        return self.getOrDefault("featuresCol")
+
+
+class HasDevice(Params):
+    """A stage that computes on ``device`` (default the card; raises
+    without one unless the CPU is named)."""
+
+    def __init__(self, uid: str | None = None, device: str | torch.device = "cuda", **kwargs):
+        super().__init__(uid, **kwargs)
+        self.device = resolve_device(device)

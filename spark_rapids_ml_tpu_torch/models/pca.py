@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from spark_rapids_ml_tpu_torch.models.base import Estimator, Model
-from spark_rapids_ml_tpu_torch.models.params import HasInputCol, HasOutputCol, Param
+from spark_rapids_ml_tpu_torch.models.params import HasDevice, HasInputCol, HasOutputCol, Param
 from spark_rapids_ml_tpu_torch.ops import linalg as L
 from spark_rapids_ml_tpu_torch.parallel.executor import run_partition_tasks
 from spark_rapids_ml_tpu_torch.parallel.tree_aggregate import tree_reduce
@@ -40,10 +40,10 @@ from spark_rapids_ml_tpu_torch.telemetry import trace_range
 from spark_rapids_ml_tpu_torch.utils import columnar
 from spark_rapids_ml_tpu_torch.utils import persistence as P
 from spark_rapids_ml_tpu_torch.utils.config import get_config
-from spark_rapids_ml_tpu_torch.utils.device import resolve_device
+from spark_rapids_ml_tpu_torch.utils.device import to_device
 
 
-class PCAParams(HasInputCol, HasOutputCol):
+class PCAParams(HasDevice, HasInputCol, HasOutputCol):
     """Shared params (the RapidsPCAParams analog)."""
 
     k = Param("k", "number of principal components", int)
@@ -79,8 +79,7 @@ class PCAParams(HasInputCol, HasOutputCol):
 
     def __init__(self, uid: str | None = None, device: str | torch.device = "cuda",
                  **kwargs):
-        super().__init__(uid, **kwargs)
-        self.device = resolve_device(device)
+        super().__init__(uid, device=device, **kwargs)
         self._setDefault(
             meanCentering=False,
             standardize=False,
@@ -94,14 +93,6 @@ class PCAParams(HasInputCol, HasOutputCol):
 
     def getMeanCentering(self) -> bool:
         return self.getOrDefault("meanCentering")
-
-
-def _to_device(mat: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host matrix → contiguous f32 tensor on ``device``."""
-    host = np.ascontiguousarray(mat, dtype=np.float32)
-    if not host.flags.writeable:  # torch tensors may not alias read-only memory
-        host = host.copy()
-    return torch.from_numpy(host).to(device)
 
 
 class PCA(PCAParams, Estimator):
@@ -172,7 +163,7 @@ class PCA(PCAParams, Estimator):
 
         def partition_task(mat):
             padded, true_rows = columnar.pad_rows(mat)
-            stats = L.gram_stats(_to_device(padded, device), precision=precision)
+            stats = L.gram_stats(to_device(padded, device), precision=precision)
             # padding adds zero rows: fix only the count
             return L.GramStats(
                 stats.xtx, stats.col_sum, torch.full_like(stats.count, true_rows)
@@ -196,7 +187,7 @@ class PCA(PCAParams, Estimator):
             if mean is not None:
                 mat = mat - mean.astype(mat.dtype)[None, :]
             padded, _ = columnar.pad_rows(mat)
-            return L.qr_r(_to_device(padded, device))
+            return L.qr_r(to_device(padded, device))
 
         return tree_reduce(run_partition_tasks(partition_task, mats), L.combine_r)
 
@@ -286,7 +277,7 @@ class PCAModel(PCAParams, Model):
         padded, true_rows = columnar.pad_rows(
             columnar.standardize_host(mat, self.mean, self.std)
         )
-        out = L.project(_to_device(padded, self.device), _to_device(self.pc, self.device))
+        out = L.project(to_device(padded, self.device), to_device(self.pc, self.device))
         return out[:true_rows].cpu().numpy()
 
     def transform(self, dataset: Any) -> Any:

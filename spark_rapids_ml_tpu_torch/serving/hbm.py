@@ -8,7 +8,7 @@ parameters forever; this module keeps the serving side within a budget:
 - **Byte accounting.** Each registered servable's parameters are measured
   (``param_bytes``) and booked against the budget:
   ``TPU_ML_SERVE_HBM_BUDGET_BYTES`` when set, else the card's total memory
-  × 0.92 (the JAX package's default HBM watermark). The resident total is
+  × ``TPU_ML_HEALTH_HBM_WATERMARK`` (default 0.92). The resident total is
   the ``serve.hbm_bytes`` gauge. A CPU registry has no budget unless the
   knob sets one.
 - **LRU paging.** Admitting a model past the budget pages the
@@ -27,11 +27,12 @@ device memory and recaptures every warm rung, booked as
 ``compile.graph_captures{reason=page_in}``. No graph ever outlives the
 memory it reads.
 
-**Admission.** ``check_admission`` is the SLO-burn load-shedding hook
-(HTTP 503 through ``ServeShed``). The JAX package sheds only while its
-health monitor runs; the port has none yet (``telemetry/health.py`` comes
-with the fit-telemetry slice), so every request is admitted, as the JAX
-code does while ``get_monitor()`` is None.
+**Admission.** ``check_admission`` is the SLO-burn load-shedding hook:
+while the health monitor (``telemetry/health.py``) runs, each new breach
+of a declared objective (``TPU_ML_SLO``) sheds one incoming request under
+``TPU_ML_ADMISSION_POLICY``: ``refuse`` raises ``ServeShed`` (HTTP 503 on
+every transport), ``degrade`` admits it, and both book ``serve.shed``;
+``off`` checks nothing. Without a monitor every request is admitted.
 """
 
 from __future__ import annotations
@@ -43,15 +44,16 @@ from typing import Any
 
 import torch
 
-from spark_rapids_ml_tpu_torch.telemetry import compilemon
+from spark_rapids_ml_tpu_torch.telemetry import compilemon, health
 from spark_rapids_ml_tpu_torch.telemetry.registry import REGISTRY
-from spark_rapids_ml_tpu_torch.utils.config import SERVE_HBM_BUDGET_BYTES_VAR
+from spark_rapids_ml_tpu_torch.utils.config import (
+    DEFAULT_HBM_WATERMARK,
+    HEALTH_HBM_WATERMARK_VAR,
+    SERVE_HBM_BUDGET_BYTES_VAR,
+    lenient_float,
+)
 
 logger = logging.getLogger("spark_rapids_ml_tpu_torch.serving")
-
-#: Share of the card's memory the fleet may fill (the JAX package's default
-#: ``TPU_ML_HEALTH_HBM_WATERMARK``).
-HBM_WATERMARK = 0.92
 
 
 class ServeShed(RuntimeError):
@@ -66,7 +68,8 @@ def param_bytes(params: Any) -> int:
 def budget_bytes(device: torch.device | None = None) -> int | None:
     """The fleet's resident-parameter budget: ``TPU_ML_SERVE_HBM_BUDGET_BYTES``
     when set, else the total memory of ``device`` (a CUDA device) ×
-    ``HBM_WATERMARK``; None (no accounting) for the CPU without the knob."""
+    ``TPU_ML_HEALTH_HBM_WATERMARK`` (0.92 when unset or malformed); None (no
+    accounting) for the CPU without the knob."""
     raw = os.environ.get(SERVE_HBM_BUDGET_BYTES_VAR, "").strip()
     if raw:
         try:
@@ -78,7 +81,8 @@ def budget_bytes(device: torch.device | None = None) -> int | None:
     stats = compilemon.sample_device_memory().get(f"cuda:{device.index}")
     if not stats or not stats.get("bytes_limit"):
         return None
-    return int(stats["bytes_limit"] * HBM_WATERMARK)
+    watermark = lenient_float(HEALTH_HBM_WATERMARK_VAR, DEFAULT_HBM_WATERMARK)
+    return int(stats["bytes_limit"] * watermark)
 
 
 class _Resident:
@@ -102,6 +106,7 @@ class HbmFleetManager:
         self._lock = threading.RLock()
         self._models: dict[str, _Resident] = {}
         self._seq = 0
+        self._last_breaches = 0
 
     def account(self, entry: Any) -> None:
         """Admit a (re-)registered servable: measure its parameters, mark it
@@ -171,8 +176,32 @@ class HbmFleetManager:
             )
 
     def check_admission(self, model: str) -> None:
-        """SLO-burn load shedding: admits every request while no health
-        monitor exists, which is always so in the port for now."""
+        """Shed one incoming request per newly observed SLO breach while the
+        declared objectives burn: under ``refuse`` raise ``ServeShed``
+        (HTTP 503), under ``degrade`` admit it, both booking ``serve.shed``;
+        ``off`` disables the check (a malformed policy reads as
+        ``refuse``)."""
+        try:
+            policy = health.admission_policy()
+        except ValueError:
+            policy = "refuse"
+        if policy == "off":
+            return
+        monitor = health.get_monitor()
+        if monitor is None:
+            return
+        breaches = int(monitor.slo.total_breaches())
+        with self._lock:
+            burned = breaches - self._last_breaches
+            self._last_breaches = breaches
+        if burned <= 0:
+            return
+        REGISTRY.counter_inc("serve.shed", model=model, policy=policy)
+        if policy == "refuse":
+            raise ServeShed(
+                f"request for {model!r} shed: serve SLO burning ({burned} new breach(es)) "
+                "and TPU_ML_ADMISSION_POLICY=refuse"
+            )
 
     def stats(self) -> dict:
         with self._lock:

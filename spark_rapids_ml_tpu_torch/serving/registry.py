@@ -1,6 +1,7 @@
 """Model registry of the serving path: one CUDA graph per (model, bucket).
 
-Port of ``spark_rapids_ml_tpu/serving/registry.py`` for the PCA family.
+Port of ``spark_rapids_ml_tpu/serving/registry.py`` for the PCA and scaler
+families.
 
 - **Pure kernel extraction.** A fitted ``PCAModel`` becomes a
   ``ServableEntry``: a pure ``kernel(params, x)`` over device tensors
@@ -8,7 +9,9 @@ Port of ``spark_rapids_ml_tpu/serving/registry.py`` for the PCA family.
   ``_pca_kernel_bf16``) and the host ``prepare`` hook the eager transform
   also runs (the standardization, applied before padding so pad rows stay
   zero). The serve path and ``PCAModel.transform`` run the same device
-  computation.
+  computation. A fitted ``StandardScalerModel`` becomes ``_scaler_kernel``
+  (``ops.scaler.standardize`` with the model's flags) over its f32
+  ``mean``/``std``, with no host hook; its policy is always ``f32``.
 - **A CUDA graph per rung, captured at registration.** Where the JAX
   package compiles ``jax.jit(kernel)`` ahead of time for every rung of the
   bucket ladder, ``register()`` captures one ``torch.cuda.CUDAGraph`` per
@@ -36,8 +39,8 @@ Port of ``spark_rapids_ml_tpu/serving/registry.py`` for the PCA family.
 
 The JAX package's persistent XLA compile cache has no counterpart: a CUDA
 graph cannot outlive its process. Hot swap, rollback and the shadow gate,
-hedged dispatch, the fault sites and the other families' servables are not
-ported yet.
+hedged dispatch, the fault sites and the other families' servables (GLM,
+forest) are not ported yet.
 """
 
 from __future__ import annotations
@@ -54,7 +57,9 @@ import torch
 
 from spark_rapids_ml_tpu_torch.autotune import cache as tuning_cache
 from spark_rapids_ml_tpu_torch.models.pca import PCAModel
+from spark_rapids_ml_tpu_torch.models.scaler import StandardScalerModel
 from spark_rapids_ml_tpu_torch.ops import linalg as L
+from spark_rapids_ml_tpu_torch.ops import scaler as S
 from spark_rapids_ml_tpu_torch.serving import buckets, hbm
 from spark_rapids_ml_tpu_torch.telemetry import compilemon
 from spark_rapids_ml_tpu_torch.telemetry.registry import REGISTRY
@@ -63,7 +68,7 @@ from spark_rapids_ml_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger("spark_rapids_ml_tpu_torch.serving")
 
-FAMILIES = ("pca",)
+FAMILIES = ("pca", "scaler")
 
 #: Input dtypes a serve request may carry. Integer and bool payloads (JSON
 #: numbers decode to them) are widened to float64 first; anything else is
@@ -117,6 +122,16 @@ def _pca_kernel_bf16(params, x: torch.Tensor) -> torch.Tensor:
     round its result to bf16)."""
     (pc,) = params
     return L.project(x.to(torch.bfloat16).to(x.dtype), pc.to(torch.bfloat16).to(pc.dtype))
+
+
+def _scaler_kernel(params, x: torch.Tensor, *, with_mean: bool, with_std: bool) -> torch.Tensor:
+    """The eager ``StandardScalerModel`` transform's device computation."""
+    mean, std = params
+    return S.standardize(x, mean, std, with_mean=with_mean, with_std=with_std)
+
+
+def _identity_prepare(mat: np.ndarray) -> np.ndarray:
+    return mat
 
 
 def _host_tensor(padded: np.ndarray) -> torch.Tensor:
@@ -313,12 +328,18 @@ class ServableEntry:
 
 def _consult_policy(family: str, n_features: int, device: torch.device) -> str:
     """A blessed serve-kernel precision policy from the tuning cache; only an
-    explicit ``bf16_f32acc`` entry deviates from f32."""
-    cfg = tuning_cache.lookup(
-        tuning_cache.cache_key(
-            f"serve.{family}", n=n_features, device=tuning_cache.device_kind(device)
+    explicit ``bf16_f32acc`` entry deviates from f32. A cache that cannot be
+    read (a malformed file, say) is logged and serves f32: a tuner problem
+    must not block serving."""
+    try:
+        cfg = tuning_cache.lookup(
+            tuning_cache.cache_key(
+                f"serve.{family}", n=n_features, device=tuning_cache.device_kind(device)
+            )
         )
-    )
+    except Exception:  # noqa: BLE001 - any tuner fault falls back to f32
+        logger.exception("tuning-cache consult failed for serve.%s", family)
+        return "f32"
     if cfg is not None and cfg.policy == "bf16_f32acc":
         return cfg.policy
     return "f32"
@@ -328,10 +349,28 @@ def servable_from_model(name: str, model: Any, device: torch.device) -> Servable
     """The pure ``kernel(params, x)`` and host hooks of a fitted model, its
     parameters on ``device``. Raises ``TypeError`` for a model with no serve
     contract."""
+    if isinstance(model, StandardScalerModel) and model.std is not None:
+        return ServableEntry(
+            name=name,
+            family="scaler",
+            model_cls=type(model).__name__,
+            n_features=int(np.asarray(model.std).shape[0]),
+            kernel=functools.partial(
+                _scaler_kernel, with_mean=model.getWithMean(), with_std=model.getWithStd()
+            ),
+            params=tuple(
+                torch.tensor(np.asarray(a, dtype=X_DTYPE), device=device)
+                for a in (model.mean, model.std)
+            ),
+            prepare=_identity_prepare,
+            device=device,
+            policy="f32",
+            model=model,
+        )
     if not isinstance(model, PCAModel) or model.pc is None:
         raise TypeError(
             f"{type(model).__name__} has no serve contract — servable families: "
-            f"{', '.join(FAMILIES)} (the port serves fitted PCA models)"
+            f"{', '.join(FAMILIES)} (the port serves fitted PCA and StandardScaler models)"
         )
     n = int(model.pc.shape[0])
     pc = torch.tensor(np.asarray(model.pc, dtype=X_DTYPE), device=device)

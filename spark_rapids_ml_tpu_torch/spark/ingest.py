@@ -25,14 +25,21 @@ events:
 
 On the CPU the fold reads the staging buffer directly.
 
+The fold books the JAX package's series: ``ingest.rows``/``ingest.bytes``
+per source chunk taken, ``h2d.bytes{path=stream}`` per copy to the card,
+the ``stream.active``/``stream.last_beat`` heartbeat gauges the health
+monitor watches, and ``stream.overlap_fraction`` (overlapped dispatches
+over chunks) once per fold, which ``FitReport.overlap_fraction`` reads.
+
 Not ported yet (``ROADMAP.md``): the autotuner, checkpoint and resume, retry
-and fault-injection sites, OOM bisection, the stderr heartbeat, the registry
-counters, the bounded wait, and label and intercept columns.
+and fault-injection sites, OOM bisection, the stderr heartbeat, the bounded
+wait, and label and intercept columns.
 """
 
 from __future__ import annotations
 
 import math
+import time
 import warnings
 from dataclasses import dataclass
 from typing import Any, Callable, Iterable
@@ -41,6 +48,7 @@ import numpy as np
 import torch
 
 from spark_rapids_ml_tpu_torch.telemetry import trace_range
+from spark_rapids_ml_tpu_torch.telemetry.registry import REGISTRY
 from spark_rapids_ml_tpu_torch.utils import columnar
 from spark_rapids_ml_tpu_torch.utils.config import (
     STREAM_CHUNK_VAR,
@@ -165,6 +173,7 @@ def stream_fold(
                         copy_stream.wait_event(folded[slot])
                     on_card[slot][:fill].copy_(staging[slot][:fill], non_blocking=True)
                     copied[slot] = copy_stream.record_event()
+                REGISTRY.counter_inc("h2d.bytes", fill * n * 4, path="stream")
                 fold_stream.wait_event(copied[slot])
                 x = on_card[slot][:fill]
             else:
@@ -175,12 +184,15 @@ def stream_fold(
                 if not copied[slot].query():
                     copy_overlapped += 1
         n_chunks += 1
+        REGISTRY.gauge_set("stream.last_beat", time.monotonic())
         max_put = max(max_put, fill * n * 4)
         slot, fill = 1 - slot, 0
         if copied[slot] is not None:
             copied[slot].synchronize()  # before this staging buffer refills
 
     it = iter(source)
+    REGISTRY.gauge_set("stream.active", 1)
+    REGISTRY.gauge_set("stream.last_beat", time.monotonic())
     try:
         while True:
             with trace_range("ingest.chunk", device):
@@ -188,6 +200,8 @@ def stream_fold(
                     xc = np.asarray(next(it))
                 except StopIteration:
                     break
+            REGISTRY.counter_inc("ingest.rows", len(xc))
+            REGISTRY.counter_inc("ingest.bytes", xc.nbytes)
             if xc.ndim != 2 or xc.shape[1] != n:
                 raise ValueError(
                     f"feature dimension changed mid-stream: expected {n}, "
@@ -222,9 +236,12 @@ def stream_fold(
             if cuda:
                 folded[1 - slot].synchronize()
     finally:
+        # cleared on every exit: the monitor reads an inactive stream as OK
+        REGISTRY.gauge_set("stream.active", 0)
         if cuda:
             # no copy may still write a device buffer once it is freed
             copy_stream.synchronize()
+    REGISTRY.histogram_record("stream.overlap_fraction", overlapped / n_chunks)
     return StreamFold(
         carry=carry,
         rows=seen,

@@ -17,8 +17,12 @@ one process-wide ``REGISTRY``; ``/metrics`` renders it.
 - **Exemplars**: each histogram series keeps its ``TPU_ML_TRACE_EXEMPLARS``
   slowest (value, trace id) pairs, so a p99 stays attributable to traces.
 
-The worker→driver wire form (``to_wire``/``merge_wire``) and the fit's span
-tables wait for the fit-telemetry slice.
+- **Span tables**: ``phase_table`` rolls the ``span.seconds`` series that
+  ``telemetry.spans.trace_range`` books into the per-phase percentiles a
+  ``FitReport`` carries.
+
+The wire form workers send their metrics in (``to_wire``/``merge_wire``)
+is not ported.
 """
 
 from __future__ import annotations
@@ -92,6 +96,15 @@ class Histogram:
                 return min(max(mid, self.vmin), self.vmax)
         return self.vmax
 
+    def merge(self, other: "Histogram") -> None:
+        """Add ``other``'s samples into this histogram."""
+        self.count += other.count
+        self.total += other.total
+        self.vmin = min(self.vmin, other.vmin)
+        self.vmax = max(self.vmax, other.vmax)
+        for k, v in other.buckets.items():
+            self.buckets[k] = self.buckets.get(k, 0) + v
+
     def copy(self) -> "Histogram":
         h = Histogram()
         h.count = self.count
@@ -136,6 +149,14 @@ class Histogram:
 
 def _key(name: str, labels: dict) -> tuple:
     return (name, tuple(sorted((k, v) for k, v in labels.items() if v)))
+
+
+def render_key(key: tuple) -> str:
+    """``name{label=value,...}``: the flat string form reports export."""
+    name, labels = key
+    if not labels:
+        return name
+    return name + "{" + ",".join(f"{k}={v}" for k, v in labels) + "}"
 
 
 def _prom_escape(v) -> str:
@@ -263,13 +284,18 @@ class RegistrySnapshot:
                 continue
             if want and not set(want).issubset(set(lbl)):
                 continue
-            merged.count += h.count
-            merged.total += h.total
-            merged.vmin = min(merged.vmin, h.vmin)
-            merged.vmax = max(merged.vmax, h.vmax)
-            for k, v in h.buckets.items():
-                merged.buckets[k] = merged.buckets.get(k, 0) + v
+            merged.merge(h)
         return merged
+
+    def phase_table(self, percentiles=(50, 90, 99)) -> dict[str, dict[str, float]]:
+        """Per-phase span statistics, ``{phase: {count, sum, min, max, p50,
+        p90, p99}}``, merged over the estimator label."""
+        phases: dict[str, Histogram] = {}
+        for (name, labels), h in self.hists.items():
+            if name != "span.seconds":
+                continue
+            phases.setdefault(dict(labels).get("phase", ""), Histogram()).merge(h)
+        return {p: h.to_dict(percentiles) for p, h in sorted(phases.items())}
 
     def to_prometheus(self) -> str:
         """The snapshot in the Prometheus text exposition format: counters

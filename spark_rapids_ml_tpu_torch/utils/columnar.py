@@ -4,7 +4,8 @@ estimators accept, row bucketing, and the partitioned dataset.
 Counterpart of ``spark_rapids_ml_tpu/utils/columnar.py`` for the resident
 PCA path. Accepted inputs: a 2-D ndarray, a pandas DataFrame whose column
 holds one array per row, and a pyarrow Table or RecordBatch with a list or
-fixed-size-list column (the reference's ArrayType input).
+fixed-size-list column (the reference's ArrayType input) or a Spark ML
+VectorUDT column, dense or sparse rows (densified).
 """
 
 from __future__ import annotations
@@ -23,15 +24,73 @@ except ImportError:  # pragma: no cover
     pa = None
 
 
+# pyspark.ml VectorUDT's Arrow layout: struct<type: int8, size: int32,
+# indices: list<int32>, values: list<double>>, type 0 = sparse, 1 = dense.
+_VECTOR_UDT_FIELDS = ("type", "size", "indices", "values")
+
+
+def _is_vector_udt_struct(typ) -> bool:
+    if not pa.types.is_struct(typ):
+        return False
+    names = {typ.field(i).name for i in range(typ.num_fields)}
+    return names.issuperset(_VECTOR_UDT_FIELDS)
+
+
+def _from_vector_struct_column(col) -> np.ndarray:
+    """VectorUDT struct column → dense [rows, n]: dense rows reshape in one
+    step, sparse rows scatter by their indices, with no per-row loop."""
+    fields = {col.type.field(i).name: flat for i, flat in enumerate(col.flatten())}
+    tcode = np.asarray(fields["type"].to_numpy(zero_copy_only=False))
+    values = fields["values"]
+    val_np = np.asarray(values.values.to_numpy(zero_copy_only=False))
+    offsets = np.asarray(values.offsets.to_numpy(zero_copy_only=False))
+    lengths = np.diff(offsets)
+    if np.all(tcode == 1):  # all dense: one reshape
+        n = int(lengths[0]) if len(lengths) else 0
+        if not np.all(lengths == n):
+            raise ValueError("ragged rows: all rows must have equal length")
+        return val_np[offsets[0] : offsets[-1]].reshape(-1, n)
+    sizes = np.asarray(fields["size"].to_numpy(zero_copy_only=False), dtype=np.float64)
+    dims = np.where(tcode == 1, lengths, sizes)
+    n = int(dims[0]) if len(dims) else 0
+    if not np.all(dims == n):
+        raise ValueError("ragged rows: all rows must have equal length")
+    indices = fields["indices"]
+    idx_np = np.asarray(indices.values.to_numpy(zero_copy_only=False))
+    idx_offsets = np.asarray(indices.offsets.to_numpy(zero_copy_only=False))
+    rows = len(tcode)
+    out = np.zeros((rows, n), dtype=np.float64)
+    dense = tcode == 1
+    # the flat values buffer concatenates every row's list, so one repeat
+    # mask splits dense from sparse values; the indices buffer holds only
+    # the sparse rows' entries (a dense row's list is null, of length 0), so
+    # it is already the flat column ids and its lengths give the row ids
+    flat_vals = val_np[offsets[0] : offsets[-1]]
+    sparse_mask = np.repeat(~dense, lengths)
+    if dense.any():
+        out[dense] = flat_vals[~sparse_mask].reshape(-1, n)
+    if (~dense).any():
+        col_ids = idx_np[idx_offsets[0] : idx_offsets[-1]]
+        row_ids = np.repeat(np.arange(rows), np.diff(idx_offsets))
+        out[row_ids, col_ids] = flat_vals[sparse_mask]
+    return out
+
+
 def _from_arrow_column(col) -> np.ndarray:
-    """Arrow list / fixed_size_list column → [rows, n] ndarray, zero-copy
-    where the values buffer allows it."""
+    """Arrow list / fixed_size_list column, or a Spark ML VectorUDT column
+    (its struct, or an extension array over it), → [rows, n] ndarray,
+    zero-copy where the values buffer allows it."""
     if isinstance(col, pa.ChunkedArray):
         if col.num_chunks == 1:
             return _from_arrow_column(col.chunk(0))
         return np.concatenate([_from_arrow_column(c) for c in col.chunks])
+    if isinstance(col, pa.ExtensionArray):
+        # a UDT ships as an extension array over its storage type
+        return _from_arrow_column(col.storage)
     if col.null_count:
         raise ValueError("null rows are not supported in the input column")
+    if _is_vector_udt_struct(col.type):
+        return _from_vector_struct_column(col)
     if pa.types.is_fixed_size_list(col.type):
         n = col.type.list_size
         values = col.values.to_numpy(zero_copy_only=False)
@@ -174,6 +233,37 @@ class PartitionedDataset:
     def matrices(self) -> Iterator[np.ndarray]:
         for p in self.partitions:
             yield _extract_matrix(p, self.input_col)
+
+
+def _part_size(p: Any) -> tuple[int | None, int | None]:
+    if isinstance(p, np.ndarray) and p.ndim == 2:
+        return p.shape[0], p.nbytes
+    if pa is not None and isinstance(p, (pa.Table, pa.RecordBatch)):
+        return p.num_rows, p.nbytes
+    return None, None
+
+
+def dataset_size(data: Any) -> tuple[int | None, int | None]:
+    """(rows, bytes) of a container the estimators accept, from its shape
+    alone, without extracting it: what a fit's report counts as ingested.
+    Either is None where unknown (a pandas frame's bytes, say)."""
+    if isinstance(data, PartitionedDataset):
+        parts = data.partitions
+    elif isinstance(data, (list, tuple)) and data and (
+        pa is not None and isinstance(data[0], (pa.Table, pa.RecordBatch))
+    ):
+        parts = data
+    elif hasattr(data, "columns") and hasattr(data, "assign"):  # pandas
+        return len(data), None
+    else:
+        parts = [data]
+    sizes = [_part_size(p) for p in parts]
+    rows = [r for r, _ in sizes]
+    nbytes = [b for _, b in sizes]
+    return (
+        None if None in rows else sum(rows),
+        None if None in nbytes else sum(nbytes),
+    )
 
 
 def use_streamed_fit(ds: PartitionedDataset) -> bool:

@@ -6,7 +6,10 @@ environment variable names and defaults, so one environment configures both
 packages. ``get_config()`` reads the environment on every call.
 
 The serving runtime's knobs (``TPU_ML_SERVE_*``, ``TPU_ML_TRACE_*``,
-``TPU_ML_TIMELINE_EVENTS``, ``TPU_ML_TUNING_CACHE_PATH``) are copies of
+``TPU_ML_TIMELINE_EVENTS``, ``TPU_ML_TUNING_CACHE_PATH``) and the telemetry
+and health knobs (``TPU_ML_TELEMETRY_PATH``, ``TPU_ML_TIMELINE_PATH``,
+``TPU_ML_HTTP_PORT``, ``TPU_ML_SLO*``, ``TPU_ML_HEALTH_*``,
+``TPU_ML_ADMISSION_POLICY``) are copies of
 ``spark_rapids_ml_tpu/utils/knobs.py``'s, names and defaults alike. Their
 modules read them at each use through ``lenient_int``/``lenient_float``,
 which take an unset, empty or malformed value as the default, as the JAX
@@ -48,6 +51,23 @@ TRACE_SAMPLE_VAR, DEFAULT_TRACE_SAMPLE = "TPU_ML_TRACE_SAMPLE", 1.0
 TRACE_EXEMPLARS_VAR, DEFAULT_TRACE_EXEMPLARS = "TPU_ML_TRACE_EXEMPLARS", 4
 TIMELINE_EVENTS_VAR, DEFAULT_TIMELINE_EVENTS = "TPU_ML_TIMELINE_EVENTS", 4096
 TUNING_CACHE_PATH_VAR = "TPU_ML_TUNING_CACHE_PATH"  # empty: in-process only
+# telemetry, SLOs, health and admission (spark_rapids_ml_tpu/utils/knobs.py
+# :339-340, :356, :405-415), with their defaults
+TELEMETRY_PATH_VAR = "TPU_ML_TELEMETRY_PATH"  # empty: no report sink
+TIMELINE_PATH_VAR = "TPU_ML_TIMELINE_PATH"  # empty: no timeline sink
+HTTP_PORT_VAR = "TPU_ML_HTTP_PORT"  # empty: fits start no exporter
+SLO_VAR = "TPU_ML_SLO"  # empty: no objectives
+SLO_WINDOW_S_VAR, DEFAULT_SLO_WINDOW_S = "TPU_ML_SLO_WINDOW_S", 300.0
+SLO_BURN_VAR, DEFAULT_SLO_BURN = "TPU_ML_SLO_BURN", 2
+HEALTH_INTERVAL_S_VAR, DEFAULT_HEALTH_INTERVAL_S = "TPU_ML_HEALTH_INTERVAL_S", 5.0
+HEALTH_PROBE_VAR, DEFAULT_HEALTH_PROBE = "TPU_ML_HEALTH_PROBE", "inline"
+HEALTH_PROBE_TIMEOUT_S_VAR, DEFAULT_HEALTH_PROBE_TIMEOUT_S = (
+    "TPU_ML_HEALTH_PROBE_TIMEOUT_S", 20.0
+)
+HEALTH_HBM_WATERMARK_VAR, DEFAULT_HBM_WATERMARK = "TPU_ML_HEALTH_HBM_WATERMARK", 0.92
+HEALTH_STALE_S_VAR, DEFAULT_HEALTH_STALE_S = "TPU_ML_HEALTH_STALE_S", 60.0
+HEALTH_FAILING_AFTER_VAR, DEFAULT_HEALTH_FAILING_AFTER = "TPU_ML_HEALTH_FAILING_AFTER", 3
+ADMISSION_POLICY_VAR, DEFAULT_ADMISSION_POLICY = "TPU_ML_ADMISSION_POLICY", "refuse"
 
 DEFAULT_STREAM_CHUNK = 65_536
 VALID_NONFINITE_POLICIES = ("raise", "skip", "allow")

@@ -1,4 +1,5 @@
-"""Which device the port's entry points run on.
+"""Which device the port's entry points run on, and the copy of host rows
+to it.
 
 Loose counterpart of ``spark_rapids_ml_tpu/utils/devicepolicy.py``: the
 estimators run on the card unless the caller names the CPU. There is no
@@ -7,7 +8,10 @@ fallback: asking for CUDA where there is none raises.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from spark_rapids_ml_tpu_torch.telemetry.registry import REGISTRY
 
 
 def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
@@ -25,3 +29,14 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def to_device(mat: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host matrix → contiguous f32 tensor on ``device``; a copy to a card
+    books its bytes as ``h2d.bytes{path=resident}`` (``FitReport.h2d_bytes``)."""
+    host = np.ascontiguousarray(mat, dtype=np.float32)
+    if not host.flags.writeable:  # torch tensors may not alias read-only memory
+        host = host.copy()
+    if device.type != "cpu":
+        REGISTRY.counter_inc("h2d.bytes", host.nbytes, path="resident")
+    return torch.from_numpy(host).to(device)

@@ -421,6 +421,26 @@ def load_spark_ml_data(path: str | Path) -> "pa.Table":
     return pa.concat_tables(tables) if len(tables) > 1 else tables[0]
 
 
+def save_spark_ml_vector_model(
+    path: str | Path, *, class_name: str, uid: str, params: dict, vectors: dict
+) -> None:
+    """Persist the Spark ML model shape ``Row(<dense vectors...>)`` with
+    DefaultParamsWriter metadata: the scaler family's one writer. The order
+    of ``vectors`` is the stock reader's column order."""
+    save_spark_ml_metadata(path, class_name=class_name, uid=uid, param_map=params)
+    save_spark_ml_data(
+        path,
+        {name: _dense_vector_struct(v) for name, v in vectors.items()},
+        {
+            "type": "struct",
+            "fields": [
+                {"name": name, "type": _vector_udt_json(), "nullable": True, "metadata": {}}
+                for name in vectors
+            ],
+        },
+    )
+
+
 def is_spark_ml_layout(path: str | Path) -> bool:
     """True when ``path`` holds a Spark-ML-layout save (metadata/ dir with
     part files) rather than the native metadata.json layout."""

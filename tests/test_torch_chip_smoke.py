@@ -308,3 +308,63 @@ def test_span_breakdown_joins_a_request_to_its_queue_and_dispatch():
         "prepare": 10, "queue": 40, "assemble": 10, "dispatch": 30, "after": 30,
     }
     assert all(v["n"] == 1 for v in out.values())
+
+
+def test_config4_pipeline_phase_on_cpu():
+    """Phase 11 at a tiny size: both pipelines held to their f64 oracles
+    and to phase 7's model, their reports gated."""
+    standardized = chip_smoke.phase_standardize(3000, 96, 5, 3, CPU)
+    results = chip_smoke.phase_pipeline(3000, 96, 5, 3, CPU, standardized)
+    assert set(results) == {"scaler", "normalizer"}
+    for name, result in results.items():
+        assert result["launches"] == chip_smoke.expected_launches()  # plain versions
+        assert result["min_cosine_vs_f64_oracle"] >= chip_smoke.COSINE_BAR
+        assert result["transform_max_abs_err"] <= result["transform_tol"]
+        assert result["model"].fit_report.rows_ingested == 3000
+    assert results["scaler"]["min_cosine_vs_standardize_fit"] >= chip_smoke.COSINE_BAR
+    assert set(results["scaler"]["stage_fit_s"]) == {"StandardScalerModel", "PCAModel"}
+    assert set(results["normalizer"]["stage_fit_s"]) == {"PCAModel"}
+
+
+def test_streamed_scaler_phase_on_cpu(monkeypatch):
+    monkeypatch.setenv("TPU_ML_STREAM_FIT_MAX_RESIDENT_BYTES", str(1 << 20))
+    monkeypatch.setenv("TPU_ML_STREAM_CHUNK_ROWS", "512")
+    data = chip_smoke.streamed_workload(4096, 64, 4, CPU)
+    result = chip_smoke.phase_streamed_scaler(data, 4, CPU)
+    assert result["chunks"] == 8 and result["rows_ingested"] == 4096
+    assert result["h2d_bytes"] == 0 and result["overlap_fraction"] == 0.0
+    assert result["std_max_rel_err"] <= chip_smoke.STREAM_SCALER_STD_RTOL
+
+
+def test_streamed_scaler_phase_refuses_resident_data():
+    data = chip_smoke.streamed_workload(1000, 24, 3, CPU)
+    with pytest.raises(AssertionError, match="went resident"):
+        chip_smoke.phase_streamed_scaler(data, 3, CPU)
+
+
+def test_serving_phase_with_the_config4_scaler_on_cpu(monkeypatch):
+    """Phase 10's additions at a tiny size: the scaler servable's rungs,
+    the exporter holding a fit in /report, and shedding."""
+    monkeypatch.setenv("TPU_ML_SERVE_MAX_BATCH_ROWS", "32")
+    x = chip_smoke.bench_workload(2000, 32)
+    model = chip_smoke.PCA(device=CPU).setK(4).fit(x)
+    std_model = chip_smoke.PCA(device=CPU).setK(4).setStandardize(True).fit(x)
+    pipeline = chip_smoke.Pipeline(stages=[
+        chip_smoke.StandardScaler(device=CPU, withMean=True), chip_smoke.PCA(device=CPU).setK(4),
+    ]).fit(x)
+    result = chip_smoke.phase_serving(
+        model, std_model, CPU, scaler_model=pipeline.stages[0],
+        report_fit_ids=(pipeline.fit_report.fit_id,), latency_requests=6, mixed_requests=48,
+        threads=4, paging_requests=4, shed_requests=60, pool_rows=256, reps=1,
+    )
+    assert result["rungs"]["scaler512"]["policy"] == "f32"
+    assert all(r["bitwise_vs_eager_kernel"] and r["bitwise_vs_transform"]
+               for r in result["rungs"]["scaler512"]["rungs"])
+    assert result["exporter"]["/report"]["fit_ids"] == [pipeline.fit_report.fit_id]
+    assert result["shedding"]["refuse"]["codes"].get("503", 0) >= 1
+    assert result["shedding"]["off"]["codes"] == {"200": 60}
+
+
+def test_exporter_checks_catch_a_missing_fit():
+    with pytest.raises(AssertionError, match="lacks phase 11's fits"):
+        chip_smoke.serve_exporter_checks(("no-such-fit",))

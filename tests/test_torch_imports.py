@@ -95,3 +95,13 @@ def test_serving_and_telemetry_modules_are_covered():
     for name in ("__init__", "registry", "timeline", "tracectx", "compilemon", "httpd"):
         assert f"spark_rapids_ml_tpu_torch.telemetry.{name}" in modules
     assert "spark_rapids_ml_tpu_torch.autotune.cache" in modules
+
+
+def test_fit_telemetry_and_scaler_modules_are_covered():
+    """The fit-telemetry and health modules and BASELINE config 4's are
+    among the modules the blocked-import run imports."""
+    modules = set(_port_modules())
+    for name in ("spans", "report", "export", "slo", "health"):
+        assert f"spark_rapids_ml_tpu_torch.telemetry.{name}" in modules
+    for name in ("scaler", "pipeline", "discretizer", "selector"):
+        assert f"spark_rapids_ml_tpu_torch.models.{name}" in modules

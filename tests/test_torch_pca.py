@@ -441,3 +441,47 @@ def test_default_standardize_matches_jax(x, request, path):
     np.testing.assert_allclose(port.mean, ref.mean, rtol=1e-5,
                                atol=1e-6 * np.abs(x).mean(axis=0).max())
     np.testing.assert_allclose(port.std, ref.std, rtol=1e-5)
+
+
+# -- Spark ML vector columns (VectorUDT) ------------------------------------------
+
+_VECTOR_TYPE = pa.struct([
+    ("type", pa.int8()), ("size", pa.int32()),
+    ("indices", pa.list_(pa.int32())), ("values", pa.list_(pa.float64())),
+])
+
+
+def _vector_column(x, sparse_rows):
+    """A VectorUDT struct column of ``x``'s rows: the rows in
+    ``sparse_rows`` as sparse vectors (their nonzero entries), the others
+    dense."""
+    rows = []
+    for i, row in enumerate(x.astype(np.float64)):
+        if i in sparse_rows:
+            nz = np.flatnonzero(row)
+            rows.append({"type": 0, "size": len(row), "indices": nz.tolist(),
+                         "values": row[nz].tolist()})
+        else:
+            rows.append({"type": 1, "size": None, "indices": None, "values": row.tolist()})
+    return pa.array(rows, type=_VECTOR_TYPE)
+
+
+@pytest.mark.parametrize("mixed", [False, True], ids=["dense", "dense_and_sparse"])
+def test_vector_udt_column_fits_like_jax(mixed):
+    """A 64 × 5 Spark ML vector column, dense rows only or mixed with sparse
+    rows (some entries zeroed), fits in the port as in the JAX package:
+    eigenvectors min |cos| ≥ 0.9999, explainedVariance rtol 1e-5."""
+    rng = np.random.default_rng(21)
+    x = rng.normal(size=(64, 5)).astype(np.float32) * np.float32([3, 2, 1.5, 1, 0.5])
+    sparse_rows = set(range(0, 64, 3)) if mixed else set()
+    for i in sparse_rows:
+        x[i, rng.choice(5, size=2, replace=False)] = 0.0
+    table = pa.table({"features": _vector_column(x, sparse_rows)})
+    port = PCA(device="cpu").setInputCol("features").setK(3).fit(table)
+    ref = JaxPCA().setInputCol("features").setK(3).fit(table)
+    assert _min_abs_cosine(port.pc, ref.pc) >= COSINE_BAR
+    np.testing.assert_allclose(port.explainedVariance, ref.explainedVariance, rtol=1e-5)
+    # the densified rows are the rows
+    from spark_rapids_ml_tpu_torch.utils import columnar
+
+    np.testing.assert_array_equal(columnar._from_arrow_column(table.column("features")), x)

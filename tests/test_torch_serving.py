@@ -639,3 +639,94 @@ def test_http_connection_is_kept_alive(jax_models):
         assert resp.status == 404 and resp.will_close
     finally:
         conn.close()
+
+
+# -- faults repaired: a malformed tuning cache, the HBM watermark knob ----------
+
+
+def test_malformed_tuning_cache_serves_f32_in_both_packages(jax_models, tmp_path, monkeypatch):
+    """A cache file whose ``entries`` is a list makes the cache lookup raise
+    in both packages; both registries log it and serve f32."""
+    from spark_rapids_ml_tpu.autotune import cache as jcache
+
+    _, plain, _ = jax_models
+    path = tmp_path / "tuning.json"
+    path.write_text(json.dumps({"schema": 1, "entries": [["serve.pca", {}]]}))
+    monkeypatch.setenv("TPU_ML_TUNING_CACHE_PATH", str(path))
+    tuning_cache.reset()
+    jcache.reset()
+    try:
+        entry = registry_mod.ModelRegistry(device="cpu").register("p", _port(plain))
+        jentry = jregistry.get_registry().register("p", plain, bucket_list=LADDER)
+    finally:
+        jcache.reset()
+    assert entry.policy == jentry.policy == "f32"
+
+
+def test_hbm_budget_reads_the_watermark_knob_like_jax(monkeypatch):
+    from spark_rapids_ml_tpu.serving import hbm as jhbm
+    from spark_rapids_ml_tpu.telemetry import compilemon as jcompilemon
+    from spark_rapids_ml_tpu_torch.telemetry import compilemon
+
+    limit = 80 * (1 << 30)
+    sample = {"cuda:0": {"bytes_in_use": 0, "peak_bytes_in_use": 0, "bytes_limit": limit}}
+    monkeypatch.setattr(compilemon, "sample_device_memory", lambda: sample)
+    monkeypatch.setattr(jcompilemon, "sample_device_memory", lambda: sample)
+    card = torch.device("cuda", 0)
+    for raw, watermark in (("0.5", 0.5), ("", 0.92), ("junk", 0.92)):
+        monkeypatch.setenv("TPU_ML_HEALTH_HBM_WATERMARK", raw)
+        assert hbm.budget_bytes(card) == jhbm.budget_bytes() == int(limit * watermark)
+
+
+# -- the scaler servable ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("with_mean,with_std", [(False, True), (True, True)])
+def test_scaler_servable_matches_jax(jax_models, with_mean, with_std):
+    """A StandardScalerModel fitted by the JAX package serves in both
+    registries alike (f32 both sides' device dtype here), policy f32."""
+    from spark_rapids_ml_tpu.models.scaler import StandardScaler as JaxStandardScaler
+    from spark_rapids_ml_tpu_torch.convert import model_from_arrays
+
+    x, _, _ = jax_models
+    jmodel = JaxStandardScaler(withMean=with_mean, withStd=with_std).fit(x)
+    model = model_from_arrays("StandardScalerModel", jmodel._saveData(), device="cpu",
+                              params=dict(jmodel._paramMap))
+    reg = registry_mod.ModelRegistry(device="cpu")
+    entry = reg.register("s", model, bucket_list=LADDER)
+    jreg = jregistry.get_registry()
+    jreg.register("s", jmodel, bucket_list=LADDER)
+    assert (entry.family, entry.policy, entry.n_features) == ("scaler", "f32", N)
+    for rows in (1, 7, 8, 33, 64):
+        got = reg.predict("s", x[:rows])
+        _assert_close(got, jreg.predict("s", x[:rows]))
+        np.testing.assert_array_equal(got, model.transform(x[:rows]))
+
+
+@pytest.mark.cuda
+def test_scaler_graph_replay_matches_eager_at_every_rung(monkeypatch):
+    """Each rung's replay of the scaler servable equals the eager
+    ``standardize`` of its padded block bit for bit, before and after the
+    model pages out and back in (its graphs are recaptured)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the registry captures CUDA graphs only there")
+    from spark_rapids_ml_tpu_torch.models.scaler import StandardScalerModel
+
+    monkeypatch.setenv("TPU_ML_SERVE_MAX_BATCH_ROWS", "4096")
+    rng = np.random.default_rng(4)
+    model = StandardScalerModel(mean=rng.normal(size=512), std=rng.uniform(0.5, 2, size=512),
+                                device="cuda")
+    model._set(withMean=True)
+    reg = registry_mod.ModelRegistry(device="cuda")
+    entry = reg.register("s", model)
+    ladder = buckets.bucket_ladder()
+    for round_ in ("registered", "paged"):
+        for b in ladder:
+            padded = rng.normal(size=(b, 512)).astype(np.float32)
+            served = reg.dispatch_padded(entry, padded, b)
+            eager = registry_mod._scaler_kernel(
+                entry.params, torch.from_numpy(padded).cuda(), with_mean=True, with_std=True
+            ).cpu().numpy()
+            assert np.array_equal(served, eager), (round_, b)
+        entry.page_out()
+        assert not entry.resident and not entry.rungs

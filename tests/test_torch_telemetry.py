@@ -272,8 +272,14 @@ def test_exporter_serves_metrics_and_traces():
         assert code == 200 and json.loads(body)["complete"]
         code, _ = _get(f"{url}/traces/{'0' * 15}1")
         assert code == 404
-        for path in ("/healthz", "/slo", "/report", "/nope"):
-            assert _get(f"{url}{path}")[0] == 404
+        # no health monitor runs: /healthz says UNKNOWN, /slo is empty
+        code, body = _get(f"{url}/healthz")
+        assert code == 200 and json.loads(body)["state"] == "UNKNOWN"
+        code, body = _get(f"{url}/slo")
+        assert code == 200 and json.loads(body) == {}
+        code, body = _get(f"{url}/report")
+        assert code == 200 and isinstance(json.loads(body)["reports"], list)
+        assert _get(f"{url}/nope")[0] == 404
     finally:
         srv.stop()
 
