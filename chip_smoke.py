@@ -63,7 +63,30 @@ Phases, each a plain function that the CPU tests also call at a tiny size:
    rows; each FitReport printed and gated (rows, peak device memory, wall
    time); and, on phase 8's 10,000,000 x 512 data before it is freed, a
    streamed StandardScaler fit (the moments fold, no Gram kernel) held to
-   f64 moments.
+   f64 moments;
+12. BASELINE config 5 (after phase 8's data is freed): KMeans (k=1000,
+   k-means++, maxIter=20, tol=1e-4) on 50,000,000 x 128 f32 blobs (1,000
+   seeded centres, unit noise) made on the card, in 12 partitions that the
+   fit pads to 2^22 rows on the card; the fit's wall time, its "kmeans
+   init"/"kmeans lloyd" spans, iterations, seconds per Lloyd iteration
+   against the step's f32 bound, h2d_bytes and peak device memory; a second
+   fit with initMode="k-means||"; one Lloyd step from the fit's initial
+   centres against f64 (labels equal but for near ties, counts, sums and
+   cost within 1e-5), timed at the 8,192-row block and the card's; one pass
+   each under TPU_ML_PRECISION_POLICY=int8_dist and bf16_f32acc (time and
+   label agreement with f32); trainingCost against the f64 cost of the
+   centres it was computed from; transform of all 50,000,000 rows against
+   the f64 argmin of the fitted centres. No hand kernel runs here: the
+   distances and sums are cuBLAS products (int8_dist: torch._int_mm);
+13. DBSCAN on 100,000 x 128 rows (grids of unit-spaced points on random
+   planes, a tenth moved off as noise), eps^2 = 1.5 far from every pairwise
+   distance, minSamples=5: labels exactly those of an f64 oracle (the eps
+   graph in f64 on the card, scipy's connected components of the core
+   points, the smallest-core-neighbour border rule); exact
+   NearestNeighbors(k=10) over a 1,000,000 x 128 corpus with 10,000
+   queries against an f64 brute force on the card (ids within the f64
+   top 10 up to near ties, distances rtol 1e-5), and the int8_dist
+   product's recall@10.
 
 Each main path reads the kernels' launch counts from 0 around exactly its
 fit. The last lines are one JSON object with every kernel's numbers, the
@@ -92,12 +115,18 @@ import time
 import numpy as np
 import torch
 
-from spark_rapids_ml_tpu_torch import PCA, Normalizer, Pipeline, StandardScaler
+from spark_rapids_ml_tpu_torch import (
+    DBSCAN, PCA, KMeans, NearestNeighbors, Normalizer, Pipeline, StandardScaler,
+)
 from spark_rapids_ml_tpu_torch.ops import _build
+from spark_rapids_ml_tpu_torch.ops import dbscan as DB
 from spark_rapids_ml_tpu_torch.ops import gram_moments as G
+from spark_rapids_ml_tpu_torch.ops import kmeans as KM
 from spark_rapids_ml_tpu_torch.ops import linalg as L
+from spark_rapids_ml_tpu_torch.ops import neighbors as NN
 from spark_rapids_ml_tpu_torch.autotune import cache as tuning_cache
-from spark_rapids_ml_tpu_torch.autotune.policy import TuningConfig
+from spark_rapids_ml_tpu_torch.autotune.policy import TuningConfig, resolve_policy
+from spark_rapids_ml_tpu_torch.parallel.tree_aggregate import tree_reduce
 from spark_rapids_ml_tpu_torch.serving import buckets as B
 from spark_rapids_ml_tpu_torch.serving import client as serve_client
 from spark_rapids_ml_tpu_torch.serving import fastlane as FL
@@ -110,6 +139,8 @@ from spark_rapids_ml_tpu_torch.telemetry import health, httpd, slo
 from spark_rapids_ml_tpu_torch.telemetry.registry import REGISTRY
 from spark_rapids_ml_tpu_torch.telemetry.timeline import TIMELINE
 from spark_rapids_ml_tpu_torch.utils import columnar
+from spark_rapids_ml_tpu_torch.utils.checkpoint import TrainingCheckpointer
+from spark_rapids_ml_tpu_torch.utils.device import block_rows_for
 
 # H100 SXM published dense peaks (NVIDIA data sheet), at the 700 W limit.
 PEAK_BF16_FLOPS = 989e12
@@ -1810,6 +1841,579 @@ def phase_serving(model, std_model, device: torch.device, *, scaler_model=None,
             "paging": paging, "summary": summary}
 
 
+# -- phase 12: BASELINE config 5 ---------------------------------------------
+
+CONFIG5_ROWS = 50_000_000
+CONFIG5_N = 128
+CONFIG5_K = 1_000
+CONFIG5_PARTITIONS = 12
+CONFIG5_SEED = 21
+# H100 SXM published dense f32 peak outside the tensor cores (NVIDIA data
+# sheet), at the 700 W limit: the Lloyd step's two f32 products run there
+# (TF32 is off).
+PEAK_FP32_FLOPS = 67e12
+# f32 sums and cost of a Lloyd pass against f64 on the same labels: 763
+# blocks of 65,536 rows add into f32 accumulators one rounding (2⁻²⁴) each,
+# and each block's sums come from one product: about 763·2⁻²⁴ = 4.5e-5 at
+# worst, ~√763·2⁻²⁴ = 1.6e-6 typical. Gated normwise (sums) and relative
+# (cost) at 1e-5.
+KMEANS_RTOL = 1e-5
+# int8_dist and bf16_f32acc rank by a coarser cross term, and how often
+# their labels agree with f32 is a measurement, not a bound; a policy whose
+# product were wrong would agree on about 1/k of the rows.
+POLICY_AGREEMENT_FLOOR = 0.5
+
+
+def f32_dist_error_bound(n: int) -> float:
+    """Bound on |f32 − exact| of one expanded squared distance
+    ‖x‖² + ‖c‖² − 2·x·c, relative to ‖x‖² + ‖c‖²: each of the two norms and
+    the n-term dot product errs by at most γₙ ≈ n·2⁻²⁴ of its scale (Higham,
+    §3.1), plus one rounding per add. Two distances whose f64 gap is under
+    twice this can rank either way in f32: a near tie."""
+    return 2.0 * (n + 2) * 2.0**-24
+
+
+def partition_edges(rows: int, partitions: int) -> np.ndarray:
+    """Row edges of ``np.array_split(x, partitions)``, the fit's split."""
+    sizes = [rows // partitions + (i < rows % partitions) for i in range(partitions)]
+    return np.concatenate([[0], np.cumsum(sizes)])
+
+
+def kmeans_centres(k: int, n: int, device: torch.device, seed: int) -> torch.Tensor:
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((k, n), generator=gen, device=device)
+
+
+def kmeans_partition(p: int, edges: np.ndarray, centres: torch.Tensor, seed: int) -> torch.Tensor:
+    """Partition ``p`` of the blobs, made on the centres' device from its own
+    seed (so it is made again bit for bit): a uniform centre per row plus
+    unit Gaussian noise."""
+    device = centres.device
+    gen = torch.Generator(device=device).manual_seed(seed + 1 + p)
+    rows = int(edges[p + 1] - edges[p])
+    labels = torch.randint(0, centres.shape[0], (rows,), generator=gen, device=device)
+    x = centres[labels]
+    x += torch.randn(x.shape, generator=gen, device=device)
+    return x
+
+
+def kmeans_workload(rows: int, n: int, k: int, partitions: int, device: torch.device,
+                    seed: int = CONFIG5_SEED) -> np.ndarray:
+    """The blobs as one host f32 matrix, made partition by partition on
+    ``device``."""
+    centres = kmeans_centres(k, n, device, seed)
+    edges = partition_edges(rows, partitions)
+    x = np.empty((rows, n), dtype=np.float32)
+    for p in range(partitions):
+        torch.from_numpy(x[edges[p]:edges[p + 1]]).copy_(kmeans_partition(p, edges, centres, seed))
+    return x
+
+
+def kmeans_device_parts(rows: int, n: int, k: int, partitions: int, device: torch.device,
+                        seed: int = CONFIG5_SEED) -> list:
+    """The same partitions made again on ``device``, each padded to its row
+    bucket with a weight vector that masks the padding, as the fit holds
+    them: [(x [bucket, n], w [bucket], true rows)]."""
+    centres = kmeans_centres(k, n, device, seed)
+    edges = partition_edges(rows, partitions)
+    parts = []
+    for p in range(partitions):
+        m = int(edges[p + 1] - edges[p])
+        bucket = columnar.bucket_rows(m)
+        x = torch.zeros((bucket, n), dtype=torch.float32, device=device)
+        x[:m] = kmeans_partition(p, edges, centres, seed)
+        w = torch.zeros(bucket, dtype=torch.float32, device=device)
+        w[:m] = 1.0
+        parts.append((x, w, m))
+    return parts
+
+
+def kmeans_f64_pass(parts, centers: torch.Tensor, block: int, given=None,
+                    compare: bool = True) -> dict:
+    """Every true row assigned in f64 on the device: the f64 cost of
+    ``centers``, and, with ``compare``, the f32 labels held to the f64 ones.
+    The f32 labels are ``given`` (one int tensor per partition), else the
+    Lloyd pass's own ``ops.kmeans.assign_clusters``; a row whose f64
+    best/second-best gap is under twice ``f32_dist_error_bound`` may differ
+    (a near tie), any other may not. Also the f64 sums and counts by the f32
+    labels and the f64 counts by the f64 labels."""
+    device = centers.device
+    k, n = centers.shape
+    c64 = centers.double()
+    c_sq = (c64 * c64).sum(1)
+    tie = 2.0 * f32_dist_error_bound(n)
+    cost64 = torch.zeros((), dtype=torch.float64, device=device)
+    sums64 = torch.zeros((k, n), dtype=torch.float64, device=device)
+    counts_f32 = torch.zeros(k, dtype=torch.int64, device=device)
+    counts_f64 = torch.zeros(k, dtype=torch.int64, device=device)
+    tallies = torch.zeros(3, dtype=torch.int64, device=device)  # mismatch, near tie, bad
+    labels_f32 = []
+    for i, (x, _, rows) in enumerate(parts):
+        part_labels = torch.empty(rows, dtype=torch.int64, device=device)
+        # the Lloyd pass's own blocks, padding rows included (so the f32
+        # products have its shapes), the padding masked out after
+        for lo in range(0, rows, block):
+            xb = x[lo:lo + block]
+            m = min(block, rows - lo)
+            x64 = xb[:m].double()
+            x_sq = (x64 * x64).sum(1)
+            d = (x_sq[:, None] + c_sq[None, :]) - 2.0 * (x64 @ c64.T)
+            top = torch.topk(d, 2, dim=1, largest=False)
+            cost64 += top.values[:, 0].clamp(min=0.0).sum()
+            if not compare:
+                continue
+            lab64 = top.indices[:, 0]
+            if given is None:
+                lab32 = KM.assign_clusters(xb, centers)[0][:m]
+            else:
+                lab32 = given[i][lo:lo + m].long()
+            part_labels[lo:lo + m] = lab32
+            near = (top.values[:, 1] - top.values[:, 0]) < tie * (x_sq + c_sq.max())
+            diff = lab32 != lab64
+            tallies += torch.stack([diff.sum(), near.sum(), (diff & ~near).sum()])
+            sums64.index_add_(0, lab32, x64)
+            counts_f32 += torch.bincount(lab32, minlength=k)
+            counts_f64 += torch.bincount(lab64, minlength=k)
+        labels_f32.append(part_labels)
+    mismatch, near, bad = (int(v) for v in tallies.cpu())
+    return {
+        "cost64": float(cost64), "sums64": sums64, "counts_f32_labels": counts_f32,
+        "counts_f64_labels": counts_f64, "labels_f32": labels_f32 if compare else None,
+        "mismatches": mismatch, "near_ties": near, "mismatches_not_near_tie": bad,
+    }
+
+
+def _lloyd_pass(parts, centers, block: int, policy: str):
+    return tree_reduce(
+        [KM.kmeans_stats(x, centers, w, block_rows=block, policy=policy) for x, w, _ in parts],
+        KM.combine_kmeans_stats,
+    )
+
+
+def _lloyd_pass_s(parts, centers, block: int, device: torch.device, policy: str = "f32") -> float:
+    """Wall seconds of one Lloyd accumulation pass over ``parts``, ended by a
+    synchronise."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    _lloyd_pass(parts, centers, block, policy)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter() - t0
+
+
+def lloyd_profile_ms(part, centers, block: int, device: torch.device) -> dict:
+    """Device milliseconds by operator of one partition's Lloyd pass, from
+    ``torch.profiler`` (the ten largest; empty without a card): which layer
+    of the step (distance product, elementwise, argmin, one-hot product)
+    takes the time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if device.type != "cuda":
+        return {}
+    x, w, _ = part
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        KM.kmeans_stats(x, centers, w, block_rows=block)
+        torch.cuda.synchronize(device)
+    times = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        if t:
+            times[e.key] = t / 1e3
+    return dict(sorted(times.items(), key=lambda kv: -kv[1])[:10])
+
+
+def lloyd_bound_s(rows: int, n: int, k: int) -> tuple[float, str]:
+    """Least time (s) an H100 needs for one Lloyd step: two f32 products of
+    2·rows·n·k operations each (the cross term, then onehotᵀ·x) at the f32
+    peak, against X read once."""
+    ops_s = 4.0 * rows * n * k / PEAK_FP32_FLOPS
+    bytes_s = 4.0 * rows * n / PEAK_HBM_BYTES_PER_S
+    return max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s else "bytes")
+
+
+def _mem_available() -> str:
+    with open("/proc/meminfo") as f:
+        return next((line.split(":", 1)[1].strip() for line in f
+                     if line.startswith("MemAvailable")), "unknown")
+
+
+def _fit_kmeans(x, k: int, partitions: int, device: torch.device, seed: int,
+                init_mode: str, checkpoint_dir: str) -> tuple:
+    """(model, wall seconds, iterations, the last iteration's input centres
+    or None) of one fit through the public API with a checkpoint per
+    iteration."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    model = KMeans(device=device, k=k, seed=seed, initMode=init_mode).fit(
+        x, num_partitions=partitions, checkpoint_dir=checkpoint_dir)
+    fit_s = time.perf_counter() - t0
+    ckpt = TrainingCheckpointer(checkpoint_dir)
+    steps = ckpt.steps()
+    last_input = None
+    if len(steps) > 1:
+        last_input = torch.from_numpy(ckpt.load(steps[-2])[0]["centers"]).to(device)
+    return model, fit_s, steps[-1] + 1, last_input
+
+
+def _span_s(report, name: str) -> float:
+    return float(report.phases.get(name, {}).get("sum", float("nan")))
+
+
+def phase_config5(rows: int, n: int, k: int, partitions: int, device: torch.device,
+                  seed: int = CONFIG5_SEED) -> dict:
+    """BASELINE config 5 whole (see the module note, phase 12)."""
+    cuda = device.type == "cuda"
+    print(f"config 5: MemAvailable before the data: {_mem_available()}", flush=True)
+    t0 = time.perf_counter()
+    x = kmeans_workload(rows, n, k, partitions, device, seed)
+    make_s = time.perf_counter() - t0
+    result = {"rows": rows, "n": n, "k": k, "partitions": partitions, "make_data_s": make_s}
+
+    with tempfile.TemporaryDirectory() as ck:
+        model, fit_s, iters, last_input = _fit_kmeans(
+            x, k, partitions, device, seed, "k-means++", os.path.join(ck, "pp"))
+        model_par, fit_par_s, iters_par, _ = _fit_kmeans(
+            x, k, partitions, device, seed, "k-means||", os.path.join(ck, "par"))
+    report, report_par = model.fit_report, model_par.fit_report
+    lloyd_s = _span_s(report, "kmeans lloyd")
+    bound_s, bound_by = lloyd_bound_s(rows, n, k)
+    result.update({
+        "fit_s": fit_s, "iterations": iters,
+        "init_span_s": _span_s(report, "kmeans init"), "lloyd_span_s": lloyd_s,
+        "lloyd_s_per_iteration": lloyd_s / iters,
+        "lloyd_bound_s": bound_s, "lloyd_bound_by": bound_by,
+        "h2d_bytes": report.h2d_bytes, "peak_device_bytes": report.peak_device_bytes,
+        "training_cost": model.trainingCost,
+        "kmeans_par": {
+            "fit_s": fit_par_s, "iterations": iters_par,
+            "init_span_s": _span_s(report_par, "kmeans init"),
+            "lloyd_span_s": _span_s(report_par, "kmeans lloyd"),
+            "training_cost": model_par.trainingCost,
+        },
+    })
+    print(f"config 5 fit report: {json.dumps(report.to_dict())}", flush=True)
+
+    parts = kmeans_device_parts(rows, n, k, partitions, device, seed)
+    block = block_rows_for(device, KM.DEFAULT_BLOCK_ROWS, k)
+    est = KMeans(device=device, k=k, seed=seed)
+    c_init = est._init_centers(np.array_split(x, partitions), k, None, parts)
+
+    # one Lloyd step from the fit's initial centres against f64
+    stats = _lloyd_pass(parts, c_init, block, "f32")
+    step = kmeans_f64_pass(parts, c_init, block)
+    counts32 = stats.counts.long()
+    sums_err = float((stats.sums.double() - step["sums64"]).abs().max()
+                     / step["sums64"].abs().max())
+    cost_err = abs(float(stats.cost) - step["cost64"]) / step["cost64"]
+    result["lloyd_step_vs_f64"] = {
+        "mismatches": step["mismatches"], "near_ties": step["near_ties"],
+        "mismatches_not_near_tie": step["mismatches_not_near_tie"],
+        "counts_l1_vs_f64_labels": int((counts32 - step["counts_f64_labels"]).abs().sum()),
+        "counts_equal_own_labels": bool(torch.equal(
+            stats.counts, step["counts_f32_labels"].to(stats.counts.dtype))),
+        "sums_normwise_err": sums_err, "cost_rel_err": cost_err, "rtol": KMEANS_RTOL,
+    }
+
+    # the Lloyd step at the default block against the card's
+    times = {block: [], KM.DEFAULT_BLOCK_ROWS: []}
+    for b in (block, KM.DEFAULT_BLOCK_ROWS, KM.DEFAULT_BLOCK_ROWS, block):
+        times[b].append(_lloyd_pass_s(parts, c_init, b, device))
+    small = _lloyd_pass(parts, c_init, KM.DEFAULT_BLOCK_ROWS, "f32")
+    result["block_rows"] = {
+        str(b): {"pass_s": ts, "min_pass_s": min(ts)} for b, ts in times.items()}
+    result["block_rows"]["sums_normwise_diff"] = float(
+        (small.sums - stats.sums).abs().max() / stats.sums.abs().max())
+    result["block_rows"]["counts_l1_diff"] = int(
+        (small.counts.long() - counts32).abs().sum())
+    result["lloyd_profile_ms_one_partition"] = lloyd_profile_ms(parts[0], c_init, block, device)
+    # the Lloyd passes keep the card busy (they wait on it once an
+    # iteration); the copies, the seeding and the host's work leave it idle
+    result["device_idle_share_est"] = 1.0 - iters * min(times[block]) / fit_s
+
+    # one Lloyd pass under each coarser distance policy
+    result["policies"] = {}
+    for name in ("int8_dist", "bf16_f32acc"):
+        with _env(TPU_ML_PRECISION_POLICY=name):
+            policy = resolve_policy(None)
+            pass_s = _lloyd_pass_s(parts, c_init, block, device, policy)
+            agree = sum(
+                int((KM.assign_blocks(xp[:m], c_init, block_rows=block, policy=policy)[0].long()
+                     == lab).sum())
+                for (xp, _, m), lab in zip(parts, step["labels_f32"]))
+        result["policies"][name] = {"pass_s": pass_s, "label_agreement_vs_f32": agree / rows}
+    del step
+
+    # trainingCost: the cost of the last iteration's input centres
+    pre = c_init if last_input is None else last_input
+    cost64_pre = kmeans_f64_pass(parts, pre, block, compare=False)["cost64"]
+    result["training_cost_rel_err_vs_f64"] = abs(model.trainingCost - cost64_pre) / cost64_pre
+
+    # transform of every row, held to the f64 argmin of the fitted centres
+    t0 = time.perf_counter()
+    labels = model.transform(x)
+    result["transform_s"] = time.perf_counter() - t0
+    result["transform_span_s"] = _span_s(model.transform_report, "kmeans transform")
+    edges = partition_edges(rows, partitions)
+    given = [torch.from_numpy(labels[edges[p]:edges[p + 1]]).to(device)
+             for p in range(partitions)]
+    final = kmeans_f64_pass(parts, torch.from_numpy(model.clusterCenters).to(device), block,
+                            given=given)
+    result["transform_vs_f64"] = {
+        "mismatches": final["mismatches"], "near_ties": final["near_ties"],
+        "mismatches_not_near_tie": final["mismatches_not_near_tie"],
+    }
+    result["final_cost64"] = final["cost64"]
+    del parts, given, final
+    if cuda:
+        torch.cuda.empty_cache()
+    print(f"config 5: {json.dumps(result)}", flush=True)
+
+    gate = result["lloyd_step_vs_f64"]
+    if gate["mismatches_not_near_tie"]:
+        raise AssertionError(f"config 5 Lloyd step labels off f64 beyond near ties: {gate}")
+    if not gate["counts_l1_vs_f64_labels"] <= 2 * gate["mismatches"]:
+        raise AssertionError(f"config 5 Lloyd step counts off f64: {gate}")
+    if not gate["counts_equal_own_labels"]:
+        raise AssertionError(f"config 5 Lloyd step counts are not those of its labels: {gate}")
+    if not (sums_err <= KMEANS_RTOL and cost_err <= KMEANS_RTOL):
+        raise AssertionError(f"config 5 Lloyd step sums or cost off f64: {gate}")
+    if not result["block_rows"]["sums_normwise_diff"] <= KMEANS_RTOL:
+        raise AssertionError(f"config 5 block sizes disagree: {result['block_rows']}")
+    if not result["block_rows"]["counts_l1_diff"] <= 2 * gate["near_ties"]:
+        raise AssertionError(f"config 5 block sizes disagree: {result['block_rows']}")
+    for name, entry in result["policies"].items():
+        if not entry["label_agreement_vs_f32"] >= POLICY_AGREEMENT_FLOOR:
+            raise AssertionError(f"config 5 {name} labels agree with f32 on too few rows: {entry}")
+    if not result["training_cost_rel_err_vs_f64"] <= KMEANS_RTOL:
+        raise AssertionError(f"config 5 trainingCost off f64: {result}")
+    if result["transform_vs_f64"]["mismatches_not_near_tie"]:
+        raise AssertionError(f"config 5 transform labels off f64: {result['transform_vs_f64']}")
+    if labels.shape != (rows,) or model.clusterCenters.shape != (k, n):
+        raise AssertionError(f"config 5 shapes: labels {labels.shape}, "
+                             f"centres {model.clusterCenters.shape}")
+    for m in (model, model_par):
+        if not (np.isfinite(m.clusterCenters).all() and np.isfinite(m.trainingCost)):
+            raise AssertionError("config 5 fitted a non-finite model")
+    if cuda and report.h2d_bytes < x.nbytes:
+        raise AssertionError(f"config 5 fit copied {report.h2d_bytes} B, under the data's "
+                             f"{x.nbytes}")
+    return result
+
+
+# -- phase 13: DBSCAN and exact kNN ------------------------------------------
+
+DBSCAN_GRIDS = 250       # 250 grids of 20 x 20 points: 100,000 rows
+DBSCAN_SIDE = 20
+DBSCAN_NOISE_SHARE = 0.1  # rows moved off their grid to isolated places
+DBSCAN_EPS = float(np.sqrt(1.5))  # squared: between the lattice's 1 and 2
+DBSCAN_MIN_SAMPLES = 5    # an inner grid point and its 4 lattice neighbours
+KNN_ROWS = 1_000_000      # the width and corpus size of SIFT-1M (ann-benchmarks)
+KNN_QUERIES = 10_000
+KNN_K = 10
+KNN_RTOL = 1e-5
+INT8_RECALL_FLOOR = 0.5
+
+
+def dbscan_workload(grids: int, side: int, n: int, device: torch.device,
+                    seed: int = 31) -> np.ndarray:
+    """[grids·side², n] f32 rows: each grid a unit-spaced side × side
+    lattice on a random 2-D plane through a random offset (σ = 5 per
+    coordinate, so grids lie far apart and norms stay small enough for the
+    f32 expansion), jittered by σ = 0.01; then a tenth of the rows moved to
+    isolated random places (noise), which also breaks grids into pieces and
+    turns some inner points into border points. Gaussian blobs in 128
+    dimensions would not do: their pairwise distances concentrate, so no
+    eps that splits them is far from every pair, and f32 and f64 would
+    disagree on some eps decisions; a lattice's distances come in levels
+    (1, 2, 4, …) with wide gaps between them."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    frames = torch.linalg.qr(torch.randn((grids, n, 2), generator=gen, device=device))[0]
+    offsets = 5.0 * torch.randn((grids, 1, n), generator=gen, device=device)
+    ij = torch.stack(torch.meshgrid(
+        torch.arange(side, device=device), torch.arange(side, device=device), indexing="ij"
+    ), dim=-1).reshape(-1, 2).float() - (side - 1) / 2
+    x = offsets + torch.einsum("pc,gnc->gpn", ij, frames)
+    x = x.reshape(-1, n) + 0.01 * torch.randn((grids * side * side, n), generator=gen,
+                                              device=device)
+    moved = torch.randperm(x.shape[0], generator=gen, device=device)[
+        : int(DBSCAN_NOISE_SHARE * x.shape[0])]
+    x[moved] = 5.0 * torch.randn((len(moved), n), generator=gen, device=device)
+    return x.cpu().numpy()
+
+
+def dbscan_oracle_f64(x: np.ndarray, eps_sq: float, min_samples: float,
+                      device: torch.device, block: int = 8192) -> tuple[np.ndarray, float]:
+    """(labels, smallest relative gap |d² − eps²|/eps² over all pairs) of an
+    f64 DBSCAN: the eps graph from f64 tiles on ``device``, connected
+    components of the core points (scipy), each cluster named by its
+    smallest core index, a border row taking the smallest such name among
+    its core neighbours, then relabeled 0..C−1 in order; noise −1."""
+    import scipy.sparse
+    from scipy.sparse.csgraph import connected_components
+
+    xd = torch.from_numpy(x).to(device, torch.float64)
+    sq = (xd * xd).sum(1)
+    rows_, cols_ = [], []
+    gap = torch.tensor(float("inf"), dtype=torch.float64, device=device)
+    for a in range(0, len(x), block):
+        d = (sq[a:a + block, None] + sq[None, :]) - 2.0 * (xd[a:a + block] @ xd.T)
+        gap = torch.minimum(gap, (d - eps_sq).abs().min())
+        i, j = torch.nonzero(d <= eps_sq, as_tuple=True)
+        rows_.append((i + a).cpu().numpy())
+        cols_.append(j.cpu().numpy())
+    i, j = np.concatenate(rows_), np.concatenate(cols_)  # self pairs included
+    n = len(x)
+    core = np.bincount(i, minlength=n) >= min_samples
+    both = core[i] & core[j]
+    graph = scipy.sparse.coo_matrix((np.ones(both.sum()), (i[both], j[both])), shape=(n, n))
+    _, comp = connected_components(graph, directed=False)
+    name = np.full(comp.max() + 1, n, dtype=np.int64)
+    np.minimum.at(name, comp[core], np.flatnonzero(core))
+    labels = np.where(core, name[comp], n)
+    border = ~core[i] & core[j]
+    np.minimum.at(labels, i[border], name[comp[j[border]]])
+    labels = np.where(labels < n, labels, -1)
+    ids = np.unique(labels[labels >= 0])
+    out = np.full(n, -1, dtype=np.int32)
+    out[labels >= 0] = np.searchsorted(ids, labels[labels >= 0])
+    return out, float(gap) / eps_sq
+
+
+def knn_f64(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+            chunk: int = 2048, block: int = 65_536) -> tuple[torch.Tensor, torch.Tensor]:
+    """(squared distances, ids) of the k + 1 nearest corpus rows of every
+    query, brute force in f64 on the device, ascending."""
+    c64 = corpus.double()
+    c_sq = (c64 * c64).sum(1)
+    out_d, out_i = [], []
+    for a in range(0, len(queries), chunk):
+        q64 = queries[a:a + chunk].double()
+        q_sq = (q64 * q64).sum(1)
+        best_d = torch.empty((len(q64), 0), dtype=torch.float64, device=q64.device)
+        best_i = torch.empty((len(q64), 0), dtype=torch.int64, device=q64.device)
+        for b in range(0, len(corpus), block):
+            d = (q_sq[:, None] + c_sq[None, b:b + block]) - 2.0 * (q64 @ c64[b:b + block].T)
+            ids = torch.arange(b, b + d.shape[1], device=d.device).expand(len(q64), -1)
+            d = torch.cat([best_d, d], dim=1)
+            ids = torch.cat([best_i, ids], dim=1)
+            best_d, which = torch.topk(d, k + 1, dim=1, largest=False)
+            best_i = torch.gather(ids, 1, which)
+        out_d.append(best_d)
+        out_i.append(best_i)
+    return torch.cat(out_d), torch.cat(out_i)
+
+
+def _timeline_spans(since_seq: int) -> dict:
+    """Seconds per span name recorded since ``since_seq``."""
+    spans: dict[str, float] = {}
+    for e in TIMELINE.events(since_seq=since_seq):
+        if "dur" in e:
+            spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur"] / 1e6
+    return spans
+
+
+def phase_distance_family(device: torch.device, *, grids: int = DBSCAN_GRIDS,
+                          side: int = DBSCAN_SIDE, n: int = CONFIG5_N,
+                          knn_rows: int = KNN_ROWS, knn_queries: int = KNN_QUERIES,
+                          k: int = KNN_K, seed: int = 41) -> dict:
+    """DBSCAN and exact kNN through the public API, each against an f64
+    oracle made on the device (see the module note, phase 13)."""
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    result = {}
+    x = dbscan_workload(grids, side, n, device)
+    eps_sq = DBSCAN_EPS**2
+    oracle, gap = dbscan_oracle_f64(x, eps_sq, DBSCAN_MIN_SAMPLES, device)
+    norms = (x.astype(np.float64) ** 2).sum(1)
+    f32_reach = f32_dist_error_bound(n) * 2.0 * norms.max() / eps_sq
+    seq = TIMELINE.seq()
+    sync()
+    t0 = time.perf_counter()
+    labels = DBSCAN(device=device, eps=DBSCAN_EPS, minSamples=DBSCAN_MIN_SAMPLES).fit() \
+        .clusterLabels(x)
+    sync()
+    wall = time.perf_counter() - t0
+    # one blocked pass alone (the core count): the clustering is a count
+    # pass, one pass a propagation sweep and the border pass
+    xd = torch.from_numpy(x).to(device)
+    ones = torch.ones(len(x), device=device)
+    t0 = time.perf_counter()
+    DB.dbscan_core_mask(xd, ones, ones.bool(), float(np.float32(eps_sq)),
+                        float(DBSCAN_MIN_SAMPLES),
+                        block_rows=block_rows_for(device, DB.DEFAULT_BLOCK_ROWS))
+    sync()
+    one_pass = time.perf_counter() - t0
+    del xd
+    result["dbscan"] = {
+        "rows": len(x), "n": n, "eps": DBSCAN_EPS, "min_samples": DBSCAN_MIN_SAMPLES,
+        "wall_s": wall, "spans_s": _timeline_spans(seq),
+        "one_pass_s": one_pass, "passes_est": wall / one_pass,
+        "min_rel_gap_to_eps": gap, "f32_reach_rel": f32_reach,
+        "clusters": int(oracle.max()) + 1, "noise_rows": int((oracle < 0).sum()),
+        "label_mismatches": int((labels != oracle).sum()),
+    }
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    corpus = torch.randn((knn_rows, n), generator=gen, device=device)
+    queries = torch.randn((knn_queries, n), generator=gen, device=device)
+    corpus_h, queries_h = corpus.cpu().numpy(), queries.cpu().numpy()
+    d64, i64 = knn_f64(queries, corpus, k)
+    seq = TIMELINE.seq()
+    sync()
+    t0 = time.perf_counter()
+    model = NearestNeighbors(device=device, k=k).fit(corpus_h)
+    dist, ids = model.kneighbors(queries_h)
+    sync()
+    wall = time.perf_counter() - t0
+    ids_t = torch.from_numpy(ids).to(device)
+    # the f64 squared distance of every id the port returned
+    q64, c64 = queries.double(), corpus.double()
+    got64 = ((q64[:, None, :] - c64[ids_t]) ** 2).sum(-1)
+    kth = d64[:, k - 1:k]
+    tie = 2.0 * f32_dist_error_bound(n) * ((q64 * q64).sum(1, keepdim=True)
+                                           + (c64 * c64).sum(1).max())
+    id_mismatch = ids_t != i64[:, :k]
+    outside = got64 > kth + tie  # not among the f64 top k, even up to a near tie
+    dist_err = np.abs(dist.astype(np.float64) - np.sqrt(got64.cpu().numpy())) / np.sqrt(
+        got64.cpu().numpy())
+    int8_ids = torch.cat([
+        NN.knn_topk(queries[a:a + 4096], corpus, torch.ones(knn_rows, dtype=torch.bool,
+                                                             device=device), k,
+                    policy="int8_dist")[1]
+        for a in range(0, knn_queries, 4096)
+    ]).long()
+    recall = float((int8_ids[:, :, None] == i64[:, None, :k]).any(-1).float().mean())
+    result["knn"] = {
+        "corpus_rows": knn_rows, "queries": knn_queries, "n": n, "k": k,
+        "wall_s": wall, "spans_s": _timeline_spans(seq),
+        "id_mismatches": int(id_mismatch.sum()), "ids_outside_f64_top_k": int(outside.sum()),
+        "max_rel_dist_err": float(dist_err.max()), "rtol": KNN_RTOL,
+        "int8_dist_recall_at_k": recall,
+    }
+    print(f"distance family: {json.dumps(result)}", flush=True)
+
+    db = result["dbscan"]
+    if not db["min_rel_gap_to_eps"] > db["f32_reach_rel"]:
+        raise AssertionError(f"DBSCAN eps within f32 reach of a pairwise distance: {db}")
+    if db["label_mismatches"]:
+        raise AssertionError(f"DBSCAN labels differ from the f64 oracle: {db}")
+    if not (db["clusters"] > grids and db["noise_rows"] > 0):
+        raise AssertionError(f"DBSCAN workload too plain to test: {db}")
+    kn = result["knn"]
+    if kn["ids_outside_f64_top_k"]:
+        raise AssertionError(f"kNN ids outside the f64 top {k}: {kn}")
+    if not kn["max_rel_dist_err"] <= KNN_RTOL:
+        raise AssertionError(f"kNN distances off f64: {kn}")
+    if not kn["int8_dist_recall_at_k"] >= INT8_RECALL_FLOOR:
+        raise AssertionError(f"kNN int8_dist recall: {kn}")
+    return result
+
+
 def _timed(name: str, fn, *args, **kwargs):
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
@@ -1865,6 +2469,11 @@ def main() -> int:
     _timed("serving", phase_serving, resident["model"], standardized["model"], device,
            scaler_model=config4["scaler"]["model"].stages[0],
            report_fit_ids=tuple(r["fit_id"] for r in config4.values()))
+    bench_workload.cache_clear()
+    torch.cuda.empty_cache()
+    _timed("config 5 kmeans", phase_config5,
+           CONFIG5_ROWS, CONFIG5_N, CONFIG5_K, CONFIG5_PARTITIONS, device)
+    _timed("dbscan and knn", phase_distance_family, device)
     # each kernel's launches come from the main path that runs it
     launches = {
         "gram_moments": resident["launches"]["gram_moments"],

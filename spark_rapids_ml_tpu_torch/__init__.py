@@ -18,13 +18,21 @@ Beside PCA: the scaler family (``models/scaler.py``), ``Pipeline``
 (BASELINE config 4, ``Pipeline([StandardScaler, PCA])``), the quantile
 discretizer and the variance selector; every fit books a ``FitReport``
 (``telemetry/``), and serving has a health monitor and SLO shedding.
+
+The distance family (BASELINE config 5): ``KMeans`` (inits ``random``,
+``k-means++``, ``k-means||``; checkpoint/resume), ``DBSCAN`` and the exact
+``NearestNeighbors``, on cuBLAS products (``int8_dist`` on
+``torch._int_mm``); ``clustering`` is the drop-in namespace.
 """
 
+from spark_rapids_ml_tpu_torch.models.dbscan import DBSCAN, DBSCANModel
 from spark_rapids_ml_tpu_torch.models.discretizer import (
     Bucketizer,
     QuantileDiscretizer,
     QuantileDiscretizerModel,
 )
+from spark_rapids_ml_tpu_torch.models.kmeans import KMeans, KMeansModel
+from spark_rapids_ml_tpu_torch.models.neighbors import NearestNeighbors, NearestNeighborsModel
 from spark_rapids_ml_tpu_torch.models.pca import PCA, PCAModel
 from spark_rapids_ml_tpu_torch.models.pipeline import Pipeline, PipelineModel
 from spark_rapids_ml_tpu_torch.models.scaler import (
@@ -53,8 +61,9 @@ from spark_rapids_ml_tpu_torch.models.selector import (
 __version__ = "0.1.0"
 
 __all__ = [
-    "DCT", "Binarizer", "Bucketizer", "ElementwiseProduct", "Imputer", "ImputerModel",
-    "MaxAbsScaler", "MaxAbsScalerModel", "MinMaxScaler", "MinMaxScalerModel", "Normalizer",
+    "DBSCAN", "DBSCANModel", "DCT", "Binarizer", "Bucketizer", "ElementwiseProduct", "Imputer",
+    "ImputerModel", "KMeans", "KMeansModel", "MaxAbsScaler", "MaxAbsScalerModel",
+    "MinMaxScaler", "MinMaxScalerModel", "NearestNeighbors", "NearestNeighborsModel", "Normalizer",
     "PCA", "PCAModel", "Pipeline", "PipelineModel", "PolynomialExpansion",
     "QuantileDiscretizer", "QuantileDiscretizerModel", "RobustScaler", "RobustScalerModel",
     "StandardScaler", "StandardScalerModel", "VarianceThresholdSelector",

@@ -32,8 +32,8 @@ class PrecisionPolicy(str, enum.Enum):
     - ``BF16_F32ACC``: matmul operands rounded to bf16, their products
       accumulated in f32, the result f32.
     - ``INT8_DIST``: int8 quantization of the distance cross term of k-means
-      and k-NN scoring only, never of a Gram; nothing in the port uses it
-      yet.
+      and k-NN scoring only (``ops.linalg.int8_quantized_matmul``), never
+      of a Gram.
     """
 
     F32 = "f32"

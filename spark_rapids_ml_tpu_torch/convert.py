@@ -10,8 +10,10 @@ plain numpy arrays, so nothing of the JAX package is imported:
   ``"MinMaxScalerModel"``: ``originalMin``/``originalMax``;
   ``"RobustScalerModel"``: ``median``/``range``; ``"ImputerModel"``:
   ``surrogate``; ``"QuantileDiscretizerModel"``: ``splits``;
-  ``"VarianceThresholdSelectorModel"``: ``selectedFeatures``; a stateless
-  stage such as ``"Normalizer"``: nothing), with the params the JAX model
+  ``"VarianceThresholdSelectorModel"``: ``selectedFeatures``;
+  ``"KMeansModel"``: ``clusterCenters``/``trainingCost``;
+  ``"NearestNeighborsModel"``: ``items``/``itemIds``; a stateless stage
+  such as ``"Normalizer"`` or ``"DBSCANModel"``: nothing), with the params the JAX model
   had set (its ``_paramMap``), which ``_saveData`` does not hold;
 - ``pipeline_model_from_arrays``: a ``PipelineModel`` from a list of
   ``{"class", "data", "params"}`` dicts, one per stage, in order.

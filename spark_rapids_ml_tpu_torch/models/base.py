@@ -74,6 +74,9 @@ _PORTED_CLASSES: dict[str, tuple[str, ...]] = {
     "pipeline": ("Pipeline", "PipelineModel"),
     "discretizer": ("Bucketizer", "QuantileDiscretizer", "QuantileDiscretizerModel"),
     "selector": ("VarianceThresholdSelector", "VarianceThresholdSelectorModel"),
+    "kmeans": ("KMeans", "KMeansModel"),
+    "dbscan": ("DBSCAN", "DBSCANModel"),
+    "neighbors": ("NearestNeighbors", "NearestNeighborsModel"),
 }
 _PORT_CLASS_PATHS: dict[str, str] = {
     name: f"{module}.{name}" for module, names in _PORTED_CLASSES.items() for name in names

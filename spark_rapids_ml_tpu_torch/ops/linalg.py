@@ -5,8 +5,9 @@ per-partition sufficient statistics, their monoid combine, the streamed
 fit's fold steps, the covariance (standardized or not), the decomposition
 stage with its three solvers (the refined eigensolve, the randomized
 subspace iteration and the QR → SVD direct path), the explained variance
-and the projection. Functions take tensors on any device and compute in
-their dtype; the estimators pass f32 tensors.
+and the projection; and the ``int8_dist`` policy's quantized product of
+distance cross terms (``int8_quantized_matmul``). Functions take tensors
+on any device and compute in their dtype; the estimators pass f32 tensors.
 
 Precision tiers of the Gram pass (``gram_stats`` for the resident fit,
 ``gram_stats_weighted`` for the streamed fold):
@@ -99,6 +100,42 @@ def policy_matmul(
     if policy == _BF16_F32ACC:
         return (a.to(torch.bfloat16).float() @ b.to(torch.bfloat16).float()).to(a.dtype)
     return a @ b
+
+
+def quantize_int8(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(int8 tensor, its f32 scale): the per-tensor max-abs scale maps ``t``
+    onto [−127, 127], then round half to even and clip, as the JAX
+    package's ``int8_quantized_matmul`` quantizes."""
+    amax = t.abs().max()
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    return torch.clamp(torch.round(t / scale), -127.0, 127.0).to(torch.int8), scale
+
+
+def int8_matmul(qa: torch.Tensor, qb: torch.Tensor) -> torch.Tensor:
+    """The exact int32 product of int8 [m, K] and [K, N]. On the card it is
+    ``torch._int_mm``, which takes more than 16 rows and an inner and outer
+    dimension that are multiples of 8: zero padding brings the operands
+    there and leaves every dot product unchanged. On the CPU it is an int32
+    matmul."""
+    if qa.device.type == "cpu":
+        return qa.to(torch.int32) @ qb.to(torch.int32)
+    (m, kk), n = qa.shape, qb.shape[1]
+    pm, pk, pn = max(m, 17) - m, -kk % 8, -n % 8
+    if pm or pk:
+        qa = torch.nn.functional.pad(qa, (0, pk, 0, pm))
+    if pk or pn:
+        qb = torch.nn.functional.pad(qb, (0, pn, 0, pk))
+    return torch._int_mm(qa, qb)[:m, :n]
+
+
+def int8_quantized_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Symmetric per-tensor int8 quantized ``a·b``: the ``int8_dist``
+    policy's cross term of k-means and k-NN scoring, never of a Gram. The
+    int8 product accumulates in int32 and is dequantized by the product of
+    the two scales."""
+    qa, sa = quantize_int8(a)
+    qb, sb = quantize_int8(b)
+    return int8_matmul(qa, qb).to(a.dtype) * (sa * sb)
 
 
 def _check_precision(precision: str) -> None:

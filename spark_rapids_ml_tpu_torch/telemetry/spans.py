@@ -66,6 +66,12 @@ SPAN_PHASES: frozenset[str] = frozenset({
     "dct",
     "variance selector fit",
     "variance selector transform",
+    # clustering and neighbours
+    "kmeans init",
+    "kmeans lloyd",
+    "kmeans transform",
+    "dbscan cluster",
+    "knn kneighbors",
 })
 
 _current_estimator: contextvars.ContextVar[str | None] = contextvars.ContextVar(

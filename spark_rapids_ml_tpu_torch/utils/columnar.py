@@ -1,9 +1,12 @@
 """Columnar input for the port: [rows, n] matrices out of the containers the
 estimators accept, row bucketing, and the partitioned dataset.
 
-Counterpart of ``spark_rapids_ml_tpu/utils/columnar.py`` for the resident
-PCA path. Accepted inputs: a 2-D ndarray, a pandas DataFrame whose column
-holds one array per row, and a pyarrow Table or RecordBatch with a list or
+Counterpart of ``spark_rapids_ml_tpu/utils/columnar.py``: besides the
+matrices, scalar columns (``extract_vector``), appended output columns
+(``append_columns``) and the weight-column contract that the clustering
+estimators share (``validate_weights``, ``resolve_partition_weights``).
+Accepted inputs: a 2-D ndarray, a pandas DataFrame whose column holds one
+array per row, and a pyarrow Table or RecordBatch with a list or
 fixed-size-list column (the reference's ArrayType input) or a Spark ML
 VectorUDT column, dense or sparse rows (densified).
 """
@@ -108,7 +111,8 @@ def _from_arrow_column(col) -> np.ndarray:
     raise TypeError(f"unsupported Arrow column type for ArrayType input: {col.type}")
 
 
-def _extract_matrix(data: Any, input_col: str | None) -> np.ndarray:
+def extract_matrix(data: Any, input_col: str | None = None) -> np.ndarray:
+    """A [rows, n] matrix out of any container the estimators accept."""
     if pa is not None and isinstance(data, (pa.Table, pa.RecordBatch)):
         if input_col is None:
             raise ValueError("input_col is required for Arrow tables")
@@ -134,23 +138,121 @@ def matrix_to_arrow_column(x: np.ndarray):
     return pa.FixedSizeListArray.from_arrays(values, k)
 
 
+def _output_column(out: np.ndarray):
+    """Arrow column of a transform's output: a scalar column for [rows] (a
+    KMeans prediction), a FixedSizeList for [rows, k]."""
+    return pa.array(out) if out.ndim == 1 else matrix_to_arrow_column(out)
+
+
 def apply_column_transform(dataset: Any, input_col: str | None, output_col: str, fn):
-    """Apply a [rows, n] → [rows, k] matrix function to the input column and
-    append the result as ``output_col``, keeping the container type (a bare
-    matrix in gives a bare matrix out)."""
+    """Apply a [rows, n] → [rows, k] (or [rows]) matrix function to the input
+    column and append the result as ``output_col``, keeping the container
+    type (a bare matrix in gives a bare matrix out)."""
     if pa is not None and isinstance(dataset, (pa.Table, pa.RecordBatch)):
-        out = np.asarray(fn(_extract_matrix(dataset, input_col)))
+        out = np.asarray(fn(extract_matrix(dataset, input_col)))
         if isinstance(dataset, pa.RecordBatch):
             dataset = pa.Table.from_batches([dataset])
-        return dataset.append_column(output_col, matrix_to_arrow_column(out))
+        return dataset.append_column(output_col, _output_column(out))
     if hasattr(dataset, "columns") and hasattr(dataset, "assign") and input_col:
-        out = np.asarray(fn(_extract_matrix(dataset, input_col)))
-        return dataset.assign(**{output_col: list(out)})
+        out = np.asarray(fn(extract_matrix(dataset, input_col)))
+        return dataset.assign(**{output_col: list(out) if out.ndim > 1 else out})
     if isinstance(dataset, PartitionedDataset):
         return PartitionedDataset(
             [np.asarray(fn(m)) for m in dataset.matrices()], dataset.input_col
         )
-    return np.asarray(fn(_extract_matrix(dataset, input_col)))
+    return np.asarray(fn(extract_matrix(dataset, input_col)))
+
+
+def append_columns(dataset: Any, columns) -> Any:
+    """Append precomputed output columns ([(name, ndarray)], 1-D scalar or
+    2-D array-valued) to a column-bearing container, keeping its type: the
+    many-output sibling of ``apply_column_transform``."""
+    if pa is not None and isinstance(dataset, (pa.Table, pa.RecordBatch)):
+        if isinstance(dataset, pa.RecordBatch):
+            dataset = pa.Table.from_batches([dataset])
+        for name, out in columns:
+            dataset = dataset.append_column(name, _output_column(np.asarray(out)))
+        return dataset
+    if hasattr(dataset, "columns") and hasattr(dataset, "assign"):
+        return dataset.assign(**{
+            name: list(np.asarray(out)) if np.asarray(out).ndim > 1 else np.asarray(out)
+            for name, out in columns
+        })
+    raise TypeError(f"cannot append named columns to {type(dataset).__name__}")
+
+
+def extract_vector(data: Any, col: str) -> np.ndarray:
+    """A scalar column (weights, ids) as a [rows] f64 vector."""
+    if pa is not None and isinstance(data, (pa.Table, pa.RecordBatch)):
+        return np.asarray(data.column(col).to_numpy(zero_copy_only=False), dtype=np.float64)
+    if hasattr(data, "columns") and hasattr(data, "__getitem__"):
+        series = data[col]
+        if hasattr(series, "to_numpy"):
+            return np.asarray(series.to_numpy(), dtype=np.float64)
+    raise TypeError(f"cannot extract label column {col!r} from {type(data).__name__}")
+
+
+def float_dtype_for(dtype) -> np.dtype:
+    """The dtype side vectors (weights) take for a feature matrix: the
+    matrix's own when floating, else f64, so that fractional values never
+    floor into an integer buffer."""
+    return dtype if np.issubdtype(dtype, np.floating) else np.dtype(np.float64)
+
+
+def validate_weights(
+    w: Any, n_rows: int | None = None, *, allow_all_zero: bool = False
+) -> np.ndarray:
+    """Spark's weightCol contract, checked in one place: 1-D, length-matched,
+    non-negative, not all zero."""
+    w = np.asarray(w, dtype=np.float64).reshape(-1)
+    if n_rows is not None and len(w) != n_rows:
+        raise ValueError(f"dataset has {n_rows} rows but weights have {len(w)}")
+    if (w < 0).any():
+        raise ValueError("instance weights must be non-negative")
+    if not allow_all_zero and not (w > 0).any():
+        raise ValueError("all instance weights are zero")
+    return w
+
+
+def resolve_partition_weights(
+    dataset: Any,
+    mats: list[np.ndarray],
+    weight_col: str | None = None,
+    sample_weight: Any | None = None,
+) -> list[np.ndarray] | None:
+    """Instance weights as per-partition slices aligned with ``mats`` (the
+    partitions' matrices, in order), or None for an unweighted fit.
+
+    Sources, in order of precedence: the ``sample_weight`` array argument
+    (sklearn's), then ``weight_col`` extracted from the container, whole,
+    or partition by partition for a ``PartitionedDataset`` of tables.
+    """
+    if sample_weight is None and not weight_col:
+        return None
+    total_rows = sum(len(m) for m in mats)
+    if sample_weight is not None:
+        sw = validate_weights(sample_weight, total_rows)
+    else:
+        try:
+            sw = extract_vector(dataset, weight_col)
+        except TypeError:
+            if isinstance(dataset, PartitionedDataset):
+                slices = [
+                    validate_weights(
+                        extract_vector(p, weight_col), len(m), allow_all_zero=True
+                    )
+                    for p, m in zip(dataset.partitions, mats)
+                ]
+                if not any((s > 0).any() for s in slices):
+                    raise ValueError("all instance weights are zero")
+                return slices
+            raise
+        sw = validate_weights(sw, total_rows)
+    out, off = [], 0
+    for m in mats:
+        out.append(sw[off:off + len(m)])
+        off += len(m)
+    return out
 
 
 def standardize_host(
@@ -203,7 +305,7 @@ class PartitionedDataset:
             pa is not None and isinstance(data[0], (pa.Table, pa.RecordBatch))
         ):
             return PartitionedDataset(list(data), input_col)
-        x = _extract_matrix(data, input_col)
+        x = extract_matrix(data, input_col)
         if num_partitions and num_partitions > 1:
             return PartitionedDataset(np.array_split(x, num_partitions), input_col)
         return PartitionedDataset([x], input_col)
@@ -232,7 +334,7 @@ class PartitionedDataset:
 
     def matrices(self) -> Iterator[np.ndarray]:
         for p in self.partitions:
-            yield _extract_matrix(p, self.input_col)
+            yield extract_matrix(p, self.input_col)
 
 
 def _part_size(p: Any) -> tuple[int | None, int | None]:

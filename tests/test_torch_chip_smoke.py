@@ -368,3 +368,81 @@ def test_serving_phase_with_the_config4_scaler_on_cpu(monkeypatch):
 def test_exporter_checks_catch_a_missing_fit():
     with pytest.raises(AssertionError, match="lacks phase 11's fits"):
         chip_smoke.serve_exporter_checks(("no-such-fit",))
+
+
+def test_config5_phase_on_cpu():
+    """Phase 12 at a tiny size: both fits, the Lloyd step against f64, the
+    block sizes, the two coarser policies, trainingCost and the transform,
+    every gate held."""
+    result = chip_smoke.phase_config5(6000, 16, 12, 3, CPU)
+    assert result["iterations"] >= 1 and result["kmeans_par"]["iterations"] >= 1
+    step = result["lloyd_step_vs_f64"]
+    assert step["mismatches_not_near_tie"] == 0 and step["counts_equal_own_labels"]
+    assert step["sums_normwise_err"] <= chip_smoke.KMEANS_RTOL
+    assert result["training_cost_rel_err_vs_f64"] <= chip_smoke.KMEANS_RTOL
+    assert result["transform_vs_f64"]["mismatches_not_near_tie"] == 0
+    assert set(result["policies"]) == {"int8_dist", "bf16_f32acc"}
+    assert result["lloyd_bound_by"] == "bytes"  # k=12: X's bytes outweigh the products
+    assert result["h2d_bytes"] == 0 and result["lloyd_profile_ms_one_partition"] == {}
+
+
+def test_config5_device_parts_are_the_fit_partitions():
+    """The oracles' partitions, made again on the device, are the host
+    matrix's rows split as the fit splits them, padded with zero weight."""
+    x = chip_smoke.kmeans_workload(1001, 8, 5, 3, CPU, seed=4)
+    parts = chip_smoke.kmeans_device_parts(1001, 8, 5, 3, CPU, seed=4)
+    for (xp, w, m), split in zip(parts, np.array_split(x, 3)):
+        assert m == len(split) and xp.shape[0] == chip_smoke.columnar.bucket_rows(m)
+        np.testing.assert_array_equal(xp[:m].numpy(), split)
+        assert float(w[:m].sum()) == m and float(w[m:].abs().sum()) == 0.0
+    assert list(chip_smoke.partition_edges(1001, 3)) == [0, 334, 668, 1001]
+
+
+def test_f64_pass_flags_a_label_off_beyond_a_near_tie():
+    x = chip_smoke.kmeans_workload(3000, 8, 6, 2, CPU, seed=5)
+    parts = chip_smoke.kmeans_device_parts(3000, 8, 6, 2, CPU, seed=5)
+    centres = chip_smoke.kmeans_centres(6, 8, CPU, 5)
+    good = chip_smoke.kmeans_f64_pass(parts, centres, 8192)
+    assert good["mismatches_not_near_tie"] == 0
+    given = [lab.clone() for lab in good["labels_f32"]]
+    given[1][7] = (given[1][7] + 1) % 6
+    bad = chip_smoke.kmeans_f64_pass(parts, centres, 8192, given=given)
+    assert bad["mismatches_not_near_tie"] == 1
+    assert abs(bad["cost64"] - good["cost64"]) <= 1e-9 * good["cost64"]
+    assert x.shape == (3000, 8)
+
+
+def test_distance_family_phase_on_cpu():
+    """Phase 13 at a tiny size: DBSCAN against the f64 oracle, kNN against
+    the f64 brute force, int8_dist's recall."""
+    result = chip_smoke.phase_distance_family(CPU, grids=4, side=6, n=16, knn_rows=3000,
+                                              knn_queries=200)
+    db, kn = result["dbscan"], result["knn"]
+    assert db["label_mismatches"] == 0 and db["min_rel_gap_to_eps"] > db["f32_reach_rel"]
+    assert db["spans_s"].keys() == {"dbscan cluster"}
+    assert kn["ids_outside_f64_top_k"] == 0 and kn["max_rel_dist_err"] <= chip_smoke.KNN_RTOL
+    assert "knn kneighbors" in kn["spans_s"]
+
+
+def test_dbscan_oracle_equals_the_jax_package():
+    """The phase's f64 oracle gives the JAX package's DBSCAN labels on the
+    phase's grids."""
+    from spark_rapids_ml_tpu.models.dbscan import DBSCAN as JaxDBSCAN
+
+    x = chip_smoke.dbscan_workload(3, 6, 16, CPU)
+    oracle, _ = chip_smoke.dbscan_oracle_f64(x, chip_smoke.DBSCAN_EPS**2,
+                                             chip_smoke.DBSCAN_MIN_SAMPLES, CPU, block=40)
+    ref = JaxDBSCAN(eps=chip_smoke.DBSCAN_EPS, minSamples=chip_smoke.DBSCAN_MIN_SAMPLES) \
+        .fit().clusterLabels(x)
+    np.testing.assert_array_equal(oracle, ref)
+    assert (oracle >= 0).any() and (oracle < 0).any()
+
+
+def test_knn_f64_is_the_exact_top_k():
+    gen = torch.Generator().manual_seed(2)
+    corpus, queries = torch.randn(300, 6, generator=gen), torch.randn(20, 6, generator=gen)
+    d, i = chip_smoke.knn_f64(queries, corpus, 4, chunk=7, block=50)
+    full = ((queries.double()[:, None] - corpus.double()[None]) ** 2).sum(-1)
+    ref_d, ref_i = torch.topk(full, 5, dim=1, largest=False)
+    assert torch.equal(i, ref_i)
+    torch.testing.assert_close(d, ref_d, rtol=1e-12, atol=1e-12)
