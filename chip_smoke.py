@@ -86,7 +86,33 @@ Phases, each a plain function that the CPU tests also call at a tiny size:
    NearestNeighbors(k=10) over a 1,000,000 x 128 corpus with 10,000
    queries against an f64 brute force on the card (ids within the f64
    top 10 up to near ties, distances rtol 1e-5), and the int8_dist
-   product's recall@10.
+   product's recall@10;
+14. the linear family, in four places: (d), after phase 7, on phase 4's
+   500,000 x 512 rows: TruncatedSVD (k=50) and IncrementalPCA over 8
+   batches at "highest" and "high", fused_gram_moments launched once a
+   partition and symmetric_gram_moments once a batch at "high" (none at
+   "highest"), components against the f64 oracle (min |cosine| >= 0.9999)
+   and IncrementalPCA against the one-shot fit; IncrementalLinearRegression
+   over 10 batches against the one-shot fit (both held to the f64 normal
+   equations by the bound of their own f32 statistics); IncrementalKMeans
+   mini-batch steps (10 batches of 100,000 x 128 blobs, k=100) against f64
+   updates. (a), before phase 8's data is freed: LinearRegression streamed
+   over its 10,000,000 x 512 rows with a seeded label, plain, weighted and
+   elastic net, h2d_bytes exactly rows x (n + 2) x 4, each fit's own
+   statistics refolded and held to f64 statistics on the card (XᵀX within
+   1e-5) and its coefficients to the f64 oracle within the perturbation
+   bound those statistics give (elastic net: its optimality conditions),
+   the same fold into an f32 carry beside it, the fold's share of the fit
+   and the card's idle share. (e) (a)'s model served: a CUDA graph per
+   rung bit for bit the eager margin, a one-row fast-lane request, f64
+   gates. (b) binary LogisticRegression and LinearSVC (regParam 0.01) on
+   the first 5,000,000 rows resident in 8 partitions, a logistic fit killed
+   in its third iteration and resumed from its checkpoint (equal to the
+   uninterrupted fit); (c) multinomial LogisticRegression, 10 classes, on
+   the first 1,000,000 rows (55 block products an iteration): each held to
+   f64 passes on the card (the gradient at the fit within 1e-4 of its value
+   at zero, the objective within 1e-6 of an f64 Newton's), with
+   iterations, seconds per iteration and the per-iteration bound.
 
 Each main path reads the kernels' launch counts from 0 around exactly its
 fit. The last lines are one JSON object with every kernel's numbers, the
@@ -116,13 +142,16 @@ import numpy as np
 import torch
 
 from spark_rapids_ml_tpu_torch import (
-    DBSCAN, PCA, KMeans, NearestNeighbors, Normalizer, Pipeline, StandardScaler,
+    DBSCAN, PCA, IncrementalKMeans, IncrementalLinearRegression, IncrementalPCA, KMeans,
+    LinearRegression, LinearSVC, LogisticRegression, NearestNeighbors, Normalizer, Pipeline,
+    StandardScaler, TruncatedSVD,
 )
 from spark_rapids_ml_tpu_torch.ops import _build
 from spark_rapids_ml_tpu_torch.ops import dbscan as DB
 from spark_rapids_ml_tpu_torch.ops import gram_moments as G
 from spark_rapids_ml_tpu_torch.ops import kmeans as KM
 from spark_rapids_ml_tpu_torch.ops import linalg as L
+from spark_rapids_ml_tpu_torch.ops import linear as LIN
 from spark_rapids_ml_tpu_torch.ops import neighbors as NN
 from spark_rapids_ml_tpu_torch.autotune import cache as tuning_cache
 from spark_rapids_ml_tpu_torch.autotune.policy import TuningConfig, resolve_policy
@@ -140,7 +169,7 @@ from spark_rapids_ml_tpu_torch.telemetry.registry import REGISTRY
 from spark_rapids_ml_tpu_torch.telemetry.timeline import TIMELINE
 from spark_rapids_ml_tpu_torch.utils import columnar
 from spark_rapids_ml_tpu_torch.utils.checkpoint import TrainingCheckpointer
-from spark_rapids_ml_tpu_torch.utils.device import block_rows_for
+from spark_rapids_ml_tpu_torch.utils.device import block_rows_for, to_device
 
 # H100 SXM published dense peaks (NVIDIA data sheet), at the 700 W limit.
 PEAK_BF16_FLOPS = 989e12
@@ -1247,9 +1276,18 @@ def eager_at_bucket(model, rows: np.ndarray, bucket: int) -> np.ndarray:
 def f64_projection(entry, rows: np.ndarray) -> np.ndarray:
     """The f64 reference of a served answer: the model's standardization
     and projection in f64; for the bf16 variant, the f64 product of the
-    bf16-rounded operands; for a scaler, its standardize in f64."""
+    bf16-rounded operands; for a scaler, its standardize in f64; for a GLM,
+    its margin x·coef + b in f64 (b as the f32 the servable holds)."""
     m = entry.model
     x = rows.astype(np.float64)
+    if entry.family == "linear":
+        coef = np.asarray(m.coefficients, dtype=np.float64)
+        if entry.policy == "bf16_f32acc":
+            def bf16(a):
+                return torch.from_numpy(np.asarray(a, np.float32)).bfloat16().double().numpy()
+
+            return bf16(x.astype(np.float32)) @ bf16(coef) + np.float32(m.intercept)
+        return x @ coef + np.float32(m.intercept)
     if entry.family == "scaler":
         if m.getWithMean():
             x = x - m.mean
@@ -2414,6 +2452,740 @@ def phase_distance_family(device: torch.device, *, grids: int = DBSCAN_GRIDS,
     return result
 
 
+# -- phase 14: the linear family ---------------------------------------------
+
+LINEAR_SEED = 29
+LOGREG_ROWS = 5_000_000    # binary LogisticRegression and LinearSVC, resident
+SOFTMAX_ROWS = 1_000_000   # multinomial LogisticRegression, resident
+SOFTMAX_CLASSES = 10
+LINEAR_PARTITIONS = 8
+NEWTON_REG = 0.01          # regParam of the Newton fits
+ENET_REG, ENET_ALPHA = 1.0, 0.5
+LINREG_NOISE = 0.5
+LINEAR_CHUNK = 65_536
+# The fold's XᵀX against f64, normwise: each chunk's f32 product sums
+# 65,536 terms (≈ √65,536·2⁻²⁴ = 1.5e-5 of Σ|terms| a chunk, typical), and
+# the chunks' errors add at random into the f64 carry: 1e-5 is several
+# times the expected 1e-6.
+LINEAR_STATS_RTOL = 1e-5
+# Newton gates, against f64 passes over the same rows on the card: the
+# gradient of the objective at the returned parameters, relative to its
+# value at the zero start (the f32 products set a floor near 1e-6 of it),
+# and the objective's excess over an f64 Newton from the same start.
+NEWTON_GRAD_RTOL = 1e-4
+NEWTON_OBJ_RTOL = 1e-6
+INCREMENTAL_BATCHES_PCA, INCREMENTAL_BATCHES_LINREG = 8, 10
+MINIBATCH_K, MINIBATCH_N, MINIBATCH_ROWS, MINIBATCH_BATCHES = 100, 128, 100_000, 10
+MINIBATCH_RTOL = 1e-5
+
+
+class _Killed(RuntimeError):
+    """A fit stopped from outside, as a preempted worker stops."""
+
+
+@contextlib.contextmanager
+def _counted(module, name: str, fail_at: int | None = None):
+    """Count the calls of ``module.name`` (a statistics function the fits
+    look up at call time) and, with ``fail_at``, raise ``_Killed`` at that
+    call."""
+    real = getattr(module, name)
+    calls = [0]
+
+    def wrapper(*args, **kwargs):
+        calls[0] += 1
+        if fail_at is not None and calls[0] == fail_at:
+            raise _Killed(f"{name}: the fit is killed at call {fail_at}")
+        return real(*args, **kwargs)
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def linreg_workload(x: np.ndarray, device: torch.device, seed: int = LINEAR_SEED,
+                    chunk: int = LINEAR_CHUNK) -> dict:
+    """The label y = x·β + b + noise (f32, made on the card from the seed a
+    chunk at a time), instance weights uniform on [0.5, 1.5] (f64), and
+    β and b."""
+    rows, n = x.shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    beta = torch.randn(n, generator=gen, dtype=torch.float64, device=device)
+    intercept = 3.0
+    y = np.empty(rows, dtype=np.float32)
+    for a in range(0, rows, chunk):
+        xc = torch.from_numpy(x[a:a + chunk]).to(device).double()
+        noise = LINREG_NOISE * torch.randn(xc.shape[0], generator=gen, dtype=torch.float64,
+                                           device=device)
+        torch.from_numpy(y[a:a + chunk]).copy_(xc @ beta + intercept + noise)
+    w = np.random.default_rng(seed).uniform(0.5, 1.5, size=rows)
+    return {"y": y, "w": w, "beta": beta.cpu().numpy(), "intercept": intercept}
+
+
+def linear_stats_f64(x: np.ndarray, y: np.ndarray, w: np.ndarray | None,
+                     device: torch.device, chunk: int = LINEAR_CHUNK):
+    """(unweighted, weighted or None) ``LinearStats`` of the host rows in
+    f64 on the card, a chunk at a time."""
+    n = x.shape[1]
+
+    def zeros():
+        z = dict(dtype=torch.float64, device=device)
+        return [torch.zeros((n, n), **z), torch.zeros(n, **z), torch.zeros(n, **z),
+                torch.zeros((), **z), torch.zeros((), **z), torch.zeros((), **z)]
+
+    plain, weighted = zeros(), zeros() if w is not None else None
+    for a in range(0, x.shape[0], chunk):
+        xc = torch.from_numpy(x[a:a + chunk]).to(device).double()
+        yc = torch.from_numpy(y[a:a + chunk]).to(device).double()
+        sides = [(plain, torch.ones_like(yc))]
+        if weighted is not None:
+            sides.append((weighted, torch.from_numpy(w[a:a + chunk]).to(device)))
+        for acc, wc in sides:
+            xw = xc * wc[:, None]
+            acc[0] += xc.T @ xw
+            acc[1] += xw.T @ yc
+            acc[2] += xw.sum(dim=0)
+            acc[3] += (wc * yc).sum()
+            acc[4] += (wc * yc * yc).sum()
+            acc[5] += wc.sum()
+    return LIN.LinearStats(*plain), None if weighted is None else LIN.LinearStats(*weighted)
+
+
+def _centred_f64(s) -> tuple:
+    """(m, A, b, μ, ȳ) of f64 statistics: the centred normal equations."""
+    s = LIN.as_f64(s)
+    m = s.count
+    mu, ybar = s.x_sum / m, s.y_sum / m
+    return m, s.xtx - m * torch.outer(mu, mu), s.xty - m * mu * ybar, mu, ybar
+
+
+def normal_solve_f64(s, reg: float = 0.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """The f64 oracle of an intercepted ridge fit: (A + λmI)β = b on centred
+    moments, solved by ``torch.linalg.solve``."""
+    m, a, b, mu, ybar = _centred_f64(s)
+    coef = torch.linalg.solve(a + reg * m * torch.eye(a.shape[0], dtype=a.dtype,
+                                                      device=a.device), b)
+    return coef, ybar - mu @ coef
+
+
+def linreg_gates(carry, oracle, coef: np.ndarray, intercept: float) -> dict:
+    """A fit's coefficients against the f64 oracle of its statistics.
+
+    ``carry`` is the fit's own f64 carry (the same fold run again), ``oracle``
+    the f64 statistics. The fit solves A_c·β̂ = b_c exactly (in f64) where
+    A_c, b_c are the carry's centred moments, so β̂ − β* = A_c⁻¹(δb − δA·β*)
+    with δ = carry − oracle: ‖β̂ − β*‖ ≤ ‖A_c⁻¹‖·(‖δb‖ + ‖δA‖·‖β*‖), a bound
+    set by the f32 products the run measured and by the data's
+    conditioning, and the intercept's error follows from it. Gated: the
+    carry's XᵀX within ``LINEAR_STATS_RTOL`` of f64 (normwise), β̂ and b̂
+    within that bound."""
+    device = carry.xtx.device
+    m_c, a_c, b_c, mu_c, ybar_c = _centred_f64(carry)
+    m, a, b, mu, ybar = _centred_f64(oracle)
+    coef_star, b0_star = normal_solve_f64(oracle)
+    coef_t = torch.as_tensor(coef, dtype=torch.float64, device=device)
+    evals = torch.linalg.eigvalsh(a_c)
+    d_a = torch.linalg.matrix_norm(a_c - a, ord=2)
+    d_b = torch.linalg.norm(b_c - b)
+    beta_norm = torch.linalg.norm(coef_star)
+    bound = float((d_b + d_a * beta_norm) / evals[0])
+    err = float(torch.linalg.norm(coef_t - coef_star))
+    b0_bound = float(abs(ybar_c - ybar) + torch.linalg.norm(mu_c) * bound
+                     + torch.linalg.norm(mu_c - mu) * beta_norm)
+    b0_err = abs(intercept - float(b0_star))
+    stats_rel = float(torch.linalg.norm(carry.xtx.double() - oracle.xtx)
+                      / torch.linalg.norm(oracle.xtx))
+    out = {
+        "xtx_rel_err": stats_rel,
+        "coef_err": err, "coef_bound": bound,
+        "coef_rel_err": err / float(beta_norm),
+        "intercept_err": b0_err, "intercept_bound": b0_bound,
+        "cond": float(evals[-1] / evals[0]),
+    }
+    if not stats_rel <= LINEAR_STATS_RTOL:
+        raise AssertionError(f"the fold's XᵀX is off f64 by {stats_rel}: {out}")
+    slack = 1e-9 * float(beta_norm)  # the f64 solves' own rounding
+    if not err <= 1.01 * bound + slack or not b0_err <= 1.01 * b0_bound + slack:
+        raise AssertionError(f"coefficients outside the perturbation bound: {out}")
+    return out
+
+
+def enet_kkt(s, coef: torch.Tensor, reg: float, alpha: float) -> float:
+    """Largest violation of the elastic-net optimality conditions at
+    ``coef`` on the f64 statistics ``s`` (intercepted, centred)."""
+    m, a, b, _, _ = _centred_f64(s)
+    lam1, lam2 = reg * alpha, reg * (1.0 - alpha)
+    g = (a @ coef - b) / m + lam2 * coef
+    on = coef != 0
+    viol = torch.where(on, torch.abs(g + lam1 * torch.sign(coef)),
+                       torch.clamp(torch.abs(g) - lam1, min=0.0))
+    return float(viol.max())
+
+
+def _fold_carry(x, y, w, partitions: int, device: torch.device, dtype=torch.float64):
+    """The streamed fit's carry, folded again through the same public
+    pieces (``labeled_partitions``, ``stream_fold``, ``linear_fold_step``)."""
+    data = (x, y) if w is None else (x, y, w)
+    parts = columnar.labeled_partitions(data, None, None, partitions)
+    return ingest.stream_fold(
+        iter(parts), LIN.linear_fold_step(), n=x.shape[1], label_col="y",
+        init=LIN.init_linear_carry(x.shape[1], device, dtype), device=device,
+    ).carry
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def fold_busy_s(x: np.ndarray, device: torch.device, chunks: int,
+                chunk: int = LINEAR_CHUNK) -> float:
+    """Device seconds of ``chunks`` linear fold steps over one chunk held on
+    the card (CUDA events; the host clock on the CPU): the card's busy
+    time of a streamed fit's folds."""
+    xd = torch.from_numpy(np.ascontiguousarray(x[:chunk])).to(device)
+    yd = xd[:, 0].contiguous()
+    wd = torch.ones_like(yd)
+    carry = LIN.init_linear_carry(x.shape[1], device)
+    step = LIN.linear_fold_step()
+    step(carry, xd, yd, wd)
+    _sync(device)
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(chunks):
+            step(carry, xd, yd, wd)
+        return time.perf_counter() - t0
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(chunks):
+        step(carry, xd, yd, wd)
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / 1e3
+
+
+def phase_streamed_linreg(data, partitions: int, device: torch.device,
+                          seed: int = LINEAR_SEED) -> dict:
+    """(a) LinearRegression on phase 8's streamed data: the fit streams
+    above the cutover (labels and weights staged beside the rows); plain,
+    weighted, and elastic net (FISTA on the same statistics), each held to
+    its f64 oracle on the card; ``h2d_bytes`` exactly rows × (n + 2) × 4;
+    and the same fold with an f32 carry, for the carry's dtype."""
+    x, _ = data
+    rows, n = x.shape
+    cuda = device.type == "cuda"
+    t0 = time.perf_counter()
+    work = linreg_workload(x, device, seed)
+    y, w = work["y"], work["w"]
+    oracle, oracle_w = linear_stats_f64(x, y, w, device)
+    oracle_s = time.perf_counter() - t0
+    result = {"rows": rows, "n": n, "oracle_s": oracle_s}
+    models = {}
+    for label, kw, fit_data, stats in (
+        ("plain", {}, (x, y), oracle),
+        ("weighted", {}, (x, y, w), oracle_w),
+        ("elastic_net", dict(regParam=ENET_REG, elasticNetParam=ENET_ALPHA,
+                             maxIter=20_000, tol=1e-12), (x, y), oracle),
+    ):
+        est = LinearRegression(device=device, **kw)
+        _sync(device)
+        t0 = time.perf_counter()
+        model = est.fit(fit_data, num_partitions=partitions)
+        _sync(device)
+        fit_s = time.perf_counter() - t0
+        rep, report = model.stream_report, model.fit_report
+        if rep is None:
+            raise AssertionError(f"{label}: the fit went resident instead of streaming")
+        shipped = rows * (n + 2) * 4 if cuda else 0
+        entry = {
+            "fit_s": fit_s, "chunks": rep.chunks,
+            "stats_span_s": _span_s(report, "linreg stats"),
+            "solve_span_s": _span_s(report, "linreg solve"),
+            "h2d_bytes": report.h2d_bytes, "overlap_fraction": report.overlap_fraction,
+            "copy_overlapped": rep.copy_overlapped,
+        }
+        entry["fold_share"] = entry["stats_span_s"] / fit_s
+        if report.h2d_bytes != shipped:
+            raise AssertionError(f"{label}: h2d_bytes {report.h2d_bytes}, expected {shipped}")
+        if rep.rows != rows or rep.chunks != -(-rows // ingest.stream_chunk_rows()):
+            raise AssertionError(f"{label}: the fold did not take every row once: {rep}")
+        _fit_report_gates(report, fit_s, rows, device)
+        carry = _fold_carry(x, y, w if label == "weighted" else None, partitions, device)
+        solved = LIN.solve_from_stats(carry, **est._solve_args())
+        if not np.array_equal(solved[0].cpu().numpy(), model.coefficients):
+            raise AssertionError(f"{label}: the fit's coefficients are not its own fold's")
+        if label == "elastic_net":
+            coef = torch.as_tensor(model.coefficients, device=device)
+            entry["kkt_own_stats"] = enet_kkt(carry, coef, ENET_REG, ENET_ALPHA)
+            entry["kkt_f64_stats"] = enet_kkt(stats, coef, ENET_REG, ENET_ALPHA)
+            # ∇ of the oracle's smooth part differs from the carry's by
+            # e = (δA·ŵ − δb)/m: a KKT violation on f64 is at most the own
+            # one plus ‖e‖∞
+            m_c, a_c, b_c, _, _ = _centred_f64(carry)
+            m, a, b, _, _ = _centred_f64(stats)
+            e = float(torch.abs(((a_c - a) @ coef - (b_c - b)) / m).max())
+            entry["kkt_perturbation"] = e
+            entry["nonzero"] = int(np.count_nonzero(model.coefficients))
+            if not entry["kkt_own_stats"] <= 1e-3 * ENET_REG * ENET_ALPHA:
+                raise AssertionError(f"FISTA did not converge: {entry}")
+            if not entry["kkt_f64_stats"] <= entry["kkt_own_stats"] + 1.01 * e + 1e-12:
+                raise AssertionError(f"elastic net off its f64 conditions: {entry}")
+        else:
+            entry.update(linreg_gates(carry, stats, model.coefficients, model.intercept))
+        models[label] = model
+        result[label] = entry
+        print(f"linear (a) {label}: {json.dumps(entry)}", flush=True)
+    # the carry's dtype: the same fold into an f32 carry, solved the same way
+    carry32 = _fold_carry(x, y, None, partitions, device, dtype=torch.float32)
+    coef32, _ = LIN.solve_from_stats(LIN.as_f64(carry32))
+    coef_star, _ = normal_solve_f64(oracle)
+    result["f32_carry_coef_rel_err"] = float(
+        torch.linalg.norm(coef32 - coef_star) / torch.linalg.norm(coef_star))
+    result["f32_carry_xtx_rel_err"] = float(
+        torch.linalg.norm(carry32.xtx.double() - oracle.xtx) / torch.linalg.norm(oracle.xtx))
+    busy = fold_busy_s(x, device, result["plain"]["chunks"])
+    result["fold_device_s"] = busy
+    result["idle_share"] = 1.0 - busy / result["plain"]["fit_s"]
+    # the fold's least time: its f32 operations (2·rows·n·(n+1) for XᵀX and
+    # Xᵀy) at the f32 peak, or X, y and w read once from HBM
+    ops_s = 2.0 * rows * n * (n + 1) / PEAK_FP32_FLOPS
+    bytes_s = 4.0 * rows * (n + 2) / PEAK_HBM_BYTES_PER_S
+    result["fold_bound_s"], result["fold_bound_by"] = max(ops_s, bytes_s), (
+        "operations" if ops_s >= bytes_s else "bytes")
+    print(f"linear (a) streamed: {json.dumps({k: v for k, v in result.items() if not isinstance(v, dict)})}",
+          flush=True)
+    result["model"] = models["plain"]
+    return result
+
+
+def _logistic_labels(xd: torch.Tensor, seed: int) -> np.ndarray:
+    """0/1 labels of the rows on the card: a seeded direction scaled to a
+    margin of standard deviation 2, plus logistic noise."""
+    gen = torch.Generator(device=xd.device).manual_seed(seed)
+    beta = torch.randn(xd.shape[1], generator=gen, device=xd.device)
+    z = xd @ beta
+    z = 2.0 * (z - z.mean()) / z.std()
+    u = torch.rand(z.shape, generator=gen, device=xd.device).clamp(1e-7, 1 - 1e-7)
+    return (z + torch.log(u / (1 - u)) > 0).double().cpu().numpy()
+
+
+def _softmax_labels(xd: torch.Tensor, classes: int, seed: int) -> np.ndarray:
+    """Class labels of the rows on the card: Gumbel-max over seeded logits
+    scaled to a standard deviation of 2 a class."""
+    gen = torch.Generator(device=xd.device).manual_seed(seed)
+    b = torch.randn((xd.shape[1], classes), generator=gen, device=xd.device)
+    z = xd @ b
+    z = 2.0 * (z - z.mean(0)) / z.std(0)
+    u = torch.rand(z.shape, generator=gen, device=xd.device).clamp(1e-7, 1 - 1e-7)
+    return torch.argmax(z - torch.log(-torch.log(u)), dim=1).double().cpu().numpy()
+
+
+def _augmented_chunks(xd: torch.Tensor, chunk: int = 1 << 19):
+    for a in range(0, xd.shape[0], chunk):
+        xc = xd[a:a + chunk].double()
+        yield a, torch.cat([xc, torch.ones((xc.shape[0], 1), dtype=xc.dtype, device=xc.device)], 1)
+
+
+def newton_f64(xd: torch.Tensor, y: torch.Tensor, w: torch.Tensor, reg: float,
+               classes: int | None = None, hessian: bool = True):
+    """(objective, gradient, Hessian or None) in f64 over the rows on the
+    card: Σ log-loss + (λm/2)‖w‖² with the intercepts exempt, the binary
+    (``classes`` None, w [d]) or the softmax model (w [C·d])."""
+    m = xd.shape[0]
+    d = xd.shape[1] + 1
+    c = 1 if classes is None else classes
+    wm = w.reshape(c, d)
+    pen = torch.ones((c, d), dtype=torch.float64, device=xd.device)
+    pen[:, -1] = 0.0
+    obj = 0.5 * reg * m * float(torch.sum(pen * wm * wm))
+    grad = torch.zeros((c, d), dtype=torch.float64, device=xd.device)
+    hess = torch.zeros((c * d, c * d), dtype=torch.float64, device=xd.device) if hessian else None
+    for a, xa in _augmented_chunks(xd):
+        yc = y[a:a + xa.shape[0]]
+        if classes is None:
+            z = xa @ wm[0]
+            p = torch.sigmoid(z)
+            obj += float(torch.sum(torch.logaddexp(torch.zeros_like(z), z) - yc * z))
+            grad[0] += xa.T @ (yc - p)
+            if hessian:
+                hess += xa.T @ (xa * (p * (1 - p))[:, None])
+            continue
+        logits = xa @ wm.T
+        logz = torch.logsumexp(logits, dim=1)
+        onehot = torch.nn.functional.one_hot(yc.long(), c).double()
+        obj += float(torch.sum(logz - torch.sum(onehot * logits, dim=1)))
+        p = torch.exp(logits - logz[:, None])
+        grad += (onehot - p).T @ xa
+        if hessian:
+            for i in range(c):
+                for j in range(i, c):
+                    blk = xa.T @ (xa * (p[:, i] * (float(i == j) - p[:, j]))[:, None])
+                    hess[i * d:(i + 1) * d, j * d:(j + 1) * d] += blk
+                    if i != j:
+                        hess[j * d:(j + 1) * d, i * d:(i + 1) * d] += blk.T
+    grad = (grad - reg * m * pen * wm).reshape(-1)
+    if hess is not None:
+        hess += torch.diag(reg * m * pen.reshape(-1))
+    return obj, grad, hess
+
+
+def newton_oracle_f64(xd, y, reg: float, classes: int | None = None,
+                      max_iter: int = 30) -> tuple[torch.Tensor, float, int]:
+    """An f64 Newton from the zero start, to a step of 1e-10 relative:
+    (parameters, objective, iterations). For softmax, a 1e-12·trace/d ridge
+    makes the Hessian invertible along the class-shift direction (an equal
+    shift of every intercept, which changes nothing), and each step's
+    component there is removed, so the stop test reads the rest."""
+    d = xd.shape[1] + 1
+    w = torch.zeros((1 if classes is None else classes) * d, dtype=torch.float64,
+                    device=xd.device)
+    for it in range(max_iter):
+        _, g, h = newton_f64(xd, y, w, reg, classes)
+        h += 1e-12 * torch.trace(h) / h.shape[0] * torch.eye(h.shape[0], dtype=h.dtype,
+                                                              device=h.device)
+        step = torch.linalg.solve(h, g)
+        if classes is not None:
+            step = step.reshape(classes, d)
+            step[:, -1] -= step[:, -1].mean()
+            step = step.reshape(-1)
+        w = w + step
+        if float(torch.linalg.norm(step)) <= 1e-10 * max(float(torch.linalg.norm(w)), 1.0):
+            break
+    return w, newton_f64(xd, y, w, reg, classes, hessian=False)[0], it + 1
+
+
+def _newton_params(model, classes: int | None) -> np.ndarray:
+    if classes is None:
+        return np.concatenate([model.coefficients, [model.intercept]])
+    return np.concatenate([model.coefficientMatrix, model.interceptVector[:, None]], 1).reshape(-1)
+
+
+def _fit_newton(est, data, partitions: int, device: torch.device, stats_name: str,
+                span: str, **fit_kw) -> tuple:
+    """(model, wall s, iterations, Newton span s) of one fit; iterations
+    from the calls of its statistics function."""
+    _sync(device)
+    with _counted(LIN, stats_name) as calls:
+        t0 = time.perf_counter()
+        model = est.fit(data, num_partitions=partitions, **fit_kw)
+        _sync(device)
+        fit_s = time.perf_counter() - t0
+    return model, fit_s, calls[0] // partitions, _span_s(model.fit_report, span)
+
+
+def newton_gates(label: str, model, xd, y, classes, reg: float, obj_star: float) -> dict:
+    """The f64 gradient at the fit's parameters against its value at zero,
+    and the objective's excess over the f64 Newton's."""
+    w = torch.as_tensor(_newton_params(model, classes), device=xd.device)
+    obj, grad, _ = newton_f64(xd, y, w, reg, classes, hessian=False)
+    _, grad0, _ = newton_f64(xd, y, torch.zeros_like(w), reg, classes, hessian=False)
+    out = {
+        "grad_rel": float(torch.linalg.norm(grad) / torch.linalg.norm(grad0)),
+        "obj": obj, "obj_f64_newton": obj_star,
+        "obj_excess_rel": (obj - obj_star) / abs(obj_star),
+    }
+    if not out["grad_rel"] <= NEWTON_GRAD_RTOL:
+        raise AssertionError(f"{label}: f64 gradient at the fit {out}")
+    if not out["obj_excess_rel"] <= NEWTON_OBJ_RTOL:
+        raise AssertionError(f"{label}: objective above the f64 Newton's {out}")
+    return out
+
+
+def phase_newton_fits(x_pool: np.ndarray, device: torch.device, *, rows: int = LOGREG_ROWS,
+                      softmax_rows: int = SOFTMAX_ROWS, classes: int = SOFTMAX_CLASSES,
+                      partitions: int = LINEAR_PARTITIONS, seed: int = LINEAR_SEED) -> dict:
+    """(b) binary LogisticRegression and LinearSVC on the first ``rows`` of
+    phase 8's rows, resident in ``partitions``; a checkpointed fit killed
+    at its fourth iteration and resumed; (c) multinomial LogisticRegression
+    with ``classes`` classes on the first ``softmax_rows``. Each Newton fit
+    is held to f64 passes over the same rows on the card."""
+    n = x_pool.shape[1]
+    d = n + 1
+    result = {}
+    x = x_pool[:rows]
+    xd = torch.from_numpy(x).to(device)
+    y = _logistic_labels(xd, seed)
+    y_t = torch.from_numpy(y).to(device)
+    t0 = time.perf_counter()
+    w_star, obj_star, it_star = newton_oracle_f64(xd, y_t, NEWTON_REG)
+    oracle_s = time.perf_counter() - t0
+    bound_s = (2.0 * rows * d * d + 4.0 * rows * d) / PEAK_FP32_FLOPS
+    for label, cls, stats_name, span in (
+        ("logistic", LogisticRegression, "logistic_newton_stats", "logreg newton"),
+        ("svc", LinearSVC, "svc_newton_stats", "svc newton"),
+    ):
+        est = cls(device=device, regParam=NEWTON_REG)
+        model, fit_s, iters, newton_s = _fit_newton(est, (x, y), partitions, device,
+                                                    stats_name, span)
+        entry = {"rows": rows, "d": d, "fit_s": fit_s, "iterations": iters,
+                 "newton_span_s": newton_s, "s_per_iteration": newton_s / max(iters, 1),
+                 "iteration_bound_s": bound_s,
+                 "h2d_bytes": model.fit_report.h2d_bytes}
+        entry["bound_share"] = bound_s / entry["s_per_iteration"]
+        _fit_report_gates(model.fit_report, fit_s, rows, device)
+        if label == "logistic":
+            entry.update(newton_gates(label, model, xd, y_t, None, NEWTON_REG, obj_star))
+            entry.update({"f64_newton_iterations": it_star, "f64_newton_s": oracle_s})
+            logistic = model
+        else:
+            # the squared hinge's f64 check: its own objective's gradient
+            wv = torch.as_tensor(_newton_params(model, None), device=device)
+            entry["grad_rel"] = svc_grad_rel_f64(xd, y_t, wv, NEWTON_REG)
+            if not entry["grad_rel"] <= NEWTON_GRAD_RTOL:
+                raise AssertionError(f"svc: f64 gradient at the fit {entry}")
+        result[label] = entry
+        print(f"linear (b) {label}: {json.dumps(entry)}", flush=True)
+
+    # killed in its 3rd iteration (at its first partition's statistics),
+    # then the same call again: it resumes from the 2nd iteration's
+    # checkpoint
+    ckpt_dir = tempfile.mkdtemp(prefix="newton")
+    try:
+        est = LogisticRegression(device=device, regParam=NEWTON_REG)
+        with _counted(LIN, "logistic_newton_stats", fail_at=2 * partitions + 1):
+            try:
+                est.fit((x, y), num_partitions=partitions, checkpoint_dir=ckpt_dir,
+                        checkpoint_every=1)
+                raise AssertionError("the killed fit ran to its end")
+            except _Killed:
+                pass
+        steps = TrainingCheckpointer(ckpt_dir).steps()
+        resumed, _, resumed_iters, _ = _fit_newton(
+            est, (x, y), partitions, device, "logistic_newton_stats", "logreg newton",
+            checkpoint_dir=ckpt_dir, checkpoint_every=1)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    equal = bool(np.array_equal(resumed.coefficients, logistic.coefficients)
+                 and resumed.intercept == logistic.intercept)
+    result["resume"] = {"checkpoint_steps": steps, "resumed_iterations": resumed_iters,
+                        "equal_to_uninterrupted": equal,
+                        "max_abs_diff": float(np.abs(resumed.coefficients
+                                                     - logistic.coefficients).max())}
+    print(f"linear (b) resume: {json.dumps(result['resume'])}", flush=True)
+    if steps != [0, 1] or resumed_iters != result["logistic"]["iterations"] - 2 or not equal:
+        raise AssertionError(f"the resumed fit is not the uninterrupted one: {result['resume']}")
+    del xd, y_t
+
+    xs = x_pool[:softmax_rows]
+    xd = torch.from_numpy(xs).to(device)
+    ys = _softmax_labels(xd, classes, seed)
+    ys_t = torch.from_numpy(ys).to(device)
+    t0 = time.perf_counter()
+    _, obj_star, it_star = newton_oracle_f64(xd, ys_t, NEWTON_REG, classes)
+    oracle_s = time.perf_counter() - t0
+    est = LogisticRegression(device=device, regParam=NEWTON_REG)
+    model, fit_s, iters, newton_s = _fit_newton(est, (xs, ys), partitions, device,
+                                                "softmax_newton_stats", "softmax newton")
+    blocks = classes * (classes + 1) // 2
+    entry = {"rows": softmax_rows, "classes": classes, "d": d, "fit_s": fit_s,
+             "iterations": iters, "newton_span_s": newton_s,
+             "s_per_iteration": newton_s / max(iters, 1), "block_products": blocks,
+             "block_products_bound_s": blocks * 2.0 * softmax_rows * d * d / PEAK_FP32_FLOPS,
+             "f64_newton_iterations": it_star, "f64_newton_s": oracle_s}
+    entry.update(newton_gates("softmax", model, xd, ys_t, classes, NEWTON_REG, obj_star))
+    _fit_report_gates(model.fit_report, fit_s, softmax_rows, device)
+    result["softmax"] = entry
+    print(f"linear (c) softmax: {json.dumps(entry)}", flush=True)
+    return result
+
+
+def svc_grad_rel_f64(xd: torch.Tensor, y: torch.Tensor, w: torch.Tensor, reg: float) -> float:
+    """‖∇‖ of the squared-hinge objective Σ max(1 − ŷz, 0)² + (λm/2)‖w‖²
+    (intercept exempt) at ``w``, relative to its value at zero, in f64."""
+    m = xd.shape[0]
+    pen = torch.ones_like(w)
+    pen[-1] = 0.0
+
+    def grad(wv):
+        g = torch.zeros_like(wv)
+        for a, xa in _augmented_chunks(xd):
+            yy = 2.0 * y[a:a + xa.shape[0]] - 1.0
+            margin = torch.clamp(1.0 - yy * (xa @ wv), min=0.0)
+            g += xa.T @ (2.0 * yy * margin)
+        return g - reg * m * pen * wv
+
+    return float(torch.linalg.norm(grad(w)) / torch.linalg.norm(grad(torch.zeros_like(w))))
+
+
+def phase_spectral_incremental(rows: int, n: int, k: int, partitions: int,
+                               device: torch.device, kmeans: dict | None = None) -> dict:
+    """(d) TruncatedSVD and IncrementalPCA on phase 4's rows at "highest"
+    and "high": launches per fit (``fused_gram_moments`` a partition for
+    TruncatedSVD, ``symmetric_gram_moments`` a batch for IncrementalPCA at
+    "high"; none at "highest"), components against the f64 oracle, and
+    IncrementalPCA over ``partitions`` batches against the one-shot fit;
+    IncrementalLinearRegression over 10 batches against the one-shot fit,
+    and IncrementalKMeans's mini-batch steps against f64 updates
+    (``minibatch_kmeans_check``, its sizes overridden by ``kmeans``)."""
+    cuda = device.type == "cuda"
+    x = bench_workload(rows, n)
+    scatter = scatter_f64(x, device)
+    comps64, _ = oracle_from_scatter(scatter, k)
+    sigma64 = np.sqrt(np.clip(np.linalg.eigvalsh(scatter)[::-1][:k], 0.0, None))
+    result, launches_by_path = {}, {}
+    batches = np.array_split(x, partitions)
+    for precision in ("highest", "high"):
+        kernel_n = partitions if (cuda and precision == "high") else 0
+        reset_launches()
+        _sync(device)
+        t0 = time.perf_counter()
+        tsvd = TruncatedSVD(device=device, k=k, precision=precision).fit(
+            x, num_partitions=partitions)
+        _sync(device)
+        tsvd_s = time.perf_counter() - t0
+        tsvd_launches = read_launches()
+        reset_launches()
+        inc = IncrementalPCA(device=device, k=k, precision=precision)
+        t0 = time.perf_counter()
+        for b in batches:
+            inc.partial_fit(b)
+        inc_model = inc.finalize()
+        _sync(device)
+        inc_s = time.perf_counter() - t0
+        inc_launches = read_launches()
+        one_shot = PCA(device=device, k=k, precision=precision).fit(x, num_partitions=partitions)
+        entry = {
+            "tsvd_fit_s": tsvd_s, "tsvd_launches": tsvd_launches,
+            "tsvd_min_cos_vs_f64": _min_abs_cosine(tsvd.components, comps64),
+            "tsvd_sigma_rel_err": float(np.abs(tsvd.singularValues / sigma64 - 1).max()),
+            "incremental_pca_s": inc_s, "incremental_pca_launches": inc_launches,
+            "incremental_pca_min_cos_vs_one_shot": _min_abs_cosine(inc_model.pc, one_shot.pc),
+            "incremental_pca_min_cos_vs_f64": _min_abs_cosine(inc_model.pc, comps64),
+            "incremental_pca_ev_rel_diff": float(np.abs(
+                inc_model.explainedVariance / one_shot.explainedVariance - 1).max()),
+        }
+        result[precision] = entry
+        launches_by_path[f"TruncatedSVD {precision}"] = tsvd_launches
+        launches_by_path[f"IncrementalPCA {precision}"] = inc_launches
+        print(f"linear (d) {precision}: {json.dumps(entry)}", flush=True)
+        if tsvd_launches != expected_launches(gram_moments=kernel_n):
+            raise AssertionError(f"TruncatedSVD {precision} launches {tsvd_launches}")
+        if inc_launches != expected_launches(symmetric_gram_moments=kernel_n):
+            raise AssertionError(f"IncrementalPCA {precision} launches {inc_launches}")
+        for key in ("tsvd_min_cos_vs_f64", "incremental_pca_min_cos_vs_one_shot",
+                    "incremental_pca_min_cos_vs_f64"):
+            if not entry[key] >= COSINE_BAR:
+                raise AssertionError(f"{precision}: {key} {entry[key]} < {COSINE_BAR}")
+        if not entry["tsvd_sigma_rel_err"] <= 1e-4 or not entry["incremental_pca_ev_rel_diff"] <= 1e-4:
+            raise AssertionError(f"{precision}: singular values off {entry}")
+    print(f"linear family launches: {json.dumps(launches_by_path)}", flush=True)
+
+    # IncrementalLinearRegression over 10 batches against the one-shot fit:
+    # each solves the f64 normal equations of its own f32 products (over
+    # other blocks of rows), so each is held to the f64 oracle by the bound
+    # of its own statistics (``linreg_gates``), and the two differ by at
+    # most the sum of their bounds
+    y = linreg_workload(x, device, LINEAR_SEED + 1)["y"]
+    oracle, _ = linear_stats_f64(x, y, None, device)
+    parts = columnar.labeled_partitions((x, y), None, None, partitions)
+    one = LinearRegression(device=device).fit((x, y), num_partitions=partitions)
+    one_stats = tree_reduce([LIN.as_f64(LIN.linear_stats(to_device(px, device),
+                                                         to_device(py, device)))
+                             for px, py, _ in parts], LIN.combine_linear_stats)
+    inc = IncrementalLinearRegression(device=device)
+    edges = np.linspace(0, rows, INCREMENTAL_BATCHES_LINREG + 1).astype(int)
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        inc.partial_fit((x[lo:hi], y[lo:hi]))
+    inc_model = inc.finalize()
+    if not np.array_equal(LIN.solve_from_stats(one_stats)[0].cpu().numpy(), one.coefficients):
+        raise AssertionError("the one-shot fit's coefficients are not its statistics'")
+    linreg = {"one_shot": linreg_gates(one_stats, oracle, one.coefficients, one.intercept),
+              "incremental": linreg_gates(inc._acc, oracle, inc_model.coefficients,
+                                          inc_model.intercept),
+              "coef_diff": float(np.linalg.norm(inc_model.coefficients - one.coefficients)),
+              "rows_seen": inc.n_rows_seen}
+    linreg["coef_diff_bound"] = linreg["one_shot"]["coef_bound"] + linreg["incremental"]["coef_bound"]
+    result["incremental_linreg"] = linreg
+    print(f"linear (d) incremental linreg: {json.dumps(linreg)}", flush=True)
+    if inc.n_rows_seen != rows or not linreg["coef_diff"] <= 1.01 * linreg["coef_diff_bound"]:
+        raise AssertionError(f"IncrementalLinearRegression off the one-shot fit: {linreg}")
+
+    result["incremental_kmeans"] = minibatch_kmeans_check(device, **(kmeans or {}))
+    return result
+
+
+def minibatch_kmeans_check(device: torch.device, *, k: int = MINIBATCH_K, n: int = MINIBATCH_N,
+                           rows: int = MINIBATCH_ROWS, batches: int = MINIBATCH_BATCHES,
+                           seed: int = LINEAR_SEED) -> dict:
+    """IncrementalKMeans on blobs (``initMode="random"``, seeded from the
+    first batch): each mini-batch step against the f64 update from the same
+    centres (``kmeans_f64_pass``: the sums and counts in f64 by the labels
+    the step's own f32 assignment gives, each label held to the f64 one up
+    to near ties)."""
+    centres = 10.0 * kmeans_centres(k, n, device, seed)
+    edges = partition_edges(rows * batches, batches)
+    block = block_rows_for(device, KM.DEFAULT_BLOCK_ROWS, k)
+    est = IncrementalKMeans(device=device, k=k, initMode="random", seed=seed, seedRows=1)
+    worst, near, bad = 0.0, 0, 0
+    cum64 = torch.zeros(k, dtype=torch.float64, device=device)
+    t0 = time.perf_counter()
+    for p in range(batches):
+        xb = kmeans_partition(p, edges, centres, seed)
+        host = xb.cpu().numpy()
+        before = est._centers
+        est.partial_fit(host)
+        if before is None:  # the first batch seeds, then steps from the seeds
+            before = torch.from_numpy(host[np.random.default_rng(seed).choice(
+                len(host), k, replace=False)]).to(device)
+        ref = kmeans_f64_pass([(xb, None, xb.shape[0])], before, block)
+        near += ref["near_ties"]
+        bad += ref["mismatches_not_near_tie"]
+        counts = ref["counts_f32_labels"].double()
+        new_cum = cum64 + counts
+        upd = (before.double() * cum64[:, None] + ref["sums64"]) / torch.where(
+            new_cum > 0, new_cum, torch.ones_like(new_cum))[:, None]
+        expected = torch.where((new_cum > 0)[:, None], upd, before.double())
+        cum64 = new_cum
+        worst = max(worst, float(torch.abs(est._centers.double() - expected).max()
+                                 / torch.abs(expected).max()))
+    out = {"batches": batches, "rows_per_batch": rows, "k": k,
+           "max_rel_err_vs_f64_update": worst, "near_ties": near,
+           "labels_off_f64_not_near_tie": bad, "s": time.perf_counter() - t0,
+           "rows_seen": est.n_rows_seen}
+    print(f"linear (d) incremental kmeans: {json.dumps(out)}", flush=True)
+    if bad or not worst <= MINIBATCH_RTOL or est.n_rows_seen != rows * batches:
+        raise AssertionError(f"mini-batch steps off the f64 update: {out}")
+    return out
+
+
+def phase_linear_serving(model, pool: np.ndarray, device: torch.device, reps: int = 20) -> dict:
+    """(e) (a)'s LinearRegressionModel served: a CUDA graph per rung, each
+    replay bit for bit the eager margin and within the f64 bound, then a
+    one-row fast-lane request against f64."""
+    R.reset_for_tests()
+    reg = R.ModelRegistry(device)
+    snap = REGISTRY.snapshot()
+    reg.register("linreg512", model)
+    captures = REGISTRY.snapshot().delta(snap).counter("serve.aot_compiles")
+    ladder = B.bucket_ladder()
+    if captures != (len(ladder) if device.type == "cuda" else 0):
+        raise AssertionError(f"linear servable captured {captures} graphs for {len(ladder)} rungs")
+    rungs = serve_rung_checks(reg, device, pool, reps)["linreg512"]
+    uds_dir = tempfile.mkdtemp(prefix="serve")
+    srv = S.start_serving(0, registry=reg, uds_path=_uds_path(uds_dir))
+    wires = _Wires(srv)
+    try:
+        row = pool[:1]
+        t0 = time.perf_counter()
+        got = wires.fast("linreg512", row)
+        fast_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        wires.close()
+        S.stop_serving()
+        shutil.rmtree(uds_dir, ignore_errors=True)
+        R.reset_for_tests()
+    ref = f64_projection(reg.get("linreg512"), row)
+    err = _rel_err(np.asarray(got).reshape(-1), ref)
+    out = {"rungs": len(rungs["rungs"]), "captures": captures,
+           "fast_lane_ms": fast_ms, "fast_lane_rel_err_vs_f64": err,
+           "replay_device_ms": {r["bucket"]: r.get("replay_device_ms") for r in rungs["rungs"]}}
+    print(f"linear (e) serving: {json.dumps(out)}", flush=True)
+    if not err <= SERVE_REL_TOL:
+        raise AssertionError(f"fast-lane answer off f64: {out}")
+    return out
+
+
 def _timed(name: str, fn, *args, **kwargs):
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
@@ -2455,6 +3227,8 @@ def main() -> int:
                       MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS, device)
     standardized = _timed("standardize", phase_standardize,
                           MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS, device)
+    _timed("linear (d) spectral and incremental", phase_spectral_incremental,
+           MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS, device)
     bench_workload.cache_clear()
     stream_data = _timed("make streamed data", streamed_workload,
                          STREAM_ROWS, MAIN_N, STREAM_PARTITIONS, device)
@@ -2463,7 +3237,13 @@ def main() -> int:
     streamed_one_pass = _timed("one pass (streamed)", phase_streamed_one_pass,
                                stream_data, MAIN_K, STREAM_PARTITIONS, device)
     _timed("streamed scaler", phase_streamed_scaler, stream_data, STREAM_PARTITIONS, device)
-    del stream_data
+    linreg = _timed("linear (a) streamed linreg", phase_streamed_linreg,
+                    stream_data, STREAM_PARTITIONS, device)
+    _timed("linear (e) serving", phase_linear_serving, linreg["model"],
+           stream_data[0][:SERVE_POOL_ROWS], device)
+    _timed("linear (b, c) newton", phase_newton_fits, stream_data[0], device)
+    del stream_data, linreg
+    torch.cuda.empty_cache()
     config4 = _timed("config 4 pipelines", phase_pipeline,
                      MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS, device, standardized)
     _timed("serving", phase_serving, resident["model"], standardized["model"], device,

@@ -23,6 +23,14 @@ The distance family (BASELINE config 5): ``KMeans`` (inits ``random``,
 ``k-means++``, ``k-means||``; checkpoint/resume), ``DBSCAN`` and the exact
 ``NearestNeighbors``, on cuBLAS products (``int8_dist`` on
 ``torch._int_mm``); ``clustering`` is the drop-in namespace.
+
+The linear family: ``LinearRegression`` (normal equations or elastic net,
+resident or streamed with labels and weights), ``LogisticRegression``
+(binary and multinomial Newton) and ``LinearSVC`` (squared hinge), with
+checkpoint/resume; ``TruncatedSVD``; and the incremental estimators
+(``partial_fit``/``finalize``) of PCA, TruncatedSVD, StandardScaler,
+LinearRegression and KMeans. Their products over the rows are f32 cuBLAS
+matmuls, or the Gram kernels at precision ``high``/``default``.
 """
 
 from spark_rapids_ml_tpu_torch.models.dbscan import DBSCAN, DBSCANModel
@@ -31,7 +39,22 @@ from spark_rapids_ml_tpu_torch.models.discretizer import (
     QuantileDiscretizer,
     QuantileDiscretizerModel,
 )
+from spark_rapids_ml_tpu_torch.models.incremental import (
+    IncrementalKMeans,
+    IncrementalLinearRegression,
+    IncrementalPCA,
+    IncrementalStandardScaler,
+    IncrementalTruncatedSVD,
+)
 from spark_rapids_ml_tpu_torch.models.kmeans import KMeans, KMeansModel
+from spark_rapids_ml_tpu_torch.models.linear import (
+    LinearRegression,
+    LinearRegressionModel,
+    LinearSVC,
+    LinearSVCModel,
+    LogisticRegression,
+    LogisticRegressionModel,
+)
 from spark_rapids_ml_tpu_torch.models.neighbors import NearestNeighbors, NearestNeighborsModel
 from spark_rapids_ml_tpu_torch.models.pca import PCA, PCAModel
 from spark_rapids_ml_tpu_torch.models.pipeline import Pipeline, PipelineModel
@@ -57,15 +80,20 @@ from spark_rapids_ml_tpu_torch.models.selector import (
     VarianceThresholdSelector,
     VarianceThresholdSelectorModel,
 )
+from spark_rapids_ml_tpu_torch.models.truncated_svd import TruncatedSVD, TruncatedSVDModel
 
 __version__ = "0.1.0"
 
 __all__ = [
     "DBSCAN", "DBSCANModel", "DCT", "Binarizer", "Bucketizer", "ElementwiseProduct", "Imputer",
-    "ImputerModel", "KMeans", "KMeansModel", "MaxAbsScaler", "MaxAbsScalerModel",
+    "ImputerModel", "IncrementalKMeans", "IncrementalLinearRegression", "IncrementalPCA",
+    "IncrementalStandardScaler", "IncrementalTruncatedSVD", "KMeans", "KMeansModel",
+    "LinearRegression", "LinearRegressionModel", "LinearSVC", "LinearSVCModel",
+    "LogisticRegression", "LogisticRegressionModel", "MaxAbsScaler", "MaxAbsScalerModel",
     "MinMaxScaler", "MinMaxScalerModel", "NearestNeighbors", "NearestNeighborsModel", "Normalizer",
     "PCA", "PCAModel", "Pipeline", "PipelineModel", "PolynomialExpansion",
     "QuantileDiscretizer", "QuantileDiscretizerModel", "RobustScaler", "RobustScalerModel",
-    "StandardScaler", "StandardScalerModel", "VarianceThresholdSelector",
-    "VarianceThresholdSelectorModel", "VectorSlicer", "__version__",
+    "StandardScaler", "StandardScalerModel", "TruncatedSVD", "TruncatedSVDModel",
+    "VarianceThresholdSelector", "VarianceThresholdSelectorModel", "VectorSlicer",
+    "__version__",
 ]

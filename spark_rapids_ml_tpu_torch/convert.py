@@ -12,9 +12,19 @@ plain numpy arrays, so nothing of the JAX package is imported:
   ``surrogate``; ``"QuantileDiscretizerModel"``: ``splits``;
   ``"VarianceThresholdSelectorModel"``: ``selectedFeatures``;
   ``"KMeansModel"``: ``clusterCenters``/``trainingCost``;
-  ``"NearestNeighborsModel"``: ``items``/``itemIds``; a stateless stage
-  such as ``"Normalizer"`` or ``"DBSCANModel"``: nothing), with the params the JAX model
-  had set (its ``_paramMap``), which ``_saveData`` does not hold;
+  ``"NearestNeighborsModel"``: ``items``/``itemIds``;
+  ``"LinearRegressionModel"``, ``"LinearSVCModel"`` and a binary
+  ``"LogisticRegressionModel"``: ``coefficients``/``intercept``; a
+  multinomial ``"LogisticRegressionModel"``: ``coefficientMatrix``/
+  ``interceptVector``; ``"TruncatedSVDModel"``: ``components``/
+  ``singularValues``; a stateless stage such as ``"Normalizer"`` or
+  ``"DBSCANModel"``: nothing), with the params the JAX model had set (its
+  ``_paramMap``), which ``_saveData`` does not hold;
+- ``incremental_from_state``: an incremental estimator (``"IncrementalPCA"``,
+  ``"IncrementalTruncatedSVD"``, ``"IncrementalStandardScaler"``,
+  ``"IncrementalLinearRegression"``, ``"IncrementalKMeans"``) resumed from
+  the ``(arrays, scalars)`` of the JAX estimator's ``to_state()``, with its
+  params;
 - ``pipeline_model_from_arrays``: a ``PipelineModel`` from a list of
   ``{"class", "data", "params"}`` dicts, one per stage, in order.
 """
@@ -60,6 +70,22 @@ def model_from_arrays(
     if params:
         model._set(**params)
     return model
+
+
+def incremental_from_state(
+    estimator_class: str,
+    arrays: Mapping[str, np.ndarray],
+    state: Mapping[str, Any],
+    device: str | torch.device = "cuda",
+    params: Mapping[str, Any] | None = None,
+) -> Any:
+    """The port's ``estimator_class`` with ``params`` set, holding the
+    running statistic of the JAX estimator's ``to_state()``: its next
+    ``partial_fit`` continues the stream."""
+    est = port_class(estimator_class)(device=device)
+    if params:
+        est._set(**params)
+    return est.from_state({k: np.asarray(v) for k, v in arrays.items()}, dict(state))
 
 
 def pipeline_model_from_arrays(

@@ -77,6 +77,15 @@ _PORTED_CLASSES: dict[str, tuple[str, ...]] = {
     "kmeans": ("KMeans", "KMeansModel"),
     "dbscan": ("DBSCAN", "DBSCANModel"),
     "neighbors": ("NearestNeighbors", "NearestNeighborsModel"),
+    "linear": (
+        "LinearRegression", "LinearRegressionModel", "LogisticRegression",
+        "LogisticRegressionModel", "LinearSVC", "LinearSVCModel",
+    ),
+    "truncated_svd": ("TruncatedSVD", "TruncatedSVDModel"),
+    "incremental": (
+        "IncrementalPCA", "IncrementalTruncatedSVD", "IncrementalStandardScaler",
+        "IncrementalLinearRegression", "IncrementalKMeans",
+    ),
 }
 _PORT_CLASS_PATHS: dict[str, str] = {
     name: f"{module}.{name}" for module, names in _PORTED_CLASSES.items() for name in names

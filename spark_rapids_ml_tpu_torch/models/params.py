@@ -1,7 +1,8 @@
 """A Spark-ML-shaped Params system.
 
-Copy of ``Param``, ``Params``, ``HasInputCol``, ``HasOutputCol`` and
-``HasFeaturesCol`` from ``spark_rapids_ml_tpu/models/params.py``: typed
+Copy of ``Param``, ``Params``, ``HasInputCol``, ``HasOutputCol``,
+``HasFeaturesCol``, ``HasLabelCol`` and ``HasPredictionCol`` from
+``spark_rapids_ml_tpu/models/params.py``: typed
 params with defaults, fluent setters, constructor keyword params
 (``PCA(k=3)`` is ``PCA().setK(3)``), ``copy`` that keeps the uid, and the
 param state that a save records. ``HasDevice`` is the port's own: the
@@ -167,6 +168,26 @@ class HasFeaturesCol(Params):
 
     def getFeaturesCol(self) -> str:
         return self.getOrDefault("featuresCol")
+
+
+class HasLabelCol(Params):
+    labelCol = Param("labelCol", "name of the scalar label column", str)
+
+    def setLabelCol(self, value: str):
+        return self._set(labelCol=value)
+
+    def getLabelCol(self) -> str:
+        return self.getOrDefault("labelCol")
+
+
+class HasPredictionCol(Params):
+    predictionCol = Param("predictionCol", "name of the prediction output column", str)
+
+    def setPredictionCol(self, value: str):
+        return self._set(predictionCol=value)
+
+    def getPredictionCol(self) -> str:
+        return self.getOrDefault("predictionCol")
 
 
 class HasDevice(Params):

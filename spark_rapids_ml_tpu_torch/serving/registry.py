@@ -1,7 +1,7 @@
 """Model registry of the serving path: one CUDA graph per (model, bucket).
 
-Port of ``spark_rapids_ml_tpu/serving/registry.py`` for the PCA and scaler
-families.
+Port of ``spark_rapids_ml_tpu/serving/registry.py`` for the PCA, scaler
+and linear families.
 
 - **Pure kernel extraction.** A fitted ``PCAModel`` becomes a
   ``ServableEntry``: a pure ``kernel(params, x)`` over device tensors
@@ -11,7 +11,12 @@ families.
   zero). The serve path and ``PCAModel.transform`` run the same device
   computation. A fitted ``StandardScalerModel`` becomes ``_scaler_kernel``
   (``ops.scaler.standardize`` with the model's flags) over its f32
-  ``mean``/``std``, with no host hook; its policy is always ``f32``.
+  ``mean``/``std``, with no host hook; its policy is always ``f32``. A
+  fitted single-output GLM (``LinearRegressionModel``, a binary
+  ``LogisticRegressionModel``, ``LinearSVCModel``) becomes ``_linear_kernel``
+  (``ops.linear.predict_linear``: the margin x·coef + b, [rows]) over its f32
+  coefficients and intercept, or ``_linear_kernel_bf16``; a multi-output
+  (multinomial) model has no serve contract and is refused.
 - **A CUDA graph per rung, captured at registration.** Where the JAX
   package compiles ``jax.jit(kernel)`` ahead of time for every rung of the
   bucket ladder, ``register()`` captures one ``torch.cuda.CUDAGraph`` per
@@ -33,14 +38,15 @@ families.
   host memory; an entry drops its graphs before its parameters go and
   recaptures them when they come back (see that module).
 - **Tuning-cache consult.** The registry asks the tuning cache
-  (``autotune/cache.py``, key ``serve.pca``) for a blessed precision
-  policy; an explicit ``bf16_f32acc`` entry selects ``_pca_kernel_bf16``.
-  The default is ``f32``, the eager-parity path.
+  (``autotune/cache.py``, keys ``serve.pca`` and ``serve.linear``) for a
+  blessed precision policy; an explicit ``bf16_f32acc`` entry selects
+  ``_pca_kernel_bf16`` or ``_linear_kernel_bf16``. The default is ``f32``,
+  the eager-parity path.
 
 The JAX package's persistent XLA compile cache has no counterpart: a CUDA
 graph cannot outlive its process. Hot swap, rollback and the shadow gate,
-hedged dispatch, the fault sites and the other families' servables (GLM,
-forest) are not ported yet.
+hedged dispatch, the fault sites and the forest servable are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -56,9 +62,11 @@ import numpy as np
 import torch
 
 from spark_rapids_ml_tpu_torch.autotune import cache as tuning_cache
+from spark_rapids_ml_tpu_torch.models.linear import _GLMModel
 from spark_rapids_ml_tpu_torch.models.pca import PCAModel
 from spark_rapids_ml_tpu_torch.models.scaler import StandardScalerModel
 from spark_rapids_ml_tpu_torch.ops import linalg as L
+from spark_rapids_ml_tpu_torch.ops import linear as LIN
 from spark_rapids_ml_tpu_torch.ops import scaler as S
 from spark_rapids_ml_tpu_torch.serving import buckets, hbm
 from spark_rapids_ml_tpu_torch.telemetry import compilemon
@@ -68,7 +76,7 @@ from spark_rapids_ml_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger("spark_rapids_ml_tpu_torch.serving")
 
-FAMILIES = ("pca", "scaler")
+FAMILIES = ("pca", "scaler", "linear")
 
 #: Input dtypes a serve request may carry. Integer and bool payloads (JSON
 #: numbers decode to them) are widened to float64 first; anything else is
@@ -107,6 +115,10 @@ def validate_request(x: Any, n_features: int, model: str) -> np.ndarray:
 # -- pure serve kernels (params, x) -> out ----------------------------------
 
 
+def _bf16_rounded(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
 def _pca_kernel(params, x: torch.Tensor) -> torch.Tensor:
     """The eager transform's projection, ``ops.linalg.project`` (f32, TF32
     asserted off)."""
@@ -121,7 +133,21 @@ def _pca_kernel_bf16(params, x: torch.Tensor) -> torch.Tensor:
     ``preferred_element_type=f32`` (a bf16 × bf16 ``torch.matmul`` would
     round its result to bf16)."""
     (pc,) = params
-    return L.project(x.to(torch.bfloat16).to(x.dtype), pc.to(torch.bfloat16).to(pc.dtype))
+    return L.project(_bf16_rounded(x), _bf16_rounded(pc))
+
+
+def _linear_kernel(params, x: torch.Tensor) -> torch.Tensor:
+    """The eager GLM margin, ``ops.linear.predict_linear``: x·coef + b."""
+    coef, intercept = params
+    return LIN.predict_linear(x, coef, intercept)
+
+
+def _linear_kernel_bf16(params, x: torch.Tensor) -> torch.Tensor:
+    """x and coef rounded to bf16, their product in f32 (exact products,
+    TF32 off), plus the f32 intercept: the JAX package's bf16 ``jnp.matmul``
+    with ``preferred_element_type=f32``."""
+    coef, intercept = params
+    return LIN.predict_linear(_bf16_rounded(x), _bf16_rounded(coef), intercept)
 
 
 def _scaler_kernel(params, x: torch.Tensor, *, with_mean: bool, with_std: bool) -> torch.Tensor:
@@ -367,10 +393,35 @@ def servable_from_model(name: str, model: Any, device: torch.device) -> Servable
             policy="f32",
             model=model,
         )
+    if isinstance(model, _GLMModel) and model.coefficients is not None:
+        coef = np.asarray(model.coefficients)
+        if coef.ndim != 1:
+            raise TypeError(
+                f"{type(model).__name__} is not single-output — the linear "
+                "serve contract covers [n]-coefficient GLMs"
+            )
+        n = int(coef.shape[0])
+        policy = _consult_policy("linear", n, device)
+        return ServableEntry(
+            name=name,
+            family="linear",
+            model_cls=type(model).__name__,
+            n_features=n,
+            kernel=_linear_kernel_bf16 if policy == "bf16_f32acc" else _linear_kernel,
+            params=(
+                torch.tensor(coef.astype(X_DTYPE), device=device),
+                torch.tensor(model.intercept, dtype=torch.float32, device=device),
+            ),
+            prepare=_identity_prepare,
+            device=device,
+            policy=policy,
+            model=model,
+        )
     if not isinstance(model, PCAModel) or model.pc is None:
         raise TypeError(
             f"{type(model).__name__} has no serve contract — servable families: "
-            f"{', '.join(FAMILIES)} (the port serves fitted PCA and StandardScaler models)"
+            f"{', '.join(FAMILIES)} (the port serves fitted PCA, StandardScaler "
+            "and single-output GLM models)"
         )
     n = int(model.pc.shape[0])
     pc = torch.tensor(np.asarray(model.pc, dtype=X_DTYPE), device=device)

@@ -31,9 +31,18 @@ the ``stream.active``/``stream.last_beat`` heartbeat gauges the health
 monitor watches, and ``stream.overlap_fraction`` (overlapped dispatches
 over chunks) once per fold, which ``FitReport.overlap_fraction`` reads.
 
+With ``label_col`` the source yields ``(x, y)`` or ``(x, y, w)`` tuples
+(the supervised fits' labeled partitions): the labels and the instance
+weights (1 where none are given) ride in two more f32 columns of the same
+staging rows, so one copy takes all three to the card, and the fold is
+``fold_fn(carry, x, y, w)`` on column views of the device buffer. Then
+``h2d.bytes`` counts x, y and w: (n + 2) · 4 bytes a row. A non-finite
+label or weight drops or raises its row as a non-finite feature does, and
+each chunk's weights pass ``columnar.validate_weights``.
+
 Not ported yet (``ROADMAP.md``): the autotuner, checkpoint and resume, retry
 and fault-injection sites, OOM bisection, the stderr heartbeat, the bounded
-wait, and label and intercept columns.
+wait, and the augmented intercept column.
 """
 
 from __future__ import annotations
@@ -116,6 +125,17 @@ def _nonfinite_rows(x: np.ndarray) -> np.ndarray | None:
     return bad if bad.any() else None
 
 
+def _split_item(item: Any) -> tuple[np.ndarray, np.ndarray | None, np.ndarray | None]:
+    """(x, y or None, w or None) of one source item: a bare matrix or an
+    ``(x,)``/``(x, y)``/``(x, y, w)`` tuple."""
+    if not isinstance(item, tuple):
+        return np.asarray(item), None, None
+    x = np.asarray(item[0])
+    y = np.asarray(item[1]) if len(item) > 1 and item[1] is not None else None
+    w = np.asarray(item[2]) if len(item) > 2 and item[2] is not None else None
+    return x, y, w
+
+
 def stream_fold(
     source: Iterable[Any],
     fold_fn: Callable,
@@ -125,11 +145,16 @@ def stream_fold(
     device: torch.device,
     chunk_rows: int | None = None,
     nonfinite: str | None = None,
+    label_col: str | None = None,
 ) -> StreamFold:
     """Fold ``source``, an iterable of host [rows, n] matrices, chunk by
     chunk through ``fold_fn(carry, x, w) -> carry`` (``linalg.gram_fold_step``),
     which gets the device view of each chunk's true rows and their unit
-    weights on the host. ``init`` is the zero carry on ``device`` or a
+    weights on the host. With ``label_col`` (any name: an iterable source
+    has no columns, it only says that labels flow) the items are
+    ``(x, y)``/``(x, y, w)`` tuples and the fold is
+    ``fold_fn(carry, x, y, w) -> carry`` (``linear.linear_fold_step``) on
+    device views of all three. ``init`` is the zero carry on ``device`` or a
     callable that makes it. Non-finite rows follow ``nonfinite``
     (``TPU_ML_NONFINITE_POLICY``): ``raise`` (default), ``skip`` (drop and
     count them) or ``allow`` (no scan). Spans: ``ingest.chunk``,
@@ -141,17 +166,20 @@ def stream_fold(
             f"nonfinite={nonfinite!r} must be one of {VALID_NONFINITE_POLICIES}"
         )
     cuda = device.type == "cuda"
+    labeled = label_col is not None
     carry = init() if callable(init) else init
 
-    # pin_memory raises on a build without CUDA, so only pin for the card
+    # one staging row holds x, then y and w when labels flow; pin_memory
+    # raises on a build without CUDA, so only pin for the card
+    width = n + 2 if labeled else n
     staging = [
-        torch.empty((chunk_rows, n), dtype=torch.float32, pin_memory=cuda)
+        torch.empty((chunk_rows, width), dtype=torch.float32, pin_memory=cuda)
         for _ in range(2)
     ]
     unit_w = torch.ones((chunk_rows,), dtype=torch.float32, pin_memory=cuda)
     if cuda:
         on_card = [
-            torch.empty((chunk_rows, n), dtype=torch.float32, device=device)
+            torch.empty((chunk_rows, width), dtype=torch.float32, device=device)
             for _ in range(2)
         ]
         copy_stream = torch.cuda.Stream(device)
@@ -173,19 +201,22 @@ def stream_fold(
                         copy_stream.wait_event(folded[slot])
                     on_card[slot][:fill].copy_(staging[slot][:fill], non_blocking=True)
                     copied[slot] = copy_stream.record_event()
-                REGISTRY.counter_inc("h2d.bytes", fill * n * 4, path="stream")
+                REGISTRY.counter_inc("h2d.bytes", fill * width * 4, path="stream")
                 fold_stream.wait_event(copied[slot])
-                x = on_card[slot][:fill]
+                block = on_card[slot][:fill]
             else:
-                x = staging[slot][:fill]
-            carry = fold_fn(carry, x, unit_w[:fill])
+                block = staging[slot][:fill]
+            if labeled:
+                carry = fold_fn(carry, block[:, :n], block[:, n], block[:, n + 1])
+            else:
+                carry = fold_fn(carry, block, unit_w[:fill])
             if cuda:
                 folded[slot] = fold_stream.record_event()
                 if not copied[slot].query():
                     copy_overlapped += 1
         n_chunks += 1
         REGISTRY.gauge_set("stream.last_beat", time.monotonic())
-        max_put = max(max_put, fill * n * 4)
+        max_put = max(max_put, fill * width * 4)
         slot, fill = 1 - slot, 0
         if copied[slot] is not None:
             copied[slot].synchronize()  # before this staging buffer refills
@@ -197,9 +228,10 @@ def stream_fold(
         while True:
             with trace_range("ingest.chunk", device):
                 try:
-                    xc = np.asarray(next(it))
+                    item = next(it)
                 except StopIteration:
                     break
+            xc, yc, wc = _split_item(item)
             REGISTRY.counter_inc("ingest.rows", len(xc))
             REGISTRY.counter_inc("ingest.bytes", xc.nbytes)
             if xc.ndim != 2 or xc.shape[1] != n:
@@ -207,8 +239,14 @@ def stream_fold(
                     f"feature dimension changed mid-stream: expected {n}, "
                     f"got {xc.shape[1:]}"
                 )
+            if labeled and yc is None:
+                raise ValueError("label column missing from a streamed chunk")
             if nonfinite != "allow":
                 bad = _nonfinite_rows(xc)
+                for side in (yc, wc):
+                    if side is not None and not np.isfinite(side).all():
+                        side_bad = ~np.isfinite(side)
+                        bad = side_bad if bad is None else bad | side_bad
                 if bad is not None:
                     n_bad = int(bad.sum())
                     if nonfinite == "raise":
@@ -217,12 +255,24 @@ def stream_fold(
                             "chunk; set TPU_ML_NONFINITE_POLICY=skip to drop "
                             "and count them instead"
                         )
-                    xc = xc[~bad]
+                    keep = ~bad
+                    xc = xc[keep]
+                    yc = yc[keep] if yc is not None else None
+                    wc = wc[keep] if wc is not None else None
                     skipped += n_bad
+            if wc is not None:
+                wc = columnar.validate_weights(wc, len(xc), allow_all_zero=True)
             at = 0
             while at < len(xc):
                 take = min(chunk_rows - fill, len(xc) - at)
-                staging[slot][fill : fill + take].copy_(_host_tensor(xc[at : at + take]))
+                rows_at = staging[slot][fill : fill + take]
+                rows_at[:, :n].copy_(_host_tensor(xc[at : at + take]))
+                if labeled:
+                    rows_at[:, n].copy_(_host_tensor(yc[at : at + take]))
+                    if wc is None:
+                        rows_at[:, n + 1] = 1.0
+                    else:
+                        rows_at[:, n + 1].copy_(_host_tensor(wc[at : at + take]))
                 fill += take
                 at += take
                 seen += take

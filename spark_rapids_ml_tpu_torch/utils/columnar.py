@@ -3,8 +3,10 @@ estimators accept, row bucketing, and the partitioned dataset.
 
 Counterpart of ``spark_rapids_ml_tpu/utils/columnar.py``: besides the
 matrices, scalar columns (``extract_vector``), appended output columns
-(``append_columns``) and the weight-column contract that the clustering
-estimators share (``validate_weights``, ``resolve_partition_weights``).
+(``append_columns``), the weight-column contract that the clustering
+estimators share (``validate_weights``, ``resolve_partition_weights``) and
+the supervised estimators' labeled partitions (``labeled_partitions``,
+``pad_labeled``, ``pad_labeled_batch``).
 Accepted inputs: a 2-D ndarray, a pandas DataFrame whose column holds one
 array per row, and a pyarrow Table or RecordBatch with a list or
 fixed-size-list column (the reference's ArrayType input) or a Spark ML
@@ -181,6 +183,15 @@ def append_columns(dataset: Any, columns) -> Any:
     raise TypeError(f"cannot append named columns to {type(dataset).__name__}")
 
 
+def has_named_columns(dataset: Any) -> bool:
+    """True for containers whose transform output carries named columns
+    (Arrow tables and batches, pandas): the inputs where appending more
+    than one output column means something."""
+    if pa is not None and isinstance(dataset, (pa.Table, pa.RecordBatch)):
+        return True
+    return hasattr(dataset, "columns") and hasattr(dataset, "assign")
+
+
 def extract_vector(data: Any, col: str) -> np.ndarray:
     """A scalar column (weights, ids) as a [rows] f64 vector."""
     if pa is not None and isinstance(data, (pa.Table, pa.RecordBatch)):
@@ -253,6 +264,73 @@ def resolve_partition_weights(
         out.append(sw[off:off + len(m)])
         off += len(m)
     return out
+
+
+def labeled_partitions(
+    data: Any,
+    features_col: str | None,
+    label_col: str | None,
+    num_partitions: int | None = None,
+    weight_col: str | None = None,
+) -> list[tuple[np.ndarray, np.ndarray, np.ndarray | None]]:
+    """Supervised data as [(X, y, w or None), ...] partitions.
+
+    Accepted: an (X, y) or (X, y, w) tuple of arrays, or a pandas or Arrow
+    container with an array-valued features column, a scalar label column
+    and optionally a scalar ``weight_col`` (Spark ML's ``featuresCol``/
+    ``labelCol``/``weightCol``). Weights go through ``validate_weights``.
+    ``num_partitions`` > 1 splits the rows into that many nearly equal
+    slices (views, no copy)."""
+    w = None
+    if isinstance(data, tuple) and len(data) in (2, 3):
+        x, y = np.asarray(data[0]), np.asarray(data[1], dtype=np.float64)
+        if len(data) == 3 and data[2] is not None:
+            w = data[2]
+    else:
+        x = extract_matrix(data, features_col)
+        y = extract_vector(data, label_col)
+        if weight_col:
+            w = extract_vector(data, weight_col)
+    if len(x) != len(y):
+        raise ValueError(f"features have {len(x)} rows but labels have {len(y)}")
+    if w is not None:
+        w = validate_weights(w, len(x))
+    n_split = num_partitions if num_partitions and num_partitions > 1 else 1
+    xs = np.array_split(x, n_split)
+    ys = np.array_split(y, n_split)
+    ws = np.array_split(w, n_split) if w is not None else [None] * n_split
+    return list(zip(xs, ys, ws))
+
+
+def pad_labeled(
+    x: np.ndarray,
+    y: np.ndarray,
+    weights: np.ndarray | None = None,
+    *,
+    min_bucket: int | None = None,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(padded x, padded y, w) of an (X, y[, w]) group bucket-padded on the
+    host: ``w`` is 0 on pad rows and the instance weights (1 when none) on
+    true rows, so the pad mask and the weighting are one vector."""
+    padded, true_rows = pad_rows(x, min_bucket=min_bucket)
+    dtype = float_dtype_for(padded.dtype)
+    yp = np.zeros(padded.shape[0], dtype=dtype)
+    yp[:true_rows] = y
+    w = np.zeros(padded.shape[0], dtype=dtype)
+    w[:true_rows] = 1.0 if weights is None else weights
+    return padded, yp, w
+
+
+def pad_labeled_batch(x, y, w=None):
+    """(padded x, y, w, true_rows) of one whole batch: ``pad_labeled`` with
+    the features first cast to a float dtype."""
+    fdt = float_dtype_for(np.asarray(x).dtype)
+    padded, true_rows = pad_rows(np.asarray(x).astype(fdt, copy=False))
+    wv = np.zeros(padded.shape[0], fdt)
+    wv[:true_rows] = 1.0 if w is None else w
+    yv = np.zeros(padded.shape[0], fdt)
+    yv[:true_rows] = y
+    return padded, yv, wv, true_rows
 
 
 def standardize_host(
@@ -348,7 +426,12 @@ def _part_size(p: Any) -> tuple[int | None, int | None]:
 def dataset_size(data: Any) -> tuple[int | None, int | None]:
     """(rows, bytes) of a container the estimators accept, from its shape
     alone, without extracting it: what a fit's report counts as ingested.
-    Either is None where unknown (a pandas frame's bytes, say)."""
+    Either is None where unknown (a pandas frame's bytes, say). A labeled
+    ``(X, y)``/``(X, y, w)`` tuple of arrays counts X's rows and the bytes of
+    all its arrays."""
+    if (isinstance(data, tuple) and len(data) in (2, 3) and isinstance(data[0], np.ndarray)
+            and data[0].ndim == 2):
+        return data[0].shape[0], sum(np.asarray(a).nbytes for a in data if a is not None)
     if isinstance(data, PartitionedDataset):
         parts = data.partitions
     elif isinstance(data, (list, tuple)) and data and (

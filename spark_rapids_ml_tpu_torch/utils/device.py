@@ -58,6 +58,19 @@ def to_device_padded(mat: np.ndarray, rows: int, device: torch.device) -> torch.
     return out
 
 
+def to_device_augmented(mat: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``to_device`` of [m, n] into an [m, n + 1] tensor whose last column is
+    ones (the intercept column of the Newton fits), made on ``device``, so
+    no augmented host copy exists."""
+    host = _host_f32(mat)
+    out = torch.empty((host.shape[0], host.shape[1] + 1), dtype=torch.float32, device=device)
+    out[:, : host.shape[1]].copy_(torch.from_numpy(host))
+    out[:, host.shape[1]] = 1.0
+    if device.type != "cpu":
+        REGISTRY.counter_inc("h2d.bytes", host.nbytes, path="resident")
+    return out
+
+
 #: Bytes of one f32 tile of a blocked distance pass on the card (a KMeans
 #: [block, k] tile, a DBSCAN [block, block] tile). At 256 MiB the few tiles
 #: that live at once (distances, one-hot) stay near 1 GB beside the 25.8 GB

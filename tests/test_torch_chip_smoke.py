@@ -446,3 +446,95 @@ def test_knn_f64_is_the_exact_top_k():
     ref_d, ref_i = torch.topk(full, 5, dim=1, largest=False)
     assert torch.equal(i, ref_i)
     torch.testing.assert_close(d, ref_d, rtol=1e-12, atol=1e-12)
+
+
+# -- phase 14: the linear family ------------------------------------------------
+
+
+@pytest.fixture
+def linear_stream(monkeypatch):
+    monkeypatch.setenv("TPU_ML_STREAM_FIT_MAX_RESIDENT_BYTES", str(1 << 16))
+    monkeypatch.setenv("TPU_ML_STREAM_CHUNK_ROWS", "512")
+    return chip_smoke.streamed_workload(3000, 48, 4, CPU)
+
+
+def test_streamed_linreg_phase_on_cpu(linear_stream):
+    result = chip_smoke.phase_streamed_linreg(linear_stream, 4, CPU)
+    for label in ("plain", "weighted"):
+        entry = result[label]
+        assert entry["chunks"] == 6 and entry["h2d_bytes"] == 0
+        assert entry["coef_err"] <= 1.01 * entry["coef_bound"] + 1e-9
+        assert entry["xtx_rel_err"] <= chip_smoke.LINEAR_STATS_RTOL
+    enet = result["elastic_net"]
+    assert 0 < enet["nonzero"] <= 48
+    assert enet["kkt_own_stats"] <= 1e-3 * chip_smoke.ENET_REG * chip_smoke.ENET_ALPHA
+    assert 0.0 <= result["f32_carry_coef_rel_err"] and result["fold_bound_by"] == "operations"
+    assert result["model"].stream_report is not None
+
+
+def test_streamed_linreg_gates_catch_a_wrong_coefficient(linear_stream):
+    x, _ = linear_stream
+    work = chip_smoke.linreg_workload(x, CPU)
+    oracle, _ = chip_smoke.linear_stats_f64(x, work["y"], None, CPU)
+    coef, b0 = chip_smoke.normal_solve_f64(oracle)
+    good = chip_smoke.linreg_gates(oracle, oracle, coef.numpy(), float(b0))
+    assert good["coef_err"] <= 1e-9 * np.linalg.norm(coef.numpy())
+    bad = coef.numpy().copy()
+    bad[3] += 1e-3
+    with pytest.raises(AssertionError, match="perturbation bound"):
+        chip_smoke.linreg_gates(oracle, oracle, bad, float(b0))
+
+
+def test_linear_serving_phase_on_cpu(linear_stream, monkeypatch):
+    monkeypatch.setenv("TPU_ML_SERVE_MAX_BATCH_ROWS", "64")
+    x, _ = linear_stream
+    y = chip_smoke.linreg_workload(x, CPU)["y"]
+    model = chip_smoke.LinearRegression(device=CPU).fit((x, y))
+    out = chip_smoke.phase_linear_serving(model, x[:64], CPU, reps=2)
+    assert out["rungs"] == 4 and out["captures"] == 0
+    assert out["fast_lane_rel_err_vs_f64"] <= chip_smoke.SERVE_REL_TOL
+
+
+def test_newton_fits_phase_on_cpu():
+    x, _ = chip_smoke.streamed_workload(4000, 24, 2, CPU)
+    result = chip_smoke.phase_newton_fits(x, CPU, rows=3000, softmax_rows=1500, classes=3,
+                                          partitions=3)
+    for label in ("logistic", "svc", "softmax"):
+        assert result[label]["grad_rel"] <= chip_smoke.NEWTON_GRAD_RTOL
+        assert result[label]["iterations"] >= 1
+    assert result["resume"]["equal_to_uninterrupted"]
+    assert result["softmax"]["block_products"] == 6
+    assert result["logistic"]["obj_excess_rel"] <= chip_smoke.NEWTON_OBJ_RTOL
+
+
+def test_newton_oracle_matches_the_jax_package():
+    """The script's f64 Newton converges where the JAX package's binary and
+    softmax fits (x64 on here) do: objectives rtol 1e-9."""
+    from spark_rapids_ml_tpu.models.linear import LogisticRegression as JaxLogReg
+
+    x, _ = chip_smoke.streamed_workload(2000, 12, 2, CPU)
+    xd = torch.from_numpy(x)
+    for classes in (None, 3):
+        y = (chip_smoke._logistic_labels(xd, 3) if classes is None
+             else chip_smoke._softmax_labels(xd, classes, 3))
+        w, obj, _ = chip_smoke.newton_oracle_f64(xd, torch.from_numpy(y), 0.01, classes)
+        ref = JaxLogReg().setRegParam(0.01).setTol(1e-12).setMaxIter(50).fit(
+            (x.astype(np.float64), y))
+        w_ref = torch.from_numpy(chip_smoke._newton_params(ref, classes))
+        obj_ref = chip_smoke.newton_f64(xd, torch.from_numpy(y), w_ref, 0.01, classes,
+                                        hessian=False)[0]
+        assert obj == pytest.approx(obj_ref, rel=1e-9)
+
+
+def test_spectral_incremental_phase_on_cpu():
+    result = chip_smoke.phase_spectral_incremental(
+        3000, 96, 5, 3, CPU, kmeans=dict(k=6, n=8, rows=2000, batches=3))
+    for precision in ("highest", "high"):
+        entry = result[precision]
+        assert entry["tsvd_launches"] == {name: 0 for name in chip_smoke.KERNELS}
+        assert entry["tsvd_min_cos_vs_f64"] >= chip_smoke.COSINE_BAR
+        assert entry["incremental_pca_min_cos_vs_one_shot"] >= chip_smoke.COSINE_BAR
+    linreg = result["incremental_linreg"]
+    assert linreg["rows_seen"] == 3000
+    assert linreg["coef_diff"] <= 1.01 * linreg["coef_diff_bound"]
+    assert result["incremental_kmeans"]["max_rel_err_vs_f64_update"] <= chip_smoke.MINIBATCH_RTOL

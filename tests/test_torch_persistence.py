@@ -228,11 +228,11 @@ def test_port_native_save_crosses_as_arrays_only(x, tmp_path):
 
 
 def test_unported_jax_class_is_refused_without_import(tmp_path):
-    path = tmp_path / "linear"
+    path = tmp_path / "forest"
     path.mkdir()
     (path / "metadata.json").write_text(json.dumps({
-        "class": "spark_rapids_ml_tpu.models.linear.LinearRegressionModel",
-        "uid": "LinearRegressionModel_1",
+        "class": "spark_rapids_ml_tpu.models.forest.RandomForestRegressionModel",
+        "uid": "RandomForestRegressionModel_1",
         "paramMap": {}, "defaultParamMap": {},
     }))
     with pytest.raises(TypeError, match="no counterpart"):
@@ -288,3 +288,82 @@ def test_package_imports_without_pyarrow(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
+
+
+BLOCKED_LOAD_ANY = r'''
+import json, sys
+
+BLOCKED = ("jax", "jaxlib", "spark_rapids_ml_tpu")
+
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Blocker())
+from spark_rapids_ml_tpu_torch.models.base import Saveable
+
+out = {}
+for key, path in json.loads(sys.argv[1]).items():
+    loaded = Saveable.load(path, device="cpu")
+    out[key] = {
+        "class": type(loaded).__module__ + "." + type(loaded).__name__,
+        "uid": loaded.uid,
+        "params": {k: loaded.getOrDefault(k) for k in loaded._paramMap},
+        "arrays": {k: v.tolist() for k, v in loaded._saveData().items()},
+    }
+leaked = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+assert not leaked, leaked
+print(json.dumps(out))
+'''
+
+
+def test_linear_family_saves_cross_both_ways(x, tmp_path):
+    """The JAX package's native saves of the linear family, TruncatedSVD and
+    an incremental estimator load in the port where jax cannot be imported,
+    arrays bit for bit; the port's saves of them read in the JAX package
+    (``load_arrays`` and the class's ``_fromSaved``)."""
+    from spark_rapids_ml_tpu.models import incremental as JI
+    from spark_rapids_ml_tpu.models import linear as JLM
+    from spark_rapids_ml_tpu.models.truncated_svd import TruncatedSVD as JaxTSVD
+
+    y = x @ np.linspace(-1, 1, N).astype(np.float32)
+    labels = (y > 0).astype(np.float64)
+    classes = np.digitize(y, np.quantile(y, [0.33, 0.66])).astype(np.float64)
+    refs = {
+        "linreg": JLM.LinearRegression().setRegParam(0.1).fit((x, y)),
+        "logreg": JLM.LogisticRegression().setRegParam(0.1).fit((x, labels)),
+        "softmax": JLM.LogisticRegression().setRegParam(0.1).fit((x, classes)),
+        "svc": JLM.LinearSVC().setRegParam(0.1).fit((x, labels)),
+        "tsvd": JaxTSVD(k=K).setInputCol("features").fit(x),
+        "incremental": JI.IncrementalLinearRegression().setRegParam(0.5),
+    }
+    paths = {key: tmp_path / key for key in refs}
+    for key, model in refs.items():
+        model.save(str(paths[key]))
+    proc = subprocess.run(
+        [sys.executable, "-c", BLOCKED_LOAD_ANY, json.dumps({k: str(v) for k, v in paths.items()})],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    for key, model in refs.items():
+        module = type(model).__module__.replace("spark_rapids_ml_tpu.", "spark_rapids_ml_tpu_torch.")
+        assert out[key]["class"] == f"{module}.{type(model).__name__}"
+        assert out[key]["uid"] == model.uid
+        assert out[key]["params"] == {k: model.getOrDefault(k) for k in model._paramMap}
+        want = model._saveData()
+        assert set(out[key]["arrays"]) == set(want)
+        for name, value in want.items():
+            np.testing.assert_array_equal(np.asarray(out[key]["arrays"][name]), value)
+    # the port's own saves, read back in the JAX package
+    for key, model in refs.items():
+        if not model._saveData():
+            continue
+        port = Saveable.load(str(paths[key]), device="cpu")
+        port.save(str(tmp_path / f"port-{key}"))
+        arrays = jax_persistence.load_arrays(str(tmp_path / f"port-{key}"))
+        back = type(model)._fromSaved(None, arrays)
+        for name, value in model._saveData().items():
+            np.testing.assert_array_equal(np.asarray(back._saveData()[name]), value)

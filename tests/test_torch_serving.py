@@ -8,7 +8,10 @@ device="cpu", where no CUDA graph exists and the same kernel runs eagerly.
 Answers agree with the JAX package's within max abs error ≤ 1e-5 × max
 |expected| (the JAX side computes in f64 here: the test session enables
 x64). The one ``cuda``-marked test holds each rung's graph replay bit for
-bit against the eager projection of the same padded block.
+bit against the eager projection of the same padded block. The linear
+family's servable (JAX-fitted single-output GLMs carried across with
+``convert.model_from_arrays``) is held against the JAX package's
+``_linear_kernel`` and ``_linear_kernel_bf16`` at the same bound.
 """
 
 from __future__ import annotations
@@ -730,3 +733,111 @@ def test_scaler_graph_replay_matches_eager_at_every_rung(monkeypatch):
             assert np.array_equal(served, eager), (round_, b)
         entry.page_out()
         assert not entry.resident and not entry.rungs
+
+
+# -- the linear family -----------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def glm_models():
+    """Seeded data and JAX-fitted single-output GLMs, and a multinomial
+    logistic model (multi-output: no serve contract)."""
+    from spark_rapids_ml_tpu.models import linear as JLM
+
+    rng = np.random.default_rng(19)
+    x = (rng.normal(size=(300, N)) + 0.5).astype(np.float32)
+    y = (x @ rng.normal(size=N) + 1.0).astype(np.float32)
+    labels = (y > np.median(y)).astype(np.float64)
+    classes = np.digitize(y, np.quantile(y, [0.33, 0.66])).astype(np.float64)
+    return x, {
+        "LinearRegressionModel": JLM.LinearRegression().setRegParam(0.01).fit((x, y)),
+        "LogisticRegressionModel": JLM.LogisticRegression().setRegParam(0.01).fit((x, labels)),
+        "LinearSVCModel": JLM.LinearSVC().setRegParam(0.01).fit((x, labels)),
+        "multinomial": JLM.LogisticRegression().setRegParam(0.01).fit((x, classes)),
+    }
+
+
+def _port_glm(jmodel):
+    from spark_rapids_ml_tpu_torch.convert import model_from_arrays
+
+    return model_from_arrays(type(jmodel).__name__, jmodel._saveData(), device="cpu")
+
+
+@pytest.mark.parametrize("name", ["LinearRegressionModel", "LogisticRegressionModel",
+                                  "LinearSVCModel"])
+def test_linear_servable_matches_jax_linear_kernel(glm_models, name):
+    x, models = glm_models
+    jmodel = models[name]
+    reg = registry_mod.ModelRegistry(device="cpu")
+    entry = reg.register("g", _port_glm(jmodel))
+    assert (entry.family, entry.model_cls, entry.policy) == ("linear", name, "f32")
+    assert entry.kernel is registry_mod._linear_kernel
+    params = (jnp.asarray(jmodel.coefficients, jnp.float32), jnp.asarray(jmodel.intercept, jnp.float32))
+    jreg = jregistry.get_registry()
+    jreg.register("g", jmodel, bucket_list=LADDER)
+    for rows in range(1, 65):
+        padded, _ = jbuckets.pad_to_bucket(x[:rows])
+        expected = np.asarray(jregistry._linear_kernel(params, jnp.asarray(padded)))[:rows]
+        got = reg.predict("g", x[:rows])
+        assert got.shape == (rows,) and got.dtype == np.float32
+        _assert_close(got, expected)
+        _assert_close(got, jreg.predict("g", x[:rows]))
+
+
+def test_linear_servable_is_the_eager_margin(glm_models):
+    x, models = glm_models
+    model = _port_glm(models["LinearRegressionModel"])
+    reg = registry_mod.ModelRegistry(device="cpu")
+    reg.register("g", model)
+    for rows in (1, 7, 8, 33, 64):
+        _assert_close(reg.predict("g", x[:rows]), model.transform(x[:rows]))
+
+
+def test_linear_bf16_variant_from_the_tuning_cache_matches_jax(glm_models, tmp_path, monkeypatch):
+    x, models = glm_models
+    jmodel = models["LinearRegressionModel"]
+    monkeypatch.setenv("TPU_ML_TUNING_CACHE_PATH", str(tmp_path / "tuning.json"))
+    key = tuning_cache.cache_key("serve.linear", n=N, device=tuning_cache.device_kind("cpu"))
+    tuning_cache.store(key, TuningConfig(policy="bf16_f32acc"))
+    tuning_cache.reset()
+    entry = registry_mod.ModelRegistry(device="cpu").register("g", _port_glm(jmodel))
+    assert entry.policy == "bf16_f32acc" and entry.kernel is registry_mod._linear_kernel_bf16
+    params = (jnp.asarray(jmodel.coefficients, jnp.float32), jnp.asarray(jmodel.intercept, jnp.float32))
+    for rows in (1, 8, 40):
+        padded, _ = jbuckets.pad_to_bucket(x[:rows])
+        expected = np.asarray(jregistry._linear_kernel_bf16(params, jnp.asarray(padded)))[:rows]
+        got = entry.kernel(entry.params, torch.from_numpy(padded)).numpy()[:rows]
+        _assert_close(got, expected)
+
+
+def test_multi_output_glms_are_refused_like_jax(glm_models):
+    x, models = glm_models
+    multi = _port_glm(models["multinomial"])
+    reg = registry_mod.ModelRegistry(device="cpu")
+    with pytest.raises(TypeError, match="no serve contract"):
+        reg.register("m", multi)
+    with pytest.raises(TypeError):
+        jregistry.get_registry().register("m", models["multinomial"], bucket_list=LADDER)
+    two_d = _port_glm(models["LinearRegressionModel"])
+    two_d.coefficients = np.ones((2, N))
+    with pytest.raises(TypeError, match="not single-output"):
+        reg.register("m", two_d)
+
+
+def test_linear_servable_over_http(glm_models):
+    x, models = glm_models
+    model = _port_glm(models["LinearRegressionModel"])
+    reg = registry_mod.get_registry(device="cpu")
+    reg.register("g", model)
+    srv = server_mod.start_serving(0, registry=reg)
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}/v1/models/g:predict",
+            data=json.dumps({"instances": x[:5].tolist()}).encode(),
+            headers={"Content-Type": "application/json"},
+        )
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            out = np.asarray(json.loads(resp.read())["predictions"], dtype=np.float64)
+    finally:
+        server_mod.stop_serving()
+    _assert_close(out.reshape(-1), model.transform(x[:5]))

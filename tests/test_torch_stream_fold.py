@@ -22,8 +22,10 @@ import torch
 from jax import lax
 
 from spark_rapids_ml_tpu.ops import linalg as JL
+from spark_rapids_ml_tpu.ops import linear as JLIN
 from spark_rapids_ml_tpu.spark import ingest as JI
 from spark_rapids_ml_tpu_torch.ops import linalg as TL
+from spark_rapids_ml_tpu_torch.ops import linear as TLIN
 from spark_rapids_ml_tpu_torch.spark import ingest as TI
 
 CPU = torch.device("cpu")
@@ -338,3 +340,76 @@ def test_gram_fold_xtx_step_matches_jax(parts, precision, policy):
     else:
         np.testing.assert_allclose(carry.numpy(), ref, rtol=0,
                                    atol=TOL[precision] * np.abs(ref).max())
+
+
+# -- labels and weights (the supervised fits' fold) ----------------------------
+#
+# The labeled fold against the JAX package's: (x, y) and (x, y, w) partitions
+# through ``linear_fold_step`` in both. JAX's carry is the f64 wire dtype, the
+# port's f64 too; the chunk products are f32 in both, so the carries agree to
+# 1e-5 of each field's largest entry, with the count exact.
+
+
+def _labeled_parts(parts, weighted):
+    rng = np.random.default_rng(3)
+    out = []
+    for p in parts:
+        y = (p @ np.linspace(-1, 1, N) + 0.5).astype(np.float32)
+        w = rng.uniform(0.1, 2.0, len(p)) if weighted else None
+        out.append((p, y, w) if weighted else (p, y))
+    return out
+
+
+def _port_labeled_fold(items, **kw):
+    return TI.stream_fold(
+        iter(items), TLIN.linear_fold_step(), n=N, label_col="y",
+        init=TLIN.init_linear_carry(N, CPU), device=CPU, chunk_rows=CHUNK, **kw,
+    )
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_labeled_fold_matches_jax(parts, weighted):
+    items = _labeled_parts(parts, weighted)
+    ref = JI.stream_fold(
+        iter(items), JLIN.linear_fold_step(), n=N, label_col="y",
+        init=JLIN.init_linear_carry(N, JI.wire_dtype()), chunk_rows=CHUNK,
+    )
+    out = _port_labeled_fold(items)
+    assert (out.rows, out.chunks) == (ref.rows, ref.chunks)
+    # x, then y and w beside it: N + 2 f32 columns a staged row
+    assert out.max_put_bytes == CHUNK * (N + 2) * 4
+    for name, got, want in zip(out.carry._fields, out.carry, ref.carry):
+        want = np.asarray(want)
+        assert got.dtype == torch.float64, name
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=1e-5 * max(np.abs(want).max(), 1.0), err_msg=name)
+    weights = np.concatenate([i[2] for i in items]) if weighted else np.ones(ROWS)
+    assert out.carry.count.item() == pytest.approx(weights.sum(), rel=1e-6)
+
+
+def test_labeled_fold_drops_nonfinite_labels_and_weights(parts):
+    items = _labeled_parts(parts, True)
+    bad = [(x.copy(), y.copy(), w.copy()) for x, y, w in items]
+    bad[0][1][4] = np.nan
+    bad[2][2][9] = np.inf
+    with pytest.raises(ValueError, match="non-finite"):
+        _port_labeled_fold(bad)
+    out = _port_labeled_fold(bad, nonfinite="skip")
+    ref = JI.stream_fold(
+        iter(bad), JLIN.linear_fold_step(), n=N, label_col="y",
+        init=JLIN.init_linear_carry(N, JI.wire_dtype()), chunk_rows=CHUNK, nonfinite="skip",
+    )
+    assert out.skipped_rows == ref.skipped_rows == 2 and out.rows == ROWS - 2
+    want = np.asarray(ref.carry.xtx)
+    np.testing.assert_allclose(out.carry.xtx.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+def test_labeled_fold_checks_labels_and_weights(parts):
+    with pytest.raises(ValueError, match="label column missing"):
+        _port_labeled_fold([parts[0]])
+    x, y = parts[0], np.zeros(len(parts[0]), np.float32)
+    with pytest.raises(ValueError, match="non-negative"):
+        _port_labeled_fold([(x, y, -np.ones(len(x)))])
+    # a chunk of zero weights alone is allowed: the fit's check is global
+    out = _port_labeled_fold([(x, y, np.zeros(len(x))), (x, y)])
+    assert out.carry.count.item() == len(x)
