@@ -31,6 +31,13 @@ checkpoint/resume; ``TruncatedSVD``; and the incremental estimators
 (``partial_fit``/``finalize``) of PCA, TruncatedSVD, StandardScaler,
 LinearRegression and KMeans. Their products over the rows are f32 cuBLAS
 matmuls, or the Gram kernels at precision ``high``/``default``.
+
+Approximate nearest neighbours: ``ApproximateNearestNeighbors`` (IVF-Flat,
+resident build), the streamed ``IVFFlatIndex`` (``ann``) and the ``"ann"``
+servable at ``/v1/indexes``; ``knn`` is the drop-in namespace. The tree
+family: ``RandomForestClassifier``/``Regressor`` and the ``DecisionTree``
+estimators (histogram trees on the device; classifiers are servable as the
+``"forest"`` family). ``NaiveBayes`` (multinomial, bernoulli, gaussian).
 """
 
 from spark_rapids_ml_tpu_torch.models.dbscan import DBSCAN, DBSCANModel
@@ -46,6 +53,16 @@ from spark_rapids_ml_tpu_torch.models.incremental import (
     IncrementalStandardScaler,
     IncrementalTruncatedSVD,
 )
+from spark_rapids_ml_tpu_torch.models.forest import (
+    DecisionTreeClassificationModel,
+    DecisionTreeClassifier,
+    DecisionTreeRegressionModel,
+    DecisionTreeRegressor,
+    RandomForestClassificationModel,
+    RandomForestClassifier,
+    RandomForestRegressionModel,
+    RandomForestRegressor,
+)
 from spark_rapids_ml_tpu_torch.models.kmeans import KMeans, KMeansModel
 from spark_rapids_ml_tpu_torch.models.linear import (
     LinearRegression,
@@ -55,7 +72,13 @@ from spark_rapids_ml_tpu_torch.models.linear import (
     LogisticRegression,
     LogisticRegressionModel,
 )
-from spark_rapids_ml_tpu_torch.models.neighbors import NearestNeighbors, NearestNeighborsModel
+from spark_rapids_ml_tpu_torch.models.naive_bayes import NaiveBayes, NaiveBayesModel
+from spark_rapids_ml_tpu_torch.models.neighbors import (
+    ApproximateNearestNeighbors,
+    ApproximateNearestNeighborsModel,
+    NearestNeighbors,
+    NearestNeighborsModel,
+)
 from spark_rapids_ml_tpu_torch.models.pca import PCA, PCAModel
 from spark_rapids_ml_tpu_torch.models.pipeline import Pipeline, PipelineModel
 from spark_rapids_ml_tpu_torch.models.scaler import (
@@ -85,14 +108,20 @@ from spark_rapids_ml_tpu_torch.models.truncated_svd import TruncatedSVD, Truncat
 __version__ = "0.1.0"
 
 __all__ = [
-    "DBSCAN", "DBSCANModel", "DCT", "Binarizer", "Bucketizer", "ElementwiseProduct", "Imputer",
+    "ApproximateNearestNeighbors", "ApproximateNearestNeighborsModel",
+    "DBSCAN", "DBSCANModel", "DCT", "Binarizer", "Bucketizer",
+    "DecisionTreeClassificationModel", "DecisionTreeClassifier",
+    "DecisionTreeRegressionModel", "DecisionTreeRegressor", "ElementwiseProduct", "Imputer",
     "ImputerModel", "IncrementalKMeans", "IncrementalLinearRegression", "IncrementalPCA",
     "IncrementalStandardScaler", "IncrementalTruncatedSVD", "KMeans", "KMeansModel",
     "LinearRegression", "LinearRegressionModel", "LinearSVC", "LinearSVCModel",
     "LogisticRegression", "LogisticRegressionModel", "MaxAbsScaler", "MaxAbsScalerModel",
-    "MinMaxScaler", "MinMaxScalerModel", "NearestNeighbors", "NearestNeighborsModel", "Normalizer",
+    "MinMaxScaler", "MinMaxScalerModel", "NaiveBayes", "NaiveBayesModel", "NearestNeighbors",
+    "NearestNeighborsModel", "Normalizer",
     "PCA", "PCAModel", "Pipeline", "PipelineModel", "PolynomialExpansion",
-    "QuantileDiscretizer", "QuantileDiscretizerModel", "RobustScaler", "RobustScalerModel",
+    "QuantileDiscretizer", "QuantileDiscretizerModel",
+    "RandomForestClassificationModel", "RandomForestClassifier",
+    "RandomForestRegressionModel", "RandomForestRegressor", "RobustScaler", "RobustScalerModel",
     "StandardScaler", "StandardScalerModel", "TruncatedSVD", "TruncatedSVDModel",
     "VarianceThresholdSelector", "VarianceThresholdSelectorModel", "VectorSlicer",
     "__version__",

@@ -17,7 +17,14 @@ plain numpy arrays, so nothing of the JAX package is imported:
   ``"LogisticRegressionModel"``: ``coefficients``/``intercept``; a
   multinomial ``"LogisticRegressionModel"``: ``coefficientMatrix``/
   ``interceptVector``; ``"TruncatedSVDModel"``: ``components``/
-  ``singularValues``; a stateless stage such as ``"Normalizer"`` or
+  ``singularValues``; ``"ApproximateNearestNeighborsModel"`` and
+  ``"IVFFlatIndexModel"``: ``centroids``/``bucketItems``/``bucketIds``/
+  ``itemIds`` and ``spillItems``/``spillIds`` (absent in a pre-spill save);
+  the six tree models (``"RandomForestClassificationModel"``,
+  ``"RandomForestRegressionModel"``, ``"DecisionTree*Model"``):
+  ``feature``/``split_bin``/``is_leaf``/``leaf_stats``/``gain``/
+  ``thresholds``/``numFeatures``; ``"NaiveBayesModel"``: ``pi``/``theta``/
+  ``sigma``; a stateless stage such as ``"Normalizer"`` or
   ``"DBSCANModel"``: nothing), with the params the JAX model had set (its
   ``_paramMap``), which ``_saveData`` does not hold;
 - ``incremental_from_state``: an incremental estimator (``"IncrementalPCA"``,

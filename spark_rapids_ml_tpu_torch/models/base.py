@@ -59,39 +59,51 @@ _SPARK_ML_CLASSES: dict[str, str] = {
     )
 }
 
-# The port's classes by module. A JAX-package class recorded in a native
-# save maps to the port's counterpart, which has the same module and class
-# name.
+# The port's classes by module, relative to the package. A JAX-package class
+# recorded in a native save maps to the port's counterpart, which has the
+# same module and class name.
 _JAX_PACKAGE = "spark_rapids_ml_tpu"
+_PORT_PACKAGE = "spark_rapids_ml_tpu_torch"
 _PORTED_CLASSES: dict[str, tuple[str, ...]] = {
-    "pca": ("PCA", "PCAModel"),
-    "scaler": (
+    "models.pca": ("PCA", "PCAModel"),
+    "models.scaler": (
         "StandardScaler", "StandardScalerModel", "MinMaxScaler", "MinMaxScalerModel",
         "MaxAbsScaler", "MaxAbsScalerModel", "Normalizer", "Binarizer", "RobustScaler",
         "RobustScalerModel", "Imputer", "ImputerModel", "ElementwiseProduct", "VectorSlicer",
         "DCT", "PolynomialExpansion",
     ),
-    "pipeline": ("Pipeline", "PipelineModel"),
-    "discretizer": ("Bucketizer", "QuantileDiscretizer", "QuantileDiscretizerModel"),
-    "selector": ("VarianceThresholdSelector", "VarianceThresholdSelectorModel"),
-    "kmeans": ("KMeans", "KMeansModel"),
-    "dbscan": ("DBSCAN", "DBSCANModel"),
-    "neighbors": ("NearestNeighbors", "NearestNeighborsModel"),
-    "linear": (
+    "models.pipeline": ("Pipeline", "PipelineModel"),
+    "models.discretizer": ("Bucketizer", "QuantileDiscretizer", "QuantileDiscretizerModel"),
+    "models.selector": ("VarianceThresholdSelector", "VarianceThresholdSelectorModel"),
+    "models.kmeans": ("KMeans", "KMeansModel"),
+    "models.dbscan": ("DBSCAN", "DBSCANModel"),
+    "models.neighbors": (
+        "NearestNeighbors", "NearestNeighborsModel", "ApproximateNearestNeighbors",
+        "ApproximateNearestNeighborsModel",
+    ),
+    "models.linear": (
         "LinearRegression", "LinearRegressionModel", "LogisticRegression",
         "LogisticRegressionModel", "LinearSVC", "LinearSVCModel",
     ),
-    "truncated_svd": ("TruncatedSVD", "TruncatedSVDModel"),
-    "incremental": (
+    "models.truncated_svd": ("TruncatedSVD", "TruncatedSVDModel"),
+    "models.incremental": (
         "IncrementalPCA", "IncrementalTruncatedSVD", "IncrementalStandardScaler",
         "IncrementalLinearRegression", "IncrementalKMeans",
     ),
+    "models.forest": (
+        "RandomForestClassifier", "RandomForestClassificationModel",
+        "RandomForestRegressor", "RandomForestRegressionModel",
+        "DecisionTreeClassifier", "DecisionTreeClassificationModel",
+        "DecisionTreeRegressor", "DecisionTreeRegressionModel",
+    ),
+    "models.naive_bayes": ("NaiveBayes", "NaiveBayesModel"),
+    "ann.index": ("IVFFlatIndex", "IVFFlatIndexModel"),
 }
 _PORT_CLASS_PATHS: dict[str, str] = {
     name: f"{module}.{name}" for module, names in _PORTED_CLASSES.items() for name in names
 }
 _JAX_CLASSES: dict[str, str] = {
-    f"{_JAX_PACKAGE}.models.{path}": f"{_PORT_MODELS}.{path}"
+    f"{_JAX_PACKAGE}.{path}": f"{_PORT_PACKAGE}.{path}"
     for path in _PORT_CLASS_PATHS.values()
 }
 
@@ -106,7 +118,7 @@ def port_class(name: str):
     path = _PORT_CLASS_PATHS.get(name)
     if path is None:
         raise KeyError(f"the port has no {name!r} (ported: {sorted(_PORT_CLASS_PATHS)})")
-    return _import_class(f"{_PORT_MODELS}.{path}")
+    return _import_class(f"{_PORT_PACKAGE}.{path}")
 
 
 def _native_class(recorded: str, path: str):

@@ -307,7 +307,7 @@ class MicroBatcher:
             REGISTRY.counter_inc("serve.rows", total, model=model)
             offset = 0
             for p in taken:
-                p.future.set_result(raw[offset:offset + p.rows])
+                p.future.set_result(entry.finalize(raw[offset:offset + p.rows], p.rows))
                 offset += p.rows
         except Exception as e:  # noqa: BLE001 - fan the error out; the worker survives
             logger.exception("micro-batch dispatch failed for %s", model)

@@ -6,6 +6,9 @@ micro-batcher the HTTP and UDS front ends use, so in-process requests
 coalesce into the same dispatches as network traffic and book the same
 ``serve.*`` series (``transport=inproc``).
 
+``ServeClient.query`` is the in-process ANN index query: the same ride,
+unpacked into ``(distances, ids)`` and booked as ``ann.queries``.
+
 With the process's front end running (``serving.server.start_serving``)
 the client binds to its batcher; otherwise it starts a private batcher over
 its registry (default: the process's registry, on the card; raises without
@@ -20,6 +23,7 @@ import time
 
 import numpy as np
 
+from spark_rapids_ml_tpu_torch.ann.serving import unpack_query_result
 from spark_rapids_ml_tpu_torch.serving import server as server_mod
 from spark_rapids_ml_tpu_torch.serving.batcher import MicroBatcher
 from spark_rapids_ml_tpu_torch.serving.registry import ModelRegistry, get_registry
@@ -91,6 +95,15 @@ class ServeClient:
             )
         return out
 
+    def query(self, index: str, x, timeout: float = 30.0) -> tuple[np.ndarray, np.ndarray]:
+        """(distances [rows, k], ids [rows, k]) of an ANN index query through
+        the shared batcher; raises ``KeyError`` when ``index`` is not an
+        ``"ann"`` servable."""
+        server_mod.require_index(self._batcher().registry, index)
+        packed = self.predict(index, x, timeout)
+        REGISTRY.counter_inc("ann.queries", int(packed.shape[0]), index=index)
+        return unpack_query_result(packed)
+
     def close(self, timeout: float = 5.0) -> None:
         """Stop the private batcher, if one was started; the front end's
         batcher is never stopped from here."""
@@ -116,6 +129,11 @@ def get_client() -> ServeClient:
 def predict(model: str, x, timeout: float = 30.0) -> np.ndarray:
     """``get_client().predict(...)``."""
     return get_client().predict(model, x, timeout)
+
+
+def query(index: str, x, timeout: float = 30.0) -> tuple[np.ndarray, np.ndarray]:
+    """``get_client().query(...)``."""
+    return get_client().query(index, x, timeout)
 
 
 def reset_client() -> None:

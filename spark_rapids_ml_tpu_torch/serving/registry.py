@@ -1,7 +1,7 @@
 """Model registry of the serving path: one CUDA graph per (model, bucket).
 
-Port of ``spark_rapids_ml_tpu/serving/registry.py`` for the PCA, scaler
-and linear families.
+Port of ``spark_rapids_ml_tpu/serving/registry.py`` for the PCA, scaler,
+linear, forest and ann families.
 
 - **Pure kernel extraction.** A fitted ``PCAModel`` becomes a
   ``ServableEntry``: a pure ``kernel(params, x)`` over device tensors
@@ -16,7 +16,14 @@ and linear families.
   ``LogisticRegressionModel``, ``LinearSVCModel``) becomes ``_linear_kernel``
   (``ops.linear.predict_linear``: the margin x·coef + b, [rows]) over its f32
   coefficients and intercept, or ``_linear_kernel_bf16``; a multi-output
-  (multinomial) model has no serve contract and is refused.
+  (multinomial) model has no serve contract and is refused. A fitted
+  random-forest or decision-tree classifier becomes ``_forest_kernel``
+  (``ops.forest.forest_apply``, every tree's leaf class counts, [rows, T, C])
+  with a host ``finalize`` that normalizes each tree's counts, averages them
+  and takes the argmax (``models.forest.forest_votes``, the eager decision
+  rule). A fitted IVF index becomes the ``"ann"`` family
+  (``ann/serving.py``: ``ops.ivf.ivf_search`` behind a packed
+  ``distances | ids`` finalize).
 - **A CUDA graph per rung, captured at registration.** Where the JAX
   package compiles ``jax.jit(kernel)`` ahead of time for every rung of the
   bucket ladder, ``register()`` captures one ``torch.cuda.CUDAGraph`` per
@@ -45,8 +52,7 @@ and linear families.
 
 The JAX package's persistent XLA compile cache has no counterpart: a CUDA
 graph cannot outlive its process. Hot swap, rollback and the shadow gate,
-hedged dispatch, the fault sites and the forest servable are not ported
-yet.
+hedged dispatch and the fault sites are not ported yet.
 """
 
 from __future__ import annotations
@@ -62,9 +68,11 @@ import numpy as np
 import torch
 
 from spark_rapids_ml_tpu_torch.autotune import cache as tuning_cache
+from spark_rapids_ml_tpu_torch.models.forest import RandomForestClassificationModel, forest_votes
 from spark_rapids_ml_tpu_torch.models.linear import _GLMModel
 from spark_rapids_ml_tpu_torch.models.pca import PCAModel
 from spark_rapids_ml_tpu_torch.models.scaler import StandardScalerModel
+from spark_rapids_ml_tpu_torch.ops import forest as FO
 from spark_rapids_ml_tpu_torch.ops import linalg as L
 from spark_rapids_ml_tpu_torch.ops import linear as LIN
 from spark_rapids_ml_tpu_torch.ops import scaler as S
@@ -76,7 +84,7 @@ from spark_rapids_ml_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger("spark_rapids_ml_tpu_torch.serving")
 
-FAMILIES = ("pca", "scaler", "linear")
+FAMILIES = ("pca", "scaler", "linear", "forest", "ann")
 
 #: Input dtypes a serve request may carry. Integer and bool payloads (JSON
 #: numbers decode to them) are widened to float64 first; anything else is
@@ -156,8 +164,25 @@ def _scaler_kernel(params, x: torch.Tensor, *, with_mean: bool, with_std: bool) 
     return S.standardize(x, mean, std, with_mean=with_mean, with_std=with_std)
 
 
+def _forest_kernel(params, x: torch.Tensor, *, max_depth: int) -> torch.Tensor:
+    """The eager forest descent, ``ops.forest.forest_apply``, with the rows
+    axis first ([rows, T, C]) so that a batch slices by rows."""
+    trees, thresholds = FO.TreeArrays(*params[:5]), params[5]
+    return FO.forest_apply(trees, x, thresholds, max_depth=max_depth).transpose(0, 1).contiguous()
+
+
+def _forest_finalize(leaf: np.ndarray, true_rows: int) -> np.ndarray:
+    """Host decision rule of the eager classifier: each tree's leaf counts
+    normalized, averaged over trees, argmax (float64 class ids)."""
+    return forest_votes(np.ascontiguousarray(leaf[:true_rows].transpose(1, 0, 2)))[1]
+
+
 def _identity_prepare(mat: np.ndarray) -> np.ndarray:
     return mat
+
+
+def _identity_finalize(out: np.ndarray, true_rows: int) -> np.ndarray:
+    return out[:true_rows]
 
 
 def _host_tensor(padded: np.ndarray) -> torch.Tensor:
@@ -226,6 +251,7 @@ class ServableEntry:
     prepare: Callable               # host pre-pad hook, np -> np
     device: torch.device
     policy: str = "f32"
+    finalize: Callable = _identity_finalize  # host post hook, (np, true_rows) -> np
     version: int = 1                # bumped by a hot swap (not ported yet)
     warm_buckets: set[int] = field(default_factory=set)
     model: Any = None
@@ -417,11 +443,33 @@ def servable_from_model(name: str, model: Any, device: torch.device) -> Servable
             policy=policy,
             model=model,
         )
+    if isinstance(model, RandomForestClassificationModel) and model.trees is not None:
+        return ServableEntry(
+            name=name,
+            family="forest",
+            model_cls=type(model).__name__,
+            n_features=int(model.numFeatures),
+            kernel=functools.partial(_forest_kernel, max_depth=model.maxTreeDepth),
+            params=model.device_params(device),
+            prepare=_identity_prepare,
+            device=device,
+            policy="f32",
+            finalize=_forest_finalize,
+            model=model,
+        )
+    if getattr(model, "bucketItems", None) is not None and getattr(
+        model, "centroids", None
+    ) is not None:
+        # a fitted IVF index (ApproximateNearestNeighborsModel or the
+        # streamed IVFFlatIndexModel): the ann subsystem owns the contract
+        from spark_rapids_ml_tpu_torch.ann import serving as ann_serving
+
+        return ann_serving.servable_from_index(name, model, device)
     if not isinstance(model, PCAModel) or model.pc is None:
         raise TypeError(
             f"{type(model).__name__} has no serve contract — servable families: "
-            f"{', '.join(FAMILIES)} (the port serves fitted PCA, StandardScaler "
-            "and single-output GLM models)"
+            f"{', '.join(FAMILIES)} (the port serves fitted PCA, StandardScaler, "
+            "single-output GLM, random-forest classifier and IVF index models)"
         )
     n = int(model.pc.shape[0])
     pc = torch.tensor(np.asarray(model.pc, dtype=X_DTYPE), device=device)
@@ -542,7 +590,7 @@ class ModelRegistry:
         padded, true_rows = buckets.pad_to_bucket(prepared, bucket)
         raw = self.dispatch_padded(entry, padded, bucket)
         REGISTRY.counter_inc("serve.rows", true_rows, model=name)
-        return raw[:true_rows]
+        return entry.finalize(raw, true_rows)
 
 
 _REGISTRY_LOCK = threading.Lock()

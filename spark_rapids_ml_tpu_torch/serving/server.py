@@ -12,19 +12,26 @@ scrape surface (``/metrics``, ``/traces``) and the prediction API.
   body, viewed in place (``np.frombuffer``) and kept f32 end to end. With
   ``Accept: application/x-tpu-ml-f32`` the answer comes back the same way,
   cast into a pooled buffer. Requests ride the micro-batcher.
+- ``GET  /v1/indexes``: the registered ANN indexes (the ``"ann"`` family).
+- ``POST /v1/indexes/<name>:query``: the same payloads, answered with
+  ``{"index", "rows", "ids", "distances", "latency_ms"}`` in JSON, or the
+  packed [rows, 2k] ``distances | ids`` block on the binary wire with an
+  ``X-ANN-K`` header (ids exact up to 2^24 there, 2^53 in JSON). A name
+  that is not an index answers 404. Each answered query books
+  ``ann.queries``.
 
 ``TPU_ML_SERVE_UDS_PATH`` (or ``uds_path``) starts a Unix-socket listener
 with the length-prefixed JSON-header protocol (``_uds_handle_one``) and,
 on the same socket, the fast lane (``serving/fastlane.py``): a frame that
 opens with ``FASTLANE_MAGIC`` goes from its fixed struct to the batcher
-without a dict or a JSON codec pass.
+without a dict or a JSON codec pass. Both take ANN queries: a UDS header
+with ``"kind": "query"``, a fast-lane frame with ``FLAG_QUERY``.
 
 Every request books ``serve.requests`` and a ``serve.latency`` histogram
 sample (labels model, transport, wire); failures book ``serve.errors``.
 Status codes: 400 for a malformed body (naming the accepted dtypes), 404
 for an unknown model or path, 413 for a request above the ladder cap, 503
-for a shed request, 500 otherwise. The ANN routes (``/v1/indexes``) wait
-for the ANN port.
+for a shed request, 500 otherwise.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import time
 import numpy as np
 import torch
 
+from spark_rapids_ml_tpu_torch.ann.serving import unpack_query_result
 from spark_rapids_ml_tpu_torch.serving import buckets, fastlane, hbm
 from spark_rapids_ml_tpu_torch.serving.batcher import (
     MicroBatcher,
@@ -59,10 +67,20 @@ from spark_rapids_ml_tpu_torch.utils.config import SERVE_UDS_PATH_VAR
 logger = logging.getLogger("spark_rapids_ml_tpu_torch.serving")
 
 PREDICT_SUFFIX = ":predict"
+QUERY_SUFFIX = ":query"
+#: binary-wire header of an index query's answer: its k
+ANN_K_HEADER = "X-ANN-K"
 
 #: The binary wire: row-major little-endian float32.
 BINARY_CONTENT_TYPE = "application/x-tpu-ml-f32"
 SHAPE_HEADER = "X-Shape"
+
+
+def require_index(registry: ModelRegistry, name: str) -> None:
+    """Raise ``KeyError`` (404) unless ``name`` is a registered ANN index."""
+    entry = registry.get(name)
+    if entry.family != "ann":
+        raise KeyError(f"{name!r} is a {entry.family} servable, not an ann index")
 
 
 def status_for_error(err: BaseException) -> int:
@@ -158,6 +176,12 @@ class ServeHandler(httpd._Handler):
             REGISTRY.counter_inc("http.requests", path=path)
             self._json(200, {"models": self.server.model_registry.describe()})
             return
+        if path == "/v1/indexes":
+            REGISTRY.counter_inc("http.requests", path=path)
+            self._json(200, {"indexes": [
+                e for e in self.server.model_registry.describe() if e["family"] == "ann"
+            ]})
+            return
         super().do_GET()
 
     def do_POST(self):  # noqa: N802 - http.server naming contract
@@ -166,16 +190,24 @@ class ServeHandler(httpd._Handler):
         if path.startswith("/v1/models/") and path.endswith(PREDICT_SUFFIX):
             self._predict(path[len("/v1/models/"):-len(PREDICT_SUFFIX)])
             return
+        if path.startswith("/v1/indexes/") and path.endswith(QUERY_SUFFIX):
+            self._predict(path[len("/v1/indexes/"):-len(QUERY_SUFFIX)], query=True)
+            return
         self.close_connection = True  # the body was not read
         self._json(404, {"error": f"no such endpoint: {path}"})
 
-    def _predict(self, name: str) -> None:
+    def _predict(self, name: str, query: bool = False) -> None:
+        """One predict, or with ``query`` one index query: the same payload
+        decode and batcher ride; a query's answer unpacks into ids and
+        distances."""
         t0 = time.perf_counter()
         # adopt a propagated X-TPU-ML-Trace context or mint a sampled one
         parent = tracectx.from_header(self.headers.get(tracectx.TRACE_HEADER, ""))
         ctx = parent.child() if parent is not None else tracectx.mint(origin="http")
         wire = "json"
         try:
+            if query:
+                require_index(self.server.model_registry, name)
             instances, wire = self._read_payload()
             out = self.server.batcher.submit(name, instances, trace=ctx).result(timeout=30.0)
         except Exception as e:  # noqa: BLE001 - predict must answer, not die
@@ -191,13 +223,26 @@ class ServeHandler(httpd._Handler):
             )
             return
         latency = _book_request(name, t0, ctx, parent, transport="http", wire=wire)
+        if query:
+            REGISTRY.counter_inc("ann.queries", int(np.shape(out)[0]), index=name)
         if BINARY_CONTENT_TYPE in (self.headers.get("Accept") or ""):
+            extra = {"X-Latency-Ms": f"{latency * 1e3:.3f}"}
+            if query:
+                extra[ANN_K_HEADER] = str(int(np.shape(out)[1]) // 2)
             # cast into a pooled buffer: no per-response allocation
             with pooled_binary_response(self.server.response_pool, name, out) as (view, shape):
-                self._respond(
-                    200, view, BINARY_CONTENT_TYPE,
-                    extra_headers={SHAPE_HEADER: shape, "X-Latency-Ms": f"{latency * 1e3:.3f}"},
-                )
+                extra[SHAPE_HEADER] = shape
+                self._respond(200, view, BINARY_CONTENT_TYPE, extra_headers=extra)
+            return
+        if query:
+            dists, ids = unpack_query_result(out)
+            self._serve_json(200, {
+                "index": name,
+                "rows": int(ids.shape[0]),
+                "ids": ids.tolist(),
+                "distances": dists.tolist(),
+                "latency_ms": round(latency * 1e3, 3),
+            })
             return
         self._serve_json(
             200,
@@ -286,7 +331,7 @@ def _fastlane_handle(rfile, wfile, batcher: MicroBatcher, pool) -> bool:
     ctx = parent.child() if parent is not None else tracectx.mint(origin="fastlane")
     try:
         if is_query:
-            raise KeyError(f"{model!r} is not an ann index (the port serves no ANN indexes)")
+            require_index(batcher.registry, model)
         out = batcher.submit(model, mat, trace=ctx).result(timeout=30.0)
     except Exception as e:  # noqa: BLE001 - answer the frame, keep the connection
         code = status_for_error(e)
@@ -297,6 +342,8 @@ def _fastlane_handle(rfile, wfile, batcher: MicroBatcher, pool) -> bool:
         wfile.flush()
         return True
     _book_request(model, t0, ctx, parent, transport="uds", wire="fast")
+    if is_query:
+        REGISTRY.counter_inc("ann.queries", int(np.shape(out)[0]), index=model)
     with pooled_binary_response(pool, model, out) as (view, shape):
         rows, cols = (int(d) for d in shape.split(","))
         wfile.write(fastlane.pack_response_header(200, rows, cols, len(view)))
@@ -326,8 +373,10 @@ def _uds_handle_one(rfile, wfile, batcher: MicroBatcher, pool) -> bool:
     ctx = parent.child() if parent is not None else tracectx.mint(origin="uds")
     t0 = time.perf_counter()
     try:
-        if kind != "predict":
-            raise ValueError(f'kind must be "predict", got {kind!r}')
+        if kind == "query":
+            require_index(batcher.registry, model)
+        elif kind != "predict":
+            raise ValueError(f'kind must be "predict" or "query", got {kind!r}')
         if wire == "binary":
             shape = header.get("shape") or []
             payload = _read_exact(rfile, int(header.get("payload_bytes", 0)))
@@ -355,11 +404,18 @@ def _uds_handle_one(rfile, wfile, batcher: MicroBatcher, pool) -> bool:
         "rows": int(np.shape(out)[0]),
         "latency_ms": round(latency * 1e3, 3),
     }
+    if kind == "query":
+        REGISTRY.counter_inc("ann.queries", int(np.shape(out)[0]), index=model)
+        base["k"] = int(np.shape(out)[1]) // 2
     if accept == "binary":
         body, shape = binary_response_bytes(out)
         base.update(wire="binary", shape=[int(d) for d in shape.split(",")],
                     payload_bytes=len(body))
         _uds_send(wfile, base, body)
+    elif kind == "query":
+        dists, ids = unpack_query_result(out)
+        base.update(wire="json", ids=ids.tolist(), distances=dists.tolist())
+        _uds_send(wfile, base)
     else:
         base.update(wire="json", predictions=np.asarray(out).tolist())
         _uds_send(wfile, base)

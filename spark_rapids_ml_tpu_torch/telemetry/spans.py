@@ -72,6 +72,22 @@ SPAN_PHASES: frozenset[str] = frozenset({
     "kmeans transform",
     "dbscan cluster",
     "knn kneighbors",
+    "ivf build",
+    "ivf kneighbors",
+    "ann build",
+    "ann pack",
+    "ann query",
+    # the IVF builds' passes (the port's own)
+    "ivf assign",
+    "ivf pack",
+    "ann sample",
+    "ann init",
+    "ann lloyd",
+    "ann assign",
+    # trees and naive Bayes
+    "forest build",
+    "naive bayes stats",
+    "naive bayes variance pass",
 })
 
 _current_estimator: contextvars.ContextVar[str | None] = contextvars.ContextVar(

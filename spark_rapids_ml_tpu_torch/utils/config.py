@@ -9,7 +9,8 @@ The serving runtime's knobs (``TPU_ML_SERVE_*``, ``TPU_ML_TRACE_*``,
 ``TPU_ML_TIMELINE_EVENTS``, ``TPU_ML_TUNING_CACHE_PATH``) and the telemetry
 and health knobs (``TPU_ML_TELEMETRY_PATH``, ``TPU_ML_TIMELINE_PATH``,
 ``TPU_ML_HTTP_PORT``, ``TPU_ML_SLO*``, ``TPU_ML_HEALTH_*``,
-``TPU_ML_ADMISSION_POLICY``) are copies of
+``TPU_ML_ADMISSION_POLICY``) and the ANN knobs (``TPU_ML_ANN_CAP_PERCENTILE``,
+``TPU_ML_ANN_SAMPLE_ROWS``) are copies of
 ``spark_rapids_ml_tpu/utils/knobs.py``'s, names and defaults alike. Their
 modules read them at each use through ``lenient_int``/``lenient_float``,
 which take an unset, empty or malformed value as the default, as the JAX
@@ -68,6 +69,10 @@ HEALTH_HBM_WATERMARK_VAR, DEFAULT_HBM_WATERMARK = "TPU_ML_HEALTH_HBM_WATERMARK",
 HEALTH_STALE_S_VAR, DEFAULT_HEALTH_STALE_S = "TPU_ML_HEALTH_STALE_S", 60.0
 HEALTH_FAILING_AFTER_VAR, DEFAULT_HEALTH_FAILING_AFTER = "TPU_ML_HEALTH_FAILING_AFTER", 3
 ADMISSION_POLICY_VAR, DEFAULT_ADMISSION_POLICY = "TPU_ML_ADMISSION_POLICY", "refuse"
+# approximate nearest neighbours (spark_rapids_ml_tpu/utils/knobs.py:177-184),
+# with their defaults
+ANN_CAP_PERCENTILE_VAR, DEFAULT_ANN_CAP_PERCENTILE = "TPU_ML_ANN_CAP_PERCENTILE", 99.0
+ANN_SAMPLE_ROWS_VAR, DEFAULT_ANN_SAMPLE_ROWS = "TPU_ML_ANN_SAMPLE_ROWS", 32768
 
 DEFAULT_STREAM_CHUNK = 65_536
 VALID_NONFINITE_POLICIES = ("raise", "skip", "allow")

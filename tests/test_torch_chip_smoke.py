@@ -538,3 +538,169 @@ def test_spectral_incremental_phase_on_cpu():
     assert linreg["rows_seen"] == 3000
     assert linreg["coef_diff"] <= 1.01 * linreg["coef_diff_bound"]
     assert result["incremental_kmeans"]["max_rel_err_vs_f64_update"] <= chip_smoke.MINIBATCH_RTOL
+
+
+# -- phase 15: approximate nearest neighbours -----------------------------------
+
+
+@pytest.fixture
+def ann_env(monkeypatch):
+    monkeypatch.setenv("TPU_ML_SERVE_MAX_BATCH_ROWS", "64")
+    monkeypatch.setenv("TPU_ML_ANN_SAMPLE_ROWS", "2000")
+    monkeypatch.setenv("TPU_ML_STREAM_CHUNK_ROWS", "4096")
+    yield
+    chip_smoke.R.reset_for_tests()
+
+
+def test_ann_resident_and_serving_phases_on_cpu(ann_env):
+    """Phase 15 (a) and (c) at a tiny size: the full probe inside the f64
+    top k, the build's spans, every rung and wire answer the eager one, and
+    ann.queries counting each request."""
+    result = chip_smoke.phase_ann_resident(CPU, rows=6000, queries=300, n=16,
+                                           full_probe_queries=150)
+    assert result["nlist"] == 77 and result["full_probe"]["queries"] == 150
+    assert result["full_probe"]["ids_outside_f64_top_k"] == 0
+    assert result["build_spans_s"]["quantizer"] > 0 and result["build_spans_s"]["pack"] > 0
+    assert 0 < result["recall_at_10"] <= 1
+    served = chip_smoke.phase_ann_serving(result["model"], result["queries_h"], CPU, requests=6)
+    assert served["rungs"] == 4 and served["captures"] == 0
+    assert served["ann_queries_counted"] == served["requests"] == 21
+    assert all(a["id_mismatches"] == 0 for a in served["answers"].values())
+
+
+def test_ann_streamed_phase_on_cpu(ann_env):
+    result = chip_smoke.phase_ann_streamed(CPU, rows=30000, chunk=7000, n=16, clusters=40,
+                                           queries=150, latency_queries=3)
+    assert result["chunks"] == 5 and result["build_rows"] == 30000
+    assert result["pack_bucket_ids_equal"] and result["pack_spill_same_rows"]
+    assert len(result["passes"]["lloyd_s"]) == chip_smoke.ANN_MAX_ITER
+    recalls = [result["nprobe"][str(p)]["recall"] for p in chip_smoke.ANN_NPROBES]
+    assert recalls == sorted(recalls) and recalls[-1] >= 0.9
+
+
+def test_knn_f64_gate_catches_a_wrong_neighbour():
+    corpus, queries = chip_smoke.knn_workload(500, 20, 8, CPU, 3)
+    d64, i64 = chip_smoke.knn_f64(queries, corpus, 4)
+    ids = i64[:, :4].numpy().copy()
+    dist = np.sqrt(d64[:, :4].numpy())
+    assert chip_smoke.knn_f64_gate(queries, corpus, ids, dist, d64, 4) == {
+        "ids_outside_f64_top_k": 0, "max_rel_dist_err": pytest.approx(0.0, abs=1e-12)}
+    far = int(torch.argmax(((corpus - queries[0]) ** 2).sum(1)))
+    ids[0, 1] = far
+    assert chip_smoke.knn_f64_gate(queries, corpus, ids, dist, d64, 4)[
+        "ids_outside_f64_top_k"] == 1
+    ids = i64[:, :4].numpy()
+    assert chip_smoke.knn_f64_gate(queries, corpus, ids, dist * (1 + 1e-4), d64, 4)[
+        "max_rel_dist_err"] > chip_smoke.KNN_RTOL
+
+
+def test_streamed_pack_gate_catches_a_misplaced_row(ann_env, monkeypatch):
+    from spark_rapids_ml_tpu_torch.ann.index import IVFFlatIndex
+
+    pack = IVFFlatIndex._assign_and_pack
+
+    def swapped(self, *args):
+        packed = pack(self, *args)
+        ids = packed.bucket_ids.copy()
+        ids[0, 0], ids[1, 0] = ids[1, 0], ids[0, 0]
+        return packed._replace(bucket_ids=ids)
+
+    monkeypatch.setattr(IVFFlatIndex, "_assign_and_pack", swapped)
+    with pytest.raises(AssertionError, match="streamed pack differs"):
+        chip_smoke.phase_ann_streamed(CPU, rows=8000, chunk=3000, n=8, clusters=10,
+                                      queries=40, nprobes=(1, 2), latency_queries=1)
+
+
+def test_recall_gate_catches_a_falling_recall(ann_env, monkeypatch):
+    from spark_rapids_ml_tpu_torch.ann.index import IVFFlatIndexModel
+
+    search = IVFFlatIndexModel.search
+
+    def worse_with_more_probes(self, queries, *, k=None, nprobe=None):
+        d, i = search(self, queries, k=k, nprobe=nprobe)
+        return (d, i + 1) if nprobe and nprobe > 1 else (d, i)
+
+    monkeypatch.setattr(IVFFlatIndexModel, "search", worse_with_more_probes)
+    with pytest.raises(AssertionError, match="recall falls"):
+        chip_smoke.phase_ann_streamed(CPU, rows=8000, chunk=3000, n=8, clusters=10,
+                                      queries=40, nprobes=(1, 2), latency_queries=1)
+
+
+def test_ann_rung_gate_catches_a_wrong_replay(ann_env, monkeypatch):
+    rows = np.random.default_rng(4).normal(size=(3000, 8)).astype(np.float32)
+    model = chip_smoke.ApproximateNearestNeighbors(device=CPU, k=5, nlist=10).fit(rows)
+    dispatch = chip_smoke.R.ModelRegistry.dispatch_padded
+
+    def off_by_one_ulp(self, entry, padded, bucket):
+        out = dispatch(self, entry, padded, bucket)
+        out[0, 0] = np.nextafter(out[0, 0], np.float32(np.inf))
+        return out
+
+    monkeypatch.setattr(chip_smoke.R.ModelRegistry, "dispatch_padded", off_by_one_ulp)
+    with pytest.raises(AssertionError, match="replay differs"):
+        chip_smoke.phase_ann_serving(model, rows, CPU, requests=2)
+
+
+# -- phase 16: trees and NaiveBayes ---------------------------------------------
+
+
+def test_trees_nb_phase_on_cpu(monkeypatch):
+    """Phase 16 at a tiny size: both forests inside the f64 split gate, the
+    tree bit for bit its CPU build, the servable's rungs, NaiveBayes
+    statistics within 1e-5 of f64."""
+    monkeypatch.setenv("TPU_ML_SERVE_MAX_BATCH_ROWS", "64")
+    result = chip_smoke.phase_trees_nb(CPU, rows=20000, test_rows=4000, trees=3, depth=4,
+                                       bins=16, tree_rows=3000, nb_rows=6000, nb_n=32,
+                                       nb_classes=4, nb_predict_rows=1000)
+    for name in ("classifier", "regressor"):
+        gate = result[name]["split_gate"]
+        assert gate["violations"] == 0 and gate["nodes_checked"] > 3
+        assert len(gate["hist_ms_per_level"]) == 4
+    assert result["classifier"]["held_out_accuracy"] > 0.6
+    assert result["decision_tree"]["bit_equal_to_cpu"]
+    assert all(result["forest_serving"]["rungs_bit_equal"].values())
+    for name in ("nb_gaussian", "nb_multinomial"):
+        assert result[name]["max_stat_rel_err"] <= chip_smoke.NB_RTOL
+        assert result[name]["prediction_mismatches_beyond_near_ties"] == 0
+    chip_smoke.R.reset_for_tests()
+
+
+def test_split_gate_catches_a_worse_split():
+    x, y, _ = chip_smoke.higgs_workload(8000, 6, CPU, seed=5)
+    est = chip_smoke.RandomForestClassifier(device=CPU, numTrees=2, maxDepth=3, maxBins=16,
+                                            featureSubsetStrategy="all", seed=1)
+    model = est.fit((x, y))
+    edges = chip_smoke.PF.quantile_bin_edges(x, 16, 1)
+    binned_t = chip_smoke.PF.bin_on_device(torch.from_numpy(x), edges)
+    stats = torch.from_numpy(est._row_stats(y))
+    weights = chip_smoke._bootstrap_weights(1, 2, len(x))
+
+    def gate(trees):
+        return chip_smoke.forest_split_gate(
+            trees, binned_t, stats, weights, impurity="gini", k_features=6, seed=1,
+            max_depth=3, n_bins=16)
+
+    assert gate(model.trees)["violations"] == 0
+    split_bin = model.trees.split_bin.copy()
+    split_bin[0, 0] = 0 if split_bin[0, 0] > 3 else 14  # a much worse root split
+    worse = model.trees._replace(split_bin=split_bin)
+    result = gate(worse)
+    assert result["violations"] >= 1
+    with pytest.raises(AssertionError, match="beyond its bound"):
+        chip_smoke.check_split_gate("classifier", result)
+
+
+def test_nb_gate_catches_a_wrong_statistic(monkeypatch):
+    x, y, _ = chip_smoke.higgs_workload(5000, 6, CPU, seed=6)
+    good = chip_smoke.nb_phase(x[:4000], y[:4000], x[4000:], y[4000:], "gaussian", CPU)
+    chip_smoke.check_nb("nb", good)
+    nb_stats = chip_smoke.NBO.nb_stats
+
+    def off(*args, **kwargs):
+        st = nb_stats(*args, **kwargs)
+        return st._replace(feat_sum=st.feat_sum * (1 + 1e-4))
+
+    monkeypatch.setattr(chip_smoke.NBO, "nb_stats", off)
+    bad = chip_smoke.nb_phase(x[:4000], y[:4000], x[4000:], y[4000:], "gaussian", CPU)
+    with pytest.raises(AssertionError, match="off f64"):
+        chip_smoke.check_nb("nb", bad)
