@@ -139,7 +139,33 @@ Phases, each a plain function that the CPU tests also call at a tiny size:
    CPU build; (d) (a)'s forest served, each rung's replay bit for bit the
    eager descent; (e) gaussian NaiveBayes on the HIGGS rows and (f)
    multinomial on 2,000,000 x 1,024 Poisson counts in 20 classes,
-   statistics within 1e-5 of f64 and predictions equal up to near ties.
+   statistics within 1e-5 of f64 and predictions equal up to near ties;
+17. families (no hand kernel: the forest's histograms, cuBLAS products,
+   autograd, gathers and index_add_): (a) GBTClassifier and GBTRegressor
+   at Spark's defaults (20 stages, depth 5, 32 bins, stepSize 0.1) on
+   phase 16's HIGGS-shaped rows, every split of stages 1, 2 and 20 within
+   its near-tie bound of the f64 best (each stage's residuals from the f64
+   ensemble of the card's earlier trees), the card's final F within 1e-5
+   of the f64 ensemble, the regressor's loss never rising beyond rounding,
+   and the serving registry refusing both models; (c) FMClassifier and
+   FMRegressor (factorSize 8, adamW, stepSize 0.01, 100 iterations) on the
+   same rows, held-out scores within 1e-5 of f64, trainLoss within 1e-5 of
+   the f64 loss at the returned weights, the losses of the first 10 steps
+   on 1,000,000 rows within 1e-4 of the same steps in f64 on the CPU, one
+   iteration profiled by operator; (b) MultilayerPerceptronClassifier
+   784-300-100-10 (l-bfgs, 100 iterations) on 60,000 of 70,000
+   MNIST-shaped rows (a seeded 10-class Gaussian mixture), trainLoss
+   within 1e-5 of f64 and the first 5 iterations' losses within 1e-4 of
+   the CPU's f64 run; (d) UMAP at its defaults (15 neighbours, 200
+   epochs, spectral init) on those 60,000 rows and a transform of the
+   other 10,000, the graph's ids on 2,000 rows in the f64 top 15 (phase
+   13's near-tie rule), each row's calibrated mass within 1e-4 of
+   log2(15), one layout epoch within 1e-4·max|y| of the CPU's f64 epoch
+   on the same negatives, trustworthiness@15 and the held-out 15-NN label
+   vote printed, and whether two same-seed layouts are bit-equal (with
+   and without torch's deterministic algorithms); (e)
+   OneVsRest(LogisticRegression()) on the same rows, every held-out
+   prediction the f64 argmax of the class models' scores up to near ties.
 
 Each main path reads the kernels' launch counts from 0 around exactly its
 fit. The last lines are one JSON object with every kernel's numbers, the
@@ -169,14 +195,19 @@ import numpy as np
 import torch
 
 from spark_rapids_ml_tpu_torch import (
-    DBSCAN, PCA, ApproximateNearestNeighbors, DecisionTreeClassifier, IncrementalKMeans,
-    IncrementalLinearRegression, IncrementalPCA, KMeans, LinearRegression, LinearSVC,
-    LogisticRegression, NaiveBayes, NaiveBayesModel, NearestNeighbors, Normalizer, Pipeline,
-    RandomForestClassifier, RandomForestRegressor, StandardScaler, TruncatedSVD,
+    DBSCAN, PCA, UMAP, ApproximateNearestNeighbors, DecisionTreeClassifier, FMClassifier,
+    FMRegressor, GBTClassifier, GBTRegressor, IncrementalKMeans, IncrementalLinearRegression,
+    IncrementalPCA, KMeans, LinearRegression, LinearSVC, LogisticRegression,
+    MultilayerPerceptronClassifier, NaiveBayes, NaiveBayesModel, NearestNeighbors, Normalizer,
+    OneVsRest, Pipeline, RandomForestClassifier, RandomForestRegressor, StandardScaler,
+    TruncatedSVD,
 )
 from spark_rapids_ml_tpu_torch.ann.serving import unpack_query_result
 from spark_rapids_ml_tpu_torch.ops import _build
+from spark_rapids_ml_tpu_torch.models import fm as PFM
 from spark_rapids_ml_tpu_torch.models import forest as PF
+from spark_rapids_ml_tpu_torch.models import mlp as PMLP
+from spark_rapids_ml_tpu_torch.models import umap as PUMAP
 from spark_rapids_ml_tpu_torch.ops import dbscan as DB
 from spark_rapids_ml_tpu_torch.ops import forest as FO
 from spark_rapids_ml_tpu_torch.ops import gram_moments as G
@@ -185,6 +216,8 @@ from spark_rapids_ml_tpu_torch.ops import linalg as L
 from spark_rapids_ml_tpu_torch.ops import linear as LIN
 from spark_rapids_ml_tpu_torch.ops import naive_bayes as NBO
 from spark_rapids_ml_tpu_torch.ops import neighbors as NN
+from spark_rapids_ml_tpu_torch.ops import optim as OPT
+from spark_rapids_ml_tpu_torch.ops import umap as UMO
 from spark_rapids_ml_tpu_torch.autotune import cache as tuning_cache
 from spark_rapids_ml_tpu_torch.autotune.policy import TuningConfig, resolve_policy
 from spark_rapids_ml_tpu_torch.parallel.tree_aggregate import tree_reduce
@@ -334,6 +367,17 @@ def phase_card() -> dict:
     }
     print(f"card: {card['kind']} x{card['count']} | nvidia-smi: {smi}", flush=True)
     return card
+
+
+@functools.lru_cache(maxsize=None)
+def card_label(device_type: str) -> str:
+    """nvidia-smi's name and power limit of the card, or "cpu"."""
+    if device_type != "cuda":
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
 
 
 def build_report(log: str, sass: str) -> dict:
@@ -3601,7 +3645,8 @@ def _level_gains(hist: torch.Tensor, impurity: str, min_instances: float,
 
 def forest_split_gate(trees, binned_t: torch.Tensor, row_stats: torch.Tensor,
                       weights: np.ndarray, *, impurity: str, k_features: int, seed: int,
-                      max_depth: int, n_bins: int, min_instances: float = 1.0) -> dict:
+                      max_depth: int, n_bins: int, min_instances: float = 1.0,
+                      stats64: torch.Tensor | None = None) -> dict:
     """Every split of every tree against f64 on the device. The rows are
     routed through the fitted tree (integer bins, exact); each level's
     histogram is rebuilt in f64 and, again, in f32; each node's feature
@@ -3612,12 +3657,14 @@ def forest_split_gate(trees, binned_t: torch.Tensor, row_stats: torch.Tensor,
     that node (an f32 histogram of the same level sums in another atomic
     order, so its error is of the same size as the fit's) plus 16 unit
     roundoffs of the node's n-scaled impurity (the f32 gain arithmetic).
-    Also times each level's f32 histogram."""
+    Also times each level's f32 histogram. ``stats64`` (default the f32
+    stats in f64) are the exact stats the f64 histograms sum: a boosting
+    stage's residuals from the f64 ensemble."""
     device = binned_t.device
     n_trees = trees.feature.shape[0]
     n_feat = binned_t.shape[0]
     gens = PF.tree_generators(seed, n_trees, device)
-    stats64 = row_stats.double()
+    stats64 = row_stats.double() if stats64 is None else stats64
     violations, worst, checked = 0, 0.0, 0
     level_s = [0.0] * max_depth
     for t in range(n_trees):
@@ -3718,15 +3765,18 @@ def phase_trees_nb(device: torch.device, *, rows: int = HIGGS_ROWS, n: int = HIG
                    depth: int = FOREST_DEPTH, bins: int = FOREST_BINS,
                    tree_rows: int = TREE_ROWS, gate_trees: int | None = None,
                    nb_rows: int = NB_ROWS, nb_n: int = NB_N, nb_classes: int = NB_CLASSES,
-                   nb_predict_rows: int = NB_PREDICT_ROWS, seed: int = HIGGS_SEED) -> dict:
-    """Phase 16 on HIGGS-shaped rows: (a) RandomForestClassifier and (b)
-    RandomForestRegressor at Spark's defaults, each split against f64; (c)
-    DecisionTreeClassifier (all features) on the first ``tree_rows`` rows,
-    bit for bit its CPU build; (d) (a)'s forest served, each rung's replay
-    bit for bit the eager descent and its votes the eager prediction; (e)
-    gaussian NaiveBayes on the HIGGS rows and (f) multinomial on Poisson
-    counts, statistics against f64 on the device."""
-    x, y_cls, y_reg = higgs_workload(rows, n, device, seed)
+                   nb_predict_rows: int = NB_PREDICT_ROWS, seed: int = HIGGS_SEED,
+                   data: tuple | None = None) -> dict:
+    """Phase 16 on HIGGS-shaped rows (``data`` if given, else made here):
+    (a) RandomForestClassifier and (b) RandomForestRegressor at Spark's
+    defaults, each split against f64; (c) DecisionTreeClassifier (all
+    features) on the first ``tree_rows`` rows, bit for bit its CPU build;
+    (d) (a)'s forest served, each rung's replay bit for bit the eager
+    descent and its votes the eager prediction; (e) gaussian NaiveBayes on
+    the HIGGS rows and (f) multinomial on Poisson counts, statistics
+    against f64 on the device."""
+    x, y_cls, y_reg = higgs_workload(rows, n, device, seed) if data is None else data
+    rows = len(x)
     train = rows - test_rows
     out = {}
     common = dict(device=device, numTrees=trees, maxDepth=depth, maxBins=bins, seed=seed)
@@ -3890,6 +3940,601 @@ def nb_phase(x: np.ndarray, y: np.ndarray, x_test: np.ndarray, y_test: np.ndarra
             "held_out_accuracy": float(np.mean(np.argmax(raw, axis=1) == y_test))}
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: GBT, the MLP, FM, UMAP and OneVsRest
+# ---------------------------------------------------------------------------
+
+GBT_STAGES = 20           # Spark's GBT defaults: maxIter 20, maxDepth 5, maxBins 32, stepSize 0.1
+GBT_DEPTH = 5
+GBT_BINS = 32
+GBT_STEP = 0.1
+GBT_GATE_STAGES = (1, 2, 20)
+GBT_F_RTOL = 1e-5
+MNIST_ROWS = 70_000       # MNIST's size, width and class count (its pixels are not used)
+MNIST_N = 784
+MNIST_CLASSES = 10
+MNIST_TEST_ROWS = 10_000
+MNIST_SEED = 53
+MNIST_CENTRE_SCALE = 0.12  # class means N(0, 0.12²) per feature
+MNIST_RANK = 10           # each class varies along 10 directions of its own,
+MNIST_FACTOR_SCALE = 0.12  # with N(0, 0.12²) loadings, plus
+MNIST_NOISE = 0.9         # isotropic noise: 15-NN vote 0.97, a linear fit 0.91
+MLP_LAYERS = (784, 300, 100, 10)  # LeCun et al. 1998's 300-100 net
+MLP_MAX_ITER = 100
+MLP_TOL = 1e-6
+MLP_LOSS_RTOL = 1e-5
+MLP_PARITY_ITERS = 5
+MLP_PARITY_RTOL = 1e-4
+FM_FACTORS = 8
+FM_MAX_ITER = 100
+FM_STEP = 0.01            # Spark's default stepSize is 1.0 (cut: see PERF.md)
+FM_SCORE_RTOL = 1e-5
+FM_LOSS_RTOL = 1e-5
+FM_PARITY_STEPS = 10
+FM_PARITY_ROWS = 1_000_000
+FM_PARITY_RTOL = 1e-4
+UMAP_K = 15
+UMAP_KNN_SAMPLE = 2_000
+UMAP_TRUST_SAMPLE = 5_000
+UMAP_MASS_RTOL = 1e-4
+UMAP_EPOCH_ATOL = 1e-4    # × max |y|
+
+
+@contextlib.contextmanager
+def _recorded(module, name: str):
+    """Record every call of ``module.name`` (a function the fits look up
+    at call time) as (args, result)."""
+    real = getattr(module, name)
+    calls = []
+
+    def wrapper(*args, **kwargs):
+        out = real(*args, **kwargs)
+        calls.append((args, out))
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def mnist_workload(rows: int, n: int, classes: int, device: torch.device,
+                   seed: int = MNIST_SEED) -> tuple[np.ndarray, np.ndarray]:
+    """(x [rows, n] f32, labels f64) on the host: a seeded mixture of
+    ``classes`` Gaussians made on ``device`` (MNIST's shape and class
+    count), each a mean, a rank-``MNIST_RANK`` covariance of its own and
+    isotropic noise, so that the classes differ more by their subspaces
+    than by their means (as digits do): trained on 5,000 of these rows, a
+    15-NN vote scores about 0.97 and a least-squares linear fit 0.91."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    centres = MNIST_CENTRE_SCALE * torch.randn((classes, n), generator=gen, device=device)
+    factors = MNIST_FACTOR_SCALE * torch.randn((classes, n, MNIST_RANK), generator=gen,
+                                               device=device)
+    labels = torch.randint(0, classes, (rows,), generator=gen, device=device)
+    x = torch.empty((rows, n), device=device)
+    for c in range(classes):
+        at = torch.nonzero(labels == c)[:, 0]
+        z = torch.randn((len(at), MNIST_RANK), generator=gen, device=device)
+        x[at] = centres[c] + z @ factors[c].T
+    x += MNIST_NOISE * torch.randn((rows, n), generator=gen, device=device)
+    return x.cpu().numpy(), labels.double().cpu().numpy()
+
+
+def _stage_tree(trees, m: int, device: torch.device, dtype=torch.float32) -> FO.TreeArrays:
+    parts = [torch.from_numpy(np.ascontiguousarray(a[m])).to(device) for a in trees]
+    parts[3] = parts[3].to(dtype)
+    return FO.TreeArrays(*parts)
+
+
+def gbt_f64_margins(model, binned_t: torch.Tensor, device: torch.device, stages: int):
+    """[F before stage m in f64 for m < stages] and the f64 F after them:
+    Σ treeWeights·(leaf mean in f64 of the card's f32 leaf stats), each row
+    routed through the card's trees on its bins."""
+    depth = int(np.log2(model.trees.feature.shape[1] + 1) - 1)
+    F = torch.zeros(binned_t.shape[1], dtype=torch.float64, device=device)
+    before = []
+    for m in range(stages):
+        before.append(F)
+        leaf = FO.tree_apply_binned(_stage_tree(model.trees, m, device, torch.float64),
+                                    binned_t, max_depth=depth)
+        F = F + float(model.treeWeights[m]) * (
+            leaf[:, 1] / torch.where(leaf[:, 0] > 0, leaf[:, 0], torch.ones_like(leaf[:, 0])))
+    return before, F
+
+
+def _gbt_phase(est, x: np.ndarray, y: np.ndarray, train: int, device: torch.device, *,
+               classification: bool, gate_stages: tuple) -> dict:
+    """One GBT: fit on the first ``train`` rows (the card's F after each
+    stage recorded through the loss hook), held-out quality, the split gate
+    on ``gate_stages`` (1-based) with each stage's residuals from the f64
+    ensemble of the card's earlier trees, the final F against f64, the
+    losses' order, and the serving registry's refusal."""
+    stage_F = []
+    loss = est._loss
+    est._loss = lambda yt, F, w: (stage_F.append(F), loss(yt, F, w))[1]
+    seq = TIMELINE.seq()
+    _sync(device)
+    t0 = time.perf_counter()
+    try:
+        model = est.fit((x[:train], y[:train]))
+    finally:
+        del est._loss
+    _sync(device)
+    fit_s = time.perf_counter() - t0
+    boost_s = _timeline_spans(seq).get("gbt boost", 0.0)
+    pred = model._predict_matrix(x[train:])
+    if classification:
+        quality = {"held_out_accuracy": float(np.mean(pred == y[train:]))}
+    else:
+        resid = pred - y[train:]
+        quality = {"held_out_r2": float(1.0 - np.mean(resid**2) / np.var(y[train:]))}
+
+    stages, depth, bins = est.getMaxIter(), est.getMaxDepth(), est.getMaxBins()
+    edges = PF.quantile_bin_edges(x[:train], bins, est.getSeed())
+    binned_t = PF.bin_on_device(to_device(x[:train], device), edges)
+    before64, F64 = gbt_f64_margins(model, binned_t, device, stages)
+    y32 = torch.from_numpy(est._targets(y[:train]).astype(np.float32)).to(device)
+    y64 = y32.double()
+    gates = {}
+    for stage in gate_stages:
+        m = stage - 1
+        F32 = stage_F[m - 1] if m > 0 else torch.zeros_like(y32)
+        r32, r64 = est._pseudo_residuals(y32, F32), est._pseudo_residuals(y64, before64[m])
+        gates[stage] = forest_split_gate(
+            FO.TreeArrays(*(a[m:m + 1] for a in model.trees)), binned_t,
+            torch.stack([torch.ones_like(r32), r32, r32 * r32], dim=1),
+            np.ones((1, train), np.float32), impurity="variance", k_features=x.shape[1],
+            seed=est.getSeed(), max_depth=depth, n_bins=bins,
+            stats64=torch.stack([torch.ones_like(r64), r64, r64 * r64], dim=1))
+    f_err = float((stage_F[-1].double() - F64).abs().max() / F64.abs().max())
+    losses = model.trainLosses
+    # a pairwise sum of the rows' losses errs by about log2(rows) roundings
+    loss_rtol = 2.0 * np.ceil(np.log2(train)) * UNIT_ROUNDOFF
+    rises = int(np.sum(np.diff(losses) > loss_rtol * losses[:-1]))
+    R.reset_for_tests()
+    try:
+        R.ModelRegistry(device).register("gbt", model)
+        refused = False
+    except TypeError:
+        refused = True
+    del binned_t, stage_F, before64
+    return {"train_rows": train, "test_rows": len(x) - train, "stages": stages,
+            "max_depth": depth, "bins": bins, "fit_s": fit_s, "gbt_boost_span_s": boost_s,
+            "ms_per_stage": 1e3 * boost_s / stages, **quality,
+            "train_losses": [float(v) for v in losses], "loss_rises_beyond_rounding": rises,
+            "final_F_rel_err_vs_f64": f_err, "registry_refuses": refused,
+            "split_gates": gates}
+
+
+def phase_gbt(x: np.ndarray, y_cls: np.ndarray, y_reg: np.ndarray, train: int,
+              device: torch.device, *, stages: int = GBT_STAGES, depth: int = GBT_DEPTH,
+              bins: int = GBT_BINS, gate_stages: tuple = GBT_GATE_STAGES,
+              seed: int = HIGGS_SEED) -> dict:
+    """17 (a): GBTClassifier and GBTRegressor at Spark's defaults."""
+    common = dict(device=device, maxDepth=depth, maxBins=bins, stepSize=GBT_STEP, seed=seed)
+    out = {
+        "classifier": _gbt_phase(GBTClassifier(**common).setMaxIter(stages), x, y_cls, train,
+                                 device, classification=True, gate_stages=gate_stages),
+        "regressor": _gbt_phase(GBTRegressor(**common).setMaxIter(stages), x, y_reg, train,
+                                device, classification=False, gate_stages=gate_stages),
+    }
+    for name, r in out.items():
+        for stage, gate in r["split_gates"].items():
+            check_split_gate(f"gbt {name} stage {stage}", gate)
+        if not r["final_F_rel_err_vs_f64"] <= GBT_F_RTOL:
+            raise AssertionError(f"gbt {name}: the card's F off the f64 ensemble: {r}")
+        if not r["registry_refuses"]:
+            raise AssertionError(f"gbt {name}: the serving registry took a GBT model")
+    if out["regressor"]["loss_rises_beyond_rounding"]:
+        raise AssertionError(f"gbt regressor: its training loss rose: {out['regressor']}")
+    return out
+
+
+def mlp_loss_f64(weights: np.ndarray, x: np.ndarray, y: np.ndarray, layers: tuple) -> float:
+    """The mean softmax cross-entropy of the flat weights in f64 numpy."""
+    h = x.astype(np.float64)
+    at = 0
+    for i, (fan_in, fan_out) in enumerate(zip(layers[:-1], layers[1:])):
+        w = weights[at:at + fan_in * fan_out].astype(np.float64).reshape(fan_in, fan_out)
+        at += fan_in * fan_out
+        h = h @ w + weights[at:at + fan_out].astype(np.float64)
+        at += fan_out
+        if i < len(layers) - 2:
+            h = 1.0 / (1.0 + np.exp(-h))
+    shifted = h - h.max(axis=1, keepdims=True)
+    lse = np.log(np.exp(shifted).sum(axis=1))
+    return float(np.mean(lse - shifted[np.arange(len(y)), y.astype(np.int64)]))
+
+
+def phase_mlp(x: np.ndarray, y: np.ndarray, train: int, device: torch.device, *,
+              layers: tuple = MLP_LAYERS, max_iter: int = MLP_MAX_ITER,
+              parity_iters: int = MLP_PARITY_ITERS, seed: int = MNIST_SEED) -> dict:
+    """17 (b): MultilayerPerceptronClassifier (l-bfgs) on MNIST-shaped rows."""
+    est = MultilayerPerceptronClassifier(device=device, layers=list(layers), maxIter=max_iter,
+                                         tol=MLP_TOL, seed=seed)
+    seq = TIMELINE.seq()
+    _sync(device)
+    t0 = time.perf_counter()
+    model = est.fit((x[:train], y[:train]))
+    _sync(device)
+    fit_s = time.perf_counter() - t0
+    train_s = _timeline_spans(seq).get("mlp train", 0.0)
+    acc = float(np.mean(model._predict_matrix(x[train:]) == y[train:]))
+    loss64 = mlp_loss_f64(model.weights, x[:train], y[:train], layers)
+    # the first iterations from the fit's start, on the card and in f64 on the CPU
+    flat0 = PMLP.glorot_init(layers, seed, device)
+    steps = {}
+    for name, dev, dt in (("card", device, torch.float32),
+                          ("cpu_f64", torch.device("cpu"), torch.float64)):
+        rec = []
+        PMLP.train_mlp(flat0.to(dev, dt), torch.from_numpy(x[:train]).to(dev, dt),
+                       torch.from_numpy(y[:train]).to(dev),
+                       torch.ones(train, device=dev, dtype=dt), layers=layers,
+                       solver="l-bfgs", max_iter=parity_iters, tol=MLP_TOL,
+                       callback=lambda it, f, loss: rec.append(loss))
+        steps[name] = rec
+    step_err = float(np.max(np.abs(np.asarray(steps["card"]) - steps["cpu_f64"])
+                            / np.abs(steps["cpu_f64"])))
+    out = {"train_rows": train, "test_rows": len(x) - train, "layers": list(layers),
+           "iterations": model.iterations, "fit_s": fit_s, "mlp_train_span_s": train_s,
+           "s_per_iteration": train_s / max(model.iterations, 1), "held_out_accuracy": acc,
+           "train_loss": model.trainLoss, "train_loss_f64": loss64,
+           "train_loss_rel_err": abs(model.trainLoss - loss64) / abs(loss64),
+           "first_losses": steps, "first_losses_max_rel_err": step_err}
+    if not out["train_loss_rel_err"] <= MLP_LOSS_RTOL:
+        raise AssertionError(f"mlp: trainLoss off the f64 loss at its weights: {out}")
+    if not (len(steps["card"]) == parity_iters and step_err <= MLP_PARITY_RTOL):
+        raise AssertionError(f"mlp: the card's first iterations off the CPU's f64: {out}")
+    return out
+
+
+def fm_score_f64(weights: np.ndarray, x: np.ndarray, n_feat: int, k: int,
+                 chunk: int = 1 << 20) -> np.ndarray:
+    """FM scores of the flat weights in f64 numpy, a chunk of rows at a time."""
+    w = weights.astype(np.float64)
+    b, lin, v = w[0], w[1:1 + n_feat], w[1 + n_feat:].reshape(n_feat, k)
+    out = np.empty(len(x))
+    for a in range(0, len(x), chunk):
+        xc = x[a:a + chunk].astype(np.float64)
+        xv = xc @ v
+        out[a:a + chunk] = b + xc @ lin + 0.5 * np.sum(xv * xv - (xc * xc) @ (v * v), axis=1)
+    return out
+
+
+def fm_iteration_profile(model, x: np.ndarray, y: np.ndarray, device: torch.device, *,
+                         classification: bool) -> dict:
+    """One FM iteration's work (the loss and gradient, then the loss again)
+    at the model's weights on ``x``: its wall milliseconds after a warm-up,
+    the device milliseconds of its kernels by ``torch.profiler`` (each
+    kernel once: an ``aten::`` operator's self device time is its kernels'
+    again), and the eight largest kernels (empty without a card)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if device.type != "cuda":
+        return {}
+    n_feat, k = x.shape[1], model.getFactorSize()
+    xd = to_device(x, device)
+    yd = torch.from_numpy(y.astype(np.float32)).to(device)
+    wd = torch.ones(len(x), device=device)
+    mask = PFM.param_mask(n_feat, k, fit_intercept=True, fit_linear=True,
+                          dtype=torch.float32, device=device)
+    flat = torch.from_numpy(model.flatWeights).to(device)
+
+    def iteration():
+        loss_fn = functools.partial(PFM.fm_loss, x=xd, y=yd, w=wd, mask=mask, n_feat=n_feat,
+                                    k=k, classification=classification, l2=0.0)
+        OPT.value_and_grad(loss_fn, flat)
+        loss_fn(flat).item()
+
+    iteration()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    iteration()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        iteration()
+        torch.cuda.synchronize(device)
+    times = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        if t and not e.key.startswith("aten::"):
+            times[e.key] = t / 1e3
+    del xd
+    return {"wall_ms": wall_ms, "device_ms": sum(times.values()),
+            "top_ms": dict(sorted(times.items(), key=lambda kv: -kv[1])[:8])}
+
+
+def _fm_phase(est, x: np.ndarray, y: np.ndarray, train: int, device: torch.device, *,
+              classification: bool, parity_rows: int, parity_steps: int) -> dict:
+    seq = TIMELINE.seq()
+    _sync(device)
+    t0 = time.perf_counter()
+    model = est.fit((x[:train], y[:train]))
+    _sync(device)
+    fit_s = time.perf_counter() - t0
+    train_s = _timeline_spans(seq).get("fm train", 0.0)
+    n_feat, k = x.shape[1], est.getFactorSize()
+    s32 = model._scores(x[train:])
+    s64 = fm_score_f64(model.flatWeights, x[train:], n_feat, k)
+    score_err = float(np.abs(s32 - s64).max() / np.abs(s64).max())
+    if classification:
+        quality = {"held_out_accuracy": float(np.mean((s32 > 0) == (y[train:] > 0.5)))}
+    else:
+        quality = {"held_out_r2": float(1.0 - np.mean((s32 - y[train:]) ** 2)
+                                        / np.var(y[train:]))}
+    mask = PFM.param_mask(n_feat, k, fit_intercept=True, fit_linear=True,
+                          dtype=torch.float64, device=device)
+    with torch.no_grad():
+        x64 = to_device(x[:train], device).double()
+        loss64 = float(PFM.fm_loss(torch.from_numpy(model.flatWeights).to(device).double(),
+                                   x64, torch.from_numpy(y[:train]).to(device), 
+                                   torch.ones(train, dtype=torch.float64, device=device), mask,
+                                   n_feat=n_feat, k=k, classification=classification, l2=0.0))
+        del x64
+    # the first steps from the fit's start, on the card and in f64 on the CPU:
+    # their losses are gated; their weights are reported (Adam divides each
+    # gradient by its own scale, so a coordinate whose gradient is near 0
+    # carries that gradient's f32 error, of a 1,000,000-row reduction, into
+    # a full-sized step, where the loss is flat)
+    flat0 = PFM.fm_init(n_feat, k, est.getOrDefault("initStd"), est.getOrDefault("seed"), device)
+    steps, step_losses = {}, {}
+    for name, dev, dt in (("card", device, torch.float32),
+                          ("cpu_f64", torch.device("cpu"), torch.float64)):
+        rec, losses = [], []
+        PFM.train_fm(flat0.to(dev, dt), torch.from_numpy(x[:parity_rows]).to(dev, dt),
+                     torch.from_numpy(y[:parity_rows]).to(dev, dt),
+                     torch.ones(parity_rows, device=dev, dtype=dt), n_feat=n_feat, k=k,
+                     solver="adamW", max_iter=parity_steps, classification=classification,
+                     fit_intercept=True, fit_linear=True, step_size=est.getOrDefault("stepSize"),
+                     tol=0.0, callback=lambda it, f, loss: (rec.append(f.double().cpu().numpy()),
+                                                           losses.append(loss)))
+        steps[name], step_losses[name] = np.stack(rec), np.asarray(losses)
+    weight_err = float(np.abs(steps["card"] - steps["cpu_f64"]).max()
+                       / np.abs(steps["cpu_f64"]).max())
+    loss_err = float(np.max(np.abs(step_losses["card"] - step_losses["cpu_f64"])
+                            / np.abs(step_losses["cpu_f64"])))
+    return {"train_rows": train, "test_rows": len(x) - train, "factor_size": k,
+            "step_size": est.getOrDefault("stepSize"), "iterations": model.iterations,
+            "fit_s": fit_s, "fm_train_span_s": train_s,
+            "s_per_iteration": train_s / max(model.iterations, 1), **quality,
+            "held_out_score_rel_err_vs_f64": score_err, "train_loss": model.trainLoss,
+            "train_loss_f64": loss64,
+            "train_loss_rel_err": abs(model.trainLoss - loss64) / abs(loss64),
+            "iteration_profile": fm_iteration_profile(model, x[:train], y[:train], device,
+                                                      classification=classification),
+            "parity_rows": parity_rows, "parity_steps": len(steps["card"]),
+            "first_steps_loss_max_rel_err": loss_err,
+            "first_steps_weights_max_err_over_max_weight": weight_err}
+
+
+def phase_fm(x: np.ndarray, y_cls: np.ndarray, y_reg: np.ndarray, train: int,
+             device: torch.device, *, max_iter: int = FM_MAX_ITER,
+             parity_rows: int = FM_PARITY_ROWS, parity_steps: int = FM_PARITY_STEPS,
+             seed: int = HIGGS_SEED) -> dict:
+    """17 (c): FMClassifier and FMRegressor (adamW) on (a)'s rows."""
+    common = dict(device=device, factorSize=FM_FACTORS, solver="adamW", maxIter=max_iter,
+                  regParam=0.0, stepSize=FM_STEP, seed=seed)
+    out = {
+        "classifier": _fm_phase(FMClassifier(**common), x, y_cls, train, device,
+                                classification=True, parity_rows=parity_rows,
+                                parity_steps=parity_steps),
+        "regressor": _fm_phase(FMRegressor(**common), x, y_reg, train, device,
+                               classification=False, parity_rows=parity_rows,
+                               parity_steps=parity_steps),
+    }
+    for name, r in out.items():
+        if not (r["held_out_score_rel_err_vs_f64"] <= FM_SCORE_RTOL
+                and r["train_loss_rel_err"] <= FM_LOSS_RTOL
+                and r["parity_steps"] == parity_steps
+                and r["first_steps_loss_max_rel_err"] <= FM_PARITY_RTOL):
+            raise AssertionError(f"fm {name} off f64: {r}")
+    return out
+
+
+def trustworthiness(x: torch.Tensor, emb: torch.Tensor, k: int) -> float:
+    """sklearn's trustworthiness of ``emb`` for ``x`` (rows on the device):
+    1 − 2/(n·k·(2n − 3k − 1)) · Σ over each row's k embedded neighbours
+    that are not among its k input neighbours of (input rank − k)."""
+    n = x.shape[0]
+    x64, e64 = x.double(), emb.double()
+    d_x = torch.cdist(x64, x64)
+    d_x.fill_diagonal_(float("inf"))
+    ranks = torch.empty((n, n), dtype=torch.int64, device=x.device)
+    order = torch.argsort(d_x, dim=1)
+    ranks.scatter_(1, order, torch.arange(1, n + 1, device=x.device).expand(n, -1))
+    d_e = torch.cdist(e64, e64)
+    d_e.fill_diagonal_(float("inf"))
+    nn_e = torch.topk(d_e, k, dim=1, largest=False).indices
+    excess = torch.gather(ranks, 1, nn_e) - k
+    t = float(excess[excess > 0].sum())
+    return 1.0 - t * (2.0 / (n * k * (2.0 * n - 3.0 * k - 1.0)))
+
+
+def phase_umap(x: np.ndarray, y: np.ndarray, train: int, device: torch.device, *,
+               k: int = UMAP_K, n_epochs: int = 0, knn_sample: int = UMAP_KNN_SAMPLE,
+               trust_sample: int = UMAP_TRUST_SAMPLE, seed: int = MNIST_SEED) -> dict:
+    """17 (d): UMAP at its defaults (``n_epochs`` 0: the auto rule) on (b)'s
+    training rows, then transform of the held-out rows."""
+    est = UMAP(device=device, nNeighbors=k, nEpochs=n_epochs, seed=seed)
+    seq = TIMELINE.seq()
+    with _recorded(PUMAP, "knn_graph") as knn_calls:
+        _sync(device)
+        t0 = time.perf_counter()
+        model = est.fit(x[:train])
+        _sync(device)
+        fit_s = time.perf_counter() - t0
+    spans = _timeline_spans(seq)
+    t0 = time.perf_counter()
+    emb_test = model._embed_matrix(x[train:])
+    transform_s = time.perf_counter() - t0
+    n_epochs = n_epochs or (500 if train < 10_000 else 200)
+
+    # the graph: the fit's ids on a sample against the f64 top k + 1
+    knn_d, knn_i = knn_calls[0][1]
+    xd = to_device(x[:train], device)
+    sample = np.random.default_rng(seed).choice(train, min(knn_sample, train), replace=False)
+    queries = xd[torch.from_numpy(sample).to(device)]
+    d64, _ = knn_f64(queries, xd, k + 1)
+    knn_gate = knn_f64_gate(queries, xd, knn_i[sample, 1:], knn_d[sample, 1:],
+                            d64[:, 1:], k)
+    heads, tails, weights, rho, sigma = PUMAP.fuzzy_graph(knn_d[:, 1:], knn_i[:, 1:], device)
+    kd = torch.from_numpy(np.ascontiguousarray(knn_d[:, 1:])).to(device).double()
+    mass = torch.exp(-torch.clamp(kd - rho.double()[:, None], min=0.0)
+                     / sigma.double()[:, None]).sum(1)
+    # a row whose sigma sits at the floor (MIN_K_DIST_SCALE × mean distance)
+    # does not solve the mass equation, by design
+    floored = sigma <= UMO.MIN_K_DIST_SCALE * float(kd.mean()) * (1 + 1e-6)
+    rel = (mass - np.log2(k)).abs() / np.log2(k)
+    mass_err = float(rel[~floored].max()) if bool((~floored).any()) else 0.0
+    heads_s, tails_s, weights_s = PUMAP.strong_edges(heads, tails, weights, n_epochs)
+    heads_d, tails_d, eps = PUMAP.layout_edges(heads_s, tails_s, weights_s)
+
+    # one layout epoch (epoch 1 of 2: no edge is due at epoch 0) on the card
+    # against the CPU in f64, the same negatives
+    a, b = float(np.float32(model.a)), float(np.float32(model.b))
+    hd = torch.from_numpy(heads_d.astype(np.int64))
+    td = torch.from_numpy(tails_d.astype(np.int64))
+    neg = torch.randint(0, train, (len(heads_d), 5),
+                        generator=torch.Generator(device=device).manual_seed(seed), device=device)
+    layouts = {}
+    for name, dev, dt in (("card", device, torch.float32),
+                          ("cpu_f64", torch.device("cpu"), torch.float64)):
+        negd = neg.to(dev)
+        layouts[name] = UMO.optimize_layout(
+            torch.from_numpy(model.embedding_).to(dev, dt), hd.to(dev), td.to(dev),
+            torch.from_numpy(eps).to(dev, dt), a, b, n_epochs=2,
+            neg_fn=lambda e, negd=negd: negd).double().cpu().numpy()
+    epoch_err = float(np.abs(layouts["card"] - layouts["cpu_f64"]).max()
+                      / np.abs(layouts["cpu_f64"]).max())
+
+    # same seed, same layout? the whole schedule twice from one start, and
+    # once more under torch's deterministic algorithms
+    emb0 = to_device(model.embedding_, device)
+
+    def layout():
+        _sync(device)
+        t = time.perf_counter()
+        y_ = UMO.optimize_layout(emb0, hd.to(device), td.to(device), to_device(eps, device), a, b,
+                                 n_epochs=n_epochs,
+                                 generator=PUMAP.layout_generator(seed, device))
+        _sync(device)
+        return y_.cpu().numpy(), time.perf_counter() - t
+
+    first, first_s = layout()
+    second, _ = layout()
+    deterministic = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        third, third_s = layout()
+        fourth, _ = layout()
+        deterministic = {"bit_equal": bool(np.array_equal(third, fourth)),
+                         "ms_per_epoch": 1e3 * third_s / n_epochs}
+    except RuntimeError as err:
+        deterministic = {"raised": str(err)[:200]}
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    # structure, with no floor: trustworthiness@k on a sample, and the
+    # held-out rows' k-NN label vote in the embedding
+    ts = np.random.default_rng(seed + 1).choice(train, min(trust_sample, train), replace=False)
+    tw = trustworthiness(xd[torch.from_numpy(ts).to(device)],
+                         to_device(model.embedding_[ts], device), k)
+    e_train = to_device(model.embedding_, device)
+    e_test = to_device(emb_test, device)
+    nn = torch.topk(torch.cdist(e_test, e_train), k, dim=1, largest=False).indices.cpu().numpy()
+    votes = np.apply_along_axis(np.bincount, 1, y[:train][nn].astype(np.int64),
+                                minlength=int(y.max()) + 1).argmax(1)
+    del xd, queries
+    out = {"train_rows": train, "test_rows": len(x) - train, "n_neighbors": k,
+           "n_epochs": n_epochs, "fit_s": fit_s,
+           "spans_s": {name: spans.get(name, 0.0) for name in
+                       ("umap knn graph", "umap fuzzy graph", "umap init", "umap layout")},
+           "ms_per_epoch": 1e3 * spans.get("umap layout", 0.0) / n_epochs,
+           "transform_s": transform_s, "edges": int(len(heads)),
+           "layout_edges": int(len(heads_d)), "knn_gate": knn_gate,
+           "max_mass_rel_err": mass_err, "sigma_floored_rows": int(floored.sum()),
+           "one_epoch_rel_err_vs_f64": epoch_err,
+           "same_seed_bit_equal": bool(np.array_equal(first, second)),
+           "same_seed_max_abs_diff": float(np.abs(first - second).max()),
+           "layout_ms_per_epoch": 1e3 * first_s / n_epochs,
+           "deterministic_algorithms": deterministic,
+           "trustworthiness": tw, "held_out_knn_label_agreement": float(np.mean(votes == y[train:]))}
+    if out["knn_gate"]["ids_outside_f64_top_k"]:
+        raise AssertionError(f"umap: graph ids off the f64 top {k}: {out}")
+    if not mass_err <= UMAP_MASS_RTOL:
+        raise AssertionError(f"umap: a row's calibrated mass is off log2(k): {out}")
+    if not epoch_err <= UMAP_EPOCH_ATOL:
+        raise AssertionError(f"umap: the card's layout epoch is off the CPU's f64: {out}")
+    if emb_test.shape != (len(x) - train, 2) or not np.isfinite(emb_test).all():
+        raise AssertionError(f"umap: transform gave {emb_test.shape}, finite "
+                             f"{np.isfinite(emb_test).all()}")
+    return out
+
+
+def phase_ovr(x: np.ndarray, y: np.ndarray, train: int, device: torch.device) -> dict:
+    """17 (e): OneVsRest(LogisticRegression()) on (b)'s rows."""
+    _sync(device)
+    t0 = time.perf_counter()
+    model = OneVsRest(classifier=LogisticRegression(device=device)).fit((x[:train], y[:train]))
+    _sync(device)
+    fit_s = time.perf_counter() - t0
+    preds = model._predict_matrix(x[train:])
+    coef = np.stack([m.coefficients for m in model.models]).astype(np.float64)
+    icpt = np.asarray([m.intercept for m in model.models], dtype=np.float64)
+    x64 = x[train:].astype(np.float64)
+    z = x64 @ coef.T + icpt
+    scores = 1.0 / (1.0 + np.exp(-z))
+    ordered = np.sort(scores, axis=1)
+    # an f32 margin errs by at most n·u·(|x|·|w| + |b|), a score by a
+    # quarter of that, and a gap by twice that
+    err = x.shape[1] * UNIT_ROUNDOFF * (np.abs(x64) @ np.abs(coef).T + np.abs(icpt))
+    tie = ordered[:, -1] - ordered[:, -2] <= 0.5 * err.max(axis=1)
+    want = scores.argmax(1).astype(np.float64)
+    out = {"train_rows": train, "classes": model.numClasses, "fit_s": fit_s,
+           "held_out_accuracy": float(np.mean(preds == y[train:])),
+           "mismatches_beyond_near_ties": int(np.sum((preds != want) & ~tie)),
+           "near_ties": int(tie.sum())}
+    if out["mismatches_beyond_near_ties"]:
+        raise AssertionError(f"one-vs-rest: predictions off the f64 argmax: {out}")
+    return out
+
+
+def phase_families(device: torch.device, higgs: tuple, *, higgs_test_rows: int = HIGGS_TEST_ROWS,
+                   mnist_rows: int = MNIST_ROWS, mnist_n: int = MNIST_N,
+                   mnist_test_rows: int = MNIST_TEST_ROWS, gbt_stages: int = GBT_STAGES,
+                   gbt_depth: int = GBT_DEPTH, gbt_gate_stages: tuple = GBT_GATE_STAGES,
+                   mlp_layers: tuple = MLP_LAYERS, mlp_max_iter: int = MLP_MAX_ITER,
+                   fm_max_iter: int = FM_MAX_ITER, fm_parity_rows: int = FM_PARITY_ROWS,
+                   umap_epochs: int = 0, umap_knn_sample: int = UMAP_KNN_SAMPLE,
+                   umap_trust_sample: int = UMAP_TRUST_SAMPLE) -> dict:
+    """Phase 17: (a) GBT and (c) FM on phase 16's HIGGS-shaped rows; (b) the
+    MLP, (d) UMAP and (e) OneVsRest on MNIST-shaped rows."""
+    x, y_cls, y_reg = higgs
+    train = len(x) - higgs_test_rows
+    out = {}
+
+    def run(name: str, fn, *args, **kwargs):
+        # each part prints its numbers (the card's name beside them) before
+        # its gates can stop the phase
+        out[name] = _timed(f"17 {name}", fn, *args, **kwargs)
+        print(f"families {name} ({card_label(device.type)}): {json.dumps(out[name])}",
+              flush=True)
+
+    run("(a) gbt", phase_gbt, x, y_cls, y_reg, train, device, stages=gbt_stages,
+        depth=gbt_depth, gate_stages=gbt_gate_stages)
+    run("(c) fm", phase_fm, x, y_cls, y_reg, train, device, max_iter=fm_max_iter,
+        parity_rows=min(fm_parity_rows, train))
+    xm, ym = mnist_workload(mnist_rows, mnist_n, MNIST_CLASSES, device)
+    mtrain = mnist_rows - mnist_test_rows
+    run("(b) mlp", phase_mlp, xm, ym, mtrain, device, layers=mlp_layers, max_iter=mlp_max_iter)
+    run("(d) umap", phase_umap, xm, ym, mtrain, device, n_epochs=umap_epochs,
+        knn_sample=umap_knn_sample, trust_sample=umap_trust_sample)
+    run("(e) one-vs-rest", phase_ovr, xm, ym, mtrain, device)
+    R.reset_for_tests()
+    return out
+
+
 def _timed(name: str, fn, *args, **kwargs):
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
@@ -3963,7 +4608,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     _timed("ann (b) streamed", phase_ann_streamed, device)
     torch.cuda.empty_cache()
-    _timed("trees and naive bayes", phase_trees_nb, device)
+    higgs = _timed("make higgs data", higgs_workload, HIGGS_ROWS, HIGGS_N, device)
+    _timed("trees and naive bayes", phase_trees_nb, device, data=higgs)
+    torch.cuda.empty_cache()
+    _timed("families", phase_families, device, higgs)
+    del higgs
     # each kernel's launches come from the main path that runs it
     launches = {
         "gram_moments": resident["launches"]["gram_moments"],

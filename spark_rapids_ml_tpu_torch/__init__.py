@@ -38,6 +38,15 @@ servable at ``/v1/indexes``; ``knn`` is the drop-in namespace. The tree
 family: ``RandomForestClassifier``/``Regressor`` and the ``DecisionTree``
 estimators (histogram trees on the device; classifiers are servable as the
 ``"forest"`` family). ``NaiveBayes`` (multinomial, bernoulli, gaussian).
+
+Boosting, the networks and the manifold family: ``GBTClassifier``/
+``GBTRegressor`` (a variance tree per stage on the forest's histograms),
+``MultilayerPerceptronClassifier`` (L-BFGS or SGD) and ``FMClassifier``/
+``FMRegressor`` (AdamW or SGD), trained by autograd on the device with the
+port's own reproductions of optax's optimizers (``ops/optim.py``); ``UMAP``
+(the k-NN graph, calibration and layout on the device); and the host
+meta-estimators ``OneVsRest`` and ``IsotonicRegression``. ``classification``,
+``regression`` and ``umap`` are the drop-in namespaces.
 """
 
 from spark_rapids_ml_tpu_torch.models.dbscan import DBSCAN, DBSCANModel
@@ -53,6 +62,12 @@ from spark_rapids_ml_tpu_torch.models.incremental import (
     IncrementalStandardScaler,
     IncrementalTruncatedSVD,
 )
+from spark_rapids_ml_tpu_torch.models.fm import (
+    FMClassificationModel,
+    FMClassifier,
+    FMRegressionModel,
+    FMRegressor,
+)
 from spark_rapids_ml_tpu_torch.models.forest import (
     DecisionTreeClassificationModel,
     DecisionTreeClassifier,
@@ -63,6 +78,13 @@ from spark_rapids_ml_tpu_torch.models.forest import (
     RandomForestRegressionModel,
     RandomForestRegressor,
 )
+from spark_rapids_ml_tpu_torch.models.gbt import (
+    GBTClassificationModel,
+    GBTClassifier,
+    GBTRegressionModel,
+    GBTRegressor,
+)
+from spark_rapids_ml_tpu_torch.models.isotonic import IsotonicRegression, IsotonicRegressionModel
 from spark_rapids_ml_tpu_torch.models.kmeans import KMeans, KMeansModel
 from spark_rapids_ml_tpu_torch.models.linear import (
     LinearRegression,
@@ -72,6 +94,10 @@ from spark_rapids_ml_tpu_torch.models.linear import (
     LogisticRegression,
     LogisticRegressionModel,
 )
+from spark_rapids_ml_tpu_torch.models.mlp import (
+    MultilayerPerceptronClassificationModel,
+    MultilayerPerceptronClassifier,
+)
 from spark_rapids_ml_tpu_torch.models.naive_bayes import NaiveBayes, NaiveBayesModel
 from spark_rapids_ml_tpu_torch.models.neighbors import (
     ApproximateNearestNeighbors,
@@ -79,6 +105,7 @@ from spark_rapids_ml_tpu_torch.models.neighbors import (
     NearestNeighbors,
     NearestNeighborsModel,
 )
+from spark_rapids_ml_tpu_torch.models.ovr import OneVsRest, OneVsRestModel
 from spark_rapids_ml_tpu_torch.models.pca import PCA, PCAModel
 from spark_rapids_ml_tpu_torch.models.pipeline import Pipeline, PipelineModel
 from spark_rapids_ml_tpu_torch.models.scaler import (
@@ -104,25 +131,28 @@ from spark_rapids_ml_tpu_torch.models.selector import (
     VarianceThresholdSelectorModel,
 )
 from spark_rapids_ml_tpu_torch.models.truncated_svd import TruncatedSVD, TruncatedSVDModel
+from spark_rapids_ml_tpu_torch.models.umap import UMAP, UMAPModel
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "ApproximateNearestNeighbors", "ApproximateNearestNeighborsModel",
-    "DBSCAN", "DBSCANModel", "DCT", "Binarizer", "Bucketizer",
-    "DecisionTreeClassificationModel", "DecisionTreeClassifier",
-    "DecisionTreeRegressionModel", "DecisionTreeRegressor", "ElementwiseProduct", "Imputer",
-    "ImputerModel", "IncrementalKMeans", "IncrementalLinearRegression", "IncrementalPCA",
-    "IncrementalStandardScaler", "IncrementalTruncatedSVD", "KMeans", "KMeansModel",
-    "LinearRegression", "LinearRegressionModel", "LinearSVC", "LinearSVCModel",
+    "ApproximateNearestNeighbors", "ApproximateNearestNeighborsModel", "Binarizer",
+    "Bucketizer", "DBSCAN", "DBSCANModel", "DCT", "DecisionTreeClassificationModel",
+    "DecisionTreeClassifier", "DecisionTreeRegressionModel", "DecisionTreeRegressor",
+    "ElementwiseProduct", "FMClassificationModel", "FMClassifier", "FMRegressionModel",
+    "FMRegressor", "GBTClassificationModel", "GBTClassifier", "GBTRegressionModel",
+    "GBTRegressor", "Imputer", "ImputerModel", "IncrementalKMeans",
+    "IncrementalLinearRegression", "IncrementalPCA", "IncrementalStandardScaler",
+    "IncrementalTruncatedSVD", "IsotonicRegression", "IsotonicRegressionModel", "KMeans",
+    "KMeansModel", "LinearRegression", "LinearRegressionModel", "LinearSVC", "LinearSVCModel",
     "LogisticRegression", "LogisticRegressionModel", "MaxAbsScaler", "MaxAbsScalerModel",
-    "MinMaxScaler", "MinMaxScalerModel", "NaiveBayes", "NaiveBayesModel", "NearestNeighbors",
-    "NearestNeighborsModel", "Normalizer",
-    "PCA", "PCAModel", "Pipeline", "PipelineModel", "PolynomialExpansion",
-    "QuantileDiscretizer", "QuantileDiscretizerModel",
-    "RandomForestClassificationModel", "RandomForestClassifier",
-    "RandomForestRegressionModel", "RandomForestRegressor", "RobustScaler", "RobustScalerModel",
-    "StandardScaler", "StandardScalerModel", "TruncatedSVD", "TruncatedSVDModel",
-    "VarianceThresholdSelector", "VarianceThresholdSelectorModel", "VectorSlicer",
-    "__version__",
+    "MinMaxScaler", "MinMaxScalerModel", "MultilayerPerceptronClassificationModel",
+    "MultilayerPerceptronClassifier", "NaiveBayes", "NaiveBayesModel", "NearestNeighbors",
+    "NearestNeighborsModel", "Normalizer", "OneVsRest", "OneVsRestModel", "PCA", "PCAModel",
+    "Pipeline", "PipelineModel", "PolynomialExpansion", "QuantileDiscretizer",
+    "QuantileDiscretizerModel", "RandomForestClassificationModel", "RandomForestClassifier",
+    "RandomForestRegressionModel", "RandomForestRegressor", "RobustScaler",
+    "RobustScalerModel", "StandardScaler", "StandardScalerModel", "TruncatedSVD",
+    "TruncatedSVDModel", "UMAP", "UMAPModel", "VarianceThresholdSelector",
+    "VarianceThresholdSelectorModel", "VectorSlicer", "__version__",
 ]

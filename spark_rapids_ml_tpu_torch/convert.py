@@ -24,16 +24,25 @@ plain numpy arrays, so nothing of the JAX package is imported:
   ``"RandomForestRegressionModel"``, ``"DecisionTree*Model"``):
   ``feature``/``split_bin``/``is_leaf``/``leaf_stats``/``gain``/
   ``thresholds``/``numFeatures``; ``"NaiveBayesModel"``: ``pi``/``theta``/
-  ``sigma``; a stateless stage such as ``"Normalizer"`` or
-  ``"DBSCANModel"``: nothing), with the params the JAX model had set (its
-  ``_paramMap``), which ``_saveData`` does not hold;
+  ``sigma``; ``"GBTClassificationModel"`` and ``"GBTRegressionModel"``:
+  the tree arrays and ``thresholds``/``treeWeights``/``numFeatures``/
+  ``trainLosses``; ``"MultilayerPerceptronClassificationModel"``:
+  ``weights``/``meta`` (with the ``layers`` param); ``"FMClassificationModel"``
+  and ``"FMRegressionModel"``: ``flatWeights``/``meta`` (numFeatures, loss,
+  iterations); ``"UMAPModel"``: ``rawData``/``embedding``/``ab``;
+  ``"IsotonicRegressionModel"``: ``boundaries``/``predictions``; a
+  stateless stage such as ``"Normalizer"`` or ``"DBSCANModel"``: nothing),
+  with the params the JAX model had set (its ``_paramMap``), which
+  ``_saveData`` does not hold;
 - ``incremental_from_state``: an incremental estimator (``"IncrementalPCA"``,
   ``"IncrementalTruncatedSVD"``, ``"IncrementalStandardScaler"``,
   ``"IncrementalLinearRegression"``, ``"IncrementalKMeans"``) resumed from
   the ``(arrays, scalars)`` of the JAX estimator's ``to_state()``, with its
   params;
 - ``pipeline_model_from_arrays``: a ``PipelineModel`` from a list of
-  ``{"class", "data", "params"}`` dicts, one per stage, in order.
+  ``{"class", "data", "params"}`` dicts, one per stage, in order;
+- ``one_vs_rest_model_from_arrays``: a ``OneVsRestModel`` from the same
+  dicts, one per class model, in class order.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ import numpy as np
 import torch
 
 from spark_rapids_ml_tpu_torch.models.base import port_class
+from spark_rapids_ml_tpu_torch.models.ovr import OneVsRestModel
 from spark_rapids_ml_tpu_torch.models.pca import PCAModel
 from spark_rapids_ml_tpu_torch.models.pipeline import PipelineModel
 
@@ -104,3 +114,18 @@ def pipeline_model_from_arrays(
         model_from_arrays(s["class"], s.get("data", {}), device, s.get("params"))
         for s in stages
     ])
+
+
+def one_vs_rest_model_from_arrays(
+    models: Sequence[Mapping[str, Any]], device: str | torch.device = "cuda",
+    params: Mapping[str, Any] | None = None,
+) -> OneVsRestModel:
+    """A ``OneVsRestModel`` of the class models ``[{"class": ..., "data":
+    ..., "params": ...}, ...]`` in class order, with its own ``params``."""
+    model = OneVsRestModel(models=[
+        model_from_arrays(m["class"], m.get("data", {}), device, m.get("params"))
+        for m in models
+    ])
+    if params:
+        model._set(**params)
+    return model

@@ -97,6 +97,12 @@ _PORTED_CLASSES: dict[str, tuple[str, ...]] = {
         "DecisionTreeRegressor", "DecisionTreeRegressionModel",
     ),
     "models.naive_bayes": ("NaiveBayes", "NaiveBayesModel"),
+    "models.gbt": ("GBTClassifier", "GBTClassificationModel", "GBTRegressor", "GBTRegressionModel"),
+    "models.mlp": ("MultilayerPerceptronClassifier", "MultilayerPerceptronClassificationModel"),
+    "models.fm": ("FMClassifier", "FMClassificationModel", "FMRegressor", "FMRegressionModel"),
+    "models.umap": ("UMAP", "UMAPModel"),
+    "models.ovr": ("OneVsRest", "OneVsRestModel"),
+    "models.isotonic": ("IsotonicRegression", "IsotonicRegressionModel"),
     "ann.index": ("IVFFlatIndex", "IVFFlatIndexModel"),
 }
 _PORT_CLASS_PATHS: dict[str, str] = {

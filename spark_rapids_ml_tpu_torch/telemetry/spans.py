@@ -88,6 +88,18 @@ SPAN_PHASES: frozenset[str] = frozenset({
     "forest build",
     "naive bayes stats",
     "naive bayes variance pass",
+    # boosting, the networks, UMAP and the host meta-estimators
+    "gbt boost",
+    "mlp train",
+    "fm train",
+    "umap knn graph",
+    "umap fuzzy graph",
+    "umap init",
+    "umap layout",
+    "umap transform",
+    "one-vs-rest fit",
+    "one-vs-rest transform",
+    "isotonic pav",
 })
 
 _current_estimator: contextvars.ContextVar[str | None] = contextvars.ContextVar(

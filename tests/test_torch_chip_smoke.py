@@ -704,3 +704,67 @@ def test_nb_gate_catches_a_wrong_statistic(monkeypatch):
     bad = chip_smoke.nb_phase(x[:4000], y[:4000], x[4000:], y[4000:], "gaussian", CPU)
     with pytest.raises(AssertionError, match="off f64"):
         chip_smoke.check_nb("nb", bad)
+
+
+def test_families_phase_on_cpu():
+    """Phase 17 at a tiny size: every part runs and every gate holds."""
+    higgs = chip_smoke.higgs_workload(20000, 6, CPU, seed=5)
+    out = chip_smoke.phase_families(
+        CPU, higgs, higgs_test_rows=4000, mnist_rows=3000, mnist_n=32, mnist_test_rows=500,
+        gbt_stages=4, gbt_depth=3, gbt_gate_stages=(1, 2, 4), mlp_layers=(32, 16, 8, 10),
+        mlp_max_iter=20, fm_max_iter=20, fm_parity_rows=4000, umap_epochs=30,
+        umap_knn_sample=200, umap_trust_sample=500)
+    for name in ("classifier", "regressor"):
+        gbt = out["(a) gbt"][name]
+        assert gbt["registry_refuses"] and gbt["final_F_rel_err_vs_f64"] <= 1e-6
+        assert set(gbt["split_gates"]) == {1, 2, 4}
+        assert all(g["violations"] == 0 and g["nodes_checked"] > 0
+                   for g in gbt["split_gates"].values())
+        fm = out["(c) fm"][name]
+        assert fm["parity_steps"] == 10 and fm["first_steps_loss_max_rel_err"] <= 1e-6
+    assert out["(a) gbt"]["regressor"]["loss_rises_beyond_rounding"] == 0
+    assert out["(b) mlp"]["train_loss_rel_err"] <= 1e-6
+    assert len(out["(b) mlp"]["first_losses"]["card"]) == 5
+    umap = out["(d) umap"]
+    assert umap["knn_gate"]["ids_outside_f64_top_k"] == 0 and umap["max_mass_rel_err"] <= 1e-5
+    assert umap["same_seed_bit_equal"]  # the CPU's scatters add in edge order
+    assert umap["deterministic_algorithms"]["bit_equal"]
+    assert out["(e) one-vs-rest"]["mismatches_beyond_near_ties"] == 0
+    assert out["(e) one-vs-rest"]["classes"] == 10
+
+
+def test_trustworthiness_is_sklearns():
+    from sklearn.manifold import trustworthiness
+
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(300, 12))
+    emb = x[:, :2] + 0.3 * rng.normal(size=(300, 2))
+    got = chip_smoke.trustworthiness(torch.from_numpy(x), torch.from_numpy(emb), 10)
+    assert got == pytest.approx(trustworthiness(x, emb, n_neighbors=10), abs=1e-12)
+
+
+def test_family_f64_oracles_are_the_port_functions_in_f64():
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(200, 9)).astype(np.float32)
+    y = rng.integers(0, 4, size=200).astype(np.float64)
+    layers = (9, 5, 4)
+    flat = chip_smoke.PMLP.glorot_init(layers, 1, CPU, torch.float64)
+    want = chip_smoke.PMLP.cross_entropy_loss(flat, torch.from_numpy(x).double(),
+                                              torch.from_numpy(y).long(),
+                                              torch.ones(200, dtype=torch.float64), layers)
+    assert chip_smoke.mlp_loss_f64(flat.numpy(), x, y, layers) == pytest.approx(float(want),
+                                                                              rel=1e-12)
+    fm = rng.normal(size=1 + 9 + 9 * 3)
+    want = chip_smoke.PFM.fm_score(torch.from_numpy(fm), torch.from_numpy(x).double(),
+                                   n_feat=9, k=3).numpy()
+    np.testing.assert_allclose(chip_smoke.fm_score_f64(fm, x, 9, 3, chunk=64), want,
+                               rtol=1e-12, atol=1e-12)
+
+
+def test_mnist_workload_is_seeded_with_ten_classes():
+    x, y = chip_smoke.mnist_workload(500, 16, 10, CPU)
+    x2, y2 = chip_smoke.mnist_workload(500, 16, 10, CPU)
+    assert x.dtype == np.float32 and x.shape == (500, 16)
+    np.testing.assert_array_equal(x, x2)
+    np.testing.assert_array_equal(y, y2)
+    assert set(np.unique(y)) == set(range(10))

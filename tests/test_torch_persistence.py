@@ -228,11 +228,11 @@ def test_port_native_save_crosses_as_arrays_only(x, tmp_path):
 
 
 def test_unported_jax_class_is_refused_without_import(tmp_path):
-    path = tmp_path / "gbt"
+    path = tmp_path / "cv"
     path.mkdir()
     (path / "metadata.json").write_text(json.dumps({
-        "class": "spark_rapids_ml_tpu.models.gbt.GBTRegressionModel",
-        "uid": "GBTRegressionModel_1",
+        "class": "spark_rapids_ml_tpu.models.tuning.CrossValidatorModel",
+        "uid": "CrossValidatorModel_1",
         "paramMap": {}, "defaultParamMap": {},
     }))
     with pytest.raises(TypeError, match="no counterpart"):
@@ -367,3 +367,91 @@ def test_linear_family_saves_cross_both_ways(x, tmp_path):
         back = type(model)._fromSaved(None, arrays)
         for name, value in model._saveData().items():
             np.testing.assert_array_equal(np.asarray(back._saveData()[name]), value)
+
+
+def test_boosting_network_and_manifold_saves_cross_both_ways(x, tmp_path):
+    """The JAX package's native saves of GBT, MLP, FM, UMAP and isotonic
+    models (and of an estimator of each) load in the port where jax cannot
+    be imported, arrays bit for bit and params equal; the port's own saves
+    of them read in the JAX package (``load_arrays`` and the class's
+    ``_fromSaved``) bit for bit."""
+    from spark_rapids_ml_tpu.models import fm as JFM
+    from spark_rapids_ml_tpu.models import gbt as JG
+    from spark_rapids_ml_tpu.models import isotonic as JI
+    from spark_rapids_ml_tpu.models import mlp as JM
+    from spark_rapids_ml_tpu.models import umap as JU
+
+    y = x @ np.linspace(-1, 1, N).astype(np.float32)
+    labels = (y > 0).astype(np.float64)
+    refs = {
+        "gbt_classifier": JG.GBTClassifier(numTrees=3, maxDepth=3).fit((x, labels)),
+        "gbt_regressor": JG.GBTRegressor(numTrees=3, maxDepth=3, stepSize=0.5).fit((x, y)),
+        "mlp": JM.MultilayerPerceptronClassifier(layers=[N, 5, 2], maxIter=5).fit((x, labels)),
+        "fm_classifier": JFM.FMClassifier(maxIter=5, stepSize=0.01).fit((x, labels)),
+        "fm_regressor": JFM.FMRegressor(maxIter=5, stepSize=0.01, factorSize=3).fit((x, y)),
+        "umap": JU.UMAP(nNeighbors=5, nEpochs=5, seed=1).fit(x),
+        "isotonic": JI.IsotonicRegression(featureIndex=3, isotonic=False).fit((x, y)),
+        "gbt_estimator": JG.GBTRegressor(maxDepth=4).setMaxIter(7),
+        "mlp_estimator": JM.MultilayerPerceptronClassifier(layers=[N, 2], solver="gd"),
+        "umap_estimator": JU.UMAP(nNeighbors=7),
+        "isotonic_estimator": JI.IsotonicRegression(isotonic=False, featureIndex=2),
+    }
+    paths = {key: tmp_path / key for key in refs}
+    for key, model in refs.items():
+        model.save(str(paths[key]))
+    proc = subprocess.run(
+        [sys.executable, "-c", BLOCKED_LOAD_ANY, json.dumps({k: str(v) for k, v in paths.items()})],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    for key, model in refs.items():
+        module = type(model).__module__.replace("spark_rapids_ml_tpu.", "spark_rapids_ml_tpu_torch.")
+        assert out[key]["class"] == f"{module}.{type(model).__name__}"
+        assert out[key]["uid"] == model.uid
+        assert out[key]["params"] == {k: model.getOrDefault(k) for k in model._paramMap}
+        want = model._saveData()
+        assert set(out[key]["arrays"]) == set(want)
+        for name, value in want.items():
+            np.testing.assert_array_equal(np.asarray(out[key]["arrays"][name]), value)
+    for key, model in refs.items():
+        if not model._saveData():
+            continue
+        port = Saveable.load(str(paths[key]), device="cpu")
+        port.save(str(tmp_path / f"port-{key}"))
+        arrays = jax_persistence.load_arrays(str(tmp_path / f"port-{key}"))
+        back = type(model)._fromSaved(None, arrays)
+        for name, value in model._saveData().items():
+            np.testing.assert_array_equal(np.asarray(back._saveData()[name]), value)
+
+
+def test_one_vs_rest_saves_cross(x, tmp_path):
+    """A JAX OneVsRest model (class models in ``class-<c>/``) and estimator
+    (template in ``classifier/``) load in the port with their class models
+    mapped; the port's saves load back in the port and their class arrays
+    read in the JAX package."""
+    from spark_rapids_ml_tpu.models import linear as JL
+    from spark_rapids_ml_tpu.models import ovr as JO
+    from spark_rapids_ml_tpu_torch import LogisticRegression, OneVsRest, OneVsRestModel
+
+    y = x @ np.linspace(-1, 1, N).astype(np.float32)
+    classes = np.digitize(y, np.quantile(y, [0.33, 0.66])).astype(np.float64)
+    ref = JO.OneVsRest(classifier=JL.LogisticRegression(regParam=0.1)).fit((x, classes))
+    ref.save(str(tmp_path / "model"))
+    JO.OneVsRest(classifier=JL.LogisticRegression(regParam=0.2)).save(str(tmp_path / "est"))
+    for loader in (Saveable.load, OneVsRestModel.load):
+        port = loader(str(tmp_path / "model"), device="cpu")
+        assert isinstance(port, OneVsRestModel) and port.uid == ref.uid
+        np.testing.assert_array_equal(port._predict_matrix(x), ref._predict_matrix(x))
+    est = OneVsRest.load(str(tmp_path / "est"), device="cpu")
+    assert isinstance(est.getClassifier(), LogisticRegression)
+    assert est.getClassifier().getRegParam() == 0.2
+    port.save(str(tmp_path / "port-model"))
+    again = Saveable.load(str(tmp_path / "port-model"), device="cpu")
+    np.testing.assert_array_equal(again._predict_matrix(x), port._predict_matrix(x))
+    for c, m in enumerate(ref.models):
+        arrays = jax_persistence.load_arrays(str(tmp_path / "port-model" / f"class-{c}"))
+        np.testing.assert_array_equal(arrays["coefficients"], m.coefficients)
+    est.save(str(tmp_path / "port-est"))
+    assert OneVsRest.load(str(tmp_path / "port-est"), device="cpu").getClassifier().uid == \
+        est.getClassifier().uid

@@ -841,3 +841,73 @@ def test_linear_servable_over_http(glm_models):
     finally:
         server_mod.stop_serving()
     _assert_close(out.reshape(-1), model.transform(x[:5]))
+
+
+def _fitted_unservable(kind: str):
+    """A small fitted model of a family with no serve contract."""
+    from spark_rapids_ml_tpu_torch import (
+        UMAP,
+        FMClassifier,
+        FMRegressor,
+        GBTClassifier,
+        GBTRegressor,
+        MultilayerPerceptronClassifier,
+    )
+
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(300, N)).astype(np.float32)
+    y = (x[:, 0] > 0).astype(np.float64)
+    if kind == "umap":
+        return UMAP(device=CPU, nNeighbors=5, nEpochs=5).fit(x)
+    est = {
+        "gbt_classifier": GBTClassifier(device=CPU, numTrees=3, maxDepth=3),
+        "gbt_regressor": GBTRegressor(device=CPU, numTrees=3, maxDepth=3),
+        "mlp": MultilayerPerceptronClassifier(device=CPU, layers=[N, 4, 2], maxIter=5),
+        "fm_classifier": FMClassifier(device=CPU, maxIter=5, stepSize=0.01),
+        "fm_regressor": FMRegressor(device=CPU, maxIter=5, stepSize=0.01),
+    }[kind]
+    return est.fit((x, y))
+
+
+@pytest.mark.parametrize("kind", ["gbt_classifier", "gbt_regressor", "mlp", "fm_classifier",
+                                  "fm_regressor", "umap"])
+def test_families_without_a_serve_contract_are_refused(kind):
+    """GBT, MLP, FM and UMAP models have no serve contract (neither has the
+    JAX registry one, though its forest duck-typing takes a
+    GBTClassificationModel and votes its residual leaves as class counts):
+    ``register`` raises TypeError and registers nothing."""
+    model = _fitted_unservable(kind)
+    reg = registry_mod.ModelRegistry(device="cpu")
+    with pytest.raises(TypeError, match="no serve contract"):
+        reg.register("m", model)
+    with pytest.raises(KeyError):
+        reg.get("m")
+
+
+def test_jax_registry_serves_gbt_through_the_forest_vote(monkeypatch):
+    """The reference fault the port does not copy: the JAX registry
+    duck-types a model with ``trees`` and ``proba_and_predictions`` as a
+    random forest, so it votes a GBTClassificationModel's leaves
+    ([count, Σr, Σr²], not class counts) per tree. On these 600 seeded rows
+    the eager model answers 31 zeros and 33 ones for the first 64; the JAX
+    registry answers 0 for 61 of them and 2, no class at all, for 3 (47%
+    agreement). The port's registry refuses the model instead
+    (``test_families_without_a_serve_contract_are_refused``)."""
+    from spark_rapids_ml_tpu.models.gbt import GBTClassifier as JaxGBTClassifier
+
+    monkeypatch.setenv("TPU_ML_SERVE_MAX_BATCH_ROWS", "64")
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(600, 6)).astype(np.float32)
+    y = ((x[:, 0] + 0.5 * x[:, 1] * x[:, 2]) > 0).astype(np.float64)
+    model = JaxGBTClassifier().setMaxIter(5).setMaxDepth(3).setSeed(2).fit((x, y))
+    eager = model._predict_matrix(x[:64])
+    reg = jregistry.get_registry()
+    reg.register("gbt", model, bucket_list=LADDER)
+    served = np.asarray(reg.predict("gbt", x[:64])).reshape(-1)
+    assert (int((eager == 0).sum()), int((eager == 1).sum())) == (31, 33)
+    assert np.mean(served == eager) < 0.5 and not set(np.unique(served)) <= {0.0, 1.0}
+    from spark_rapids_ml_tpu_torch.convert import model_from_arrays
+
+    port = model_from_arrays("GBTClassificationModel", model._saveData(), device="cpu")
+    with pytest.raises(TypeError, match="no serve contract"):
+        registry_mod.ModelRegistry(device="cpu").register("gbt", port)
