@@ -165,7 +165,30 @@ Phases, each a plain function that the CPU tests also call at a tiny size:
    vote printed, and whether two same-seed layouts are bit-equal (with
    and without torch's deterministic algorithms); (e)
    OneVsRest(LogisticRegression()) on the same rows, every held-out
-   prediction the f64 argmax of the class models' scores up to near ties.
+   prediction the f64 argmax of the class models' scores up to near ties;
+18. model selection and recovery (no new kernel), in three places: (d),
+   after phase 14 (d), phase 4's resident fit with one task failing once
+   (retried: fused_gram_moments still 8 launches) and one hanging past
+   TPU_ML_HEDGE_FLOOR_S (hedged once: 9 launches), pc bit-equal to the clean
+   fit's; (c), before phase 8's data is freed, its streamed fold under fault
+   plans (a preemption and a resume from checkpoints every 16 chunks,
+   transient faults at ingest.chunk and fold.dispatch, a device OOM that
+   bisects to 32,768-row chunks, a hang of fold.wait inside its bound and
+   one past it), each held to one clean run (bit-equal, or the f64 oracle
+   and explainedVariance within 1e-4 after a bisection) with the kernel's
+   launches and the recovery counters; (a), (b), (e), after phase 17:
+   Tokenizer → HashingTF(2^13) → IDF over a 20 Newsgroups-shaped corpus
+   (18,846 documents, 20 classes, 280 tokens, a 50,000-term Zipf
+   vocabulary) and CrossValidator over multinomial NaiveBayes's smoothing
+   (TF against hashlib + Counter, IDF against numpy, fold predictions
+   against f64 fits but for near ties); UCI Adult's schema at 1,000,000
+   rows through 8 StringIndexers, 8 OneHotEncoders and a VectorAssembler
+   (100 columns, against numpy's one-hot), CrossValidator over
+   LogisticRegression (AUC) and TrainValidationSplit over LinearRegression
+   (RMSE, the FISTA path), each candidate within 1e-4 of f64 fits, then
+   IndexToString; and the device policy: a bounded probe, the health
+   monitor's subprocess probe, and a device.init fault read by its
+   transport component.
 
 Each main path reads the kernels' launch counts from 0 around exactly its
 fit. The last lines are one JSON object with every kernel's numbers, the
@@ -175,9 +198,11 @@ script exits nonzero and prints no result. Every failed check raises.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import functools
+import hashlib
 import http.client
 import json
 import os
@@ -195,12 +220,15 @@ import numpy as np
 import torch
 
 from spark_rapids_ml_tpu_torch import (
-    DBSCAN, PCA, UMAP, ApproximateNearestNeighbors, DecisionTreeClassifier, FMClassifier,
-    FMRegressor, GBTClassifier, GBTRegressor, IncrementalKMeans, IncrementalLinearRegression,
-    IncrementalPCA, KMeans, LinearRegression, LinearSVC, LogisticRegression,
-    MultilayerPerceptronClassifier, NaiveBayes, NaiveBayesModel, NearestNeighbors, Normalizer,
-    OneVsRest, Pipeline, RandomForestClassifier, RandomForestRegressor, StandardScaler,
-    TruncatedSVD,
+    DBSCAN, IDF, PCA, UMAP, ApproximateNearestNeighbors, BinaryClassificationEvaluator,
+    CrossValidator, DecisionTreeClassifier, FMClassifier, FMRegressor, GBTClassifier,
+    GBTRegressor, HashingTF, IncrementalKMeans, IncrementalLinearRegression, IncrementalPCA,
+    IndexToString, KMeans, LinearRegression, LinearSVC, LogisticRegression,
+    MulticlassClassificationEvaluator, MultilayerPerceptronClassifier, NaiveBayes,
+    NaiveBayesModel, NearestNeighbors, Normalizer, OneHotEncoder, OneVsRest, ParamGridBuilder,
+    Pipeline, RandomForestClassifier, RandomForestRegressor, RegressionEvaluator,
+    StandardScaler, StringIndexer, Tokenizer, TrainValidationSplit, TruncatedSVD,
+    VectorAssembler,
 )
 from spark_rapids_ml_tpu_torch.ann.serving import unpack_query_result
 from spark_rapids_ml_tpu_torch.ops import _build
@@ -221,6 +249,8 @@ from spark_rapids_ml_tpu_torch.ops import umap as UMO
 from spark_rapids_ml_tpu_torch.autotune import cache as tuning_cache
 from spark_rapids_ml_tpu_torch.autotune.policy import TuningConfig, resolve_policy
 from spark_rapids_ml_tpu_torch.parallel.tree_aggregate import tree_reduce
+from spark_rapids_ml_tpu_torch.resilience import faults
+from spark_rapids_ml_tpu_torch.resilience.retry import FoldHangTimeout
 from spark_rapids_ml_tpu_torch.serving import buckets as B
 from spark_rapids_ml_tpu_torch.serving import client as serve_client
 from spark_rapids_ml_tpu_torch.serving import fastlane as FL
@@ -232,7 +262,7 @@ from spark_rapids_ml_tpu_torch.spark import ingest
 from spark_rapids_ml_tpu_torch.telemetry import health, httpd, slo
 from spark_rapids_ml_tpu_torch.telemetry.registry import REGISTRY
 from spark_rapids_ml_tpu_torch.telemetry.timeline import TIMELINE
-from spark_rapids_ml_tpu_torch.utils import columnar
+from spark_rapids_ml_tpu_torch.utils import columnar, devicepolicy
 from spark_rapids_ml_tpu_torch.utils.checkpoint import TrainingCheckpointer
 from spark_rapids_ml_tpu_torch.utils.device import block_rows_for, to_device
 
@@ -246,6 +276,7 @@ MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS = 500_000, 512, 50, 8
 STREAM_ROWS, STREAM_PARTITIONS = 10_000_000, 20
 STREAM_SHAPE = (65_536, 512)
 STREAM_TAIL_SHAPE = (STREAM_ROWS % 65_536, 512)
+STREAM_BISECTED_SHAPE = (65_536 // 2, 512)  # phase 18 (c)'s chunks after an OOM bisection
 STREAM_PEAK_BYTES = 1 << 30  # O(chunk + n²) device memory for 20.5 GB of input
 TIMED_LAUNCHES = 20
 COSINE_BAR = 0.9999
@@ -297,7 +328,8 @@ FUNCTIONS = {
 # the shape each kernel's main path gives it comes first
 _FUSED_SHAPES = (MAIN_SHAPE, (131_072, 2_048), (65_536, 129), (1_000, 300))
 _SYMMETRIC_SHAPES = (
-    STREAM_SHAPE, STREAM_TAIL_SHAPE, (131_072, 2_048), (65_536, 129), (1_000, 300),
+    STREAM_SHAPE, STREAM_TAIL_SHAPE, STREAM_BISECTED_SHAPE, (131_072, 2_048), (65_536, 129),
+    (1_000, 300),
 )
 KERNEL_SHAPES = {
     name: _SYMMETRIC_SHAPES if name in SYMMETRIC else _FUSED_SHAPES for name in KERNELS
@@ -4535,6 +4567,658 @@ def phase_families(device: torch.device, higgs: tuple, *, higgs_test_rows: int =
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: model selection and recovery
+# ---------------------------------------------------------------------------
+
+NEWS_DOCS = 18_846        # 20 Newsgroups: 18,846 documents in 20 classes
+NEWS_CLASSES = 20
+NEWS_TOKENS = 280         # about 280 tokens a document
+NEWS_VOCAB = 50_000       # a Zipf vocabulary of 50,000 terms
+NEWS_ZIPF = 1.07
+NEWS_CLASS_TERMS = 300    # each class weighs 300 terms of its own 20x
+NEWS_CLASS_BOOST = 20.0
+NEWS_FEATURES = 1 << 13   # Spark's default is 2^18; the dense layer refuses it (PERF.md §4)
+NEWS_SMOOTHING = (0.01, 0.1, 1.0)
+TUNING_FOLDS = 3
+TUNING_SEED = 59
+ADULT_ROWS = 1_000_000    # UCI Adult's 48,842 rows scaled up (PERF.md §4)
+# adult.names: the 8 string columns at their published cardinalities, where
+# "?" is a category of workclass, occupation and native-country
+ADULT_CATEGORIES = {"workclass": 9, "education": 16, "marital-status": 7, "occupation": 15,
+                    "relationship": 6, "race": 5, "sex": 2, "native-country": 42}
+ADULT_QUESTION = ("workclass", "occupation", "native-country")
+ADULT_NUMERIC = ("age", "fnlwgt", "education-num", "capital-gain", "capital-loss",
+                 "hours-per-week")
+ADULT_POSITIVE_SHARE = 0.24
+ADULT_LABELS = ("<=50K", ">50K")
+ADULT_LOGREG_GRID = (0.0, 0.01, 0.1)
+ADULT_LINREG_GRID = tuple((r, a) for r in (0.001, 0.1) for a in (0.0, 0.5))
+ADULT_TRAIN_RATIO = 0.75
+TUNING_METRIC_TOL = 1e-4  # AUC absolute, RMSE relative, against the f64 fits
+TUNING_GAP = 1e-3         # bestIndex is gated where the f64 best-to-second gap exceeds it
+RECOVERY_CHECKPOINT_EVERY = 16
+RECOVERY_PREEMPT_AT = 100
+RECOVERY_OOM_AT = 50
+RECOVERY_IO_AT = (30, 60)  # ingest.chunk, fold.dispatch
+RECOVERY_EV_RTOL = 1e-4   # PERF.md §2: the f32 gate of explainedVariance
+RESIDENT_RETRY_AT = 3
+RESIDENT_HANG_AT, RESIDENT_HANG_S, RESIDENT_HEDGE_FLOOR_S = 5, 2.0, 0.5
+
+
+class ColumnFrame:
+    """A frame of named numpy columns: the column protocol of
+    ``utils/columnar.py`` (``columns``, ``assign``, ``frame[name]`` with
+    ``to_numpy``/``iloc``/``len``, ``frame.iloc[rows]``), which the card's
+    machine, without pandas, needs for the feature stages and model
+    selection. A matrix column stays one [rows, n] array."""
+
+    def __init__(self, columns: dict):
+        self._cols = dict(columns)
+
+    @property
+    def columns(self) -> list:
+        return list(self._cols)
+
+    def __len__(self) -> int:
+        return len(next(iter(self._cols.values())))
+
+    def __getitem__(self, name: str) -> "_FrameColumn":
+        return _FrameColumn(self._cols[name])
+
+    def assign(self, **new) -> "ColumnFrame":
+        return ColumnFrame({**self._cols, **{k: _column_array(v) for k, v in new.items()}})
+
+    @property
+    def iloc(self) -> "_FrameRows":
+        return _FrameRows(self._cols)
+
+
+class _FrameRows:
+    def __init__(self, cols: dict):
+        self._cols = cols
+
+    def __getitem__(self, idx) -> ColumnFrame:
+        return ColumnFrame({k: v[idx] for k, v in self._cols.items()})
+
+
+class _FrameColumn:
+    def __init__(self, values: np.ndarray):
+        self._values = values
+        self.iloc = values
+
+    def to_numpy(self) -> np.ndarray:
+        return self._values
+
+    def __len__(self) -> int:
+        return len(self._values)
+
+
+def _column_array(values) -> np.ndarray:
+    """A column's values as one array: per-row numeric arrays stacked into
+    a matrix, other lists (token lists) kept per row."""
+    if isinstance(values, list):
+        if values and isinstance(values[0], np.ndarray) and values[0].dtype != object:
+            try:
+                return np.stack(values)
+            except ValueError:
+                pass
+        out = np.empty(len(values), dtype=object)
+        for i, v in enumerate(values):
+            out[i] = v
+        return out
+    return np.asarray(values)
+
+
+def _md5_bucket(term: str, buckets: int) -> int:
+    return int.from_bytes(hashlib.md5(term.encode("utf-8")).digest()[:8], "little") % buckets
+
+
+def news_workload(docs: int, classes: int, tokens: int, vocab: int, seed: int = TUNING_SEED):
+    """(documents, labels): 20 Newsgroups' sizes and shape, not its text: a
+    seeded Zipf vocabulary (exponent 1.07) of ``vocab`` terms, each class
+    weighing 300 terms of its own 20 times more, Poisson(``tokens``)
+    tokens a document, a uniform class per document."""
+    rng = np.random.default_rng(seed)
+    weights = np.tile(1.0 / np.arange(1, vocab + 1) ** NEWS_ZIPF, (classes, 1))
+    for c in range(classes):
+        boosted = rng.choice(vocab, size=min(NEWS_CLASS_TERMS, vocab), replace=False)
+        weights[c, boosted] *= NEWS_CLASS_BOOST
+    cdf = np.cumsum(weights, axis=1)
+    cdf /= cdf[:, -1:]
+    words = np.array([f"w{i}" for i in range(vocab)], dtype=object)
+    labels = rng.integers(0, classes, size=docs)
+    lengths = np.maximum(rng.poisson(tokens, size=docs), 1)
+    texts = np.empty(docs, dtype=object)
+    for d in range(docs):
+        ids = np.minimum(np.searchsorted(cdf[labels[d]], rng.random(lengths[d])), vocab - 1)
+        texts[d] = " ".join(words[ids])
+    return texts, labels.astype(np.float64), words
+
+
+def _nb_f64_model(x: np.ndarray, y: np.ndarray, classes: int, smoothing: float,
+                  device: torch.device) -> NaiveBayesModel:
+    """The multinomial model of f64 statistics on ``device`` (phase 16's)."""
+    c64, s64, _ = _nb_f64_stats(x, y, classes, device)
+    pi64 = torch.log(c64 + smoothing) - torch.log(c64.sum() + smoothing * classes)
+    theta64 = torch.log(s64 + smoothing) - torch.log(
+        s64.sum(1, keepdim=True) + smoothing * x.shape[1])
+    model = NaiveBayesModel(pi=pi64.cpu().numpy(), theta=theta64.cpu().numpy(), device=device)
+    return model._set(modelType="multinomial")
+
+
+def _folds(rows: int, folds: int, seed: int) -> list[tuple[np.ndarray, np.ndarray]]:
+    """(train, validation) rows of each fold, as CrossValidator draws them."""
+    parts = np.array_split(np.random.default_rng(seed).permutation(rows), folds)
+    return [(np.concatenate([parts[i] for i in range(folds) if i != f]), parts[f])
+            for f in range(folds)]
+
+
+def _best_gap(metrics, larger_better: bool) -> float:
+    s = sorted(metrics, reverse=larger_better)
+    return abs(s[0] - s[1]) if len(s) > 1 else float("inf")
+
+
+def phase_text_selection(device: torch.device, *, docs: int = NEWS_DOCS,
+                         classes: int = NEWS_CLASSES, tokens: int = NEWS_TOKENS,
+                         vocab: int = NEWS_VOCAB, features: int = NEWS_FEATURES,
+                         folds: int = TUNING_FOLDS, seed: int = TUNING_SEED) -> dict:
+    """(a) Tokenizer → HashingTF → IDF on a 20 Newsgroups-shaped corpus, then
+    CrossValidator over multinomial NaiveBayes's smoothing. Gates: the TF
+    matrix is an independent hashlib + Counter construction; IDF is numpy's
+    f64 formula; every candidate's fold predictions are the f64 fit's but
+    for near ties (phase 16's rule), so avgMetrics agree within the near-tie
+    share; bestIndex is the f64 run's."""
+    t0 = time.perf_counter()
+    texts, labels, words = news_workload(docs, classes, tokens, vocab, seed)
+    frame = ColumnFrame({"text": texts, "label": labels})
+    make_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tokenized = Tokenizer().setInputCol("text").setOutputCol("words").transform(frame)
+    tf_frame = HashingTF(numFeatures=features).setInputCol("words").setOutputCol(
+        "tf").transform(tokenized)
+    tf_s = time.perf_counter() - t0
+    tf = columnar.extract_matrix(tf_frame, "tf")
+    t0 = time.perf_counter()
+    bucket_of = {w: _md5_bucket(w, features) for w in words}
+    expected = np.zeros((docs, features))
+    for i, text in enumerate(texts):
+        for term, count in collections.Counter(text.lower().split()).items():
+            expected[i, bucket_of[term]] += count
+    reference_s = time.perf_counter() - t0
+    tf_mismatches = int((tf != expected).sum())
+    del expected
+    t0 = time.perf_counter()
+    idf_model = IDF().setInputCol("tf").setOutputCol("features").fit(tf_frame)
+    x = columnar.extract_matrix(idf_model.transform(tf_frame), "features")
+    idf_s = time.perf_counter() - t0
+    df = (tf > 0).sum(axis=0).astype(np.float64)
+    idf_equal = bool(np.array_equal(idf_model.idf, np.log((docs + 1.0) / (df + 1.0))))
+    del tf, tf_frame, tokenized
+
+    grid = ParamGridBuilder().addGrid("smoothing", list(NEWS_SMOOTHING)).build()
+    data = ColumnFrame({"features": x, "label": labels})
+    _sync(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    cvm = CrossValidator(
+        estimator=NaiveBayes(device=device, modelType="multinomial"),
+        estimatorParamMaps=grid,
+        evaluator=MulticlassClassificationEvaluator(metricName="accuracy"),
+        numFolds=folds, seed=seed, collectSubModels=True,
+    ).fit(data)
+    _sync(device)
+    cv_s = time.perf_counter() - t0
+    launches = read_launches()
+    acc64 = np.zeros((len(grid), folds))
+    near_share = np.zeros((len(grid), folds))
+    beyond = mismatches = 0
+    for f, (train, val) in enumerate(_folds(docs, folds, seed)):
+        for c, params in enumerate(grid):
+            ref = _nb_f64_model(x[train], labels[train], classes, params["smoothing"], device)
+            raw64 = ref._raw_scores(x[val])
+            raw = cvm.subModels[f][c]._raw_scores(x[val])
+            top2 = np.sort(raw64, axis=1)[:, -2:]
+            near = (top2[:, 1] - top2[:, 0]) <= 2.0 * np.abs(raw - raw64).max(axis=1)
+            off = np.argmax(raw, axis=1) != np.argmax(raw64, axis=1)
+            mismatches += int(off.sum())
+            beyond += int((off & ~near).sum())
+            near_share[c, f] = near.mean()
+            acc64[c, f] = float(np.mean(np.argmax(raw64, axis=1) == labels[val]))
+    avg64 = acc64.mean(axis=1)
+    metric_gap = np.abs(np.asarray(cvm.avgMetrics) - avg64)
+    result = {
+        "docs": docs, "classes": classes, "vocab": vocab, "num_features": features,
+        "tokens": int(sum(len(t.split()) for t in texts)), "make_s": make_s,
+        "tokenize_hash_s": tf_s, "reference_tf_s": reference_s, "idf_s": idf_s, "cv_s": cv_s,
+        "tf_mismatches_vs_hashlib_counter": tf_mismatches, "idf_equals_numpy_f64": idf_equal,
+        "avg_metrics": list(cvm.avgMetrics), "avg_metrics_f64": avg64.tolist(),
+        "near_tie_share": near_share.mean(axis=1).tolist(),
+        "prediction_mismatches": mismatches, "mismatches_beyond_near_ties": beyond,
+        "best_index": cvm.bestIndex, "best_index_f64": int(np.argmax(avg64)),
+        "launches": launches,
+    }
+    print(f"selection (a) text: {json.dumps(result)}", flush=True)
+    if tf_mismatches:
+        raise AssertionError(f"HashingTF differs from hashlib + Counter in {tf_mismatches} cells")
+    if not idf_equal:
+        raise AssertionError("IDF is not numpy's f64 log((m + 1) / (df + 1))")
+    if beyond:
+        raise AssertionError(f"{beyond} fold predictions off the f64 fits' beyond near ties")
+    if not np.all(metric_gap <= near_share.mean(axis=1) + 1e-12):
+        raise AssertionError(f"avgMetrics {cvm.avgMetrics} off f64 {avg64} beyond near ties")
+    if cvm.bestIndex != result["best_index_f64"]:
+        raise AssertionError(f"bestIndex {cvm.bestIndex}, the f64 run's {result['best_index_f64']}")
+    if launches != expected_launches():
+        raise AssertionError(f"the text search launched Gram kernels: {launches}")
+    return result
+
+
+def adult_workload(rows: int, seed: int = TUNING_SEED) -> ColumnFrame:
+    """UCI Adult's schema (adult.names) at ``rows`` seeded rows: 6 integer
+    numeric columns at Adult's scales, 8 string columns at their published
+    cardinalities (Dirichlet-skewed frequencies, each at least half its
+    uniform share), the income label with
+    about 24% ">50K" from a seeded linear score plus logistic noise, and
+    hours-per-week depending on the other columns."""
+    rng = np.random.default_rng(seed)
+    cols: dict = {}
+    effects = np.zeros(rows)
+    hours_effect = np.zeros(rows)
+    for name, k in ADULT_CATEGORIES.items():
+        names = [f"{name}-{i}" for i in range(k - (name in ADULT_QUESTION))]
+        names += ["?"] if name in ADULT_QUESTION else []
+        # skewed, with every category at least half its uniform share
+        codes = rng.choice(k, size=rows, p=0.5 * rng.dirichlet(np.full(k, 0.7)) + 0.5 / k)
+        cols[name] = np.array(names, dtype=object)[codes]
+        effects += rng.normal(0.0, 0.6, size=k)[codes]
+        hours_effect += rng.normal(0.0, 2.0, size=k)[codes]
+    age = np.clip(np.round(rng.normal(38.6, 13.6, rows)), 17, 90)
+    edu = rng.integers(1, 17, size=rows).astype(np.float64)
+    gain = np.where(rng.random(rows) < 0.083, np.round(np.exp(rng.normal(8.5, 1.0, rows))), 0.0)
+    loss = np.where(rng.random(rows) < 0.047, np.round(rng.normal(1870.0, 360.0, rows)), 0.0)
+    numeric = {
+        "age": age,
+        "fnlwgt": np.round(np.exp(rng.normal(12.0, 0.5, rows))),
+        "education-num": edu,
+        "capital-gain": np.minimum(gain, 99999.0),
+        "capital-loss": np.maximum(loss, 0.0),
+        "hours-per-week": np.clip(np.round(40.0 + 0.08 * (age - 38.6) + hours_effect
+                                           + rng.normal(0.0, 10.0, rows)), 1, 99),
+    }
+    score = (effects + 0.04 * (age - 38.6) + 0.3 * (edu - 10.0) + 2e-4 * numeric["capital-gain"]
+             + 0.02 * (numeric["hours-per-week"] - 40.0) + rng.logistic(size=rows))
+    positive = score > np.quantile(score, 1.0 - ADULT_POSITIVE_SHARE)
+    cols.update(numeric)
+    cols["income"] = np.array(ADULT_LABELS, dtype=object)[positive.astype(int)]
+    return ColumnFrame(cols)
+
+
+def _one_hot_numpy(values: np.ndarray) -> np.ndarray:
+    """StringIndexer's frequencyDesc order (ties alphabetical) and
+    OneHotEncoder's dropLast one-hot, built straight in numpy."""
+    uniq, inverse, counts = np.unique(values.astype(str), return_inverse=True,
+                                      return_counts=True)
+    order = np.lexsort((uniq, -counts))
+    rank = np.empty(len(uniq), dtype=np.int64)
+    rank[order] = np.arange(len(uniq))
+    return np.eye(len(uniq))[rank[inverse]][:, :-1]
+
+
+def _auc(y: np.ndarray, scores: np.ndarray) -> float:
+    return BinaryClassificationEvaluator().evaluate((None, y), predictions=scores)
+
+
+def phase_adult_selection(device: torch.device, *, rows: int = ADULT_ROWS,
+                          folds: int = TUNING_FOLDS, seed: int = TUNING_SEED) -> dict:
+    """(b) Adult's raw columns through a Pipeline of 8 StringIndexers, 8
+    OneHotEncoders (dropLast), a VectorAssembler (100 columns) and a
+    StandardScaler (withMean, withStd: what Spark's LogisticRegression does
+    inside by default; on Adult's raw scales neither package's f32 Newton
+    converges, PERF.md §6), then
+    CrossValidator(LogisticRegression, areaUnderROC) and
+    TrainValidationSplit(LinearRegression, rmse) predicting hours-per-week
+    from the rest (the FISTA path where elasticNetParam > 0), both on the
+    card, and IndexToString back to the income labels. Gates: the one-hot
+    matrix is numpy's; each candidate's AUC (absolute) and RMSE (relative)
+    within 1e-4 of f64 fits of the same folds; bestIndex the f64 run's
+    wherever the f64 best-to-second gap exceeds 1e-3."""
+    t0 = time.perf_counter()
+    frame = adult_workload(rows, seed)
+    make_s = time.perf_counter() - t0
+    cats = list(ADULT_CATEGORIES)
+    stages = ([StringIndexer().setInputCol(c).setOutputCol(f"{c}_idx") for c in cats]
+              + [OneHotEncoder().setInputCol(f"{c}_idx").setOutputCol(f"{c}_vec") for c in cats]
+              + [VectorAssembler().setInputCols(list(ADULT_NUMERIC) + [f"{c}_vec" for c in cats])
+                 .setOutputCol("assembled"),
+                 StandardScaler(device=device, withMean=True, withStd=True)
+                 .setInputCol("assembled").setOutputCol("features")])
+    t0 = time.perf_counter()
+    features = Pipeline(stages=stages).fit(frame).transform(frame)
+    label_indexer = StringIndexer().setInputCol("income").setOutputCol("label").fit(frame)
+    labelled = label_indexer.transform(features)
+    features_s = time.perf_counter() - t0
+    assembled = columnar.extract_matrix(labelled, "assembled")
+    x = columnar.extract_matrix(labelled, "features")
+    y = columnar.extract_vector(labelled, "label")
+    expected = np.concatenate([np.stack([frame[c].to_numpy() for c in ADULT_NUMERIC], 1)]
+                              + [_one_hot_numpy(frame[c].to_numpy()) for c in cats], axis=1)
+    one_hot_mismatches = (int((assembled != expected).sum())
+                          if assembled.shape == expected.shape else -1)
+    del expected, features
+
+    # CrossValidator over LogisticRegression's regParam, ranked by AUC
+    grid = [{"regParam": r} for r in ADULT_LOGREG_GRID]
+    _sync(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    cvm = CrossValidator(estimator=LogisticRegression(device=device), estimatorParamMaps=grid,
+                         evaluator=BinaryClassificationEvaluator(), numFolds=folds, seed=seed,
+                         collectSubModels=True).fit(ColumnFrame({"features": x, "label": y}))
+    _sync(device)
+    cv_s = time.perf_counter() - t0
+    cv_launches = read_launches()
+    auc = np.zeros((len(grid), folds))
+    auc64 = np.zeros((len(grid), folds))
+    for f, (train, val) in enumerate(_folds(rows, folds, seed)):
+        xd = to_device(x[train], device)
+        yd = torch.from_numpy(y[train]).to(device).double()
+        xv = torch.from_numpy(x[val]).to(device).double()
+        for c, params in enumerate(grid):
+            w64, _, _ = newton_oracle_f64(xd, yd, params["regParam"])
+            p64 = torch.sigmoid(xv @ w64[:-1] + w64[-1]).cpu().numpy()
+            auc64[c, f] = _auc(y[val], p64)
+            auc[c, f] = _auc(y[val], cvm.subModels[f][c].predict_proba_matrix(x[val]))
+        del xd, yd, xv
+    avg64 = auc64.mean(axis=1)
+    auc_err = float(max(np.abs(auc - auc64).max(), np.abs(np.asarray(cvm.avgMetrics) - avg64).max()))
+    cv_gap = _best_gap(avg64, True)
+
+    # TrainValidationSplit over LinearRegression, hours-per-week from the rest
+    hours_col = ADULT_NUMERIC.index("hours-per-week")
+    xh = np.delete(x, hours_col, axis=1)
+    hours = assembled[:, hours_col].astype(np.float64)
+    tvs_grid = [{"regParam": r, "elasticNetParam": a} for r, a in ADULT_LINREG_GRID]
+    est = LinearRegression(device=device)
+    _sync(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    tvsm = TrainValidationSplit(estimator=est, estimatorParamMaps=tvs_grid,
+                                evaluator=RegressionEvaluator(), trainRatio=ADULT_TRAIN_RATIO,
+                                seed=seed).fit(ColumnFrame({"features": xh, "label": hours}))
+    _sync(device)
+    tvs_s = time.perf_counter() - t0
+    tvs_launches = read_launches()
+    idx = np.random.default_rng(seed).permutation(rows)
+    cut = int(rows * ADULT_TRAIN_RATIO)
+    stats64, _ = linear_stats_f64(xh[idx[:cut]], hours[idx[:cut]], None, device)
+    xv = torch.from_numpy(xh[idx[cut:]]).to(device).double()
+    rmse64 = []
+    for params in tvs_grid:
+        coef, b0 = LIN.solve_from_stats(
+            stats64, reg_param=params["regParam"], elastic_net_param=params["elasticNetParam"],
+            max_iter=est.getOrDefault("maxIter"), tol=est.getOrDefault("tol"))
+        pred = (xv @ coef + b0).cpu().numpy()
+        rmse64.append(float(np.sqrt(np.mean((pred - hours[idx[cut:]]) ** 2))))
+    del xv
+    rmse_err = float(np.max(np.abs(np.asarray(tvsm.validationMetrics) / rmse64 - 1.0)))
+    tvs_gap = _best_gap(rmse64, False)
+
+    # the best model's predictions back to the income labels
+    preds = cvm.bestModel.transform(ColumnFrame({"features": x, "label": y}))
+    names = IndexToString().setInputCol("prediction").setOutputCol("predicted_income").setLabels(
+        label_indexer.labels).transform(preds)["predicted_income"].to_numpy()
+    pred_idx = preds["prediction"].to_numpy().astype(int)
+    labels_ok = bool(np.array_equal(names, np.asarray(label_indexer.labels, dtype=object)[pred_idx]))
+    result = {
+        "rows": rows, "columns": int(x.shape[1]), "make_s": make_s, "features_s": features_s,
+        "positive_share": float(y.mean()), "label_order": list(label_indexer.labels),
+        "one_hot_mismatches_vs_numpy": one_hot_mismatches,
+        "cv": {"avg_auc": list(cvm.avgMetrics), "avg_auc_f64": avg64.tolist(),
+               "max_auc_err_vs_f64": auc_err, "best_index": cvm.bestIndex,
+               "best_index_f64": int(np.argmax(avg64)), "f64_best_gap": cv_gap,
+               "s": cv_s, "launches": cv_launches},
+        "tvs": {"rmse": list(tvsm.validationMetrics), "rmse_f64": rmse64,
+                "max_rmse_rel_err_vs_f64": rmse_err, "best_index": tvsm.bestIndex,
+                "best_index_f64": int(np.argmin(rmse64)), "f64_best_gap": tvs_gap,
+                "s": tvs_s, "launches": tvs_launches},
+        "index_to_string_equal": labels_ok,
+        "held_out_style_accuracy": float(np.mean(pred_idx == y)),
+    }
+    print(f"selection (b) tabular: {json.dumps(result)}", flush=True)
+    if x.shape[1] != 100 or one_hot_mismatches:
+        raise AssertionError(f"features {x.shape} differ from numpy's one-hot ({one_hot_mismatches})")
+    if not auc_err <= TUNING_METRIC_TOL:
+        raise AssertionError(f"AUC {auc_err} off the f64 fits")
+    if not rmse_err <= TUNING_METRIC_TOL:
+        raise AssertionError(f"RMSE {rmse_err} off the f64 fits (relative)")
+    if cv_gap > TUNING_GAP and cvm.bestIndex != int(np.argmax(avg64)):
+        raise AssertionError(f"CV bestIndex {cvm.bestIndex}, the f64 run's {np.argmax(avg64)}")
+    if tvs_gap > TUNING_GAP and tvsm.bestIndex != int(np.argmin(rmse64)):
+        raise AssertionError(f"TVS bestIndex {tvsm.bestIndex}, the f64 run's {np.argmin(rmse64)}")
+    if not labels_ok:
+        raise AssertionError("IndexToString did not map the predictions to their labels")
+    return result
+
+
+def _fault_run(plan: str | None, fn, **env):
+    """``fn()`` under a fault plan (and ``env``), from fresh site counts:
+    (result or the exception it raised, registry delta, kernel launches,
+    seconds)."""
+    faults.reset_faults()
+    s0 = REGISTRY.snapshot()
+    reset_launches()
+    t0 = time.perf_counter()
+    with _env(TPU_ML_FAULT_PLAN=plan, **env):
+        try:
+            out = fn()
+        except (faults.FaultInjected, FoldHangTimeout) as e:
+            out = e
+    seconds = time.perf_counter() - t0
+    faults.reset_faults()
+    return out, REGISTRY.snapshot().delta(s0), read_launches(), seconds
+
+
+def _carry_equal(a, b) -> bool:
+    return all(torch.equal(p, q) for p, q in zip(a, b))
+
+
+def phase_recovery_streamed(data, device: torch.device, *, k: int = MAIN_K,
+                            chunk_rows: int | None = None,
+                            checkpoint_every: int = RECOVERY_CHECKPOINT_EVERY,
+                            preempt_at: int = RECOVERY_PREEMPT_AT, oom_at: int = RECOVERY_OOM_AT,
+                            io_at: tuple = RECOVERY_IO_AT) -> dict:
+    """(c) Config 2's streamed fold at "high" through symmetric_gram_moments
+    under fault plans, each run against one clean run of this phase:
+    (i) a preemption, then a resume from the checkpoints; (ii) transient
+    faults at ingest.chunk and fold.dispatch; (iii) an OOM that bisects;
+    (iv) a short hang of fold.wait inside its bound; (v) a long one past it,
+    which must raise FoldHangTimeout. ``data`` is phase 8's (x, f64 Gram);
+    its chunk-sized views are the re-iterable source."""
+    x, gram64 = data
+    n = x.shape[1]
+    chunk = chunk_rows or ingest.stream_chunk_rows()
+    chunks = -(-len(x) // chunk)
+    # the source: one item a chunk (views of x), so that the ingest.chunk
+    # site counts as many occurrences as the fold has chunks
+    parts = [x[a:a + chunk] for a in range(0, len(x), chunk)]
+    cuda = device.type == "cuda"
+
+    def fold(**kw):
+        res = ingest.stream_fold(iter(parts), L.gram_fold_step("high"), n=n,
+                                 init=L.init_gram_carry(n, device), device=device,
+                                 chunk_rows=chunk, **kw)
+        _sync(device)
+        return res
+
+    def pca(res):
+        cov = L.covariance_from_stats(res.carry, mean_centering=False)
+        pc, ev = L.pca_fit_from_cov(cov, k, solver="full")
+        return pc.cpu().numpy(), ev.cpu().numpy()
+
+    def launched(count: int) -> dict:
+        return expected_launches(symmetric_gram_moments=count if cuda else 0)
+
+    runs, failures = {}, []
+
+    def check(cond: bool, what: str) -> None:
+        if not cond:
+            failures.append(what)
+
+    clean, _, launches, secs = _fault_run(None, fold)
+    clean_pc, clean_ev = pca(clean)
+    runs["clean"] = {"s": secs, "chunks": clean.chunks, "launches": launches}
+    check(launches == launched(chunks) and clean.chunks == chunks, "clean launches")
+
+    with tempfile.TemporaryDirectory(prefix="stream-ckpt-") as ckdir:
+        ckpt = TrainingCheckpointer(ckdir)
+        kw = {"checkpointer": ckpt, "checkpoint_every": checkpoint_every}
+        err, d1, l1, s1 = _fault_run(f"fold.dispatch:preempt:{preempt_at}", lambda: fold(**kw))
+        res, d2, l2, s2 = _fault_run(None, lambda: fold(**kw))
+    pc, ev = pca(res)
+    runs["(i) preempt, resume"] = {
+        "preempted": type(err).__name__, "checkpoints": d1.counter("stream.checkpoints"),
+        "resumes": d2.counter("stream.resumes"), "resumed": res.resumed,
+        "launches": [l1, l2], "s": [s1, s2],
+        "carry_bit_equal": _carry_equal(res.carry, clean.carry),
+        "pc_bit_equal": bool(np.array_equal(pc, clean_pc)),
+    }
+    saved = (preempt_at - 1) // checkpoint_every
+    check(isinstance(err, faults.InjectedPreemption), "(i) preemption raised")
+    check(d1.counter("stream.checkpoints") == saved and d2.counter("stream.resumes") == 1
+          and res.resumed, "(i) checkpoints and resume")
+    check(l1 == launched(preempt_at - 1) and l2 == launched(chunks - saved * checkpoint_every),
+          "(i) launches")
+    check(runs["(i) preempt, resume"]["carry_bit_equal"]
+          and runs["(i) preempt, resume"]["pc_bit_equal"], "(i) bit-equal")
+
+    res, d, lc, s = _fault_run(f"ingest.chunk:io:{io_at[0]},fold.dispatch:io:{io_at[1]}", fold)
+    retries = {site: d.counter("retry.attempts", site=site)
+               for site in ("ingest.chunk", "fold.dispatch")}
+    runs["(ii) transient"] = {"retries": retries, "launches": lc, "s": s,
+                              "carry_bit_equal": _carry_equal(res.carry, clean.carry),
+                              "pc_bit_equal": bool(np.array_equal(pca(res)[0], clean_pc))}
+    check(retries == {"ingest.chunk": 1, "fold.dispatch": 1}, "(ii) one retry a site")
+    check(lc == launched(chunks) and runs["(ii) transient"]["carry_bit_equal"]
+          and runs["(ii) transient"]["pc_bit_equal"], "(ii) bit-equal")
+
+    res, d, lc, s = _fault_run(f"fold.dispatch:oom:{oom_at}", fold)
+    floor = int(os.environ.get(ingest.STREAM_CHUNK_FLOOR_VAR, ingest.DEFAULT_STREAM_CHUNK_FLOOR))
+    half = chunk // 2 - (chunk // 2) % floor
+    bisected = (oom_at - 1) + -(-(len(x) - (oom_at - 1) * chunk) // half)
+    pc, ev = pca(res)
+    oracle_pc, _ = oracle_from_scatter(gram64, k)
+    runs["(iii) oom"] = {
+        "bisections": res.bisections, "chunks": res.chunks, "expected_chunks": bisected,
+        "half_rows": half, "launches": lc, "extra_launches": bisected - chunks, "s": s,
+        "min_cosine_vs_f64_oracle": _min_abs_cosine(pc, oracle_pc),
+        "ev_max_rel_diff_vs_clean": float(np.abs(ev / clean_ev - 1.0).max()),
+    }
+    check(res.bisections >= 1 and d.counter("chunk.bisections") == res.bisections,
+          "(iii) bisections")
+    check(res.chunks == bisected and lc == launched(bisected), "(iii) later chunks at half size")
+    check(runs["(iii) oom"]["min_cosine_vs_f64_oracle"] >= COSINE_BAR, "(iii) f64 oracle")
+    check(runs["(iii) oom"]["ev_max_rel_diff_vs_clean"] <= RECOVERY_EV_RTOL, "(iii) ev")
+
+    res, _, lc, s = _fault_run("fold.wait:hang:1:0.2", lambda: fold(fold_wait_timeout_s=30.0))
+    runs["(iv) hang inside the bound"] = {"s": s, "launches": lc,
+                                          "carry_bit_equal": _carry_equal(res.carry, clean.carry)}
+    check(runs["(iv) hang inside the bound"]["carry_bit_equal"], "(iv) bit-equal")
+
+    err, _, lc, s = _fault_run("fold.wait:hang:1:3.0", lambda: fold(fold_wait_timeout_s=0.5))
+    _sync(device)
+    runs["(v) hang past the bound"] = {"raised": type(err).__name__, "s": s, "launches": lc}
+    check(isinstance(err, FoldHangTimeout), "(v) FoldHangTimeout")
+
+    result = {"rows": len(x), "n": n, "chunk_rows": chunk, "chunks": chunks, "runs": runs,
+              "failures": failures}
+    print(f"recovery (c) streamed: {json.dumps(result, default=str)}", flush=True)
+    if failures:
+        raise AssertionError(f"streamed recovery gates failed: {failures}")
+    return result
+
+
+def phase_recovery_resident(rows: int, n: int, k: int, partitions: int,
+                            device: torch.device) -> dict:
+    """(d) The resident fit (fused_gram_moments once a partition) with a
+    task that fails once (retried: the fault fires before the task's body,
+    so the launches stay one a partition) and a task that hangs (hedged:
+    both attempts run the body, one launch more). pc is bit-equal to the
+    clean fit's in both."""
+    x = bench_workload(rows, n)
+    cuda = device.type == "cuda"
+
+    def fit():
+        model = PCA(device=device).setK(k).setPrecision("high").fit(x, num_partitions=partitions)
+        _sync(device)
+        return model
+
+    def launched(count: int) -> dict:
+        return expected_launches(gram_moments=count if cuda else 0)
+
+    clean, _, lc0, s0 = _fault_run(None, fit)
+    retried, dr, lr, sr = _fault_run(f"worker.task:io:{RESIDENT_RETRY_AT}", fit)
+    hedged, dh, lh, sh = _fault_run(f"worker.task:hang:{RESIDENT_HANG_AT}:{RESIDENT_HANG_S}", fit,
+                                    TPU_ML_HEDGE_FLOOR_S=str(RESIDENT_HEDGE_FLOOR_S))
+    result = {
+        "rows": rows, "n": n, "partitions": partitions,
+        "clean": {"s": s0, "launches": lc0},
+        "retry": {"s": sr, "launches": lr, "retries": dr.counter("retry.attempts", site="worker.task"),
+                  "pc_bit_equal": bool(np.array_equal(retried.pc, clean.pc))},
+        "hedge": {"s": sh, "launches": lh, "hedges": dh.counter("scheduler.hedge"),
+                  "pc_bit_equal": bool(np.array_equal(hedged.pc, clean.pc)),
+                  "ev_bit_equal": bool(np.array_equal(hedged.explainedVariance,
+                                                      clean.explainedVariance))},
+    }
+    print(f"recovery (d) resident: {json.dumps(result)}", flush=True)
+    if lc0 != launched(partitions) or lr != launched(partitions):
+        raise AssertionError(f"a retried fit launched {lr} (clean {lc0}), not one a partition")
+    if result["retry"]["retries"] != 1 or not result["retry"]["pc_bit_equal"]:
+        raise AssertionError(f"the retried fit is not the clean one: {result['retry']}")
+    if result["hedge"]["hedges"] != 1 or lh != launched(partitions + 1):
+        raise AssertionError(f"the straggler was not hedged once: {result['hedge']}")
+    if not result["hedge"]["pc_bit_equal"]:
+        raise AssertionError("the hedged fit is not the clean one")
+    return result
+
+
+def phase_device_policy(device: torch.device) -> dict:
+    """(e) The device policy on the card: the bounded first-touch probe, the
+    health monitor's subprocess probe, and a device.init fault failing the
+    inline probe, which the transport component reads."""
+    platform = "cuda" if device.type == "cuda" else "cpu"
+    t0 = time.perf_counter()
+    probed = devicepolicy.probe_platform(expected=platform, timeout=60.0)
+    probe_s = time.perf_counter() - t0
+    used = devicepolicy.use_platform(platform, probe_timeout=60.0)
+
+    def monitor(mode: str):
+        mon = health.HealthMonitor(probe_mode=mode, probe_timeout_s=120.0, interval_s=60.0,
+                                   failing_after=3, slo_engine=slo.SloEngine(()))
+        mon.poll_once()
+        return mon.rollup()["components"]
+
+    t0 = time.perf_counter()
+    sub = monitor("subprocess")
+    subprocess_s = time.perf_counter() - t0
+    comps, d, _, _ = _fault_run("device.init:io:1", lambda: monitor("inline"))
+    result = {
+        "probe_platform": probed, "probe_s": probe_s, "use_platform": str(used),
+        "subprocess_probe": sub["transport"], "subprocess_probe_s": subprocess_s,
+        "faulted_inline_probe": comps["transport"],
+        "injected": d.counter("fault.injected", site="device.init", kind="io"),
+    }
+    print(f"device policy (e): {json.dumps(result)}", flush=True)
+    if probed != platform or used.type != platform:
+        raise AssertionError(f"the probe found {probed!r}, not {platform!r}")
+    if sub["transport"]["state"] != "OK" or sub["transport"]["detail"] != platform:
+        raise AssertionError(f"the subprocess probe read {sub['transport']}")
+    if (comps["transport"]["state"] != "DEGRADED" or result["injected"] != 1
+            or "InjectedTransientIOError" not in comps["transport"]["detail"]):
+        raise AssertionError(f"the device.init fault did not fail the probe: {comps['transport']}")
+    return result
+
+
 def _timed(name: str, fn, *args, **kwargs):
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
@@ -4578,6 +5262,8 @@ def main() -> int:
                           MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS, device)
     _timed("linear (d) spectral and incremental", phase_spectral_incremental,
            MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS, device)
+    _timed("recovery (d) resident", phase_recovery_resident,
+           MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS, device)
     bench_workload.cache_clear()
     stream_data = _timed("make streamed data", streamed_workload,
                          STREAM_ROWS, MAIN_N, STREAM_PARTITIONS, device)
@@ -4591,6 +5277,7 @@ def main() -> int:
     _timed("linear (e) serving", phase_linear_serving, linreg["model"],
            stream_data[0][:SERVE_POOL_ROWS], device)
     _timed("linear (b, c) newton", phase_newton_fits, stream_data[0], device)
+    _timed("recovery (c) streamed", phase_recovery_streamed, stream_data, device)
     del stream_data, linreg
     torch.cuda.empty_cache()
     config4 = _timed("config 4 pipelines", phase_pipeline,
@@ -4613,6 +5300,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     _timed("families", phase_families, device, higgs)
     del higgs
+    torch.cuda.empty_cache()
+    _timed("selection (a) text", phase_text_selection, device)
+    _timed("selection (b) tabular", phase_adult_selection, device)
+    _timed("device policy (e)", phase_device_policy, device)
     # each kernel's launches come from the main path that runs it
     launches = {
         "gram_moments": resident["launches"]["gram_moments"],

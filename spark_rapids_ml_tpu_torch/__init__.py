@@ -47,6 +47,18 @@ port's own reproductions of optax's optimizers (``ops/optim.py``); ``UMAP``
 (the k-NN graph, calibration and layout on the device); and the host
 meta-estimators ``OneVsRest`` and ``IsotonicRegression``. ``classification``,
 ``regression`` and ``umap`` are the drop-in namespaces.
+
+Feature engineering, text and model selection: ``VectorAssembler``,
+``StringIndexer``, ``OneHotEncoder``, ``IndexToString``, ``Tokenizer``,
+``HashingTF`` and ``IDF`` (host stages; ``feature`` is the drop-in
+namespace), and ``ParamGridBuilder``, the four evaluators,
+``CrossValidator`` and ``TrainValidationSplit``, whose candidate fits run
+the port's estimators on the card. ``resilience`` holds the fault plans
+(``TPU_ML_FAULT_PLAN``), the error classifier and the retry policy that
+the streamed fold (checkpoint and resume, OOM bisection, a bounded wait)
+and the partition executor (retries, straggler hedging) recover with;
+``utils/devicepolicy.py`` the worker environments and bounded device
+probes.
 """
 
 from spark_rapids_ml_tpu_torch.models.dbscan import DBSCAN, DBSCANModel
@@ -61,6 +73,14 @@ from spark_rapids_ml_tpu_torch.models.incremental import (
     IncrementalPCA,
     IncrementalStandardScaler,
     IncrementalTruncatedSVD,
+)
+from spark_rapids_ml_tpu_torch.models.feature_eng import (
+    IndexToString,
+    OneHotEncoder,
+    OneHotEncoderModel,
+    StringIndexer,
+    StringIndexerModel,
+    VectorAssembler,
 )
 from spark_rapids_ml_tpu_torch.models.fm import (
     FMClassificationModel,
@@ -130,29 +150,48 @@ from spark_rapids_ml_tpu_torch.models.selector import (
     VarianceThresholdSelector,
     VarianceThresholdSelectorModel,
 )
+from spark_rapids_ml_tpu_torch.models.text import IDF, HashingTF, IDFModel, Tokenizer
 from spark_rapids_ml_tpu_torch.models.truncated_svd import TruncatedSVD, TruncatedSVDModel
+from spark_rapids_ml_tpu_torch.models.tuning import (
+    BinaryClassificationEvaluator,
+    ClusteringEvaluator,
+    CrossValidator,
+    CrossValidatorModel,
+    MulticlassClassificationEvaluator,
+    ParamGridBuilder,
+    RegressionEvaluator,
+    TrainValidationSplit,
+    TrainValidationSplitModel,
+)
 from spark_rapids_ml_tpu_torch.models.umap import UMAP, UMAPModel
 
 __version__ = "0.1.0"
 
 __all__ = [
     "ApproximateNearestNeighbors", "ApproximateNearestNeighborsModel", "Binarizer",
-    "Bucketizer", "DBSCAN", "DBSCANModel", "DCT", "DecisionTreeClassificationModel",
-    "DecisionTreeClassifier", "DecisionTreeRegressionModel", "DecisionTreeRegressor",
-    "ElementwiseProduct", "FMClassificationModel", "FMClassifier", "FMRegressionModel",
-    "FMRegressor", "GBTClassificationModel", "GBTClassifier", "GBTRegressionModel",
-    "GBTRegressor", "Imputer", "ImputerModel", "IncrementalKMeans",
+    "BinaryClassificationEvaluator", "Bucketizer", "ClusteringEvaluator", "CrossValidator",
+    "CrossValidatorModel", "DBSCAN", "DBSCANModel", "DCT",
+    "DecisionTreeClassificationModel", "DecisionTreeClassifier",
+    "DecisionTreeRegressionModel", "DecisionTreeRegressor", "ElementwiseProduct",
+    "FMClassificationModel", "FMClassifier", "FMRegressionModel", "FMRegressor",
+    "GBTClassificationModel", "GBTClassifier", "GBTRegressionModel", "GBTRegressor",
+    "HashingTF", "IDF", "IDFModel", "Imputer", "ImputerModel", "IncrementalKMeans",
     "IncrementalLinearRegression", "IncrementalPCA", "IncrementalStandardScaler",
-    "IncrementalTruncatedSVD", "IsotonicRegression", "IsotonicRegressionModel", "KMeans",
-    "KMeansModel", "LinearRegression", "LinearRegressionModel", "LinearSVC", "LinearSVCModel",
-    "LogisticRegression", "LogisticRegressionModel", "MaxAbsScaler", "MaxAbsScalerModel",
-    "MinMaxScaler", "MinMaxScalerModel", "MultilayerPerceptronClassificationModel",
-    "MultilayerPerceptronClassifier", "NaiveBayes", "NaiveBayesModel", "NearestNeighbors",
-    "NearestNeighborsModel", "Normalizer", "OneVsRest", "OneVsRestModel", "PCA", "PCAModel",
-    "Pipeline", "PipelineModel", "PolynomialExpansion", "QuantileDiscretizer",
-    "QuantileDiscretizerModel", "RandomForestClassificationModel", "RandomForestClassifier",
-    "RandomForestRegressionModel", "RandomForestRegressor", "RobustScaler",
-    "RobustScalerModel", "StandardScaler", "StandardScalerModel", "TruncatedSVD",
-    "TruncatedSVDModel", "UMAP", "UMAPModel", "VarianceThresholdSelector",
-    "VarianceThresholdSelectorModel", "VectorSlicer", "__version__",
+    "IncrementalTruncatedSVD", "IndexToString", "IsotonicRegression",
+    "IsotonicRegressionModel", "KMeans", "KMeansModel", "LinearRegression",
+    "LinearRegressionModel", "LinearSVC", "LinearSVCModel", "LogisticRegression",
+    "LogisticRegressionModel", "MaxAbsScaler", "MaxAbsScalerModel", "MinMaxScaler",
+    "MinMaxScalerModel", "MulticlassClassificationEvaluator",
+    "MultilayerPerceptronClassificationModel", "MultilayerPerceptronClassifier",
+    "NaiveBayes", "NaiveBayesModel", "NearestNeighbors", "NearestNeighborsModel",
+    "Normalizer", "OneHotEncoder", "OneHotEncoderModel", "OneVsRest", "OneVsRestModel",
+    "PCA", "PCAModel", "ParamGridBuilder", "Pipeline", "PipelineModel",
+    "PolynomialExpansion", "QuantileDiscretizer", "QuantileDiscretizerModel",
+    "RandomForestClassificationModel", "RandomForestClassifier",
+    "RandomForestRegressionModel", "RandomForestRegressor", "RegressionEvaluator",
+    "RobustScaler", "RobustScalerModel", "StandardScaler", "StandardScalerModel",
+    "StringIndexer", "StringIndexerModel", "Tokenizer", "TrainValidationSplit",
+    "TrainValidationSplitModel", "TruncatedSVD", "TruncatedSVDModel", "UMAP", "UMAPModel",
+    "VarianceThresholdSelector", "VarianceThresholdSelectorModel", "VectorAssembler",
+    "VectorSlicer", "__version__",
 ]

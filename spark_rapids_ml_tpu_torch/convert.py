@@ -30,8 +30,11 @@ plain numpy arrays, so nothing of the JAX package is imported:
   ``weights``/``meta`` (with the ``layers`` param); ``"FMClassificationModel"``
   and ``"FMRegressionModel"``: ``flatWeights``/``meta`` (numFeatures, loss,
   iterations); ``"UMAPModel"``: ``rawData``/``embedding``/``ab``;
-  ``"IsotonicRegressionModel"``: ``boundaries``/``predictions``; a
-  stateless stage such as ``"Normalizer"`` or ``"DBSCANModel"``: nothing),
+  ``"IsotonicRegressionModel"``: ``boundaries``/``predictions``;
+  ``"StringIndexerModel"``: ``labels`` (UTF-8 bytes); ``"OneHotEncoderModel"``:
+  ``categorySize``; ``"IDFModel"``: ``idf``/``docFreq``/``numDocs``; a
+  stateless stage such as ``"Normalizer"``, ``"DBSCANModel"`` or
+  ``"VectorAssembler"``: nothing),
   with the params the JAX model had set (its ``_paramMap``), which
   ``_saveData`` does not hold;
 - ``incremental_from_state``: an incremental estimator (``"IncrementalPCA"``,

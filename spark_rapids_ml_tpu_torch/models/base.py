@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from spark_rapids_ml_tpu_torch import telemetry
-from spark_rapids_ml_tpu_torch.models.params import Params
+from spark_rapids_ml_tpu_torch.models.params import HasDevice, Params
 from spark_rapids_ml_tpu_torch.utils import columnar, persistence
 
 _PORT_MODELS = "spark_rapids_ml_tpu_torch.models"
@@ -103,6 +103,15 @@ _PORTED_CLASSES: dict[str, tuple[str, ...]] = {
     "models.umap": ("UMAP", "UMAPModel"),
     "models.ovr": ("OneVsRest", "OneVsRestModel"),
     "models.isotonic": ("IsotonicRegression", "IsotonicRegressionModel"),
+    "models.feature_eng": (
+        "VectorAssembler", "StringIndexer", "StringIndexerModel", "OneHotEncoder",
+        "OneHotEncoderModel", "IndexToString",
+    ),
+    "models.text": ("Tokenizer", "HashingTF", "IDF", "IDFModel"),
+    "models.tuning": (
+        "CrossValidator", "CrossValidatorModel", "TrainValidationSplit",
+        "TrainValidationSplitModel",
+    ),
     "ann.index": ("IVFFlatIndex", "IVFFlatIndexModel"),
 }
 _PORT_CLASS_PATHS: dict[str, str] = {
@@ -262,7 +271,8 @@ class Saveable(Params):
 
     @classmethod
     def _fromSaved(cls, uid: str, data: dict[str, np.ndarray], device: str | torch.device):
-        return cls(uid=uid, device=device)
+        # a host stage (no HasDevice) takes no device
+        return cls(uid=uid, device=device) if issubclass(cls, HasDevice) else cls(uid=uid)
 
     @classmethod
     def _fromSparkML(cls, meta: dict, table, device: str | torch.device) -> Any:

@@ -40,14 +40,42 @@ staging rows, so one copy takes all three to the card, and the fold is
 label or weight drops or raises its row as a non-finite feature does, and
 each chunk's weights pass ``columnar.validate_weights``.
 
-Not ported yet (``ROADMAP.md``): the autotuner, checkpoint and resume, retry
-and fault-injection sites, OOM bisection, the stderr heartbeat, the bounded
-wait, and the augmented intercept column.
+The fold recovers as the JAX fold does (``resilience/``):
+
+- the ``ingest.chunk`` and ``fold.dispatch`` fault sites, each retried
+  under the shared policy for transient faults; ``fold.dispatch`` fires
+  before the chunk's copy to the card, so a retry re-enters with the carry
+  untouched;
+- a dispatch that fails with a device OOM (``RESOURCE_EXHAUSTED``) is
+  bisected: the chunk's true rows are dispatched again in pieces of half
+  its size, aligned to ``TPU_ML_STREAM_CHUNK_FLOOR``, and ``chunk_rows``
+  drops to that size for the rest of the stream (``chunk.bisections``,
+  ``StreamFold.bisections``); at the floor the error is raised. A piece
+  runs at its true row count, as the tail does, so no row is padded;
+- with a ``checkpointer`` (``utils/checkpoint.py::TrainingCheckpointer``)
+  the carry, synced and copied to the host, and the cursor are saved every
+  ``checkpoint_every`` full chunks (``stream.checkpoints``); a later call
+  with the same checkpointer resumes (``stream.resumes``,
+  ``StreamFold.resumed``): it restores the carry and skips the source rows
+  already consumed, before any filter, so the resumed fold is the
+  uninterrupted one;
+- the terminal wait is bounded (``TPU_ML_FOLD_WAIT_TIMEOUT_S`` or
+  ``fold_wait_timeout_s``; 0 is none): past the ``fold.wait`` site, the
+  last fold's CUDA event is polled against the deadline, and expiry raises
+  ``FoldHangTimeout`` (hung, not slow);
+- ``TPU_ML_PROGRESS`` (seconds) prints a heartbeat line to stderr.
+
+Not ported yet (``ROADMAP.md``): the autotuner, DataFrame sources and the
+augmented intercept column.
 """
 
 from __future__ import annotations
 
+import logging
 import math
+import os
+import sys
+import threading
 import time
 import warnings
 from dataclasses import dataclass
@@ -56,15 +84,25 @@ from typing import Any, Callable, Iterable
 import numpy as np
 import torch
 
+from spark_rapids_ml_tpu_torch.resilience import faults, sites
+from spark_rapids_ml_tpu_torch.resilience import retry as R
 from spark_rapids_ml_tpu_torch.telemetry import trace_range
 from spark_rapids_ml_tpu_torch.telemetry.registry import REGISTRY
+from spark_rapids_ml_tpu_torch.telemetry.spans import current_fit_id
+from spark_rapids_ml_tpu_torch.telemetry.timeline import TIMELINE
 from spark_rapids_ml_tpu_torch.utils import columnar
 from spark_rapids_ml_tpu_torch.utils.config import (
+    DEFAULT_STREAM_CHUNK_FLOOR,
+    FOLD_WAIT_TIMEOUT_S_VAR,
+    PROGRESS_VAR,
+    STREAM_CHUNK_FLOOR_VAR,
     STREAM_CHUNK_VAR,
     VALID_NONFINITE_POLICIES,
     get_config,
     wire_dtype,
 )
+
+logger = logging.getLogger("spark_rapids_ml_tpu_torch")
 
 
 def use_streamed_fit(rows: int, n: int) -> bool:
@@ -82,6 +120,19 @@ def stream_chunk_rows() -> int:
     return columnar.bucket_rows(rows)
 
 
+def progress_interval() -> float:
+    """Seconds between heartbeat lines (``TPU_ML_PROGRESS``; 0 or unset:
+    none)."""
+    raw = os.environ.get(PROGRESS_VAR, "")
+    if not raw:
+        return 0.0
+    try:
+        every = float(raw)
+    except ValueError:
+        raise ValueError(f"{PROGRESS_VAR}={raw!r} must be a number of seconds") from None
+    return max(0.0, every)
+
+
 @dataclass
 class StreamFold:
     """Result of a streamed fold: the final carry and what the pipeline did.
@@ -95,7 +146,9 @@ class StreamFold:
     copy runs beside the host's work. ``max_put_bytes`` is the largest
     single chunk handed to the fold, O(chunk) and never O(rows);
     ``skipped_rows`` counts non-finite rows dropped under the ``skip``
-    policy."""
+    policy, ``bisections`` the chunk splits after a device OOM, and
+    ``resumed`` says whether the fold went on from a checkpoint. ``chunks``
+    counts the folds that ran, a resumed fold's earlier ones included."""
 
     carry: Any
     rows: int
@@ -104,6 +157,8 @@ class StreamFold:
     max_put_bytes: int
     skipped_rows: int = 0
     copy_overlapped: int = 0
+    bisections: int = 0
+    resumed: bool = False
 
 
 def _host_tensor(a: np.ndarray) -> torch.Tensor:
@@ -136,6 +191,86 @@ def _split_item(item: Any) -> tuple[np.ndarray, np.ndarray | None, np.ndarray | 
     return x, y, w
 
 
+def _bounded_wait(done, timeout_s: float) -> None:
+    """Wait for the last fold (``done``, its CUDA event; None on the CPU),
+    past the ``fold.wait`` fault site, for at most ``timeout_s`` seconds (0
+    or less: no bound). The site runs on a daemon thread and the event is
+    polled, so a hang in either raises ``FoldHangTimeout`` at the deadline;
+    the stuck thread or work is abandoned with the process, which is
+    poisoned for more device work (``retry.ErrorClass.POISONED``)."""
+    if not timeout_s or timeout_s <= 0:
+        faults.inject(sites.FOLD_WAIT)
+        if done is not None:
+            done.synchronize()
+        return
+    deadline = time.monotonic() + timeout_s
+    box: dict[str, BaseException] = {}
+
+    def gate() -> None:
+        try:
+            faults.inject(sites.FOLD_WAIT)
+        except BaseException as e:  # noqa: BLE001 - raised again on the caller
+            box["error"] = e
+
+    t = threading.Thread(target=gate, name="tpu-ml-fold-wait", daemon=True)
+    t.start()
+    t.join(timeout_s)
+    while not t.is_alive() and done is not None and not done.query():
+        if time.monotonic() >= deadline:
+            break
+        time.sleep(1e-4)
+    if t.is_alive() or (done is not None and not done.query()):
+        raise R.FoldHangTimeout(
+            f"fold.wait did not complete within {timeout_s:g}s: the device fold is "
+            "hung, not slow (check the card's health). Raise "
+            f"{FOLD_WAIT_TIMEOUT_S_VAR} to wait longer, or set it to 0 to disable the bound."
+        )
+    if "error" in box:
+        raise box["error"]
+
+
+_CKPT_LEAF = "leaf_{:03d}"
+
+
+def _carry_leaves(carry) -> list[torch.Tensor]:
+    """The carry's tensors in order: a bare tensor or a tuple of them."""
+    return [carry] if isinstance(carry, torch.Tensor) else list(carry)
+
+
+def _save_stream_checkpoint(ckpt, carry, *, chunks, seen, skipped, chunk_rows) -> None:
+    """Save the carry (copied to the host, which waits for every fold
+    queued before it: the checkpoint is the stream's position) and the
+    cursor, in the JAX fold's format."""
+    arrays = {
+        _CKPT_LEAF.format(i): leaf.detach().cpu().numpy()
+        for i, leaf in enumerate(_carry_leaves(carry))
+    }
+    ckpt.save(chunks, arrays, {
+        "kind": "stream_fold",
+        "rows_seen": int(seen),
+        "skipped_rows": int(skipped),
+        "chunks": int(chunks),
+        "chunk_rows": int(chunk_rows),
+    })
+    REGISTRY.counter_inc("stream.checkpoints")
+    TIMELINE.record_instant("stream.checkpoint", chunk=int(chunks), rows_seen=int(seen))
+
+
+def _restore_stream_checkpoint(ckpt, carry) -> dict | None:
+    """Copy the newest ``stream_fold`` checkpoint into ``carry``'s tensors
+    (their device and dtype) and return its state; None when there is none.
+    A checkpoint of another kind is ignored, not misread."""
+    latest = ckpt.latest()
+    if latest is None:
+        return None
+    _, arrays, state = latest
+    if state.get("kind") != "stream_fold":
+        return None
+    for i, leaf in enumerate(_carry_leaves(carry)):
+        leaf.copy_(torch.from_numpy(np.asarray(arrays[_CKPT_LEAF.format(i)])))
+    return state
+
+
 def stream_fold(
     source: Iterable[Any],
     fold_fn: Callable,
@@ -146,6 +281,10 @@ def stream_fold(
     chunk_rows: int | None = None,
     nonfinite: str | None = None,
     label_col: str | None = None,
+    checkpointer=None,
+    checkpoint_every: int | None = None,
+    min_chunk_rows: int | None = None,
+    fold_wait_timeout_s: float | None = None,
 ) -> StreamFold:
     """Fold ``source``, an iterable of host [rows, n] matrices, chunk by
     chunk through ``fold_fn(carry, x, w) -> carry`` (``linalg.gram_fold_step``),
@@ -157,17 +296,52 @@ def stream_fold(
     device views of all three. ``init`` is the zero carry on ``device`` or a
     callable that makes it. Non-finite rows follow ``nonfinite``
     (``TPU_ML_NONFINITE_POLICY``): ``raise`` (default), ``skip`` (drop and
-    count them) or ``allow`` (no scan). Spans: ``ingest.chunk``,
-    ``fold.dispatch``, ``fold.wait``."""
+    count them) or ``allow`` (no scan). ``checkpointer``, ``checkpoint_every``
+    (``TPU_ML_STREAM_CHECKPOINT_EVERY_CHUNKS``), ``min_chunk_rows``
+    (``TPU_ML_STREAM_CHUNK_FLOOR``) and ``fold_wait_timeout_s``
+    (``TPU_ML_FOLD_WAIT_TIMEOUT_S``) are the recoveries of the module note.
+    A resumed fold needs the same source again, from its start. Spans:
+    ``ingest.chunk``, ``fold.dispatch``, ``fold.wait``."""
+    cfg = get_config()
     chunk_rows = stream_chunk_rows() if chunk_rows is None else chunk_rows
-    nonfinite = nonfinite or get_config().nonfinite_policy
+    nonfinite = nonfinite or cfg.nonfinite_policy
     if nonfinite not in VALID_NONFINITE_POLICIES:
         raise ValueError(
             f"nonfinite={nonfinite!r} must be one of {VALID_NONFINITE_POLICIES}"
         )
+    if min_chunk_rows is None:
+        min_chunk_rows = max(
+            1, int(os.environ.get(STREAM_CHUNK_FLOOR_VAR, DEFAULT_STREAM_CHUNK_FLOOR))
+        )
+    if checkpoint_every is None:
+        checkpoint_every = cfg.stream_checkpoint_every_chunks
+    if fold_wait_timeout_s is None:
+        fold_wait_timeout_s = float(cfg.fold_wait_timeout_s)
+    policy = R.RetryPolicy.from_config()
+    transient_only = frozenset({R.ErrorClass.TRANSIENT})
     cuda = device.type == "cuda"
     labeled = label_col is not None
     carry = init() if callable(init) else init
+
+    seen = skipped = n_chunks = overlapped = copy_overlapped = max_put = 0
+    bisections = last_ckpt = resume_skip = 0
+    resumed = False
+    if checkpointer is not None:
+        state = _restore_stream_checkpoint(checkpointer, carry)
+        if state is not None:
+            seen = int(state["rows_seen"])
+            skipped = int(state["skipped_rows"])
+            n_chunks = last_ckpt = int(state["chunks"])
+            # go on at the (perhaps bisected) size the earlier run settled on
+            chunk_rows = min(chunk_rows, int(state["chunk_rows"]))
+            resume_skip = seen + skipped
+            resumed = True
+            REGISTRY.counter_inc("stream.resumes")
+            TIMELINE.record_instant("stream.resume", chunk=n_chunks, rows_seen=seen)
+            logger.warning(
+                "resuming streamed fit from checkpoint (chunk %d, %d rows already folded)",
+                n_chunks, seen,
+            )
 
     # one staging row holds x, then y and w when labels flow; pin_memory
     # raises on a build without CUDA, so only pin for the card
@@ -187,11 +361,38 @@ def stream_fold(
     copied: list[Any] = [None, None]  # staging[s] → on_card[s] copy ended
     folded: list[Any] = [None, None]  # the fold that read on_card[s] ended
     slot = fill = 0
-    seen = skipped = n_chunks = overlapped = copy_overlapped = max_put = 0
 
-    def dispatch() -> None:
-        nonlocal carry, slot, fill, n_chunks, overlapped, copy_overlapped, max_put
+    progress_every = progress_interval()
+    progress_t0 = last_beat = time.perf_counter()
+    retries0 = REGISTRY.snapshot().counter("retry.attempts") if progress_every else 0
+
+    def maybe_heartbeat() -> None:
+        nonlocal last_beat
+        if not progress_every:
+            return
+        now = time.perf_counter()
+        if now - last_beat < progress_every:
+            return
+        last_beat = now
+        elapsed = max(now - progress_t0, 1e-9)
+        retries = REGISTRY.snapshot().counter("retry.attempts") - retries0
+        fid = current_fit_id() or ""
+        print(
+            f"[tpu-ml progress{' ' + fid if fid else ''}] "
+            f"rows={seen} ({seen / elapsed:,.0f} rows/s) "
+            f"chunks={n_chunks} chunk_rows={chunk_rows} "
+            f"retries={retries:g} bisections={bisections}",
+            file=sys.stderr,
+            flush=True,
+        )
+
+    def fold_rows(lo: int, hi: int) -> None:
+        """Fold staging rows [lo, hi) of the current slot; the fault site
+        comes before the copy, so a failed attempt changes nothing."""
+        nonlocal carry, n_chunks, overlapped, copy_overlapped, max_put
+        rows = hi - lo
         with trace_range("fold.dispatch", device):
+            faults.inject(sites.FOLD_DISPATCH)
             if cuda:
                 previous = folded[1 - slot]
                 if previous is not None and not previous.query():
@@ -199,24 +400,55 @@ def stream_fold(
                 with torch.cuda.stream(copy_stream):
                     if folded[slot] is not None:
                         copy_stream.wait_event(folded[slot])
-                    on_card[slot][:fill].copy_(staging[slot][:fill], non_blocking=True)
+                    on_card[slot][:rows].copy_(staging[slot][lo:hi], non_blocking=True)
                     copied[slot] = copy_stream.record_event()
-                REGISTRY.counter_inc("h2d.bytes", fill * width * 4, path="stream")
+                REGISTRY.counter_inc("h2d.bytes", rows * width * 4, path="stream")
                 fold_stream.wait_event(copied[slot])
-                block = on_card[slot][:fill]
+                block = on_card[slot][:rows]
             else:
-                block = staging[slot][:fill]
+                block = staging[slot][lo:hi]
             if labeled:
                 carry = fold_fn(carry, block[:, :n], block[:, n], block[:, n + 1])
             else:
-                carry = fold_fn(carry, block, unit_w[:fill])
+                carry = fold_fn(carry, block, unit_w[:rows])
             if cuda:
                 folded[slot] = fold_stream.record_event()
                 if not copied[slot].query():
                     copy_overlapped += 1
         n_chunks += 1
+        max_put = max(max_put, rows * width * 4)
+
+    def dispatch() -> None:
+        """Fold the staged chunk, retrying transient faults and bisecting
+        on a device OOM, then switch staging slots."""
+        nonlocal slot, fill, chunk_rows, bisections
+        queue = [(0, fill, chunk_rows)]  # (first row, end, rows the piece was cut to)
+        while queue:
+            lo, hi, cut = queue.pop(0)
+            try:
+                R.call_with_retry(
+                    lambda: fold_rows(lo, hi),
+                    site=sites.FOLD_DISPATCH,
+                    policy=policy,
+                    retry_on=transient_only,
+                )
+            except Exception as e:  # noqa: BLE001 - classified below
+                if R.classify(e) is not R.ErrorClass.RESOURCE_EXHAUSTED:
+                    raise
+                half = cut // 2
+                new = half - half % min_chunk_rows
+                if new < min_chunk_rows or new >= cut:
+                    raise  # at the floor: the OOM is not the chunk's size
+                logger.warning(
+                    "device OOM folding a %d-row chunk; bisecting to %d rows and "
+                    "re-dispatching", cut, new,
+                )
+                REGISTRY.counter_inc("chunk.bisections")
+                TIMELINE.record_instant("chunk.bisection", from_rows=cut, to_rows=new)
+                bisections += 1
+                queue[:0] = [(a, min(a + new, hi), new) for a in range(lo, hi, new)]
+                chunk_rows = min(chunk_rows, new)
         REGISTRY.gauge_set("stream.last_beat", time.monotonic())
-        max_put = max(max_put, fill * width * 4)
         slot, fill = 1 - slot, 0
         if copied[slot] is not None:
             copied[slot].synchronize()  # before this staging buffer refills
@@ -224,6 +456,7 @@ def stream_fold(
     it = iter(source)
     REGISTRY.gauge_set("stream.active", 1)
     REGISTRY.gauge_set("stream.last_beat", time.monotonic())
+    hung = False
     try:
         while True:
             with trace_range("ingest.chunk", device):
@@ -234,6 +467,8 @@ def stream_fold(
             xc, yc, wc = _split_item(item)
             REGISTRY.counter_inc("ingest.rows", len(xc))
             REGISTRY.counter_inc("ingest.bytes", xc.nbytes)
+            REGISTRY.histogram_record("ingest.chunk_rows", len(xc))
+            TIMELINE.record_instant("stream.chunk", rows=len(xc), nbytes=int(xc.nbytes))
             if xc.ndim != 2 or xc.shape[1] != n:
                 raise ValueError(
                     f"feature dimension changed mid-stream: expected {n}, "
@@ -241,6 +476,26 @@ def stream_fold(
                 )
             if labeled and yc is None:
                 raise ValueError("label column missing from a streamed chunk")
+            if resume_skip:
+                # the rows an earlier run folded (or skipped), counted before
+                # any filter, so the cursor is exact under every policy
+                drop = min(resume_skip, len(xc))
+                resume_skip -= drop
+                xc = xc[drop:]
+                yc = yc[drop:] if yc is not None else None
+                wc = wc[drop:] if wc is not None else None
+                if not len(xc):
+                    continue
+            xc = R.call_with_retry(
+                lambda: faults.inject(sites.INGEST_CHUNK, xc),
+                site=sites.INGEST_CHUNK,
+                policy=policy,
+                retry_on=transient_only,
+            )
+            # the raw index of each kept row (None: every row is kept) and
+            # the skipped count before this item: a checkpoint inside the
+            # item counts only the rows skipped before its cursor
+            kept_at, skipped_before = None, skipped
             if nonfinite != "allow":
                 bad = _nonfinite_rows(xc)
                 for side in (yc, wc):
@@ -256,10 +511,12 @@ def stream_fold(
                             "and count them instead"
                         )
                     keep = ~bad
+                    kept_at = np.flatnonzero(keep)
                     xc = xc[keep]
                     yc = yc[keep] if yc is not None else None
                     wc = wc[keep] if wc is not None else None
                     skipped += n_bad
+                    REGISTRY.counter_inc("rows.nonfinite_skipped", n_bad)
             if wc is not None:
                 wc = columnar.validate_weights(wc, len(xc), allow_all_zero=True)
             at = 0
@@ -278,20 +535,33 @@ def stream_fold(
                 seen += take
                 if fill == chunk_rows:
                     dispatch()
+                    maybe_heartbeat()
+                    if checkpointer is not None and n_chunks - last_ckpt >= checkpoint_every:
+                        raw_at = at if kept_at is None else (
+                            int(kept_at[at]) if at < len(kept_at) else len(kept_at) + (
+                                skipped - skipped_before))
+                        _save_stream_checkpoint(
+                            checkpointer, carry, chunks=n_chunks, seen=seen,
+                            skipped=skipped_before + raw_at - at, chunk_rows=chunk_rows,
+                        )
+                        last_ckpt = n_chunks
         if fill:
             dispatch()  # the ragged tail
         if seen == 0:
             raise ValueError("empty dataset")
         with trace_range("fold.wait", device):
-            if cuda:
-                folded[1 - slot].synchronize()
+            try:
+                _bounded_wait(folded[1 - slot] if cuda else None, fold_wait_timeout_s)
+            except R.FoldHangTimeout:
+                hung = True
+                raise
     finally:
         # cleared on every exit: the monitor reads an inactive stream as OK
         REGISTRY.gauge_set("stream.active", 0)
-        if cuda:
+        if cuda and not hung:
             # no copy may still write a device buffer once it is freed
             copy_stream.synchronize()
-    REGISTRY.histogram_record("stream.overlap_fraction", overlapped / n_chunks)
+    REGISTRY.histogram_record("stream.overlap_fraction", overlapped / max(n_chunks, 1))
     return StreamFold(
         carry=carry,
         rows=seen,
@@ -300,4 +570,6 @@ def stream_fold(
         max_put_bytes=max_put,
         skipped_rows=skipped,
         copy_overlapped=copy_overlapped,
+        bisections=bisections,
+        resumed=resumed,
     )

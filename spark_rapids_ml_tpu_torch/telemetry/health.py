@@ -8,34 +8,41 @@ FAILING (2):
 - ``device``: the card's memory in use over its size, from
   ``telemetry.compilemon.sample_device_memory`` (``torch.cuda.memory_stats``
   and ``mem_get_info``); DEGRADED above ``TPU_ML_HEALTH_HBM_WATERMARK``;
-- ``transport``: a deadline-bounded liveness probe on a throwaway thread
-  (``inline``, the default, or ``off``); consecutive failures escalate to
-  FAILING after ``TPU_ML_HEALTH_FAILING_AFTER`` polls. The JAX package's
-  ``subprocess`` probe (``utils/devicepolicy.py``) is not ported;
+- ``transport``: a deadline-bounded liveness probe: ``inline`` (the
+  default) on a throwaway thread, ``subprocess``
+  (``utils/devicepolicy.py::probe_transport_subprocess``, a child that
+  touches the card, repeatable when a probe wedges) or ``off``;
+  consecutive failures escalate to FAILING after
+  ``TPU_ML_HEALTH_FAILING_AFTER`` polls. The inline probe first passes the
+  ``device.init`` fault gate, so a plan can fail or wedge it;
 - ``stream``: the streamed fold's heartbeat (``stream.active``,
   ``stream.last_beat``, booked by ``spark/ingest.py::stream_fold``), stale
-  after ``TPU_ML_HEALTH_STALE_S``.
+  after ``TPU_ML_HEALTH_STALE_S``;
+- ``resilience``: DEGRADED for a poll window with at least
+  ``TPU_ML_HEALTH_RETRY_STORM`` retries (``retry.attempts``) or a fault
+  injected (``fault.injected``).
 
-The JAX package's ``workers``, ``resilience`` and ``scheduler`` components
-read series that only its ``localspark/`` and ``resilience/`` book; they
-come with those subsystems.
+The rollup carries ``scheduler``, the live worker supervisors' leases and
+quarantines (``resilience/supervisor.py::active_summary``), when there are
+any. The JAX package's ``workers`` and ``scheduler`` components read
+series that only its ``localspark/`` books, and its ``resilience``
+component also flags ``degraded.cpu_fallback``, which only its Spark
+estimators count; those come with that glue (``ROADMAP.md``).
 
-**No probe creates a CUDA context.** Every device read goes through
-``sample_device_memory``, which returns nothing until CUDA is initialized
-by the program itself, so the monitor's threads are never the first to
-touch the card.
-
-**The probe's fault seam.** The JAX probe first passes the
-``faults.inject(sites.DEVICE_INIT)`` gate. The port has no ``resilience/``
-yet: ``_device_init_gate`` is where that gate goes, and it does nothing.
+**No probe creates a CUDA context in this process.** Every device read
+goes through ``sample_device_memory``, which returns nothing until CUDA is
+initialized by the program itself; the ``subprocess`` probe touches the
+card in its child only.
 
 **Admission control.** ``admission_check`` consults the rollup before a
 fit (``telemetry/report.py::begin_fit``): under
 ``TPU_ML_ADMISSION_POLICY=refuse`` (default) a fit is refused while a
-component is FAILING. Under ``degrade`` the JAX package pins the fit to
-the CPU; the port has no device policy to do so (``utils/devicepolicy.py``
-is not ported), so ``begin_fit`` refuses a degraded fit whose device is not
-the CPU, with an error that says so, rather than quietly moving it.
+component is FAILING. Under ``degrade`` the fit runs inside a degrade
+window, which in the JAX package only its Spark estimators read
+(``spark/estimators.py::_mesh_or_fallback`` fits on one device instead of
+the mesh and counts ``degraded.cpu_fallback``); the port has no such
+consumer yet, so ``begin_fit`` refuses a degraded fit whose device is not
+the CPU rather than run it unchanged on the card.
 
 State changes set ``health.state{component}``, count
 ``health.transitions{component,to}`` and record a ``health.transition``
@@ -51,6 +58,7 @@ import os
 import threading
 import time
 
+from spark_rapids_ml_tpu_torch.resilience import faults, sites, supervisor
 from spark_rapids_ml_tpu_torch.telemetry import compilemon
 from spark_rapids_ml_tpu_torch.telemetry import slo as slo_mod
 from spark_rapids_ml_tpu_torch.telemetry.registry import REGISTRY
@@ -63,12 +71,14 @@ from spark_rapids_ml_tpu_torch.utils.config import (
     DEFAULT_HEALTH_INTERVAL_S,
     DEFAULT_HEALTH_PROBE,
     DEFAULT_HEALTH_PROBE_TIMEOUT_S,
+    DEFAULT_HEALTH_RETRY_STORM,
     DEFAULT_HEALTH_STALE_S,
     HEALTH_FAILING_AFTER_VAR,
     HEALTH_HBM_WATERMARK_VAR,
     HEALTH_INTERVAL_S_VAR,
     HEALTH_PROBE_TIMEOUT_S_VAR,
     HEALTH_PROBE_VAR,
+    HEALTH_RETRY_STORM_VAR,
     HEALTH_STALE_S_VAR,
     lenient_float,
     lenient_int,
@@ -79,9 +89,9 @@ logger = logging.getLogger("spark_rapids_ml_tpu_torch.health")
 OK, DEGRADED, FAILING = 0, 1, 2
 STATE_NAMES = {OK: "OK", DEGRADED: "DEGRADED", FAILING: "FAILING"}
 
-COMPONENTS = ("device", "transport", "stream")
+COMPONENTS = ("device", "transport", "stream", "resilience")
 
-PROBE_MODES = ("off", "inline")
+PROBE_MODES = ("off", "inline", "subprocess")
 
 ADMISSION_POLICIES = ("off", "refuse", "degrade")
 
@@ -89,13 +99,13 @@ ADMISSION_POLICIES = ("off", "refuse", "degrade")
 class AdmissionRefused(RuntimeError):
     """A fit refused by admission control: a component is FAILING under
     ``TPU_ML_ADMISSION_POLICY=refuse``, or the policy is ``degrade`` and
-    the fit's device is not the CPU (the port cannot pin a fit to the CPU
-    yet)."""
+    the fit's device is not the CPU (the port has no degraded path for a
+    fit on the card yet)."""
 
 
 def _device_init_gate() -> None:
-    """Where the JAX probe's ``faults.inject(sites.DEVICE_INIT)`` goes once
-    ``resilience/`` is ported; no fault site exists yet."""
+    """The probe's ``device.init`` fault site."""
+    faults.inject(sites.DEVICE_INIT)
 
 
 def default_inline_probe() -> tuple[bool, str]:
@@ -122,6 +132,7 @@ class HealthMonitor:
         hbm_watermark: float | None = None,
         stale_s: float | None = None,
         failing_after: int | None = None,
+        retry_storm: int | None = None,
         probe_fn=None,
         slo_engine: slo_mod.SloEngine | None = None,
     ):
@@ -134,8 +145,7 @@ class HealthMonitor:
         mode = knob(probe_mode, lambda: os.environ.get(HEALTH_PROBE_VAR) or DEFAULT_HEALTH_PROBE)
         if mode not in PROBE_MODES:
             raise ValueError(
-                f"{HEALTH_PROBE_VAR}={mode!r} must be one of {PROBE_MODES} (the "
-                "'subprocess' probe is not ported)"
+                f"{HEALTH_PROBE_VAR}={mode!r} must be one of {PROBE_MODES}"
             )
         self.probe_mode = mode
         self.probe_timeout_s = knob(
@@ -152,6 +162,10 @@ class HealthMonitor:
             failing_after,
             lambda: lenient_int(HEALTH_FAILING_AFTER_VAR, DEFAULT_HEALTH_FAILING_AFTER),
         ))
+        self.retry_storm = max(1, knob(
+            retry_storm,
+            lambda: lenient_int(HEALTH_RETRY_STORM_VAR, DEFAULT_HEALTH_RETRY_STORM),
+        ))
         self._probe_fn = probe_fn
         self.slo = slo_engine if slo_engine is not None else slo_mod.SloEngine()
 
@@ -164,6 +178,7 @@ class HealthMonitor:
         self._streaks = {c: 0 for c in COMPONENTS}
         self._polls = 0
         self._transitions = 0
+        self._prev_snap = None
         self._last_slo: dict = {}
 
     # -- lifecycle -----------------------------------------------------------
@@ -220,8 +235,10 @@ class HealthMonitor:
         self._eval_device()
         self._eval_transport()
         self._eval_stream(snap, now)
+        self._eval_resilience(snap)
         last_slo = self.slo.evaluate(now)
         with self._lock:
+            self._prev_snap = snap
             self._last_slo = last_slo
             self._polls += 1
             overall = max(self._states.values())
@@ -291,9 +308,15 @@ class HealthMonitor:
         )
 
     def _run_probe(self) -> tuple[bool, str, float]:
-        """The inline probe on a throwaway daemon thread, so a wedged call
-        cannot stall the monitor past the deadline."""
+        """The subprocess probe, or the inline probe on a throwaway daemon
+        thread, so a wedged call cannot stall the monitor past the
+        deadline."""
         t0 = time.monotonic()
+        if self.probe_mode == "subprocess":
+            from spark_rapids_ml_tpu_torch.utils import devicepolicy
+
+            ok, detail = devicepolicy.probe_transport_subprocess(timeout=self.probe_timeout_s)
+            return ok, detail, time.monotonic() - t0
         result: dict = {}
         done = threading.Event()
 
@@ -332,6 +355,21 @@ class HealthMonitor:
             f"heartbeat {age:.1f}s old" + ("" if state == OK else f" (> {self.stale_s:.0f}s stale)"),
         )
 
+    def _eval_resilience(self, snap) -> None:
+        with self._lock:
+            prev = self._prev_snap
+        window = snap.delta(prev) if prev is not None else snap
+        reasons = []
+        retries = window.counter("retry.attempts")
+        if retries >= self.retry_storm:
+            reasons.append(f"retry storm: {retries:g} attempts in one poll window")
+        if window.counter("fault.injected"):
+            reasons.append("fault injection active")
+        if reasons:
+            self._set_state("resilience", DEGRADED, "; ".join(reasons))
+        else:
+            self._set_state("resilience", OK, "quiet")
+
     # -- rollup --------------------------------------------------------------
 
     def rollup(self) -> dict:
@@ -343,7 +381,7 @@ class HealthMonitor:
             transitions = self._transitions
             last_slo = dict(self._last_slo)
         overall = max(states.values()) if states else OK
-        return {
+        out = {
             "state": STATE_NAMES[overall],
             "components": {
                 c: {"state": STATE_NAMES[states[c]], "detail": details[c]} for c in COMPONENTS
@@ -352,6 +390,10 @@ class HealthMonitor:
             "transitions": transitions,
             "slo": last_slo,
         }
+        sched = supervisor.active_summary()
+        if sched:
+            out["scheduler"] = sched
+        return out
 
     def fit_summary(self) -> dict:
         """The compact rollup a FitReport carries."""

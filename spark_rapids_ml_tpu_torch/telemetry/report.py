@@ -248,8 +248,8 @@ def begin_fit(
     fit id and label later spans with the estimator. ``rows``/``nbytes``
     are the caller's dataset size when known. Raises ``AdmissionRefused``
     when admission control refuses the fit, and under ``degrade`` for a fit
-    whose ``device`` is not the CPU (the port cannot move a fit to the CPU
-    yet)."""
+    whose ``device`` is not the CPU (the port has no degraded path for a
+    fit on the card yet)."""
     from spark_rapids_ml_tpu_torch.telemetry import health, httpd
 
     spans.install_fit_id_filter()
@@ -265,10 +265,11 @@ def begin_fit(
             where = device if device is not None else "its stages' devices"
             raise health.AdmissionRefused(
                 f"fit of {estimator} on {where} cannot be degraded: "
-                f"{admission['reason']}. {health.ADMISSION_POLICY_VAR}=degrade pins a fit to "
-                "the CPU in the JAX package; the port has no device policy to do so yet "
-                "(utils/devicepolicy.py is not ported). Fit on device='cpu' or set the "
-                "policy to 'refuse' or 'off'"
+                f"{admission['reason']}. In the JAX package {health.ADMISSION_POLICY_VAR}"
+                "=degrade moves only a Spark estimator's fit off the mesh "
+                "(spark/estimators.py::_mesh_or_fallback); the port's Spark estimators "
+                "are not ported yet, so it has no degraded path for a fit on the card. "
+                "Fit on device='cpu' or set the policy to 'refuse' or 'off'"
             )
         health.begin_degrade_window()
     if outermost:

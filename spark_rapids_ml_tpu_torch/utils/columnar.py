@@ -2,7 +2,8 @@
 estimators accept, row bucketing, and the partitioned dataset.
 
 Counterpart of ``spark_rapids_ml_tpu/utils/columnar.py``: besides the
-matrices, scalar columns (``extract_vector``), appended output columns
+matrices, scalar columns (``extract_vector``), a column of any kind for the
+feature and text stages (``extract_column_values``), appended output columns
 (``append_columns``), the weight-column contract that the clustering
 estimators share (``validate_weights``, ``resolve_partition_weights``) and
 the supervised estimators' labeled partitions (``labeled_partitions``,
@@ -11,6 +12,21 @@ Accepted inputs: a 2-D ndarray, a pandas DataFrame whose column holds one
 array per row, and a pyarrow Table or RecordBatch with a list or
 fixed-size-list column (the reference's ArrayType input) or a Spark ML
 VectorUDT column, dense or sparse rows (densified).
+
+**The column protocol.** Any container that has these, pandas or not,
+passes for a frame of named columns (``has_named_columns``,
+``append_columns``, ``apply_column_transform``, ``extract_matrix``,
+``extract_vector``, ``extract_column_values``):
+
+- ``columns``: the column names;
+- ``assign(**{name: values})``: a new container with those columns added,
+  where ``values`` is a 1-D array or a list of per-row arrays;
+- ``frame[name]``: the column, an object with ``to_numpy()`` (a 1-D array,
+  the [rows, n] matrix itself, or per-row arrays that ``np.stack`` turns
+  into it), ``iloc[0]`` (the first row's value) and ``len()``.
+
+Model selection (``models/tuning.py``) also slices rows by
+``frame.iloc[indices]`` and counts them by ``len(frame)``.
 """
 
 from __future__ import annotations
@@ -121,6 +137,8 @@ def extract_matrix(data: Any, input_col: str | None = None) -> np.ndarray:
         return _from_arrow_column(data.column(input_col))
     if hasattr(data, "columns") and hasattr(data, "assign") and input_col is not None:
         rows = data[input_col].to_numpy()  # pandas: one array per row
+        if rows.ndim == 2 and rows.dtype != object:
+            return rows  # a frame that keeps the column as one matrix
         return np.stack([np.asarray(r) for r in rows])
     arr = np.asarray(data)
     if arr.ndim == 2:
@@ -190,6 +208,30 @@ def has_named_columns(dataset: Any) -> bool:
     if pa is not None and isinstance(dataset, (pa.Table, pa.RecordBatch)):
         return True
     return hasattr(dataset, "columns") and hasattr(dataset, "assign")
+
+
+def extract_column_values(dataset: Any, col: str) -> np.ndarray:
+    """A column as a 1-D string or float array, or a [rows, n] float matrix
+    for an array-valued column: numeric shapes take the matrix and vector
+    extractors, only string columns the Python-object path. Shared by the
+    feature-engineering and text stages."""
+    if pa is not None and isinstance(dataset, (pa.Table, pa.RecordBatch)):
+        typ = dataset.schema.field(col).type
+        if pa.types.is_list(typ) or pa.types.is_fixed_size_list(typ):
+            return extract_matrix(dataset, col)
+        if pa.types.is_string(typ) or pa.types.is_large_string(typ):
+            return np.asarray(dataset.column(col).to_pylist())
+        return extract_vector(dataset, col)
+    if hasattr(dataset, "columns") and hasattr(dataset, "__getitem__"):
+        series = dataset[col]
+        first = series.iloc[0] if len(series) else None
+        if isinstance(first, (list, tuple, np.ndarray)):
+            return extract_matrix(dataset, col)
+        arr = series.to_numpy() if hasattr(series, "to_numpy") else np.asarray(series)
+        if np.issubdtype(arr.dtype, np.number):
+            return extract_vector(dataset, col)
+        return arr
+    raise TypeError(f"cannot extract column {col!r} from {type(dataset).__name__}")
 
 
 def extract_vector(data: Any, col: str) -> np.ndarray:
@@ -413,6 +455,11 @@ class PartitionedDataset:
     def matrices(self) -> Iterator[np.ndarray]:
         for p in self.partitions:
             yield extract_matrix(p, self.input_col)
+
+    def collect_matrix(self) -> np.ndarray:
+        """Every partition's rows in one matrix."""
+        mats = list(self.matrices())
+        return mats[0] if len(mats) == 1 else np.concatenate(mats)
 
 
 def _part_size(p: Any) -> tuple[int | None, int | None]:

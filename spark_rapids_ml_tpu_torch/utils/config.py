@@ -16,6 +16,12 @@ modules read them at each use through ``lenient_int``/``lenient_float``,
 which take an unset, empty or malformed value as the default, as the JAX
 package's serving modules do.
 
+The resilience knobs (``TPU_ML_TASK_RETRIES``, ``TPU_ML_RETRY_*``,
+``TPU_ML_STREAM_CHECKPOINT_EVERY_CHUNKS``, ``TPU_ML_FOLD_WAIT_TIMEOUT_S``,
+``TPU_ML_STREAM_CHUNK_FLOOR``, ``TPU_ML_PROGRESS``, ``TPU_ML_FAULT_PLAN``,
+``TPU_ML_HEDGE_*``, ``TPU_ML_WORKER_*``, ``TPU_ML_HEALTH_RETRY_STORM``)
+are copies of the JAX package's too, names and defaults alike.
+
 ``TPU_ML_MESH_LOCAL_WIRE_DTYPE`` only sizes the streamed-fit cutover, as the
 JAX package's wire would be sized: the port stages and computes in f32
 whatever it says (``wire_dtype``). ``TPU_ML_PRECISION_POLICY`` is the fold's
@@ -73,6 +79,31 @@ ADMISSION_POLICY_VAR, DEFAULT_ADMISSION_POLICY = "TPU_ML_ADMISSION_POLICY", "ref
 # with their defaults
 ANN_CAP_PERCENTILE_VAR, DEFAULT_ANN_CAP_PERCENTILE = "TPU_ML_ANN_CAP_PERCENTILE", 99.0
 ANN_SAMPLE_ROWS_VAR, DEFAULT_ANN_SAMPLE_ROWS = "TPU_ML_ANN_SAMPLE_ROWS", 32768
+
+# resilience (spark_rapids_ml_tpu/utils/knobs.py:40, :66, :73-109, :130-146,
+# :306), with their defaults
+TASK_RETRIES_VAR = "TPU_ML_TASK_RETRIES"
+RETRY_MAX_ATTEMPTS_VAR = "TPU_ML_RETRY_MAX_ATTEMPTS"
+RETRY_DEADLINE_S_VAR = "TPU_ML_RETRY_DEADLINE_S"
+STREAM_CHECKPOINT_EVERY_VAR = "TPU_ML_STREAM_CHECKPOINT_EVERY_CHUNKS"
+FOLD_WAIT_TIMEOUT_S_VAR = "TPU_ML_FOLD_WAIT_TIMEOUT_S"
+STREAM_CHUNK_FLOOR_VAR, DEFAULT_STREAM_CHUNK_FLOOR = "TPU_ML_STREAM_CHUNK_FLOOR", 8
+PROGRESS_VAR = "TPU_ML_PROGRESS"  # seconds between stderr heartbeats; empty: off
+FAULT_PLAN_VAR = "TPU_ML_FAULT_PLAN"  # empty: no faults
+HEDGE_FACTOR_VAR, DEFAULT_HEDGE_FACTOR = "TPU_ML_HEDGE_FACTOR", 4.0
+HEDGE_FLOOR_S_VAR, DEFAULT_HEDGE_FLOOR_S = "TPU_ML_HEDGE_FLOOR_S", 1.0
+WORKER_BREAKER_THRESHOLD_VAR, DEFAULT_WORKER_BREAKER_THRESHOLD = (
+    "TPU_ML_WORKER_BREAKER_THRESHOLD", 3
+)
+WORKER_RESPAWN_BACKOFF_S_VAR, DEFAULT_WORKER_RESPAWN_BACKOFF_S = (
+    "TPU_ML_WORKER_RESPAWN_BACKOFF_S", 0.05
+)
+WORKER_SLOT_VAR = "TPU_ML_WORKER_SLOT"  # stamped by the supervisor
+WORKER_PLATFORM_VAR = "TPU_ML_WORKER_PLATFORM"
+WORKER_PROBE_VAR = "TPU_ML_WORKER_PROBE"
+WORKER_PROBE_TIMEOUT_VAR = "TPU_ML_WORKER_PROBE_TIMEOUT"
+WORKER_SCRUB_VARS_VAR = "TPU_ML_WORKER_SCRUB_VARS"
+HEALTH_RETRY_STORM_VAR, DEFAULT_HEALTH_RETRY_STORM = "TPU_ML_HEALTH_RETRY_STORM", 8
 
 DEFAULT_STREAM_CHUNK = 65_536
 VALID_NONFINITE_POLICIES = ("raise", "skip", "allow")
@@ -135,6 +166,15 @@ class RuntimeConfig:
         default_factory=lambda: _int_env(STREAM_CHUNK_VAR, DEFAULT_STREAM_CHUNK)
     )
     nonfinite_policy: str = field(default_factory=_nonfinite_env)
+    task_retries: int = field(default_factory=lambda: _int_env(TASK_RETRIES_VAR, 3))
+    retry_max_attempts: int = field(default_factory=lambda: _int_env(RETRY_MAX_ATTEMPTS_VAR, 4))
+    retry_deadline_s: int = field(default_factory=lambda: _int_env(RETRY_DEADLINE_S_VAR, 300))
+    stream_checkpoint_every_chunks: int = field(
+        default_factory=lambda: _int_env(STREAM_CHECKPOINT_EVERY_VAR, 64)
+    )
+    fold_wait_timeout_s: int = field(
+        default_factory=lambda: _int_env(FOLD_WAIT_TIMEOUT_S_VAR, 600)
+    )
     precision_policy: str = field(default_factory=lambda: resolve_policy(None))
 
 

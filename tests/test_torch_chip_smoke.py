@@ -250,12 +250,23 @@ def test_streamed_one_pass_phase_on_cpu(monkeypatch):
     assert "TPU_ML_PRECISION_POLICY" not in os.environ
 
 
+def _fixed_coalescing_window(monkeypatch):
+    """A fixed 20 ms window for the CPU's mixed traffic: the adaptive
+    window follows the dispatch time, a few hundred µs on the CPU, and on a
+    loaded host the threads' requests then rarely meet in one window, so
+    the coalescing gate (fewer dispatches than requests) read the load
+    rather than the batcher."""
+    monkeypatch.setenv("TPU_ML_SERVE_ADAPTIVE_WINDOW", "0")
+    monkeypatch.setenv("TPU_ML_SERVE_MAX_DELAY_US", "20000")
+
+
 def test_serving_phase_on_cpu(monkeypatch):
     """Phase 10 at a tiny size: no graphs on the CPU, so no captures are
     expected; every other gate (bit for bit against the eager transform at
     each rung and on the one-row wires, the f64 bound, the fast lane's zero
     JSON, coalescing under threads, paging) holds here as on the card."""
     monkeypatch.setenv("TPU_ML_SERVE_MAX_BATCH_ROWS", "64")
+    _fixed_coalescing_window(monkeypatch)
     x = chip_smoke.bench_workload(2000, 32)
     model = chip_smoke.PCA(device=CPU).setK(4).fit(x)
     std_model = chip_smoke.PCA(device=CPU).setK(4).setStandardize(True).fit(x)
@@ -346,6 +357,7 @@ def test_serving_phase_with_the_config4_scaler_on_cpu(monkeypatch):
     """Phase 10's additions at a tiny size: the scaler servable's rungs,
     the exporter holding a fit in /report, and shedding."""
     monkeypatch.setenv("TPU_ML_SERVE_MAX_BATCH_ROWS", "32")
+    _fixed_coalescing_window(monkeypatch)
     x = chip_smoke.bench_workload(2000, 32)
     model = chip_smoke.PCA(device=CPU).setK(4).fit(x)
     std_model = chip_smoke.PCA(device=CPU).setK(4).setStandardize(True).fit(x)
@@ -768,3 +780,56 @@ def test_mnist_workload_is_seeded_with_ten_classes():
     np.testing.assert_array_equal(x, x2)
     np.testing.assert_array_equal(y, y2)
     assert set(np.unique(y)) == set(range(10))
+
+
+def test_text_selection_phase_on_cpu():
+    """Phase 18 (a) at a tiny size: the stages, the search and every gate."""
+    out = chip_smoke.phase_text_selection(CPU, docs=300, classes=4, tokens=40, vocab=400,
+                                          features=64, folds=2)
+    assert out["tf_mismatches_vs_hashlib_counter"] == 0 and out["idf_equals_numpy_f64"]
+    assert out["mismatches_beyond_near_ties"] == 0
+    assert out["best_index"] == out["best_index_f64"]
+    assert out["launches"] == {name: 0 for name in chip_smoke.KERNELS}
+
+
+def test_adult_selection_phase_on_cpu():
+    """Phase 18 (b) at a tiny size: 100 columns, numpy's one-hot, both
+    searches within 1e-4 of the f64 fits."""
+    out = chip_smoke.phase_adult_selection(CPU, rows=4000, folds=2)
+    assert out["columns"] == 100 and out["one_hot_mismatches_vs_numpy"] == 0
+    assert abs(out["positive_share"] - chip_smoke.ADULT_POSITIVE_SHARE) < 0.01
+    assert out["cv"]["max_auc_err_vs_f64"] <= chip_smoke.TUNING_METRIC_TOL
+    assert out["tvs"]["max_rmse_rel_err_vs_f64"] <= chip_smoke.TUNING_METRIC_TOL
+    assert out["label_order"] == ["<=50K", ">50K"] and out["index_to_string_equal"]
+
+
+def test_recovery_phases_on_cpu():
+    """Phase 18 (c) and (d) at a tiny size: every plan recovers as gated."""
+    data = chip_smoke.streamed_workload(64 * 30 + 17, 16, 3, CPU)
+    out = chip_smoke.phase_recovery_streamed(data, CPU, k=4, chunk_rows=64, checkpoint_every=4,
+                                             preempt_at=11, oom_at=6, io_at=(9, 14))
+    runs = out["runs"]
+    assert out["chunks"] == 31 and not out["failures"]
+    assert runs["(i) preempt, resume"]["checkpoints"] == 2
+    assert runs["(iii) oom"]["chunks"] == 5 + -(-(64 * 25 + 17) // 32)
+    assert runs["(v) hang past the bound"]["raised"] == "FoldHangTimeout"
+    res = chip_smoke.phase_recovery_resident(3200, 48, 4, 8, CPU)
+    assert res["retry"]["retries"] == 1 and res["hedge"]["hedges"] == 1
+    assert res["retry"]["pc_bit_equal"] and res["hedge"]["pc_bit_equal"]
+
+
+def test_device_policy_phase_on_cpu():
+    out = chip_smoke.phase_device_policy(CPU)
+    assert out["probe_platform"] == "cpu" and out["subprocess_probe"]["state"] == "OK"
+    assert out["faulted_inline_probe"]["state"] == "DEGRADED" and out["injected"] == 1
+
+
+def test_column_frame_is_the_column_protocol():
+    frame = chip_smoke.ColumnFrame({"x": np.arange(6.0).reshape(3, 2), "s": np.array(
+        ["a", "b", "a"], dtype=object)})
+    assert chip_smoke.columnar.has_named_columns(frame) and len(frame) == 3
+    np.testing.assert_array_equal(chip_smoke.columnar.extract_matrix(frame, "x"),
+                                  np.arange(6.0).reshape(3, 2))
+    more = frame.assign(y=list(np.ones((3, 4))), t=[["a", "b"], ["c"], []])
+    assert more["y"].to_numpy().shape == (3, 4) and list(more["t"].to_numpy()[1]) == ["c"]
+    assert list(more.iloc[[2, 0]]["s"].to_numpy()) == ["a", "a"]

@@ -499,5 +499,5 @@ def test_stateless_stage_carries_across_with_its_params(x):
     port = convert.model_from_arrays("Normalizer", {}, device="cpu", params=dict(ref._paramMap))
     assert port.getP() == 3.0
     _close(_scaled(port, x), _scaled(ref, x))
-    with pytest.raises(KeyError, match="no 'CrossValidatorModel'"):
-        convert.model_from_arrays("CrossValidatorModel", {}, device="cpu")
+    with pytest.raises(KeyError, match="no 'SparkPCAModel'"):
+        convert.model_from_arrays("SparkPCAModel", {}, device="cpu")
