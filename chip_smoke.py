@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one CUDA card and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--skip GROUP,...]
+
+Every phase runs by default; ``--skip`` leaves out groups of later phases
+that feed nothing else (``SKIPPABLE``), to iterate on one part.
 
 Phases, each a plain function that the CPU tests also call at a tiny size:
 
@@ -188,7 +191,26 @@ Phases, each a plain function that the CPU tests also call at a tiny size:
    (RMSE, the FISTA path), each candidate within 1e-4 of f64 fits, then
    IndexToString; and the device policy: a bounded probe, the health
    monitor's subprocess probe, and a device.init fault read by its
-   transport component.
+   transport component;
+19. cost model, autotune, partition bodies (no new kernel), in three
+   places: (a), after phase 4, one resident "high" fit of its 500,000 x 512
+   rows in 8 partitions and a transform, read through the analytical cost
+   model: linalg.gram_stats booked once a partition and equal to the
+   fused_gram_moments launches, each call's flops the formula at the padded
+   65,536-row partition, the roofline share in (0, 1.05], the transform's
+   report holding linalg.project; (c), after (a), the Spark glue's
+   FitPartitionFn.partition_stats over the same 8 partitions (two frames of
+   named columns each, one fused_gram_moments launch a frame), merged in
+   f64 on the host as the driver merges them and decomposed on the card
+   against the f64 oracle, and TransformPartitionFn's array body over every
+   row against (a)'s transform (1e-5 of max |value|); (b), before phase 8's
+   data is freed, BASELINE config 2 fitted under TPU_ML_AUTOTUNE=search (a
+   tuning-cache file in a fresh temporary directory): the successive
+   halving's trials within the budget, each folding synthetic chunks
+   through symmetric_gram_moments twice, the fit folding
+   ceil(10,000,000 / winner) chunks and meeting the f64 oracle; then again
+   under TPU_ML_AUTOTUNE=cache, a hit of the same chunk rows whose pc is bit
+   for bit the searched fit's; each candidate's seconds per row printed.
 
 Each main path reads the kernels' launch counts from 0 around exactly its
 fit. The last lines are one JSON object with every kernel's numbers, the
@@ -246,6 +268,7 @@ from spark_rapids_ml_tpu_torch.ops import naive_bayes as NBO
 from spark_rapids_ml_tpu_torch.ops import neighbors as NN
 from spark_rapids_ml_tpu_torch.ops import optim as OPT
 from spark_rapids_ml_tpu_torch.ops import umap as UMO
+from spark_rapids_ml_tpu_torch import autotune
 from spark_rapids_ml_tpu_torch.autotune import cache as tuning_cache
 from spark_rapids_ml_tpu_torch.autotune.policy import TuningConfig, resolve_policy
 from spark_rapids_ml_tpu_torch.parallel.tree_aggregate import tree_reduce
@@ -258,7 +281,7 @@ from spark_rapids_ml_tpu_torch.serving import hbm
 from spark_rapids_ml_tpu_torch.serving import registry as R
 from spark_rapids_ml_tpu_torch.serving import server as S
 from spark_rapids_ml_tpu_torch.serving.batcher import MicroBatcher
-from spark_rapids_ml_tpu_torch.spark import ingest
+from spark_rapids_ml_tpu_torch.spark import arrow_fns, ingest
 from spark_rapids_ml_tpu_torch.telemetry import health, httpd, slo
 from spark_rapids_ml_tpu_torch.telemetry.registry import REGISTRY
 from spark_rapids_ml_tpu_torch.telemetry.timeline import TIMELINE
@@ -5219,6 +5242,207 @@ def phase_device_policy(device: torch.device) -> dict:
     return result
 
 
+# -- phase 19: cost model, autotune, partition bodies -------------------------
+
+# the card's peak the cost model's roofline divides by (telemetry/costmodel.py)
+COST_ROOFLINE_MAX = 1.05
+# each search trial folds one warm-up and ``reps`` (1) timed chunks
+TRIAL_FOLDS = 2
+# phase 19 (c): each partition reaches the partition body as this many batches
+PARTITION_BATCHES = 2
+
+
+def gram_cost_at(rows: int, n: int) -> float:
+    """``linalg.gram_stats``'s analytical flops at a [rows, n] padded block."""
+    return 2.0 * rows * n * n + 2.0 * rows * n
+
+
+def phase_cost_model(rows: int, n: int, k: int, partitions: int, device: torch.device) -> dict:
+    """Phase 19 (a): the resident "high" fit and a transform of phase 4's
+    rows, read through the cost model: the fit's ``linalg.gram_stats`` calls
+    equal its partitions and its ``fused_gram_moments`` launches, each
+    call's flops are the formula at the padded partition, the roofline share
+    lies in (0, 1.05], and the transform books ``linalg.project``."""
+    x = bench_workload(rows, n)
+    cuda = device.type == "cuda"
+    pca = PCA(device=device).setInputCol("features").setK(k).setPrecision("high")
+    reset_launches()
+    model = pca.fit(x, num_partitions=partitions)
+    launches = read_launches()
+    cost = model.fit_report.cost_model
+    gram = cost["kernels"]["linalg.gram_stats"]
+    padded = columnar.bucket_rows(-(-rows // partitions))
+    out = model.transform(x)
+    project = model.transform_report.cost_model["kernels"]["linalg.project"]
+    result = {
+        "rows": rows, "n": n, "partitions": partitions, "padded_rows": padded,
+        "launches": launches, "gram_stats": gram, "project": project,
+        "roofline_utilization": cost.get("roofline_utilization"),
+        "fit_s": model.fit_report.wall_seconds,
+        "transform_s": model.transform_report.wall_seconds,
+        "transform_roofline_utilization":
+            model.transform_report.cost_model.get("roofline_utilization"),
+    }
+    print(f"cost model (a): {json.dumps(result)}", flush=True)
+    if gram["calls"] != partitions:
+        raise AssertionError(f"linalg.gram_stats booked {gram['calls']} calls, not {partitions}")
+    expected = expected_launches(gram_moments=partitions if cuda else 0)
+    if launches != expected:
+        raise AssertionError(f"kernel launches in the fit {launches}, expected {expected}")
+    if gram["flops"] != gram_cost_at(padded, n):
+        raise AssertionError(f"per-call flops {gram['flops']} != {gram_cost_at(padded, n)}")
+    util = result["roofline_utilization"]
+    if not (util is not None and 0.0 < util <= COST_ROOFLINE_MAX):
+        raise AssertionError(f"roofline utilization {util} outside (0, {COST_ROOFLINE_MAX}]")
+    if project["calls"] != 1 or out.shape != (rows, k):
+        raise AssertionError(f"the transform booked {project} and gave {out.shape}")
+    result["model"], result["out"] = model, out
+    return result
+
+
+def phase_partition_bodies(rows: int, n: int, k: int, partitions: int, device: torch.device,
+                           model, out: np.ndarray) -> dict:
+    """Phase 19 (c): the Spark glue's partition bodies on the card, without
+    pyarrow: ``FitPartitionFn.partition_stats`` over phase 4's partitions,
+    each as ``PARTITION_BATCHES`` frames of named columns, one
+    ``fused_gram_moments`` launch a batch; the stats merged in f64 on the
+    host as the driver merges them, decomposed on the card, and held to the
+    f64 oracle; then ``TransformPartitionFn``'s array body over every row,
+    held to phase (a)'s transform of the same model."""
+    x = bench_workload(rows, n)
+    cuda = device.type == "cuda"
+    fit_fn = arrow_fns.FitPartitionFn("features", precision="high", device=device.type)
+    reset_launches()
+    t0 = time.perf_counter()
+    merged = None
+    for part in np.array_split(x, partitions):
+        batches = [ColumnFrame({"features": b}) for b in np.array_split(part, PARTITION_BATCHES)]
+        stats = fit_fn.partition_stats(batches)
+        host = [t.double().cpu().numpy() for t in stats]
+        merged = host if merged is None else [a + b for a, b in zip(merged, host)]
+    stats_s = time.perf_counter() - t0
+    launches = read_launches()
+    gram = L.GramStats(*(torch.as_tensor(a, dtype=torch.float32, device=device) for a in merged))
+    pc, _ = L.pca_fit_from_cov(L.covariance_from_stats(gram, mean_centering=False), k)
+    min_cos = L.min_cosine_vs_f64_oracle(x, pc, k)
+    transform_fn = arrow_fns.TransformPartitionFn("features", "pca", model.pc,
+                                                  device=device.type)
+    t0 = time.perf_counter()
+    body = transform_fn.project_matrix(x)
+    transform_s = time.perf_counter() - t0
+    err = float(np.abs(body - out).max())
+    tol = SERVE_REL_TOL * float(np.abs(out).max())
+    result = {
+        "launches": launches, "count": float(merged[2]), "min_cosine_vs_f64_oracle": min_cos,
+        "partition_stats_s": stats_s, "transform_body_s": transform_s,
+        "transform_max_abs_err": err, "transform_tol": tol,
+    }
+    print(f"partition bodies (c): {json.dumps(result)}", flush=True)
+    expected = expected_launches(
+        gram_moments=partitions * PARTITION_BATCHES if cuda else 0)
+    if launches != expected:
+        raise AssertionError(f"partition-body launches {launches}, expected {expected}")
+    if merged[2] != rows:
+        raise AssertionError(f"the merged count is {merged[2]}, not {rows}")
+    if not min_cos >= COSINE_BAR:
+        raise AssertionError(f"partition-body fit min cosine vs f64 {min_cos} < {COSINE_BAR}")
+    if body.shape != out.shape or not err <= tol:
+        raise AssertionError(f"the transform body is off by {err} > {tol}")
+    return result
+
+
+def _fit_tuned(x: np.ndarray, k: int, partitions: int, device: torch.device) -> dict:
+    """One streamed "high" fit and what the tuner and the kernels did in it."""
+    s0 = REGISTRY.snapshot()
+    reset_launches()
+    t0 = time.perf_counter()
+    model = PCA(device=device).setK(k).setPrecision("high").fit(x, num_partitions=partitions)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    fit_s = time.perf_counter() - t0
+    delta = REGISTRY.snapshot().delta(s0)
+    return {
+        "model": model, "fit_s": fit_s, "launches": read_launches(),
+        "tuning": model.fit_report.tuning,
+        "fold_calls": model.fit_report.cost_model["kernels"]["stream.fold_step"]["calls"],
+        "trials": int(delta.counter("autotune.trials")),
+        "chunks": model.stream_report.chunks,
+    }
+
+
+def phase_autotune(data, k: int, partitions: int, device: torch.device) -> dict:
+    """Phase 19 (b): BASELINE config 2 fitted under TPU_ML_AUTOTUNE=search
+    with a tuning-cache file in a fresh temporary directory, then again under
+    ``cache``. The search's trials fold synthetic chunks into throwaway
+    carries through ``symmetric_gram_moments`` (``TRIAL_FOLDS`` launches a
+    trial), the fit folds ⌈rows / winner⌉ chunks, and the cached fit is bit
+    for bit the searched one. Each candidate's seconds per row are measured
+    again beside them. The in-process cache is emptied afterwards, so later
+    fits keep the static knobs."""
+    x, gram64 = data
+    rows, n = x.shape
+    cuda = device.type == "cuda"
+    kernel = "symmetric_gram_moments" if cuda else None
+    oracle_pc, _ = oracle_from_scatter(gram64, k)
+    base = ingest.stream_chunk_rows()
+    candidates = autotune.candidate_grid(base)
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-tuning-")
+    try:
+        tuning_cache.reset()
+        with _env(TPU_ML_AUTOTUNE="search",
+                  TPU_ML_TUNING_CACHE_PATH=os.path.join(tmp, "tuning.json")):
+            searched = _fit_tuned(x, k, partitions, device)
+            budget = autotune.trial_budget()
+        with _env(TPU_ML_AUTOTUNE="cache",
+                  TPU_ML_TUNING_CACHE_PATH=os.path.join(tmp, "tuning.json")):
+            cached = _fit_tuned(x, k, partitions, device)
+        measure = autotune.stream_fold_measure(
+            L.gram_fold_step("high"), L.init_gram_carry(n, device), n, device)
+        seconds_per_row = {c.chunk_rows: measure(c) for c in candidates}
+    finally:
+        tuning_cache.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    winner = searched["tuning"]["config"]["chunk_rows"]
+    fold_chunks = -(-rows // winner)
+    min_cos = _min_abs_cosine(searched["model"].pc, oracle_pc)
+    pc_equal = bool(np.array_equal(searched["model"].pc, cached["model"].pc))
+    result = {
+        "rows": rows, "candidates": [c.chunk_rows for c in candidates], "budget": budget,
+        "winner_rows": winner, "trials": searched["trials"],
+        "search_launches": searched["launches"], "cache_launches": cached["launches"],
+        "fold_chunks": fold_chunks, "search_fit_s": searched["fit_s"],
+        "cache_fit_s": cached["fit_s"], "search_source": searched["tuning"]["source"],
+        "cache_source": cached["tuning"]["source"],
+        "cache_hit": cached["tuning"]["cache_hit"],
+        "cache_chunk_rows": cached["tuning"]["config"]["chunk_rows"],
+        "min_cosine_vs_f64_oracle": min_cos, "pc_bit_equal": pc_equal,
+        "seconds_per_row": seconds_per_row,
+    }
+    print(f"autotune (b): {json.dumps(result)}", flush=True)
+    if result["search_source"] != "search" or not 1 <= searched["trials"] <= budget:
+        raise AssertionError(f"the search fit resolved {searched['tuning']} in "
+                             f"{searched['trials']} trials (budget {budget})")
+    if searched["chunks"] != fold_chunks or searched["fold_calls"] != fold_chunks:
+        raise AssertionError(f"the searched fit folded {searched['chunks']} chunks "
+                             f"({searched['fold_calls']} booked), not {fold_chunks}")
+    if kernel is not None:
+        trial_launches = searched["launches"][kernel] - fold_chunks
+        if trial_launches != TRIAL_FOLDS * searched["trials"]:
+            raise AssertionError(f"{trial_launches} trial launches for "
+                                 f"{searched['trials']} trials")
+        if cached["launches"][kernel] != fold_chunks:
+            raise AssertionError(f"the cached fit launched {cached['launches']}")
+    if not min_cos >= COSINE_BAR:
+        raise AssertionError(f"searched fit min cosine vs the f64 oracle {min_cos}")
+    if (result["cache_source"], result["cache_hit"], result["cache_chunk_rows"]) != (
+            "cache", True, winner) or cached["trials"] or not pc_equal:
+        raise AssertionError(f"the cached fit is not the searched one: {result}")
+    if cached["fold_calls"] != cached["chunks"] or (
+            kernel is not None and cached["fold_calls"] != cached["launches"][kernel]):
+        raise AssertionError(f"stream.fold_step calls {cached['fold_calls']} != launches")
+    return result
+
+
 def _timed(name: str, fn, *args, **kwargs):
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
@@ -5226,7 +5450,35 @@ def _timed(name: str, fn, *args, **kwargs):
     return out
 
 
-def main() -> int:
+# Groups of later phases that a run may leave out (``--skip serving,ann``);
+# every phase runs by default. None feeds the kernels line, and each group's
+# phases need only what its own group makes.
+SKIPPABLE = {
+    "serving": "phases 10 and 11 (config 4 pipelines, serving)",
+    "config5": "phase 12 (config 5 KMeans)",
+    "distance": "phase 13 (DBSCAN, exact kNN)",
+    "ann": "phase 15 (ANN resident, serving, streamed)",
+    "trees": "phases 16 and 17 (trees, NaiveBayes, the families)",
+    "selection": "phase 18 (a), (b), (e) (model selection, the device policy)",
+}
+
+
+def parse_skip(argv) -> set[str]:
+    """The groups ``--skip a,b`` names (none by default)."""
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Drive the port's main paths on one card.")
+    parser.add_argument("--skip", default="", help="comma-separated groups to leave out: "
+                        + "; ".join(f"{k}: {v}" for k, v in SKIPPABLE.items()))
+    skip = {g for g in parser.parse_args(list(argv)).skip.split(",") if g}
+    unknown = skip - set(SKIPPABLE)
+    if unknown:
+        parser.error(f"unknown groups {sorted(unknown)}; choose from {sorted(SKIPPABLE)}")
+    return skip
+
+
+def main(argv=()) -> int:
+    skip = parse_skip(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs only on the card",
               file=sys.stderr)
@@ -5255,6 +5507,11 @@ def main() -> int:
                                KERNEL_SHAPES[name], device, kernel=name)
     resident = _timed("main path (resident)", phase_main_path,
                       MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS, device)
+    costed = _timed("cost model (a)", phase_cost_model,
+                    MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS, device)
+    bodies = _timed("partition bodies (c)", phase_partition_bodies,
+                    MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS, device,
+                    costed.pop("model"), costed.pop("out"))
     _timed("solvers", phase_solvers, MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS, device)
     one_pass = _timed("one pass (resident)", phase_one_pass,
                       MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS, device)
@@ -5278,32 +5535,43 @@ def main() -> int:
            stream_data[0][:SERVE_POOL_ROWS], device)
     _timed("linear (b, c) newton", phase_newton_fits, stream_data[0], device)
     _timed("recovery (c) streamed", phase_recovery_streamed, stream_data, device)
+    tuned = _timed("autotune (b)", phase_autotune, stream_data, MAIN_K, STREAM_PARTITIONS,
+                   device)
     del stream_data, linreg
     torch.cuda.empty_cache()
-    config4 = _timed("config 4 pipelines", phase_pipeline,
-                     MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS, device, standardized)
-    _timed("serving", phase_serving, resident["model"], standardized["model"], device,
-           scaler_model=config4["scaler"]["model"].stages[0],
-           report_fit_ids=tuple(r["fit_id"] for r in config4.values()))
+    if "serving" not in skip:
+        config4 = _timed("config 4 pipelines", phase_pipeline,
+                         MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS, device, standardized)
+        _timed("serving", phase_serving, resident["model"], standardized["model"], device,
+               scaler_model=config4["scaler"]["model"].stages[0],
+               report_fit_ids=tuple(r["fit_id"] for r in config4.values()))
     bench_workload.cache_clear()
     torch.cuda.empty_cache()
-    _timed("config 5 kmeans", phase_config5,
-           CONFIG5_ROWS, CONFIG5_N, CONFIG5_K, CONFIG5_PARTITIONS, device)
-    _timed("dbscan and knn", phase_distance_family, device)
-    ann = _timed("ann (a) resident", phase_ann_resident, device)
-    _timed("ann (c) serving", phase_ann_serving, ann.pop("model"), ann.pop("queries_h"), device)
-    torch.cuda.empty_cache()
-    _timed("ann (b) streamed", phase_ann_streamed, device)
-    torch.cuda.empty_cache()
-    higgs = _timed("make higgs data", higgs_workload, HIGGS_ROWS, HIGGS_N, device)
-    _timed("trees and naive bayes", phase_trees_nb, device, data=higgs)
-    torch.cuda.empty_cache()
-    _timed("families", phase_families, device, higgs)
-    del higgs
-    torch.cuda.empty_cache()
-    _timed("selection (a) text", phase_text_selection, device)
-    _timed("selection (b) tabular", phase_adult_selection, device)
-    _timed("device policy (e)", phase_device_policy, device)
+    if "config5" not in skip:
+        _timed("config 5 kmeans", phase_config5,
+               CONFIG5_ROWS, CONFIG5_N, CONFIG5_K, CONFIG5_PARTITIONS, device)
+    if "distance" not in skip:
+        _timed("dbscan and knn", phase_distance_family, device)
+    if "ann" not in skip:
+        ann = _timed("ann (a) resident", phase_ann_resident, device)
+        _timed("ann (c) serving", phase_ann_serving, ann.pop("model"), ann.pop("queries_h"),
+               device)
+        torch.cuda.empty_cache()
+        _timed("ann (b) streamed", phase_ann_streamed, device)
+        torch.cuda.empty_cache()
+    if "trees" not in skip:
+        higgs = _timed("make higgs data", higgs_workload, HIGGS_ROWS, HIGGS_N, device)
+        _timed("trees and naive bayes", phase_trees_nb, device, data=higgs)
+        torch.cuda.empty_cache()
+        _timed("families", phase_families, device, higgs)
+        del higgs
+        torch.cuda.empty_cache()
+    if "selection" not in skip:
+        _timed("selection (a) text", phase_text_selection, device)
+        _timed("selection (b) tabular", phase_adult_selection, device)
+        _timed("device policy (e)", phase_device_policy, device)
+    for group in sorted(skip):
+        print(f"skipped: {SKIPPABLE[group]}", flush=True)
     # each kernel's launches come from the main path that runs it
     launches = {
         "gram_moments": resident["launches"]["gram_moments"],
@@ -5321,6 +5589,15 @@ def main() -> int:
             "name": name,
             **meta,
             "launches": launches[name],
+            # phase 19's runs of the kernel: (a) the costed fit, (c) the
+            # partition bodies, (b) the searched fit (its trials included)
+            # and the cached one
+            "phase19_launches": {
+                "cost_model_fit": costed["launches"][name],
+                "partition_bodies": bodies["launches"][name],
+                "autotune_search_fit": tuned["search_launches"][name],
+                "autotune_cache_fit": tuned["cache_launches"][name],
+            },
             "max_abs_err": at_main["max_abs_err"],
             "tol": at_main["tol"],
             "ms": at_main["kernel_ms"],
@@ -5343,4 +5620,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -59,6 +59,17 @@ the streamed fold (checkpoint and resume, OOM bisection, a bounded wait)
 and the partition executor (retries, straggler hedging) recover with;
 ``utils/devicepolicy.py`` the worker environments and bounded device
 probes.
+
+The Spark glue: ``SparkPCA``/``SparkPCAModel`` (``spark/estimators.py``)
+fit and transform a pyspark DataFrame, or one of the port's own local
+engine (``localspark``: worker processes, Arrow IPC, cloudpickle), through
+the Arrow plan functions of ``spark/arrow_fns.py``, whose partition bodies
+run on the card. Both need pyarrow and cloudpickle, so the package imports
+neither eagerly: ``SparkPCA`` and ``SparkPCAModel`` load on first use.
+Every fit's ``FitReport`` carries the analytical cost model
+(``telemetry/costmodel.py``) and the tuner's decisions
+(``autotune/search.py``: successive halving over the streamed fold's chunk
+rows, ``TPU_ML_AUTOTUNE``).
 """
 
 from spark_rapids_ml_tpu_torch.models.dbscan import DBSCAN, DBSCANModel
@@ -167,6 +178,18 @@ from spark_rapids_ml_tpu_torch.models.umap import UMAP, UMAPModel
 
 __version__ = "0.1.0"
 
+# loaded on first use: the Spark glue's modules need pyarrow at run time
+_LAZY = {"SparkPCA": "spark.estimators", "SparkPCAModel": "spark.estimators"}
+
+
+def __getattr__(name: str):
+    module = _LAZY.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    return getattr(importlib.import_module(f"{__name__}.{module}"), name)
+
 __all__ = [
     "ApproximateNearestNeighbors", "ApproximateNearestNeighborsModel", "Binarizer",
     "BinaryClassificationEvaluator", "Bucketizer", "ClusteringEvaluator", "CrossValidator",
@@ -189,7 +212,8 @@ __all__ = [
     "PolynomialExpansion", "QuantileDiscretizer", "QuantileDiscretizerModel",
     "RandomForestClassificationModel", "RandomForestClassifier",
     "RandomForestRegressionModel", "RandomForestRegressor", "RegressionEvaluator",
-    "RobustScaler", "RobustScalerModel", "StandardScaler", "StandardScalerModel",
+    "RobustScaler", "RobustScalerModel", "SparkPCA", "SparkPCAModel", "StandardScaler",
+    "StandardScalerModel",
     "StringIndexer", "StringIndexerModel", "Tokenizer", "TrainValidationSplit",
     "TrainValidationSplitModel", "TruncatedSVD", "TruncatedSVDModel", "UMAP", "UMAPModel",
     "VarianceThresholdSelector", "VarianceThresholdSelectorModel", "VectorAssembler",

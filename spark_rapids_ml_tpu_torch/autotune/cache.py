@@ -16,8 +16,14 @@ The device kind is ``"gpu/" + torch.cuda.get_device_name()`` on a card and
 builds from its own backend. The serving registry reads the entry keyed
 ``serve.pca`` to pick its ``bf16_f32acc`` variant, the only way the JAX
 package selects it too. Every lookup books ``autotune.cache_hits`` or
-``autotune.cache_misses``. The fit's decision journal waits for the
-fit-telemetry slice.
+``autotune.cache_misses``.
+
+Every resolution of the tuner (``autotune/search.py::resolve``: a hit, a
+searched winner, or the static knobs) goes into a bounded decision journal
+(``record_decision``) with an ``autotune.decision`` timeline instant;
+``telemetry/report.py`` takes ``decision_seq()`` when a fit begins and
+drains ``decisions_since`` into ``FitReport.tuning`` when it ends, so the
+report shows which configuration the fit ran with.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch
 
 from spark_rapids_ml_tpu_torch.autotune.policy import TuningConfig
 from spark_rapids_ml_tpu_torch.telemetry.registry import REGISTRY
+from spark_rapids_ml_tpu_torch.telemetry.timeline import TIMELINE
 from spark_rapids_ml_tpu_torch.utils.config import TUNING_CACHE_PATH_VAR
 
 logger = logging.getLogger("spark_rapids_ml_tpu_torch")
@@ -40,6 +47,10 @@ CACHE_SCHEMA = 1
 _LOCK = threading.Lock()
 _CACHE: dict[str, dict] = {}  # key -> {"config": {...}, ...provenance}
 _LOADED_PATH: str | None = None  # which file the persistent tier came from
+# the decision journal's bound; the counters keep the totals
+MAX_JOURNAL_EVENTS = 256
+_JOURNAL: list[tuple[int, dict]] = []  # (seq, decision)
+_SEQ = 0
 
 
 def cache_path() -> str:
@@ -129,6 +140,13 @@ def store(key: str, config: TuningConfig, *, measured_s: float | None = None,
         write_cache(cache_path(), snapshot)
 
 
+def entries() -> dict[str, dict]:
+    """Copy of the merged cache."""
+    with _LOCK:
+        _ensure_loaded()
+        return {k: dict(v) for k, v in _CACHE.items()}
+
+
 def write_cache(path: str, cache_entries: dict[str, dict]) -> None:
     """Write the persistent tier (atomic replace, sorted keys)."""
     doc = {
@@ -144,8 +162,42 @@ def write_cache(path: str, cache_entries: dict[str, dict]) -> None:
 
 
 def reset() -> None:
-    """Forget the in-process tier and the file-load state."""
-    global _LOADED_PATH
+    """Forget the in-process tier, the journal and the file-load state."""
+    global _LOADED_PATH, _SEQ
     with _LOCK:
         _CACHE.clear()
+        _JOURNAL.clear()
         _LOADED_PATH = None
+        _SEQ = 0
+
+
+def record_decision(*, kernel: str, key: str, source: str,
+                    config: TuningConfig | None) -> dict:
+    """Journal one resolution: ``source`` is ``cache`` (a hit), ``search``
+    (a fresh winner) or ``default`` (a miss: the static knobs)."""
+    global _SEQ
+    decision = {
+        "kernel": kernel,
+        "key": key,
+        "source": source,
+        "cache_hit": source == "cache",
+        "config": config.to_dict() if config is not None else None,
+    }
+    with _LOCK:
+        _SEQ += 1
+        _JOURNAL.append((_SEQ, decision))
+        del _JOURNAL[:-MAX_JOURNAL_EVENTS]
+    TIMELINE.record_instant("autotune.decision", kernel=kernel, source=source)
+    return decision
+
+
+def decision_seq() -> int:
+    """The journal's watermark (``begin_fit`` takes it)."""
+    with _LOCK:
+        return _SEQ
+
+
+def decisions_since(seq: int) -> list[dict]:
+    """The decisions journaled after ``seq`` (``end_fit`` drains them)."""
+    with _LOCK:
+        return [dict(d) for s, d in _JOURNAL if s > seq]

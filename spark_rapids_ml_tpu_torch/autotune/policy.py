@@ -4,10 +4,10 @@ dtypes.
 Copy of ``PrecisionPolicy``, ``POLICIES``, ``FOLD_POLICIES``,
 ``validate_policy``, ``resolve_policy`` and ``TuningConfig`` from
 ``spark_rapids_ml_tpu/autotune/policy.py``, under the same environment
-variable (``TPU_ML_PRECISION_POLICY``, default ``f32``). The tuner that
-searches over these policies is not ported; its blessed winners are read
-through ``autotune/cache.py`` (the serving registry's ``bf16_f32acc``
-variant is selected that way).
+variable (``TPU_ML_PRECISION_POLICY``, default ``f32``). The tuner
+(``autotune/search.py``) searches chunk geometry, never the policy; blessed
+winners are read through ``autotune/cache.py`` (the serving registry's
+``bf16_f32acc`` variant is selected that way).
 
 The invariant every policy keeps: accumulators stay f32. ``bf16_f32acc``
 rounds only the matmul operands to bf16 and accumulates their exact

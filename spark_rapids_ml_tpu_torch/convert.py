@@ -4,7 +4,8 @@ Each function here takes the dict that the JAX model's ``_saveData()`` returns,
 plain numpy arrays, so nothing of the JAX package is imported:
 
 - ``pca_model_from_arrays``: ``pc`` and ``explainedVariance``, and
-  ``mean``/``std`` for a model fitted with standardize=True;
+  ``mean``/``std`` for a model fitted with standardize=True (a
+  ``"SparkPCAModel"`` through ``model_from_arrays`` from the same arrays);
 - ``model_from_arrays``: any model or stage the port has, named by its
   class name (``"StandardScalerModel"``: ``mean``/``std``;
   ``"MinMaxScalerModel"``: ``originalMin``/``originalMax``;

@@ -20,7 +20,8 @@ What crosses between the packages:
 
 - a JAX-package save loads here in either layout. A native save names its
   class, and a ``spark_rapids_ml_tpu.*`` name resolves to the port's
-  counterpart through ``_JAX_CLASSES``; that module is never imported;
+  counterpart through ``_JAX_CLASSES`` (``spark.estimators.SparkPCAModel``
+  included); that module is never imported;
 - a Spark-layout save of the port loads in the JAX package and in Spark;
 - a native save of the port does not load in the JAX package, whose load
   admits only its own classes; its ``data.parquet`` reads there all the
@@ -113,6 +114,7 @@ _PORTED_CLASSES: dict[str, tuple[str, ...]] = {
         "TrainValidationSplitModel",
     ),
     "ann.index": ("IVFFlatIndex", "IVFFlatIndexModel"),
+    "spark.estimators": ("SparkPCA", "SparkPCAModel"),
 }
 _PORT_CLASS_PATHS: dict[str, str] = {
     name: f"{module}.{name}" for module, names in _PORTED_CLASSES.items() for name in names
@@ -346,9 +348,40 @@ def _instrumented_fit(fit):
     return fit_with_telemetry
 
 
+def _is_lazy_plan(out: Any) -> bool:
+    """A ``localspark`` DataFrame: a plan whose partition generator
+    (``_parts``) runs at action time and can be re-pointed."""
+    return callable(getattr(out, "_parts", None)) and hasattr(out, "_derive")
+
+
+def _defer_transform_finalize(df: Any, cap, finalize) -> None:
+    """Run ``finalize`` when ``df`` first materializes: its ``_parts``
+    generator is re-pointed to one that sets the transform id around the
+    plan's execution (so merged worker telemetry and log records carry it)
+    and closes the window when the plan is exhausted. Frames derived from
+    ``df`` read ``df._parts`` when they run, so they go through it too."""
+    orig = df._parts
+
+    def parts_with_capture():
+        token = telemetry.spans.set_current_transform_id(cap.window_id)
+        try:
+            yield from orig()
+        finally:
+            try:
+                telemetry.spans.reset_current_transform_id(token)
+            except ValueError:  # reset from another context
+                pass
+            finalize()
+
+    df._parts = parts_with_capture
+
+
 def _instrumented_transform(transform):
     """Wrap one class's ``transform`` in a transform window; the
-    transformer gets the ``TransformReport`` as ``transform_report``."""
+    transformer gets the ``TransformReport`` as ``transform_report``. An
+    eager result closes the window at return; a lazy ``localspark`` plan
+    at its first materialization (``_defer_transform_finalize``), so its
+    report holds the partitions' work."""
 
     @functools.wraps(transform)
     def transform_with_telemetry(self, *args, **kwargs):
@@ -358,19 +391,37 @@ def _instrumented_transform(transform):
         cap = telemetry.begin_transform(
             type(self).__name__, getattr(self, "uid", "") or "", rows=rows, nbytes=nbytes
         )
-        try:
-            out = transform(self, *args, **kwargs)
-        finally:
-            _transform_depth.value = depth
+        done = False
+
+        def finalize():
+            nonlocal done
+            if done:
+                return
+            done = True
             report = telemetry.end_transform(cap)
             telemetry.attach_transform_report(self, report)
-        if depth == 0:
-            telemetry.export_transform_report(report)
-            telemetry.export_timeline(
-                telemetry.TIMELINE.events(since_seq=cap.tl_seq),
-                transform_id=report.transform_id, estimator=report.transformer,
-                uid=report.uid,
-            )
+            if depth == 0:
+                telemetry.export_transform_report(report)
+                telemetry.export_timeline(
+                    telemetry.TIMELINE.events(since_seq=cap.tl_seq),
+                    transform_id=report.transform_id, estimator=report.transformer,
+                    uid=report.uid,
+                )
+
+        try:
+            out = transform(self, *args, **kwargs)
+        except BaseException:
+            _transform_depth.value = depth
+            finalize()
+            raise
+        _transform_depth.value = depth
+        if depth == 0 and _is_lazy_plan(out):
+            # the window stays open until the plan runs; this context's
+            # variables are restored now
+            telemetry.release_transform_context(cap)
+            _defer_transform_finalize(out, cap, finalize)
+        else:
+            finalize()
         return out
 
     transform_with_telemetry._telemetry_wrapped = True

@@ -36,7 +36,7 @@ from spark_rapids_ml_tpu_torch.ops import linalg as L
 from spark_rapids_ml_tpu_torch.parallel.executor import run_partition_tasks
 from spark_rapids_ml_tpu_torch.parallel.tree_aggregate import tree_reduce
 from spark_rapids_ml_tpu_torch.spark import ingest
-from spark_rapids_ml_tpu_torch.telemetry import trace_range
+from spark_rapids_ml_tpu_torch.telemetry import costmodel, trace_range
 from spark_rapids_ml_tpu_torch.utils import columnar
 from spark_rapids_ml_tpu_torch.utils import persistence as P
 from spark_rapids_ml_tpu_torch.utils.config import get_config
@@ -163,7 +163,9 @@ class PCA(PCAParams, Estimator):
 
         def partition_task(mat):
             padded, true_rows = columnar.pad_rows(mat)
-            stats = L.gram_stats(to_device(padded, device), precision=precision)
+            xd = to_device(padded, device)
+            costmodel.capture("linalg.gram_stats", L.gram_stats, xd, precision=precision)
+            stats = L.gram_stats(xd, precision=precision)
             # padding adds zero rows: fix only the count
             return L.GramStats(
                 stats.xtx, stats.col_sum, torch.full_like(stats.count, true_rows)
@@ -277,8 +279,9 @@ class PCAModel(PCAParams, Model):
         padded, true_rows = columnar.pad_rows(
             columnar.standardize_host(mat, self.mean, self.std)
         )
-        out = L.project(to_device(padded, self.device), to_device(self.pc, self.device))
-        return out[:true_rows].cpu().numpy()
+        xd, pc = to_device(padded, self.device), to_device(self.pc, self.device)
+        costmodel.capture("linalg.project", L.project, xd, pc)
+        return L.project(xd, pc)[:true_rows].cpu().numpy()
 
     def transform(self, dataset: Any) -> Any:
         """Project the input column; returns the same container type with the

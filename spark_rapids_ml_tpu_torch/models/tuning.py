@@ -15,9 +15,10 @@ The candidate fits are the port's estimators, so they run where those run:
 on the card by default. The datasets are those the estimators take: an
 ``(X, y)``/``(X, y, w)`` tuple, a matrix, an Arrow table, a
 ``PartitionedDataset`` (collected once per fit), or a container of the
-column protocol (``utils/columnar.py``). A Spark DataFrame is refused: its
-``randomSplit`` folds come with the port's Spark glue (``ROADMAP.md``,
-Queue A item 5).
+column protocol (``utils/columnar.py``). A Spark DataFrame, pyspark's or
+either package's ``localspark``, is refused: its ``randomSplit`` folds and
+one-job column collects are what remains of ``ROADMAP.md`` Queue A item 5
+(the port's Spark glue has ``SparkPCA`` so far).
 """
 
 from __future__ import annotations
@@ -40,14 +41,16 @@ pa = columnar.pa
 
 
 def _refuse_spark_df(dataset: Any) -> None:
-    """Raise for a pyspark (or JAX-package localspark) DataFrame."""
+    """Raise for a pyspark DataFrame or a ``localspark`` one of either
+    package."""
     mod = type(dataset).__module__ or ""
-    if mod.startswith("pyspark.") or mod.startswith("spark_rapids_ml_tpu.localspark"):
+    if columnar.is_spark_dataframe(dataset) or mod.startswith("spark_rapids_ml_tpu.localspark"):
         raise TypeError(
             f"model selection over a Spark DataFrame ({type(dataset).__name__}) is not "
-            "ported yet: its randomSplit folds come with the port's Spark glue "
-            "(ROADMAP.md, Queue A item 5). Collect the rows into an (X, y) tuple, a "
-            "matrix, an Arrow table or a frame of named columns"
+            "ported yet: its randomSplit folds and one-job column collects remain in "
+            "ROADMAP.md Queue A item 5 (the port's Spark glue has SparkPCA so far). "
+            "Collect the rows into an (X, y) tuple, a matrix, an Arrow table or a "
+            "frame of named columns"
         )
 
 

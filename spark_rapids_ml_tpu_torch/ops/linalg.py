@@ -164,6 +164,19 @@ def gram_stats(x: torch.Tensor, *, precision: str = "highest") -> GramStats:
     return GramStats(*_kernel_gram(x, precision, symmetric=False), count)
 
 
+def _gram_cost(x: torch.Tensor, *_, **__) -> tuple[float, float]:
+    """Analytical cost of the Gram statistics of a [rows, n] block (the
+    ``cost`` that ``telemetry.costmodel.capture`` reads): 2·rows·n² + 2·rows·n
+    operations, and the block read once plus the f32 XᵀX, column sums and
+    Σx² written once, rows·n·itemsize + (n² + 2n)·4 bytes. The same at every
+    tier: it counts the function, not the kernel's bf16 passes."""
+    rows, n = x.shape
+    return 2.0 * rows * n * n + 2.0 * rows * n, float(rows * n * x.element_size() + (n * n + 2 * n) * 4)
+
+
+gram_stats.cost = _gram_cost
+
+
 def combine_gram_stats(a: GramStats, b: GramStats) -> GramStats:
     """Monoid combine: elementwise sum of the triples."""
     return GramStats(a.xtx + b.xtx, a.col_sum + b.col_sum, a.count + b.count)
@@ -253,6 +266,7 @@ def gram_fold_step(precision: str = "highest", policy: str | None = None):
         carry.count.add_(stats.count)
         return carry
 
+    step.cost = lambda carry, x, w: _gram_cost(x)
     return step
 
 
@@ -514,6 +528,15 @@ def project(x: torch.Tensor, pc: torch.Tensor) -> torch.Tensor:
     """Transform projection X·PC of a [rows, n] block by [n, k] components."""
     _require_f32_matmul()
     return x @ pc
+
+
+def _project_cost(x: torch.Tensor, pc: torch.Tensor) -> tuple[float, float]:
+    """2·rows·n·k operations; X and PC read once and X·PC written once."""
+    (rows, n), k = x.shape, pc.shape[1]
+    return 2.0 * rows * n * k, float((rows * n + n * k + rows * k) * x.element_size())
+
+
+project.cost = _project_cost
 
 
 def min_cosine_vs_f64_oracle(x_host, pc, k: int) -> float:

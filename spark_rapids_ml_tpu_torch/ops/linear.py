@@ -136,6 +136,16 @@ def linear_fold_step(policy: str | None = None):
             acc.add_(value)
         return carry
 
+    def cost(carry: LinearStats, x: torch.Tensor, y: torch.Tensor, w: torch.Tensor):
+        """``gram_stats``'s cost in the same form (``telemetry.costmodel``):
+        XᵀX, Xᵀy and the weighted sums, 2·rows·n² + 4·rows·n operations;
+        x, y and w read once and the carry's six statistics written once."""
+        rows, n = x.shape
+        written = (n * n + 2 * n + 3) * carry.xtx.element_size()
+        return (2.0 * rows * n * n + 4.0 * rows * n,
+                float(rows * (n + 2) * x.element_size() + written))
+
+    step.cost = cost
     return step
 
 

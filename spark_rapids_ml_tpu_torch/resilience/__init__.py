@@ -8,7 +8,7 @@ Port of ``spark_rapids_ml_tpu/resilience``:
 - ``retry``: the error classifier over torch's errors and the one backoff
   loop, ``call_with_retry``;
 - ``supervisor``: worker-slot leases, bounded respawn and a per-slot circuit
-  breaker (its consumer, the local Spark session, is not ported yet).
+  breaker, around the local Spark session's workers (``localspark/``).
 
 The recoveries live where they protect: ``spark/ingest.py::stream_fold``
 retries transient faults, bisects a chunk on a device OOM, checkpoints and

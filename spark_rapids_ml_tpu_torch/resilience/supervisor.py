@@ -16,9 +16,9 @@ Port of ``spark_rapids_ml_tpu/resilience/supervisor.py``, call for call:
 
 It publishes the ``worker.slots``/``worker.quarantined`` gauges and keeps a
 registry of live supervisors, whose merged summary (``active_summary``) the
-health monitor's rollup shows as ``scheduler``. Its consumer, the local
-Spark session, is not ported yet (``ROADMAP.md``); ``hedge_config`` and
-``hedge_threshold_s`` serve ``parallel/executor.py`` now.
+health monitor's rollup shows as ``scheduler``. Its consumer is the local
+Spark session (``localspark/session.py``); ``hedge_config`` and
+``hedge_threshold_s`` serve ``parallel/executor.py`` too.
 """
 
 from __future__ import annotations

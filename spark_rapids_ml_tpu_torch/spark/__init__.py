@@ -1,1 +1,3 @@
-"""Data ingestion of the port: the streamed fold."""
+"""The Spark glue of the port: the streamed fold (``ingest``), the Arrow
+plan functions that run in Spark workers (``arrow_fns``), and the
+DataFrame-facing ``SparkPCA`` (``estimators``)."""

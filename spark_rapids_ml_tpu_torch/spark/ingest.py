@@ -65,8 +65,18 @@ The fold recovers as the JAX fold does (``resilience/``):
   ``FoldHangTimeout`` (hung, not slow);
 - ``TPU_ML_PROGRESS`` (seconds) prints a heartbeat line to stderr.
 
-Not ported yet (``ROADMAP.md``): the autotuner, DataFrame sources and the
-augmented intercept column.
+Each fold is booked against the analytical cost model as
+``stream.fold_step`` (``telemetry/costmodel.py``; the fold step's ``cost``).
+When the caller pins no ``chunk_rows``, the tuner picks it
+(``autotune.resolve("stream.fold_step", …)``, ``TPU_ML_AUTOTUNE``): a cached
+or searched winner sets ``chunk_rows = max(min_chunk_rows,
+bucket_rows(winner))`` before the staging buffers are allocated; a search's
+trials fold synthetic chunks into throwaway carries
+(``autotune.stream_fold_measure``), never the real one. A resumed fold
+keeps at most its checkpoint's chunk rows.
+
+Not ported yet (``ROADMAP.md`` Queue A items 5 and 6): DataFrame sources and
+the augmented intercept column.
 """
 
 from __future__ import annotations
@@ -86,7 +96,7 @@ import torch
 
 from spark_rapids_ml_tpu_torch.resilience import faults, sites
 from spark_rapids_ml_tpu_torch.resilience import retry as R
-from spark_rapids_ml_tpu_torch.telemetry import trace_range
+from spark_rapids_ml_tpu_torch.telemetry import costmodel, trace_range
 from spark_rapids_ml_tpu_torch.telemetry.registry import REGISTRY
 from spark_rapids_ml_tpu_torch.telemetry.spans import current_fit_id
 from spark_rapids_ml_tpu_torch.telemetry.timeline import TIMELINE
@@ -303,6 +313,7 @@ def stream_fold(
     A resumed fold needs the same source again, from its start. Spans:
     ``ingest.chunk``, ``fold.dispatch``, ``fold.wait``."""
     cfg = get_config()
+    tune_geometry = chunk_rows is None
     chunk_rows = stream_chunk_rows() if chunk_rows is None else chunk_rows
     nonfinite = nonfinite or cfg.nonfinite_policy
     if nonfinite not in VALID_NONFINITE_POLICIES:
@@ -322,6 +333,20 @@ def stream_fold(
     cuda = device.type == "cuda"
     labeled = label_col is not None
     carry = init() if callable(init) else init
+    if tune_geometry:
+        # lazy: autotune/search.py imports utils/config.py, like this module
+        from spark_rapids_ml_tpu_torch import autotune
+
+        tuned = autotune.resolve(
+            "stream.fold_step",
+            n=n,
+            dtype="float32",
+            device=autotune.cache.device_kind(device),
+            measure=autotune.stream_fold_measure(fold_fn, carry, n, device, want_y=labeled),
+            candidates=autotune.candidate_grid(chunk_rows, floor=min_chunk_rows),
+        )
+        if tuned is not None and tuned.chunk_rows:
+            chunk_rows = max(min_chunk_rows, columnar.bucket_rows(int(tuned.chunk_rows)))
 
     seen = skipped = n_chunks = overlapped = copy_overlapped = max_put = 0
     bisections = last_ckpt = resume_skip = 0
@@ -407,10 +432,10 @@ def stream_fold(
                 block = on_card[slot][:rows]
             else:
                 block = staging[slot][lo:hi]
-            if labeled:
-                carry = fold_fn(carry, block[:, :n], block[:, n], block[:, n + 1])
-            else:
-                carry = fold_fn(carry, block, unit_w[:rows])
+            args = ((block[:, :n], block[:, n], block[:, n + 1]) if labeled
+                    else (block, unit_w[:rows]))
+            costmodel.capture("stream.fold_step", fold_fn, carry, *args)
+            carry = fold_fn(carry, *args)
             if cuda:
                 folded[slot] = fold_stream.record_event()
                 if not copied[slot].query():

@@ -8,10 +8,13 @@ Counterpart of ``spark_rapids_ml_tpu/telemetry``:
 - ``FitReport`` / ``TransformReport`` and their capture windows
   (``report``), opened by the ``models/base.py`` wrappers around every
   ``fit`` and ``transform``;
+- the analytical cost model (``costmodel``), whose counters the reports'
+  ``cost_model`` rolls up;
 - the JSONL sinks (``export``), the SLO engine (``slo``), the health
   monitor and admission control (``health``), the exporter (``httpd``).
 """
 
+from spark_rapids_ml_tpu_torch.telemetry import costmodel
 from spark_rapids_ml_tpu_torch.telemetry.export import (
     export_fit_report,
     export_timeline,
@@ -28,6 +31,7 @@ from spark_rapids_ml_tpu_torch.telemetry.report import (
     end_fit,
     end_transform,
     recent_reports,
+    release_transform_context,
 )
 from spark_rapids_ml_tpu_torch.telemetry.spans import trace_range
 from spark_rapids_ml_tpu_torch.telemetry.timeline import TIMELINE
@@ -38,6 +42,7 @@ __all__ = [
     "TransformReport",
     "attach_report",
     "attach_transform_report",
+    "costmodel",
     "begin_fit",
     "begin_transform",
     "end_fit",
@@ -47,5 +52,6 @@ __all__ = [
     "export_transform_report",
     "read_jsonl",
     "recent_reports",
+    "release_transform_context",
     "trace_range",
 ]

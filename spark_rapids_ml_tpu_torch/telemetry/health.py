@@ -24,10 +24,11 @@ FAILING (2):
 
 The rollup carries ``scheduler``, the live worker supervisors' leases and
 quarantines (``resilience/supervisor.py::active_summary``), when there are
-any. The JAX package's ``workers`` and ``scheduler`` components read
-series that only its ``localspark/`` books, and its ``resilience``
-component also flags ``degraded.cpu_fallback``, which only its Spark
-estimators count; those come with that glue (``ROADMAP.md``).
+any. The JAX package's ``workers`` and ``scheduler`` components, which
+read the series its ``localspark/`` books (the port's engine books
+``worker.last_trailer`` too), are not ported, and neither is the
+``degraded.cpu_fallback`` flag of its ``resilience`` component, which only
+the mesh-local fallback counts (``ROADMAP.md`` Queue A items 5 and 6).
 
 **No probe creates a CUDA context in this process.** Every device read
 goes through ``sample_device_memory``, which returns nothing until CUDA is

@@ -21,8 +21,10 @@ one process-wide ``REGISTRY``; ``/metrics`` renders it.
   ``telemetry.spans.trace_range`` books into the per-phase percentiles a
   ``FitReport`` carries.
 
-The wire form workers send their metrics in (``to_wire``/``merge_wire``)
-is not ported.
+- **Wire form**: a worker's registry delta travels to the driver as
+  ``RegistrySnapshot.to_wire`` (JSON-safe, buckets kept) and is replayed
+  there by ``MetricsRegistry.merge_wire`` with a ``partition`` label
+  (``localspark/``'s telemetry trailer); the JAX package's format.
 """
 
 from __future__ import annotations
@@ -133,6 +135,31 @@ class Histogram:
             return Histogram()
         return h
 
+    def to_wire(self) -> dict:
+        """JSON-safe full state, buckets included (the extremes only when
+        there are samples)."""
+        out: dict = {
+            "count": self.count,
+            "total": self.total,
+            "buckets": {str(k): v for k, v in self.buckets.items()},
+        }
+        if self.count:
+            out["vmin"] = self.vmin
+            out["vmax"] = self.vmax
+        return out
+
+    def merge_wire(self, wire: dict) -> None:
+        """Fold a ``to_wire`` payload into this histogram."""
+        self.count += int(wire.get("count", 0))
+        self.total += float(wire.get("total", 0.0))
+        if "vmin" in wire:
+            self.vmin = min(self.vmin, float(wire["vmin"]))
+        if "vmax" in wire:
+            self.vmax = max(self.vmax, float(wire["vmax"]))
+        for k, v in (wire.get("buckets") or {}).items():
+            idx = int(k)
+            self.buckets[idx] = self.buckets.get(idx, 0) + int(v)
+
     def to_dict(self, percentiles=(50, 90, 99)) -> dict[str, float]:
         if self.count == 0:
             return {"count": 0, "sum": 0.0}
@@ -214,6 +241,28 @@ class MetricsRegistry:
         ex.sort(key=lambda pair: -pair[0])
         del ex[budget:]
 
+    def merge_wire(self, wire: dict, **extra_labels) -> None:
+        """Fold a ``RegistrySnapshot.to_wire`` payload (a worker's delta)
+        into this registry, with ``extra_labels`` (``partition="3"``) on
+        every merged series."""
+        extra = {k: v for k, v in extra_labels.items() if v}
+        with self._lock:
+            for name, labels, value in wire.get("counters", ()):
+                k = _key(name, {**labels, **extra})
+                self._counters[k] = self._counters.get(k, 0) + value
+            for name, labels, value in wire.get("gauges", ()):
+                self._gauges[_key(name, {**labels, **extra})] = value
+            for name, labels, hwire in wire.get("hists", ()):
+                k = _key(name, {**labels, **extra})
+                h = self._hists.get(k)
+                if h is None:
+                    h = self._hists[k] = Histogram()
+                h.merge_wire(hwire)
+            for name, labels, pairs in wire.get("exemplars", ()):
+                k = _key(name, {**labels, **extra})
+                for value, trace_id in pairs:
+                    self._exemplar_add(k, float(value), str(trace_id))
+
     def snapshot(self) -> "RegistrySnapshot":
         with self._lock:
             return RegistrySnapshot(
@@ -253,6 +302,20 @@ class RegistrySnapshot:
             counters=counters, gauges=dict(self.gauges), hists=hists,
             exemplars=exemplars,
         )
+
+    def to_wire(self) -> dict:
+        """JSON-safe lossless form (labels structured, buckets kept), which
+        ``MetricsRegistry.merge_wire`` replays."""
+        return {
+            "counters": [[name, dict(labels), v]
+                         for (name, labels), v in sorted(self.counters.items())],
+            "gauges": [[name, dict(labels), v]
+                       for (name, labels), v in sorted(self.gauges.items())],
+            "hists": [[name, dict(labels), h.to_wire()]
+                      for (name, labels), h in sorted(self.hists.items())],
+            "exemplars": [[name, dict(labels), [[v, t] for v, t in pairs]]
+                          for (name, labels), pairs in sorted(self.exemplars.items())],
+        }
 
     def counter(self, name: str, **labels) -> float:
         """Sum of a counter across label sets; with labels given, the exact

@@ -33,10 +33,17 @@ Where the port's report differs from the JAX package's:
   peak is that of its enclosing fit so far, an upper bound for its own.
 - ``compile`` reads the CUDA graph captures (``compile.graph_captures``);
   the XLA keys it shares with the JAX package stay 0.
-- ``cost_model`` and ``tuning`` stay ``{}``: ``telemetry/costmodel.py``
-  and ``autotune/search.py`` are not ported. The keys are there.
-- A transform's report closes when ``transform`` returns: the port has no
-  lazy plans (``localspark/`` is not ported).
+- ``cost_model`` is ``telemetry/costmodel.py``'s ``window_summary`` of the
+  window's ``costmodel.*`` counters (fits and transforms), and ``tuning``
+  the tuner's decisions journaled inside the fit (``autotune/cache.py``),
+  as in the JAX package; the cost model's numbers are the port's analytical
+  counts and the card's peak.
+- A transform's report closes when ``transform`` returns, except for a lazy
+  plan (a ``localspark`` DataFrame): there the window's context is restored
+  at return (``release_transform_context``) and the report closes when the
+  plan first materializes (``models/base.py``). Its ``partitions`` then
+  hold each partition's ``transform.*`` counters, which the workers' partition
+  functions book and the telemetry trailer brings back labelled by partition.
 
 Nested fits (a pipeline's stages) each get a report, a sub-window of the
 outer one; only the outermost fit is exported (``models/base.py``).
@@ -53,7 +60,7 @@ from typing import Any
 
 import torch
 
-from spark_rapids_ml_tpu_torch.telemetry import compilemon, spans
+from spark_rapids_ml_tpu_torch.telemetry import compilemon, costmodel, spans
 from spark_rapids_ml_tpu_torch.telemetry.registry import REGISTRY, render_key
 from spark_rapids_ml_tpu_torch.telemetry.timeline import TIMELINE
 
@@ -154,8 +161,11 @@ class FitReport:
 @dataclass
 class TransformReport:
     """Everything observed during one ``transform()`` call. ``partitions``
-    and ``partition_latency`` keep the JAX schema; the port has no
-    partitioned transform yet, so they are empty."""
+    maps a partition label (``"0"``, ``"1"``, … from local Spark workers,
+    ``"driver"`` for a partition function run in this process) to its
+    ``{rows, bytes, seconds, batches}``; ``partition_latency`` is the merged
+    ``transform.partition_seconds`` histogram. Both are empty for an eager
+    transform, which runs no partition function."""
 
     transformer: str
     uid: str
@@ -221,7 +231,9 @@ class _Capture:
     id_token: Any
     snap: Any
     tl_seq: int
+    tuning_seq: int = 0
     admission: dict = field(default_factory=dict)
+    released: bool = False
     t0: float = field(default_factory=time.perf_counter)
     t_unix: float = field(default_factory=time.time)
 
@@ -266,14 +278,18 @@ def begin_fit(
             raise health.AdmissionRefused(
                 f"fit of {estimator} on {where} cannot be degraded: "
                 f"{admission['reason']}. In the JAX package {health.ADMISSION_POLICY_VAR}"
-                "=degrade moves only a Spark estimator's fit off the mesh "
-                "(spark/estimators.py::_mesh_or_fallback); the port's Spark estimators "
-                "are not ported yet, so it has no degraded path for a fit on the card. "
-                "Fit on device='cpu' or set the policy to 'refuse' or 'off'"
+                "=degrade moves only a Spark estimator's mesh-local fit off the mesh "
+                "(spark/estimators.py::_mesh_or_fallback); the port's mesh-local fit "
+                "and that fallback wait for ROADMAP Queue A item 6, so it has no "
+                "degraded path for a fit on the card. Fit on device='cpu' or set the "
+                "policy to 'refuse' or 'off'"
             )
         health.begin_degrade_window()
     if outermost:
         _reset_peak_memory()
+    # lazy: autotune/cache.py imports the telemetry registry
+    from spark_rapids_ml_tpu_torch.autotune import cache as autotune_cache
+
     fit_id = uuid.uuid4().hex[:12]
     return _Capture(
         name=estimator,
@@ -285,6 +301,7 @@ def begin_fit(
         id_token=spans.set_current_fit_id(fit_id),
         snap=REGISTRY.snapshot(),
         tl_seq=TIMELINE.seq(),
+        tuning_seq=autotune_cache.decision_seq(),
         admission=admission,
     )
 
@@ -317,11 +334,22 @@ def end_fit(cap: _Capture) -> FitReport:
     """Close a fit window and build its report. Always called (the fit
     wrapper's ``finally``), so the span labels are restored even when the
     fit raised."""
+    from spark_rapids_ml_tpu_torch.autotune import cache as autotune_cache
     from spark_rapids_ml_tpu_torch.telemetry import health
 
     wall = time.perf_counter() - cap.t0
     spans.reset_current_estimator(cap.token)
     spans.reset_current_fit_id(cap.id_token)
+    decisions = autotune_cache.decisions_since(cap.tuning_seq)
+    tuning: dict = {}
+    if decisions:
+        last = decisions[-1]
+        tuning = {
+            "decisions": decisions,
+            "source": last["source"],
+            "cache_hit": last["cache_hit"],
+            "config": last["config"],
+        }
     if cap.admission.get("action") == "degrade":
         health.end_degrade_window()
     device_memory = compilemon.sample_device_memory()
@@ -357,6 +385,8 @@ def end_fit(cap: _Capture) -> FitReport:
         timestamp_unix=cap.t_unix,
         fit_id=cap.window_id,
         overlap_fraction=(ov.total / ov.count) if ov.count else None,
+        cost_model=costmodel.window_summary(delta, wall),
+        tuning=tuning,
         health=health.current_summary(),
         admission=cap.admission,
     )
@@ -384,20 +414,61 @@ def begin_transform(
     )
 
 
+def release_transform_context(cap: _Capture) -> None:
+    """Restore the estimator and transform-id context variables (once).
+
+    Split from ``end_transform`` because a lazy plan's report is built
+    later, from its materialization, where the tokens of this context are
+    unusable."""
+    if cap.released:
+        return
+    cap.released = True
+    try:
+        spans.reset_current_estimator(cap.token)
+        spans.reset_current_transform_id(cap.id_token)
+    except ValueError:  # reset from another context
+        spans.set_current_estimator(None)
+        spans.set_current_transform_id(None)
+
+
+_TRANSFORM_FIELDS = {
+    "transform.rows": "rows",
+    "transform.bytes": "bytes",
+    "transform.batches": "batches",
+}
+
+
 def end_transform(cap: _Capture) -> TransformReport:
-    """Close a transform window and build its report."""
+    """Close a transform window and build its report. Rows and bytes are
+    the caller's dataset's where its size is known, else what the
+    partition functions booked (``transform.rows``/``transform.bytes``)."""
     wall = time.perf_counter() - cap.t0
-    spans.reset_current_estimator(cap.token)
-    spans.reset_current_transform_id(cap.id_token)
+    release_transform_context(cap)
     delta = REGISTRY.snapshot().delta(cap.snap)
+    partitions: dict[str, dict[str, float]] = {}
+
+    def bucket(labels) -> dict[str, float]:
+        part = dict(labels).get("partition", "") or "driver"
+        return partitions.setdefault(part, {"rows": 0, "bytes": 0, "seconds": 0.0, "batches": 0})
+
+    for (name, labels), v in delta.counters.items():
+        if name in _TRANSFORM_FIELDS:
+            bucket(labels)[_TRANSFORM_FIELDS[name]] += int(v)
+    for (name, labels), h in delta.hists.items():
+        if name == "transform.partition_seconds":
+            bucket(labels)["seconds"] += h.total
+    rows = cap.rows if cap.rows is not None else delta.counter("transform.rows")
+    nbytes = cap.nbytes if cap.nbytes is not None else delta.counter("transform.bytes")
     report = TransformReport(
         transformer=cap.name,
         uid=cap.uid,
         wall_seconds=wall,
         phases=delta.phase_table(),
-        rows=int(cap.rows or 0),
-        bytes=int(cap.nbytes or 0),
+        rows=int(rows),
+        bytes=int(nbytes),
+        partitions=partitions,
         partition_latency=delta.hist("transform.partition_seconds").to_dict(),
+        cost_model=costmodel.window_summary(delta, wall),
         counters=_other_counters(delta, "transform."),
         timestamp_unix=cap.t_unix,
         transform_id=cap.window_id,

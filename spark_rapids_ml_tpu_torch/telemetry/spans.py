@@ -100,6 +100,28 @@ SPAN_PHASES: frozenset[str] = frozenset({
     "one-vs-rest fit",
     "one-vs-rest transform",
     "isotonic pav",
+    # the tuner's search and its timing trials
+    "autotune.search",
+    "autotune.trial",
+    # the Spark glue: the direct fit's SVD of the merged R, and the task
+    # span each local Spark worker books (spark_rapids_ml_tpu/telemetry/names.py)
+    "svd from r",
+    "worker.task",
+})
+
+#: The cost model's and the tuner's counters, under the JAX package's names
+#: (``spark_rapids_ml_tpu/telemetry/names.py:137-146``): ``costmodel.*``
+#: labelled ``kernel=`` (``telemetry/costmodel.py``) and ``autotune.*``
+#: (``autotune/cache.py``, ``autotune/search.py``).
+TUNING_METRICS: frozenset[str] = frozenset({
+    "autotune.cache_hits",
+    "autotune.cache_misses",
+    "autotune.search_runs",
+    "autotune.trials",
+    "autotune.trial_failures",
+    "costmodel.calls",
+    "costmodel.flops",
+    "costmodel.bytes",
 })
 
 _current_estimator: contextvars.ContextVar[str | None] = contextvars.ContextVar(

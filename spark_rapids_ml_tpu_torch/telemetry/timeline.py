@@ -118,6 +118,21 @@ class Timeline:
                 if e["seq"] > since_seq
             ]
 
+    def merge(self, events: list[dict], **labels) -> None:
+        """Adopt another process's events (a worker's trailer), their
+        ``pid``/``tid``/``ts`` kept (the monotonic clock is system-wide) and
+        ``labels`` (``partition="3"``) stamped into their args; malformed
+        entries are dropped."""
+        if not self._enabled:
+            return
+        extra = {k: v for k, v in labels.items() if v}
+        for e in events:
+            if not isinstance(e, dict) or "name" not in e or "ts" not in e:
+                continue
+            merged = dict(e)
+            merged["args"] = {**(e.get("args") or {}), **extra}
+            self._append(merged)
+
     def clear(self) -> None:
         with self._lock:
             self._events.clear()

@@ -7,7 +7,8 @@ feature and text stages (``extract_column_values``), appended output columns
 (``append_columns``), the weight-column contract that the clustering
 estimators share (``validate_weights``, ``resolve_partition_weights``) and
 the supervised estimators' labeled partitions (``labeled_partitions``,
-``pad_labeled``, ``pad_labeled_batch``).
+``pad_labeled``, ``pad_labeled_batch``), and the Spark glue's row helpers
+(``row_vector_to_ndarray``, ``feature_dim``, ``is_spark_dataframe``).
 Accepted inputs: a 2-D ndarray, a pandas DataFrame whose column holds one
 array per row, and a pyarrow Table or RecordBatch with a list or
 fixed-size-list column (the reference's ArrayType input) or a Spark ML
@@ -127,6 +128,37 @@ def _from_arrow_column(col) -> np.ndarray:
         values = col.values.to_numpy(zero_copy_only=False)
         return values[offsets[0] : offsets[-1]].reshape(-1, n)
     raise TypeError(f"unsupported Arrow column type for ArrayType input: {col.type}")
+
+
+def row_vector_to_ndarray(value: Any) -> np.ndarray:
+    """One collected row value of a features column → [n] f64 ndarray: a
+    list or ndarray (ArrayType), a pyspark.ml Vector (``toArray``), or the
+    VectorUDT struct as a mapping."""
+    if hasattr(value, "toArray"):  # pyspark.ml DenseVector / SparseVector
+        return np.asarray(value.toArray(), dtype=np.float64)
+    if isinstance(value, dict) and set(value).issuperset(_VECTOR_UDT_FIELDS):
+        from spark_rapids_ml_tpu_torch.utils.persistence import struct_to_vector
+
+        return struct_to_vector(value)
+    return np.asarray(value, dtype=np.float64)
+
+
+def feature_dim(value: Any) -> int:
+    """Feature count of one collected row value, without densifying a
+    sparse vector."""
+    if hasattr(value, "size") and not isinstance(value, (list, tuple, np.ndarray)):
+        return int(value.size)  # pyspark.ml Vector
+    if isinstance(value, dict) and set(value).issuperset(_VECTOR_UDT_FIELDS):
+        return len(value["values"]) if value["type"] == 1 else int(value["size"])
+    return len(value)
+
+
+def is_spark_dataframe(obj: Any) -> bool:
+    """True for a pyspark DataFrame or one of the port's local Spark engine
+    (``spark_rapids_ml_tpu_torch.localspark``). The JAX package's engine is
+    not one: its workers would run the JAX package."""
+    mod = type(obj).__module__ or ""
+    return mod.startswith("pyspark.") or mod.startswith("spark_rapids_ml_tpu_torch.localspark")
 
 
 def extract_matrix(data: Any, input_col: str | None = None) -> np.ndarray:

@@ -20,7 +20,10 @@ The resilience knobs (``TPU_ML_TASK_RETRIES``, ``TPU_ML_RETRY_*``,
 ``TPU_ML_STREAM_CHECKPOINT_EVERY_CHUNKS``, ``TPU_ML_FOLD_WAIT_TIMEOUT_S``,
 ``TPU_ML_STREAM_CHUNK_FLOOR``, ``TPU_ML_PROGRESS``, ``TPU_ML_FAULT_PLAN``,
 ``TPU_ML_HEDGE_*``, ``TPU_ML_WORKER_*``, ``TPU_ML_HEALTH_RETRY_STORM``)
-are copies of the JAX package's too, names and defaults alike.
+are copies of the JAX package's too, names and defaults alike. So are the
+tuner's (``TPU_ML_AUTOTUNE``, ``TPU_ML_AUTOTUNE_TRIALS``) and the local
+Spark engine's (``TPU_ML_BARRIER_TIMEOUT_S``, ``TPU_ML_BARRIER_RETRIES``);
+``TPU_ML_PEAK_TFLOPS`` keeps its name, but its default is the card's peak.
 
 ``TPU_ML_MESH_LOCAL_WIRE_DTYPE`` only sizes the streamed-fit cutover, as the
 JAX package's wire would be sized: the port stages and computes in f32
@@ -104,6 +107,15 @@ WORKER_PROBE_VAR = "TPU_ML_WORKER_PROBE"
 WORKER_PROBE_TIMEOUT_VAR = "TPU_ML_WORKER_PROBE_TIMEOUT"
 WORKER_SCRUB_VARS_VAR = "TPU_ML_WORKER_SCRUB_VARS"
 HEALTH_RETRY_STORM_VAR, DEFAULT_HEALTH_RETRY_STORM = "TPU_ML_HEALTH_RETRY_STORM", 8
+
+# the cost model, the tuner and the local Spark engine
+# (spark_rapids_ml_tpu/utils/knobs.py:69, :99, :133, :163-169), with their
+# defaults, but for the peak: the port's is the card's (telemetry/costmodel.py)
+AUTOTUNE_VAR, DEFAULT_AUTOTUNE = "TPU_ML_AUTOTUNE", "cache"
+AUTOTUNE_TRIALS_VAR, DEFAULT_AUTOTUNE_TRIALS = "TPU_ML_AUTOTUNE_TRIALS", 9
+PEAK_TFLOPS_VAR = "TPU_ML_PEAK_TFLOPS"
+BARRIER_TIMEOUT_S_VAR, DEFAULT_BARRIER_TIMEOUT_S = "TPU_ML_BARRIER_TIMEOUT_S", "120"
+BARRIER_RETRIES_VAR, DEFAULT_BARRIER_RETRIES = "TPU_ML_BARRIER_RETRIES", 1
 
 DEFAULT_STREAM_CHUNK = 65_536
 VALID_NONFINITE_POLICIES = ("raise", "skip", "allow")

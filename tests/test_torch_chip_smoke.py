@@ -833,3 +833,46 @@ def test_column_frame_is_the_column_protocol():
     more = frame.assign(y=list(np.ones((3, 4))), t=[["a", "b"], ["c"], []])
     assert more["y"].to_numpy().shape == (3, 4) and list(more["t"].to_numpy()[1]) == ["c"]
     assert list(more.iloc[[2, 0]]["s"].to_numpy()) == ["a", "a"]
+
+
+def test_cost_model_and_partition_bodies_phases_on_cpu():
+    """Phase 19 (a) and (c) at a tiny size: the fit's linalg.gram_stats
+    calls are its partitions, and the partition bodies' stats and
+    projections agree with the fit and its transform."""
+    a = chip_smoke.phase_cost_model(3000, 96, 5, 3, CPU)
+    assert a["gram_stats"]["calls"] == 3 and a["padded_rows"] == 1024
+    assert a["gram_stats"]["flops"] == chip_smoke.gram_cost_at(1024, 96)
+    assert 0 < a["roofline_utilization"] <= chip_smoke.COST_ROOFLINE_MAX
+    c = chip_smoke.phase_partition_bodies(3000, 96, 5, 3, CPU, a.pop("model"), a.pop("out"))
+    assert c["launches"] == {name: 0 for name in chip_smoke.KERNELS}  # plain versions
+    assert c["count"] == 3000 and c["min_cosine_vs_f64_oracle"] >= chip_smoke.COSINE_BAR
+    assert c["transform_max_abs_err"] <= c["transform_tol"]
+
+
+def test_cost_model_gate_catches_a_wrong_formula(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "gram_cost_at", lambda rows, n: 2.0 * rows * n * n)
+    with pytest.raises(AssertionError, match="per-call flops"):
+        chip_smoke.phase_cost_model(3000, 96, 5, 3, CPU)
+
+
+def test_autotune_phase_on_cpu(monkeypatch):
+    """Phase 19 (b) at a tiny size: the searched fit, then its cache hit,
+    bit for bit; the in-process cache is empty afterwards."""
+    monkeypatch.setenv("TPU_ML_STREAM_FIT_MAX_RESIDENT_BYTES", "1")
+    monkeypatch.setenv("TPU_ML_STREAM_CHUNK_ROWS", "64")
+    data = chip_smoke.streamed_workload(64 * 30 + 17, 16, 3, CPU)
+    out = chip_smoke.phase_autotune(data, 4, 3, CPU)
+    # the static chunk is bucketed to TPU_ML_MIN_BUCKET (128): {½, 1, 2}×128
+    assert out["candidates"] == [64, 128, 256] and out["search_source"] == "search"
+    assert out["winner_rows"] in out["candidates"] and 1 <= out["trials"] <= out["budget"]
+    assert out["fold_chunks"] == -(-(64 * 30 + 17) // out["winner_rows"])
+    assert out["cache_hit"] and out["pc_bit_equal"]
+    assert set(out["seconds_per_row"]) == {64, 128, 256}
+    assert chip_smoke.tuning_cache.entries() == {}
+
+
+def test_every_phase_runs_unless_a_group_is_skipped():
+    assert chip_smoke.parse_skip([]) == set()
+    assert chip_smoke.parse_skip(["--skip", "ann,trees"]) == {"ann", "trees"}
+    with pytest.raises(SystemExit):
+        chip_smoke.parse_skip(["--skip", "kernels"])

@@ -105,3 +105,16 @@ def test_fit_telemetry_and_scaler_modules_are_covered():
         assert f"spark_rapids_ml_tpu_torch.telemetry.{name}" in modules
     for name in ("scaler", "pipeline", "discretizer", "selector"):
         assert f"spark_rapids_ml_tpu_torch.models.{name}" in modules
+
+
+def test_cost_model_tuner_and_spark_glue_modules_are_covered():
+    """The cost model, the tuner's search, the local Spark engine and the
+    Spark glue are among the modules the blocked-import run imports."""
+    modules = set(_port_modules())
+    assert "spark_rapids_ml_tpu_torch.telemetry.costmodel" in modules
+    assert "spark_rapids_ml_tpu_torch.autotune.search" in modules
+    for name in ("__init__", "types", "functions", "dataframe", "taskcontext", "worker",
+                 "session"):
+        assert f"spark_rapids_ml_tpu_torch.localspark.{name}" in modules
+    for name in ("arrow_fns", "estimators"):
+        assert f"spark_rapids_ml_tpu_torch.spark.{name}" in modules

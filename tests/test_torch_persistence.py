@@ -228,11 +228,11 @@ def test_port_native_save_crosses_as_arrays_only(x, tmp_path):
 
 
 def test_unported_jax_class_is_refused_without_import(tmp_path):
-    path = tmp_path / "spark_pca"
+    path = tmp_path / "spark_kmeans"
     path.mkdir()
     (path / "metadata.json").write_text(json.dumps({
-        "class": "spark_rapids_ml_tpu.spark.estimators.SparkPCAModel",
-        "uid": "SparkPCAModel_1",
+        "class": "spark_rapids_ml_tpu.spark.estimators.SparkKMeansModel",
+        "uid": "SparkKMeansModel_1",
         "paramMap": {}, "defaultParamMap": {},
     }))
     with pytest.raises(TypeError, match="no counterpart"):
