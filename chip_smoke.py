@@ -210,7 +210,32 @@ Phases, each a plain function that the CPU tests also call at a tiny size:
    through symmetric_gram_moments twice, the fit folding
    ceil(10,000,000 / winner) chunks and meeting the f64 oracle; then again
    under TPU_ML_AUTOTUNE=cache, a hit of the same chunk rows whose pc is bit
-   for bit the searched fit's; each candidate's seconds per row printed.
+   for bit the searched fit's; each candidate's seconds per row printed;
+20. the Spark glue's device half (no new kernel): each partition body of
+   the Spark estimators over 8 partitions of 2 frames of named columns (no
+   pyarrow), the statistics merged in f64 on the host as the driver merges
+   them, then each estimator's own driver half on the card, in three
+   places: (c), (d) after phase 19 (c), on phase 4's 500,000 x 512 rows:
+   the moments (SparkStandardScaler's moments_merged), range and 4,096-bin
+   histogram (SparkRobustScaler's robust_merged: medians within one bin
+   of the exact ones) bodies, the NaN-aware moments and range on the same
+   rows with a seeded 1% NaN (SparkImputer's surrogate), each against f64
+   at 1e-5 or exactly, and SparkTruncatedSVD's FitPartitionFn at "high"
+   (16 fused_gram_moments launches, counted in the kernels line as
+   phase20_launches) and decompose_merged against the f64 oracle; (a), (d)
+   after phase 14 (b, c), on the first 1,000,000 of phase 8's rows (phase
+   14's labels, weights and classes): LinRegPartitionFn (SparkLinearRegression's
+   solve_merged, held by phase 14's perturbation bound), 3 binary and 3
+   10-class Newton jobs (SparkLogisticRegression's newton_step; the first
+   job's gradient against f64, the parameters against the core estimator's
+   3 iterations on the same rows); (b), (d) after phase 12, on 2,000,000 of
+   config 5's 128-wide blobs with k = 1,000: one k-means‖ round (the cost
+   and sample bodies; each trial against the f64 rule but for near ties),
+   the weighting body on the candidates, SparkKMeans' reduce_candidates and
+   3 Lloyd jobs (lloyd_step), each merge against an f64 pass with phase
+   12's near-tie rule; and the transform bodies (MatrixMap for
+   StandardScaler and LinearRegression, ProbaPrediction for binary
+   logistic, MultiOutput for KMeans) against the models' own transforms.
 
 Each main path reads the kernels' launch counts from 0 around exactly its
 fit. The last lines are one JSON object with every kernel's numbers, the
@@ -282,6 +307,7 @@ from spark_rapids_ml_tpu_torch.serving import registry as R
 from spark_rapids_ml_tpu_torch.serving import server as S
 from spark_rapids_ml_tpu_torch.serving.batcher import MicroBatcher
 from spark_rapids_ml_tpu_torch.spark import arrow_fns, ingest
+from spark_rapids_ml_tpu_torch.spark import estimators as spark_est
 from spark_rapids_ml_tpu_torch.telemetry import health, httpd, slo
 from spark_rapids_ml_tpu_torch.telemetry.registry import REGISTRY
 from spark_rapids_ml_tpu_torch.telemetry.timeline import TIMELINE
@@ -5443,6 +5469,448 @@ def phase_autotune(data, k: int, partitions: int, device: torch.device) -> dict:
     return result
 
 
+# -- phase 20: the Spark glue's device half ----------------------------------
+
+SPARK_LINEAR_ROWS = 1_000_000   # config 2's width, cut from 10,000,000 rows (PERF.md §4)
+SPARK_NEWTON_JOBS = 3
+SPARK_KMEANS_ROWS = 2_000_000   # config 5's width and k, cut from 50,000,000 rows
+SPARK_NAN_SHARE = 0.01
+SPARK_SEED = 61
+SPARK_STATS_RTOL = 1e-5         # moments and sums against f64, normwise
+
+
+def spark_frames(columns: dict, partitions: int = LINEAR_PARTITIONS,
+                 batches: int = PARTITION_BATCHES) -> list[list[ColumnFrame]]:
+    """The rows as ``partitions`` partitions of ``batches`` frames of named
+    columns each (views of the host arrays): what a worker's mapInArrow
+    body reads, without pyarrow."""
+    rows = len(next(iter(columns.values())))
+    edges = partition_edges(rows, partitions)
+    out = []
+    for p in range(partitions):
+        sub = partition_edges(int(edges[p + 1] - edges[p]), batches) + edges[p]
+        out.append([ColumnFrame({name: v[sub[b]:sub[b + 1]] for name, v in columns.items()})
+                    for b in range(batches)])
+    return out
+
+
+def merge_on_host(fn, parts, combine=None) -> dict:
+    """A statistics body's ``partition_stats`` over every partition, merged
+    in f64 on the host as the driver merges the stats rows (sum, or the
+    ``combine`` fold of ``arrow_fns.RANGE_COMBINE``)."""
+    merged, fold = None, combine or {}
+    for frames in parts:
+        stats = fn.partition_stats(frames)
+        host = {f: t.double().cpu().numpy() for f, t in zip(stats._fields, stats)}
+        merged = host if merged is None else {
+            f: fold.get(f, np.add)(merged[f], v) for f, v in host.items()}
+    return merged
+
+
+def _timed_body(device: torch.device, fn, *args):
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn(*args)
+    _sync(device)
+    return out, time.perf_counter() - t0
+
+
+def _normwise(got, want) -> float:
+    want = np.asarray(want, dtype=np.float64)
+    return float(np.linalg.norm(np.asarray(got, np.float64) - want) / np.linalg.norm(want))
+
+
+def _body_outputs(fn, parts) -> list[np.ndarray]:
+    """A transform body's ``map_matrix`` over every frame, each output
+    column concatenated in row order."""
+    outs = [fn.map_matrix(columnar.extract_matrix(f, fn.input_col))
+            for frames in parts for f in frames]
+    return [np.concatenate([o[i][1] for o in outs]) for i in range(len(outs[0]))]
+
+
+def _transform_gate(label: str, got: np.ndarray, want: np.ndarray) -> dict:
+    want = np.asarray(want, dtype=np.float64)
+    err = float(np.abs(np.asarray(got, np.float64) - want).max())
+    out = {"max_abs_err": err, "tol": SERVE_REL_TOL * float(np.abs(want).max())}
+    if got.shape != want.shape or not err <= out["tol"]:
+        raise AssertionError(f"phase 20 (d) {label}: the body is off the model's transform {out}")
+    return out
+
+
+def phase_spark_features(rows: int, n: int, k: int, partitions: int,
+                         device: torch.device) -> dict:
+    """Phase 20 (c), (d): the feature-statistics bodies and TruncatedSVD's
+    driver-merge body on phase 4's rows, then each estimator's driver half
+    on the card; StandardScaler's transform body."""
+    x = bench_workload(rows, n)
+    cuda = device.type == "cuda"
+    dev = device.type
+    parts = spark_frames({"features": x}, partitions)
+    xd = torch.from_numpy(x).to(device)
+    x64 = xd.double()
+    result = {"rows": rows, "n": n, "partitions": partitions, "frames": PARTITION_BATCHES}
+
+    # moments → SparkStandardScaler's driver half
+    mom, result["moments_s"] = _timed_body(
+        device, merge_on_host, arrow_fns.MomentsPartitionFn("features", device=dev), parts)
+    scaler_est = spark_est.SparkStandardScaler(device=device).setInputCol("features")
+    mean, std = scaler_est.moments_merged(mom)
+    total64, sq64 = x64.sum(0), (x64 * x64).sum(0)
+    mean64 = total64 / rows
+    std64 = torch.sqrt((sq64 - rows * mean64 * mean64) / (rows - 1))
+    result["moments"] = {
+        "count": float(mom["count"]),
+        "total_rel_err": _normwise(mom["total"], total64.cpu().numpy()),
+        "total_sq_rel_err": _normwise(mom["total_sq"], sq64.cpu().numpy()),
+        "mean_err_sigmas": float((torch.from_numpy(mean).to(device).double() - mean64).abs().max()
+                                 / std64.min()),
+        "std_rel_err": float(((torch.from_numpy(std).to(device).double() - std64) / std64)
+                             .abs().max()),
+    }
+
+    # the range and histogram passes → SparkRobustScaler's driver half
+    rng, result["range_s"] = _timed_body(
+        device, merge_on_host, arrow_fns.RangeStatsPartitionFn("features", device=dev), parts,
+        arrow_fns.RANGE_COMBINE)
+    robust_est = spark_est.SparkRobustScaler(device=device).setInputCol("features")
+    bins = robust_est.getNumBins()
+    hist, result["histogram_s"] = _timed_body(
+        device, merge_on_host,
+        arrow_fns.HistogramPartitionFn("features", rng["min"], rng["max"], bins, device=dev),
+        parts)
+    median, qrange = robust_est.robust_merged(rng, hist["hist"])
+    xs = torch.sort(xd, dim=0).values.double()
+
+    def exact_quantile(q: float) -> np.ndarray:
+        pos = q * (rows - 1)
+        lo = int(np.floor(pos))
+        hi = min(lo + 1, rows - 1)
+        return (xs[lo] + (pos - lo) * (xs[hi] - xs[lo])).cpu().numpy()
+
+    width = (rng["max"] - rng["min"]) / bins
+    exact_range = exact_quantile(robust_est.getUpper()) - exact_quantile(robust_est.getLower())
+    result["robust"] = {
+        "bins": bins,
+        "range_exact": bool(np.array_equal(rng["min"], xs[0].cpu().numpy())
+                            and np.array_equal(rng["max"], xs[-1].cpu().numpy())
+                            and np.array_equal(rng["max_abs"],
+                                               x64.abs().amax(0).cpu().numpy())),
+        "hist_rows_per_feature": sorted(set(hist["hist"].sum(1).tolist())),
+        "median_err_bins": float((np.abs(median - exact_quantile(0.5)) / width).max()),
+        "range_err_bins": float((np.abs(qrange - exact_range) / width).max()),
+    }
+    del xs
+
+    # NaN-aware moments and range → SparkImputer's driver half
+    gen = torch.Generator(device=device).manual_seed(SPARK_SEED)
+    missing = torch.rand(xd.shape, generator=gen, device=device) < SPARK_NAN_SHARE
+    x_nan = xd.masked_fill(missing, float("nan")).cpu().numpy()
+    nan_parts = spark_frames({"features": x_nan}, partitions)
+    nm, result["nan_moments_s"] = _timed_body(
+        device, merge_on_host,
+        arrow_fns.NanMomentsPartitionFn("features", float("nan"), device=dev), nan_parts)
+    nr, result["nan_range_s"] = _timed_body(
+        device, merge_on_host,
+        arrow_fns.NanRangePartitionFn("features", float("nan"), device=dev), nan_parts,
+        arrow_fns.RANGE_COMBINE)
+    surrogate = spark_est.SparkImputer.surrogate_from_moments(nm)
+    valid = ~missing
+    count64 = valid.sum(0).double()
+    ntotal64 = torch.where(valid, x64, torch.zeros_like(x64)).sum(0)
+    inf = torch.full_like(x64, float("inf"))
+    result["imputer"] = {
+        "missing_share": float(missing.double().mean()),
+        "counts_exact": bool(np.array_equal(nm["count"], count64.cpu().numpy())
+                             and np.array_equal(nr["count"], count64.cpu().numpy())),
+        "range_exact": bool(
+            np.array_equal(nr["min"], torch.where(valid, x64, inf).amin(0).cpu().numpy())
+            and np.array_equal(nr["max"], torch.where(valid, x64, -inf).amax(0).cpu().numpy())),
+        "total_rel_err": _normwise(nm["total"], ntotal64.cpu().numpy()),
+        "surrogate_err_sigmas": float(
+            (torch.from_numpy(surrogate).to(device) - ntotal64 / count64).abs().max()
+            / std64.min()),
+    }
+    del x_nan, nan_parts, missing, valid, inf
+
+    # SparkTruncatedSVD's driver-merge body at "high": one fused_gram_moments a frame
+    reset_launches()
+    gram, result["tsvd_stats_s"] = _timed_body(
+        device, merge_on_host,
+        arrow_fns.FitPartitionFn("features", precision="high", device=dev), parts)
+    launches = read_launches()
+    tsvd_est = spark_est.SparkTruncatedSVD(device=device).setInputCol("features").setK(k)
+    (components, sv), result["tsvd_decompose_s"] = _timed_body(
+        device, tsvd_est.decompose_merged, gram["xtx"], k, "gram")
+    oracle, _ = oracle_from_scatter((x64.T @ x64).cpu().numpy(), k)
+    result["tsvd"] = {"launches": launches, "count": float(gram["count"]),
+                      "min_cosine_vs_f64_oracle": _min_abs_cosine(components, oracle),
+                      "finite": bool(np.isfinite(sv).all())}
+    del x64
+
+    # (d) StandardScaler's transform body against the model's transform, on
+    # the first partition (the model's own transform of the 1 GB of rows
+    # took 2.9 s on the card: the gate's cost, not the body's)
+    model = spark_est.SparkStandardScalerModel(mean=mean, std=std, device=device) \
+        .setInputCol("features")
+    body = arrow_fns.MatrixMapPartitionFn("features", "scaled", model._scale, device=dev)
+    (scaled,), result["scaler_transform_body_s"] = _timed_body(
+        device, _body_outputs, body, parts[:1])
+    result["scaler_transform"] = _transform_gate("StandardScaler", scaled,
+                                                 model.transform(x[:len(scaled)]))
+    result["launches"] = launches["gram_moments"]
+    print(f"spark glue (c): {json.dumps(result)}", flush=True)
+
+    mo, ro, im, ts = result["moments"], result["robust"], result["imputer"], result["tsvd"]
+    if not (mo["count"] == rows and mo["total_rel_err"] <= SPARK_STATS_RTOL
+            and mo["total_sq_rel_err"] <= SPARK_STATS_RTOL
+            and mo["mean_err_sigmas"] <= SPARK_STATS_RTOL and mo["std_rel_err"] <= SPARK_STATS_RTOL):
+        raise AssertionError(f"phase 20 (c) moments off f64: {mo}")
+    if not (ro["range_exact"] and ro["hist_rows_per_feature"] == [rows]
+            and ro["median_err_bins"] <= 1.0 and ro["range_err_bins"] <= 2.0):
+        raise AssertionError(f"phase 20 (c) robust scaler off the exact quantiles: {ro}")
+    if not (im["counts_exact"] and im["range_exact"] and im["total_rel_err"] <= SPARK_STATS_RTOL
+            and im["surrogate_err_sigmas"] <= SPARK_STATS_RTOL):
+        raise AssertionError(f"phase 20 (c) imputer off f64: {im}")
+    expected = expected_launches(gram_moments=partitions * PARTITION_BATCHES if cuda else 0)
+    if ts["launches"] != expected or ts["count"] != rows:
+        raise AssertionError(f"phase 20 (c) TruncatedSVD launches {ts}, expected {expected}")
+    if not (ts["min_cosine_vs_f64_oracle"] >= COSINE_BAR and ts["finite"]):
+        raise AssertionError(f"phase 20 (c) TruncatedSVD off the f64 oracle: {ts}")
+    return result
+
+
+def phase_spark_linear(x_pool: np.ndarray, device: torch.device, *,
+                       rows: int = SPARK_LINEAR_ROWS, jobs: int = SPARK_NEWTON_JOBS,
+                       classes: int = SOFTMAX_CLASSES, partitions: int = LINEAR_PARTITIONS,
+                       seed: int = LINEAR_SEED) -> dict:
+    """Phase 20 (a), (d): the linear bodies on the first ``rows`` of phase
+    8's rows (phase 14 (a)'s labels and weights, (b)'s and (c)'s classes),
+    merged on the host, each Newton job's merge through the estimator's
+    driver half; held to phase 14's f64 oracles and to the core estimators
+    on the same rows; the LinearRegression and binary LogisticRegression
+    transform bodies."""
+    x = x_pool[:rows]
+    n = x.shape[1]
+    dev = device.type
+    lin = linreg_workload(x, device, seed)
+    xd = torch.from_numpy(x).to(device)
+    yb = _logistic_labels(xd, seed)
+    yc = _softmax_labels(xd, classes, seed)
+    parts = spark_frames({"features": x, "label": lin["y"], "weight": lin["w"], "binary": yb,
+                          "class": yc}, partitions)
+    result = {"rows": rows, "n": n, "partitions": partitions, "frames": PARTITION_BATCHES,
+              "jobs": jobs, "classes": classes}
+    reset_launches()
+
+    merged, result["linreg_stats_s"] = _timed_body(
+        device, merge_on_host,
+        arrow_fns.LinRegPartitionFn("features", "label", "weight", device=dev), parts)
+    linreg_est = spark_est.SparkLinearRegression(device=device).setWeightCol("weight")
+    (coef, intercept), result["linreg_solve_s"] = _timed_body(
+        device, linreg_est.solve_merged, merged)
+    carry = LIN.LinearStats(*(torch.as_tensor(merged[f], device=device)
+                              for f in LIN.LinearStats._fields))
+    result["linreg"] = linreg_gates(carry, linear_stats_f64(x, lin["y"], lin["w"], device)[1],
+                                    coef, intercept)
+
+    logit_est = spark_est.SparkLogisticRegression(device=device, regParam=NEWTON_REG)
+    for label, col, n_classes, y in (("binary", "binary", 2, yb),
+                                     ("softmax", "class", classes, yc)):
+        y_t = torch.from_numpy(y).to(device)
+        w = np.zeros((n + 1) * (1 if n_classes == 2 else n_classes))
+        job_s = []
+        for it in range(jobs):
+            if n_classes == 2:
+                fn = arrow_fns.LogRegNewtonPartitionFn("features", col, w, device=dev)
+            else:
+                fn = arrow_fns.SoftmaxNewtonPartitionFn("features", col, w, n_classes, device=dev)
+            stats, body_s = _timed_body(device, merge_on_host, fn, parts)
+            if it == 0:
+                _, grad64, _ = newton_f64(xd, y_t, torch.zeros(len(w), dtype=torch.float64,
+                                                              device=device),
+                                          NEWTON_REG, None if n_classes == 2 else n_classes,
+                                          hessian=False)
+                grad_err = _normwise(stats["grad"], grad64.cpu().numpy())
+            (w_dev, _), step_s = _timed_body(device, logit_est.newton_step, w, stats, n_classes)
+            w = w_dev.cpu().numpy()
+            job_s.append(body_s + step_s)
+        core = LogisticRegression(device=device, regParam=NEWTON_REG, maxIter=jobs).fit(
+            (x, y), num_partitions=partitions)
+        w_core = _newton_params(core, None if n_classes == 2 else n_classes)
+        if n_classes > 2:
+            # the softmax leaves an equal shift of every intercept free
+            w, w_core = (np.concatenate([m[:, :-1], m[:, -1:] - m[:, -1:].mean()], 1).reshape(-1)
+                         for m in (w.reshape(n_classes, -1), w_core.reshape(n_classes, -1)))
+        obj = newton_f64(xd, y_t, torch.from_numpy(w).to(device), NEWTON_REG,
+                         None if n_classes == 2 else n_classes, hessian=False)[0]
+        obj_core = newton_f64(xd, y_t, torch.from_numpy(w_core).to(device), NEWTON_REG,
+                              None if n_classes == 2 else n_classes, hessian=False)[0]
+        result[label] = {
+            "job_s": job_s, "first_job_grad_rel_err_vs_f64": grad_err,
+            "params_rel_err_vs_core": float(np.linalg.norm(w - w_core) / np.linalg.norm(w_core)),
+            "obj_rel_err_vs_core": abs(obj - obj_core) / abs(obj_core),
+        }
+        if label == "binary":
+            logit_model = logit_est._model_from_params(w, 2, True)
+
+    # (d) the transform bodies against the models' own transforms
+    linreg_model = spark_est.SparkLinearRegressionModel(coefficients=coef, intercept=intercept,
+                                                        device=device)
+    body = arrow_fns.MatrixMapPartitionFn("features", "prediction",
+                                          linreg_model._predict_matrix, device=dev)
+    (pred,), result["linreg_transform_body_s"] = _timed_body(device, _body_outputs, body, parts)
+    result["linreg_transform"] = _transform_gate("LinearRegression", pred,
+                                                 linreg_model.transform(x))
+    body = arrow_fns.ProbaPredictionPartitionFn("features", "probability", "prediction",
+                                                logit_model.proba_and_predictions, device=dev)
+    (proba, labels), result["logistic_transform_body_s"] = _timed_body(
+        device, _body_outputs, body, parts)
+    want_proba, want_labels = logit_model.proba_and_predictions(x)
+    result["logistic_transform"] = _transform_gate("LogisticRegression", proba, want_proba)
+    result["logistic_transform"]["labels_equal"] = bool(np.array_equal(labels, want_labels))
+    result["launches"] = read_launches()  # cuBLAS products only: no hand kernel
+    print(f"spark glue (a): {json.dumps(result)}", flush=True)
+
+    if result["launches"] != expected_launches():
+        raise AssertionError(f"phase 20 (a) launched a Gram kernel: {result['launches']}")
+
+    for label in ("binary", "softmax"):
+        g = result[label]
+        if not g["first_job_grad_rel_err_vs_f64"] <= LINEAR_STATS_RTOL:
+            raise AssertionError(f"phase 20 (a) {label}: the first job's gradient off f64 {g}")
+        if not (g["params_rel_err_vs_core"] <= NEWTON_GRAD_RTOL
+                and g["obj_rel_err_vs_core"] <= NEWTON_OBJ_RTOL):
+            raise AssertionError(f"phase 20 (a) {label}: the jobs are off the core fit {g}")
+    if not result["logistic_transform"]["labels_equal"]:
+        raise AssertionError(f"phase 20 (d) logistic labels: {result['logistic_transform']}")
+    return result
+
+
+def _kmeans_gate(label: str, stats: dict, f64: dict) -> dict:
+    """A merged KMeans statistic against an f64 pass (phase 12's gates):
+    labels off f64 only at near ties, counts within twice the mismatches of
+    the f64 labels' counts, sums and cost within ``KMEANS_RTOL``."""
+    counts = torch.from_numpy(np.rint(stats["counts"]).astype(np.int64))
+    out = {
+        "mismatches": f64["mismatches"], "near_ties": f64["near_ties"],
+        "mismatches_not_near_tie": f64["mismatches_not_near_tie"],
+        "counts_l1_vs_f64_labels": int((counts - f64["counts_f64_labels"].cpu()).abs().sum()),
+        "cost_rel_err": abs(float(stats["cost"]) - f64["cost64"]) / f64["cost64"],
+    }
+    if "sums" in stats:
+        sums64 = f64["sums64"].cpu().numpy()
+        out["sums_normwise_err"] = float(np.abs(stats["sums"] - sums64).max()
+                                         / np.abs(sums64).max())
+    if (out["mismatches_not_near_tie"] or out["counts_l1_vs_f64_labels"] > 2 * out["mismatches"]
+            or not out["cost_rel_err"] <= KMEANS_RTOL
+            or not out.get("sums_normwise_err", 0.0) <= KMEANS_RTOL):
+        raise AssertionError(f"phase 20 (b) {label} off f64: {out}")
+    return out
+
+
+def phase_spark_kmeans(device: torch.device, *, rows: int = SPARK_KMEANS_ROWS,
+                       n: int = CONFIG5_N, k: int = CONFIG5_K,
+                       partitions: int = LINEAR_PARTITIONS, lloyd_jobs: int = SPARK_NEWTON_JOBS,
+                       seed: int = CONFIG5_SEED) -> dict:
+    """Phase 20 (b), (d): one k-means‖ round (the cost body, the sample body),
+    the weighting body on its candidates and SparkKMeans' weighted k-means++
+    driver half, then ``lloyd_jobs`` Lloyd jobs through the Lloyd body and
+    the driver's ``lloyd_step``, on config 5's blobs; each merge held to an
+    f64 pass with phase 12's near-tie rule; the multi-output transform body."""
+    import zlib
+
+    dev = device.type
+    x = kmeans_workload(rows, n, k, partitions, device, seed)
+    parts = spark_frames({"features": x}, partitions)
+    batches = [to_device(f["features"].to_numpy(), device) for frames in parts for f in frames]
+    gate_parts = [(b, None, b.shape[0]) for b in batches]
+    est = spark_est.SparkKMeans(device=device).setK(k).setSeed(seed)
+    result = {"rows": rows, "n": n, "k": k, "partitions": partitions,
+              "frames": PARTITION_BATCHES}
+    reset_launches()
+
+    c0 = x[np.random.default_rng(seed).integers(rows)][None, :].astype(np.float64)
+    cost, result["cost_body_s"] = _timed_body(
+        device, merge_on_host, arrow_fns.KMeansAssignStatsFn("features", c0, device=dev), parts)
+    c0_t = torch.from_numpy(c0).to(device).float()
+    cost64 = sum(float(((b.double() - c0_t.double()) ** 2).sum()) for b in batches)
+    result["cost_pass"] = {"count": float(cost["counts"].sum()),
+                           "cost_rel_err": abs(float(cost["cost"]) - cost64) / cost64}
+    if cost["counts"].sum() != rows or not result["cost_pass"]["cost_rel_err"] <= KMEANS_RTOL:
+        raise AssertionError(f"phase 20 (b) the cost body off f64: {result['cost_pass']}")
+
+    ell = 2.0 * k
+    phi = float(cost["cost"])
+    sample = arrow_fns.KMeansParallelSampleFn("features", c0, ell / phi, seed + 1, device=dev)
+    cands, result["sample_body_s"] = _timed_body(
+        device, lambda: np.concatenate([sample.partition_candidates(f) for f in parts]))
+    drawn, flips, near_ties = [], 0, 0
+    tie = f32_dist_error_bound(n)
+    for frame, b in zip([f for frames in parts for f in frames], batches):
+        mat, mask = sample.sample_mask(frame, device)
+        drawn.append(mat[mask])
+        b64 = b.double()
+        d64 = ((b64 - c0_t.double()) ** 2).sum(1)
+        scale = (b64 * b64).sum(1) + float((c0 * c0).sum())
+        p64 = torch.clamp(ell / phi * d64, max=1.0).cpu().numpy()
+        h = zlib.crc32(np.ascontiguousarray(mat[0], dtype=np.float64).tobytes()) ^ len(mat)
+        u = np.random.default_rng([seed + 1, h]).random(len(mat))
+        near = np.abs(p64 - u) <= ell / phi * tie * scale.cpu().numpy()
+        flips += int(((mask != (u < p64)) & ~near).sum())
+        near_ties += int(near.sum())
+    result["sample"] = {"candidates": int(len(cands)), "expected": ell, "flips_not_near_tie": flips,
+                        "near_ties": near_ties,
+                        "bodies_agree": bool(np.array_equal(np.concatenate(drawn), cands))}
+    candidates = np.concatenate([c0, cands.astype(np.float64)])
+    weights, result["weighting_body_s"] = _timed_body(
+        device, merge_on_host,
+        arrow_fns.KMeansAssignStatsFn("features", candidates, device=dev), parts)
+    cand_t = torch.from_numpy(candidates).to(device).float()
+    result["weighting_pass"] = _kmeans_gate(
+        "the weighting body", weights,
+        kmeans_f64_pass(gate_parts, cand_t, block_rows_for(device, KM.DEFAULT_BLOCK_ROWS,
+                                                           len(candidates))))
+    centers, result["reduce_s"] = _timed_body(device, est.reduce_candidates, candidates,
+                                              weights["counts"], k)
+
+    block = block_rows_for(device, KM.DEFAULT_BLOCK_ROWS, k)
+    result["lloyd"] = []
+    for it in range(lloyd_jobs):
+        stats, body_s = _timed_body(
+            device, merge_on_host, arrow_fns.KMeansPartitionFn("features", centers, device=dev),
+            parts)
+        gate = _kmeans_gate(f"Lloyd job {it}", stats, kmeans_f64_pass(
+            gate_parts, torch.from_numpy(centers).to(device).float(), block))
+        (centers, _, shift), step_s = _timed_body(device, est.lloyd_step, centers, stats)
+        result["lloyd"].append({**gate, "body_s": body_s, "step_s": step_s, "shift_sq": shift})
+    del batches, gate_parts
+
+    # (d) the multi-output transform body: prediction and squared distance
+    model = spark_est.SparkKMeansModel(clusterCenters=centers, device=device)
+
+    def labels_and_d2(mat, _m=model):
+        got = [(lab.cpu().numpy(), d2.cpu().numpy()) for lab, d2 in _m._assign_chunks(mat)]
+        return np.concatenate([g[0] for g in got]), np.concatenate([g[1] for g in got])
+
+    body = arrow_fns.MultiOutputPartitionFn(
+        "features", [("prediction", np.int32), ("distance", np.float64)], labels_and_d2,
+        device=dev)
+    (pred, d2), result["transform_body_s"] = _timed_body(device, _body_outputs, body, parts)
+    result["transform"] = _transform_gate("KMeans", pred, model.transform(x))
+    result["launches"] = read_launches()  # cuBLAS products only: no hand kernel
+    print(f"spark glue (b): {json.dumps(result)}", flush=True)
+
+    if result["launches"] != expected_launches():
+        raise AssertionError(f"phase 20 (b) launched a Gram kernel: {result['launches']}")
+
+    sm = result["sample"]
+    if sm["flips_not_near_tie"] or not sm["bodies_agree"] or not 0 < sm["candidates"]:
+        raise AssertionError(f"phase 20 (b) the sample body off the f64 trials: {sm}")
+    if centers.shape != (k, n) or not np.isfinite(centers).all() or not np.isfinite(d2).all():
+        raise AssertionError("phase 20 (b) fitted non-finite centres")
+    return result
+
+
 def _timed(name: str, fn, *args, **kwargs):
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
@@ -5460,6 +5928,7 @@ SKIPPABLE = {
     "ann": "phase 15 (ANN resident, serving, streamed)",
     "trees": "phases 16 and 17 (trees, NaiveBayes, the families)",
     "selection": "phase 18 (a), (b), (e) (model selection, the device policy)",
+    "spark": "phase 20 (the Spark glue's bodies and driver halves)",
 }
 
 
@@ -5512,6 +5981,10 @@ def main(argv=()) -> int:
     bodies = _timed("partition bodies (c)", phase_partition_bodies,
                     MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS, device,
                     costed.pop("model"), costed.pop("out"))
+    spark_c = None
+    if "spark" not in skip:
+        spark_c = _timed("spark glue (c, d)", phase_spark_features,
+                         MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS, device)
     _timed("solvers", phase_solvers, MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS, device)
     one_pass = _timed("one pass (resident)", phase_one_pass,
                       MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS, device)
@@ -5534,6 +6007,8 @@ def main(argv=()) -> int:
     _timed("linear (e) serving", phase_linear_serving, linreg["model"],
            stream_data[0][:SERVE_POOL_ROWS], device)
     _timed("linear (b, c) newton", phase_newton_fits, stream_data[0], device)
+    if "spark" not in skip:
+        _timed("spark glue (a, d)", phase_spark_linear, stream_data[0], device)
     _timed("recovery (c) streamed", phase_recovery_streamed, stream_data, device)
     tuned = _timed("autotune (b)", phase_autotune, stream_data, MAIN_K, STREAM_PARTITIONS,
                    device)
@@ -5550,6 +6025,9 @@ def main(argv=()) -> int:
     if "config5" not in skip:
         _timed("config 5 kmeans", phase_config5,
                CONFIG5_ROWS, CONFIG5_N, CONFIG5_K, CONFIG5_PARTITIONS, device)
+    if "spark" not in skip:
+        _timed("spark glue (b, d)", phase_spark_kmeans, device)
+        torch.cuda.empty_cache()
     if "distance" not in skip:
         _timed("dbscan and knn", phase_distance_family, device)
     if "ann" not in skip:
@@ -5597,6 +6075,11 @@ def main(argv=()) -> int:
                 "partition_bodies": bodies["launches"][name],
                 "autotune_search_fit": tuned["search_launches"][name],
                 "autotune_cache_fit": tuned["cache_launches"][name],
+            },
+            # phase 20 (c): SparkTruncatedSVD's driver-merge body at "high"
+            "phase20_launches": {
+                "truncated_svd_driver_merge":
+                    None if spark_c is None else spark_c["tsvd"]["launches"][name],
             },
             "max_abs_err": at_main["max_abs_err"],
             "tol": at_main["tol"],

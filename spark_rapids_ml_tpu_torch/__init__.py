@@ -60,12 +60,17 @@ and the partition executor (retries, straggler hedging) recover with;
 ``utils/devicepolicy.py`` the worker environments and bounded device
 probes.
 
-The Spark glue: ``SparkPCA``/``SparkPCAModel`` (``spark/estimators.py``)
-fit and transform a pyspark DataFrame, or one of the port's own local
-engine (``localspark``: worker processes, Arrow IPC, cloudpickle), through
-the Arrow plan functions of ``spark/arrow_fns.py``, whose partition bodies
-run on the card. Both need pyarrow and cloudpickle, so the package imports
-neither eagerly: ``SparkPCA`` and ``SparkPCAModel`` load on first use.
+The Spark glue: every ``Spark*`` estimator and model of the JAX package's
+``spark`` namespace (``spark/estimators.py``: PCA, TruncatedSVD, the
+linear family, KMeans, the scalers and selectors, the stateless stages,
+the neighbours, DBSCAN and the collect-and-fit families) fits and
+transforms a pyspark DataFrame, or one of the port's own local engine
+(``localspark``: worker processes, Arrow IPC, cloudpickle), on the
+driver-merge distribution, through the Arrow plan functions of
+``spark/arrow_fns.py``, whose partition bodies run on the card; model
+selection takes such a DataFrame too. Both need pyarrow and cloudpickle,
+so the package imports neither eagerly: the ``Spark*`` names load on
+first use.
 Every fit's ``FitReport`` carries the analytical cost model
 (``telemetry/costmodel.py``) and the tuner's decisions
 (``autotune/search.py``: successive halving over the streamed fold's chunk
@@ -179,7 +184,9 @@ from spark_rapids_ml_tpu_torch.models.umap import UMAP, UMAPModel
 __version__ = "0.1.0"
 
 # loaded on first use: the Spark glue's modules need pyarrow at run time
-_LAZY = {"SparkPCA": "spark.estimators", "SparkPCAModel": "spark.estimators"}
+from spark_rapids_ml_tpu_torch.spark import _ESTIMATORS as _SPARK_NAMES  # noqa: E402
+
+_LAZY = {name: "spark.estimators" for name in _SPARK_NAMES}
 
 
 def __getattr__(name: str):
@@ -212,10 +219,9 @@ __all__ = [
     "PolynomialExpansion", "QuantileDiscretizer", "QuantileDiscretizerModel",
     "RandomForestClassificationModel", "RandomForestClassifier",
     "RandomForestRegressionModel", "RandomForestRegressor", "RegressionEvaluator",
-    "RobustScaler", "RobustScalerModel", "SparkPCA", "SparkPCAModel", "StandardScaler",
-    "StandardScalerModel",
+    "RobustScaler", "RobustScalerModel", "StandardScaler", "StandardScalerModel",
     "StringIndexer", "StringIndexerModel", "Tokenizer", "TrainValidationSplit",
     "TrainValidationSplitModel", "TruncatedSVD", "TruncatedSVDModel", "UMAP", "UMAPModel",
     "VarianceThresholdSelector", "VarianceThresholdSelectorModel", "VectorAssembler",
-    "VectorSlicer", "__version__",
+    "VectorSlicer", "__version__", *_SPARK_NAMES,
 ]

@@ -35,7 +35,9 @@ plain numpy arrays, so nothing of the JAX package is imported:
   ``"StringIndexerModel"``: ``labels`` (UTF-8 bytes); ``"OneHotEncoderModel"``:
   ``categorySize``; ``"IDFModel"``: ``idf``/``docFreq``/``numDocs``; a
   stateless stage such as ``"Normalizer"``, ``"DBSCANModel"`` or
-  ``"VectorAssembler"``: nothing),
+  ``"VectorAssembler"``: nothing; each Spark model or stage of
+  ``spark/estimators.py``, ``"SparkKMeansModel"`` and the others, from the
+  arrays of the model it extends),
   with the params the JAX model had set (its ``_paramMap``), which
   ``_saveData`` does not hold;
 - ``incremental_from_state``: an incremental estimator (``"IncrementalPCA"``,

@@ -114,7 +114,30 @@ _PORTED_CLASSES: dict[str, tuple[str, ...]] = {
         "TrainValidationSplitModel",
     ),
     "ann.index": ("IVFFlatIndex", "IVFFlatIndexModel"),
-    "spark.estimators": ("SparkPCA", "SparkPCAModel"),
+    "spark.estimators": (
+        "SparkApproximateNearestNeighbors", "SparkApproximateNearestNeighborsModel",
+        "SparkBinarizer", "SparkBucketizer", "SparkDBSCAN", "SparkDBSCANModel", "SparkDCT",
+        "SparkElementwiseProduct", "SparkFMClassificationModel", "SparkFMClassifier",
+        "SparkFMRegressionModel", "SparkFMRegressor", "SparkGBTClassificationModel",
+        "SparkGBTClassifier", "SparkGBTRegressionModel", "SparkGBTRegressor",
+        "SparkImputer", "SparkImputerModel", "SparkIsotonicRegression",
+        "SparkIsotonicRegressionModel", "SparkKMeans", "SparkKMeansModel",
+        "SparkLinearRegression", "SparkLinearRegressionModel", "SparkLinearSVC",
+        "SparkLinearSVCModel", "SparkLogisticRegression", "SparkLogisticRegressionModel",
+        "SparkMaxAbsScaler", "SparkMaxAbsScalerModel", "SparkMinMaxScaler",
+        "SparkMinMaxScalerModel", "SparkMultilayerPerceptronClassificationModel",
+        "SparkMultilayerPerceptronClassifier", "SparkNaiveBayes", "SparkNaiveBayesModel",
+        "SparkNearestNeighbors", "SparkNearestNeighborsModel", "SparkNormalizer",
+        "SparkOneVsRest", "SparkOneVsRestModel", "SparkPCA", "SparkPCAModel",
+        "SparkPolynomialExpansion", "SparkQuantileDiscretizer",
+        "SparkQuantileDiscretizerModel", "SparkRandomForestClassificationModel",
+        "SparkRandomForestClassifier", "SparkRandomForestRegressionModel",
+        "SparkRandomForestRegressor", "SparkRobustScaler", "SparkRobustScalerModel",
+        "SparkStandardScaler", "SparkStandardScalerModel", "SparkTruncatedSVD",
+        "SparkTruncatedSVDModel", "SparkUMAP", "SparkUMAPModel",
+        "SparkVarianceThresholdSelector", "SparkVarianceThresholdSelectorModel",
+        "SparkVectorSlicer",
+    ),
 }
 _PORT_CLASS_PATHS: dict[str, str] = {
     name: f"{module}.{name}" for module, names in _PORTED_CLASSES.items() for name in names

@@ -15,14 +15,19 @@ The candidate fits are the port's estimators, so they run where those run:
 on the card by default. The datasets are those the estimators take: an
 ``(X, y)``/``(X, y, w)`` tuple, a matrix, an Arrow table, a
 ``PartitionedDataset`` (collected once per fit), or a container of the
-column protocol (``utils/columnar.py``). A Spark DataFrame, pyspark's or
-either package's ``localspark``, is refused: its ``randomSplit`` folds and
-one-job column collects are what remains of ``ROADMAP.md`` Queue A item 5
-(the port's Spark glue has ``SparkPCA`` so far).
+column protocol (``utils/columnar.py``), or a Spark DataFrame: pyspark's or
+the port's ``localspark`` one. Over a DataFrame the folds are one
+``randomSplit`` (each fold's train set the union of the others, cached),
+the candidates are the estimator's own DataFrame fits (the ``Spark*``
+estimators of ``spark/estimators.py``), and every evaluator reads its
+columns in one job (``_df_columns``), so labels, scores and weights come
+from the same plan execution. A DataFrame of the JAX package's
+``localspark`` is refused: its workers would run the JAX package.
 """
 
 from __future__ import annotations
 
+import functools
 import warnings
 from typing import Any
 
@@ -40,18 +45,45 @@ from spark_rapids_ml_tpu_torch.utils import columnar
 pa = columnar.pa
 
 
-def _refuse_spark_df(dataset: Any) -> None:
-    """Raise for a pyspark DataFrame or a ``localspark`` one of either
-    package."""
+def _is_spark_df(dataset: Any) -> bool:
+    """True for a pyspark DataFrame or one of the port's ``localspark``;
+    raises for one of the JAX package's ``localspark``."""
     mod = type(dataset).__module__ or ""
-    if columnar.is_spark_dataframe(dataset) or mod.startswith("spark_rapids_ml_tpu.localspark"):
+    if mod.startswith("spark_rapids_ml_tpu.localspark"):
         raise TypeError(
-            f"model selection over a Spark DataFrame ({type(dataset).__name__}) is not "
-            "ported yet: its randomSplit folds and one-job column collects remain in "
-            "ROADMAP.md Queue A item 5 (the port's Spark glue has SparkPCA so far). "
-            "Collect the rows into an (X, y) tuple, a matrix, an Arrow table or a "
-            "frame of named columns"
+            f"a DataFrame of the JAX package's localspark ({type(dataset).__name__}) "
+            "would run the JAX package in its workers: build it with "
+            "spark_rapids_ml_tpu_torch.localspark, or collect the rows into an (X, y) "
+            "tuple, a matrix, an Arrow table or a frame of named columns"
         )
+    return columnar.is_spark_dataframe(dataset)
+
+
+def _df_columns(df, *cols: str) -> list[np.ndarray]:
+    """The named DataFrame columns collected in one job (one collect per
+    column would run the plan again each time and rely on the row order
+    holding across jobs): scalar columns as [rows] f64 vectors, array
+    columns as [rows, n] matrices."""
+    selected = df.select(*cols)
+    if hasattr(selected, "toArrow"):
+        table = selected.toArrow()
+        out = []
+        for c in cols:
+            col = table.column(c)
+            if pa.types.is_floating(col.type) or pa.types.is_integer(col.type):
+                out.append(np.asarray(col.to_numpy(zero_copy_only=False), dtype=np.float64))
+            else:
+                out.append(columnar.extract_matrix(table, c))
+        return out
+    rows = selected.collect()
+    out = []
+    for i, _ in enumerate(cols):
+        vals = [r[i] for r in rows]
+        if vals and (np.isscalar(vals[0]) or isinstance(vals[0], (int, float))):
+            out.append(np.asarray(vals, dtype=np.float64))
+        else:
+            out.append(np.stack([columnar.row_vector_to_ndarray(v) for v in vals]))
+    return out
 
 
 def _column_names(dataset) -> list[str]:
@@ -64,7 +96,8 @@ def _column_names(dataset) -> list[str]:
 
 
 def n_rows(dataset: Any) -> int:
-    _refuse_spark_df(dataset)
+    if _is_spark_df(dataset):
+        return dataset.count()
     if isinstance(dataset, tuple) and len(dataset) in (2, 3):
         return len(np.asarray(dataset[0]))
     if pa is not None and isinstance(dataset, (pa.Table, pa.RecordBatch)):
@@ -115,6 +148,8 @@ def _collect_for_split(dataset: Any) -> Any:
 def _labels_of(dataset: Any, label_col: str) -> np.ndarray:
     if isinstance(dataset, tuple) and len(dataset) in (2, 3):
         return np.asarray(dataset[1], dtype=np.float64)
+    if _is_spark_df(dataset):
+        return _df_columns(dataset, label_col)[0]
     return columnar.extract_vector(dataset, label_col)
 
 
@@ -189,7 +224,11 @@ class Evaluator(Params):
             y = _labels_of(dataset, label_col)
             p = np.asarray(predictions, dtype=np.float64).reshape(-1)
             return y, p, self._weights_of(dataset, len(y))
-        _refuse_spark_df(dataset)
+        if _is_spark_df(dataset):
+            cols = [label_col, pred_col] + ([weight_col] if weight_col else [])
+            got = _df_columns(dataset, *cols)  # one job, weights included
+            w = columnar.validate_weights(got[2], len(got[0])) if weight_col else None
+            return got[0], got[1], w
         y = _labels_of(dataset, label_col)
         return (
             y,
@@ -211,6 +250,8 @@ class Evaluator(Params):
                     "carries no weight slot; pass (X, y, w)"
                 )
             w = np.asarray(dataset[2], dtype=np.float64)
+        elif _is_spark_df(dataset):
+            w = _df_columns(dataset, weight_col)[0]
         else:
             w = columnar.extract_vector(dataset, weight_col)
         return columnar.validate_weights(w, n)
@@ -332,13 +373,19 @@ class BinaryClassificationEvaluator(Evaluator, HasLabelCol, HasPredictionCol):
                 score_col = candidate
                 break
         if score_col is not None:
-            _refuse_spark_df(dataset)
-            y = _labels_of(dataset, label_col)
-            try:  # vector column ([rows, C] probability/margins)...
-                s = columnar.extract_matrix(dataset, score_col)
-            except (TypeError, ValueError):  # ...or a scalar score
-                s = columnar.extract_vector(dataset, score_col)
-            w = self._weights_of(dataset, len(y))
+            if _is_spark_df(dataset):
+                weight_col = self.getOrDefault("weightCol")
+                cols = [label_col, score_col] + ([weight_col] if weight_col else [])
+                got = _df_columns(dataset, *cols)  # one job, weights included
+                y, s = got[0], got[1]
+                w = columnar.validate_weights(got[2], len(y)) if weight_col else None
+            else:
+                y = _labels_of(dataset, label_col)
+                try:  # vector column ([rows, C] probability/margins)...
+                    s = columnar.extract_matrix(dataset, score_col)
+                except (TypeError, ValueError):  # ...or a scalar score
+                    s = columnar.extract_vector(dataset, score_col)
+                w = self._weights_of(dataset, len(y))
             s = np.asarray(s, dtype=np.float64)
             if s.ndim == 2:
                 s = s[:, -1]  # positive-class score, pyspark.ml convention
@@ -485,10 +532,16 @@ class MulticlassClassificationEvaluator(Evaluator, HasLabelCol, HasPredictionCol
                 "LogisticRegression().setProbabilityCol('probability')) or "
                 "this evaluator's setProbabilityCol"
             )
-        _refuse_spark_df(dataset)
-        y = _labels_of(dataset, label_col)
-        probs = columnar.extract_matrix(dataset, prob_col)
-        w = self._weights_of(dataset, len(y))
+        if _is_spark_df(dataset):
+            weight_col = self.getOrDefault("weightCol")
+            cols = [label_col, prob_col] + ([weight_col] if weight_col else [])
+            got = _df_columns(dataset, *cols)  # one job, weights included
+            y, probs = got[0], got[1]
+            w = columnar.validate_weights(got[2], len(y)) if weight_col else None
+        else:
+            y = _labels_of(dataset, label_col)
+            probs = columnar.extract_matrix(dataset, prob_col)
+            w = self._weights_of(dataset, len(y))
         return y, np.asarray(probs, dtype=np.float64), w
 
     def evaluate(self, dataset, predictions=None) -> float:
@@ -553,16 +606,29 @@ class ClusteringEvaluator(Evaluator):
         feats = self.getOrDefault("featuresCol")
         pred_col = self.getOrDefault("predictionCol")
         cap = self.getOrDefault("maxRows")
-        _refuse_spark_df(dataset)
-        if isinstance(dataset, tuple):  # (X, _, w?) container
-            x = np.asarray(dataset[0], dtype=np.float64)
+        if predictions is None and _is_spark_df(dataset):
+            # the subsample goes into the plan: never more than ~2·cap rows
+            # on the driver for a cap-bounded metric
+            weight_col = self.getOrDefault("weightCol")
+            total = dataset.count()
+            if total > cap:
+                dataset = dataset.sample(fraction=min(1.0, 2.0 * cap / total), seed=0)
+            cols = [feats, pred_col] + ([weight_col] if weight_col else [])
+            got = _df_columns(dataset, *cols)  # one job, weights included
+            x, p = got[0], got[1].astype(np.int64)
+            w = columnar.validate_weights(got[2], len(x)) if weight_col else None
         else:
-            x = columnar.extract_matrix(dataset, feats)
-        if predictions is not None:
-            p = np.asarray(predictions, dtype=np.float64).reshape(-1).astype(np.int64)
-        else:
-            p = columnar.extract_vector(dataset, pred_col).astype(np.int64)
-        w = self._weights_of(dataset, len(x))
+            if isinstance(dataset, tuple):  # (X, _, w?) container
+                x = np.asarray(dataset[0], dtype=np.float64)
+            elif _is_spark_df(dataset):
+                x = _df_columns(dataset, feats)[0]
+            else:
+                x = columnar.extract_matrix(dataset, feats)
+            if predictions is not None:
+                p = np.asarray(predictions, dtype=np.float64).reshape(-1).astype(np.int64)
+            else:
+                p = columnar.extract_vector(dataset, pred_col).astype(np.int64)
+            w = self._weights_of(dataset, len(x))
         if w is None:
             w = np.ones(len(x))
         if len(x) > cap:
@@ -626,6 +692,15 @@ def _fit_and_eval(estimator, params, evaluator, train, val):
             feats = np.asarray(val[0])
             scores = model.predict_proba_matrix(feats)
             return model, evaluator.evaluate(val, predictions=scores)
+        if _is_spark_df(val):
+            # one job for every column, weightCol included, so weighted CV
+            # ranks the same probability surface (through the (X, y, w)
+            # tuple container)
+            wcol = evaluator.getOrDefault("weightCol")
+            got = _df_columns(val, fcol, evaluator.getOrDefault("labelCol"),
+                              *([wcol] if wcol else []))
+            scores = model.predict_proba_matrix(got[0])
+            return model, evaluator.evaluate(tuple(got), predictions=scores)
         feats = columnar.extract_matrix(val, fcol)
         scores = model.predict_proba_matrix(feats)
         return model, evaluator.evaluate(val, predictions=scores)
@@ -680,25 +755,48 @@ class CrossValidator(_ValidatorParams, Estimator):
         k = self.getOrDefault("numFolds")
         if k < 2:
             raise ValueError("numFolds must be >= 2")
-        _refuse_spark_df(dataset)
-        dataset = _collect_for_split(dataset)
-        rng = np.random.default_rng(self.getOrDefault("seed"))
-        idx = rng.permutation(n_rows(dataset))
-        folds = np.array_split(idx, k)
+        splits = None
+        if _is_spark_df(dataset):
+            # Spark's fold assignment: one randomSplit plans k disjoint row
+            # subsets, each fold's train set the union of the others
+            splits = dataset.randomSplit([1.0 / k] * k, seed=self.getOrDefault("seed"))
+            if any(sp.first() is None for sp in splits):
+                raise ValueError(
+                    f"randomSplit produced an empty fold (numFolds={k}); "
+                    "the dataset is too small for this many folds"
+                )
+        else:
+            dataset = _collect_for_split(dataset)
+            rng = np.random.default_rng(self.getOrDefault("seed"))
+            folds = np.array_split(rng.permutation(n_rows(dataset)), k)
         candidates = self._candidates()
         metrics = np.zeros((len(candidates), k))
         sub_models = [] if self._collect else None
         for f in range(k):
-            train_idx = np.concatenate([folds[i] for i in range(k) if i != f])
-            train = row_slice(dataset, train_idx)
-            val = row_slice(dataset, folds[f])
-            fold_models = []
-            for c, params in enumerate(candidates):
-                model, metric = _fit_and_eval(self._estimator, params, self._evaluator, train, val)
-                metrics[c, f] = metric
-                fold_models.append(model)
-            if sub_models is not None:
-                sub_models.append(fold_models)
+            if splits is not None:
+                # cached: the Newton and Lloyd candidates run many jobs over
+                # a fold, each of which would replay the split's filters
+                train = functools.reduce(
+                    lambda a, b: a.union(b), [splits[i] for i in range(k) if i != f]
+                ).cache()
+                val = splits[f].cache()
+            else:
+                train_idx = np.concatenate([folds[i] for i in range(k) if i != f])
+                train = row_slice(dataset, train_idx)
+                val = row_slice(dataset, folds[f])
+            try:
+                fold_models = []
+                for c, params in enumerate(candidates):
+                    model, metric = _fit_and_eval(
+                        self._estimator, params, self._evaluator, train, val)
+                    metrics[c, f] = metric
+                    fold_models.append(model)
+                if sub_models is not None:
+                    sub_models.append(fold_models)
+            finally:
+                if splits is not None:
+                    train.unpersist()
+                    val.unpersist()
         avg = metrics.mean(axis=1)
         best_idx = int(np.argmax(avg) if self._evaluator.isLargerBetter() else np.argmin(avg))
         best_est = self._estimator.copy()
@@ -758,15 +856,21 @@ class TrainValidationSplit(_ValidatorParams, Estimator):
         ratio = self.getOrDefault("trainRatio")
         if not 0.0 < ratio < 1.0:
             raise ValueError("trainRatio must be in (0, 1)")
-        _refuse_spark_df(dataset)
-        dataset = _collect_for_split(dataset)
-        rng = np.random.default_rng(self.getOrDefault("seed"))
-        idx = rng.permutation(n_rows(dataset))
-        cut = int(len(idx) * ratio)
-        if cut == 0 or cut == len(idx):
-            raise ValueError("split produced an empty train or validation set")
-        train = row_slice(dataset, idx[:cut])
-        val = row_slice(dataset, idx[cut:])
+        if _is_spark_df(dataset):
+            train, val = dataset.randomSplit([ratio, 1.0 - ratio],
+                                             seed=self.getOrDefault("seed"))
+            if train.first() is None or val.first() is None:
+                raise ValueError("split produced an empty train or validation set")
+            train, val = train.cache(), val.cache()
+        else:
+            dataset = _collect_for_split(dataset)
+            rng = np.random.default_rng(self.getOrDefault("seed"))
+            idx = rng.permutation(n_rows(dataset))
+            cut = int(len(idx) * ratio)
+            if cut == 0 or cut == len(idx):
+                raise ValueError("split produced an empty train or validation set")
+            train = row_slice(dataset, idx[:cut])
+            val = row_slice(dataset, idx[cut:])
         candidates = self._candidates()
         metrics = []
         for params in candidates:

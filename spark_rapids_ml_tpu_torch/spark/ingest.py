@@ -75,8 +75,18 @@ trials fold synthetic chunks into throwaway carries
 (``autotune.stream_fold_measure``), never the real one. A resumed fold
 keeps at most its checkpoint's chunk rows.
 
-Not ported yet (``ROADMAP.md`` Queue A items 5 and 6): DataFrame sources and
-the augmented intercept column.
+The driver chunker (``_iter_chunks``) collects a DataFrame's (features,
+label, weight) columns on the driver in bounded chunks for the Spark
+estimators that fit on collected rows (``spark/estimators.py::
+_collect_xyw``): the port's ``localspark`` streams its partitions; a
+pyspark DataFrame takes ``toArrow`` (4.0+) or an Arrow-enabled
+``toPandas`` (3.x, ArrayType features) up to
+``TPU_ML_MESH_LOCAL_ARROW_MAX_BYTES``, and ``toLocalIterator`` in
+``ROW_CHUNK``-row groups above it.
+
+Not ported yet (``ROADMAP.md`` Queue A item 6): ``stream_fold`` over a
+DataFrame source, the augmented intercept column, ``MeshIngest`` and
+``stream_to_mesh``.
 """
 
 from __future__ import annotations
@@ -89,7 +99,7 @@ import threading
 import time
 import warnings
 from dataclasses import dataclass
-from typing import Any, Callable, Iterable
+from typing import Any, Callable, Iterable, Iterator
 
 import numpy as np
 import torch
@@ -113,6 +123,116 @@ from spark_rapids_ml_tpu_torch.utils.config import (
 )
 
 logger = logging.getLogger("spark_rapids_ml_tpu_torch")
+
+ARROW_CUTOVER_VAR = "TPU_ML_MESH_LOCAL_ARROW_MAX_BYTES"
+DEFAULT_ARROW_CUTOVER = 1 << 30
+ROW_CHUNK = 65_536  # rows per driver-side conversion group of toLocalIterator
+
+
+def _iter_chunks(
+    selected,
+    features_col: str,
+    label_col: str | None,
+    weight_col: str | None,
+    est_bytes: int = 0,
+) -> Iterator[tuple[np.ndarray, np.ndarray | None, np.ndarray | None]]:
+    """(x [c, n], y [c] or None, w [c] or None) chunks of a DataFrame's
+    columns on the driver, bounding its memory. ``selected`` holds
+    [features, label?, weight?] in that order (the row path reads them by
+    position).
+
+    The port's ``localspark`` streams its partitions' Arrow batches. A
+    pyspark DataFrame of at most ``est_bytes`` ≤ the Arrow cutover is one
+    columnar collect (``toArrow`` on 4.0+, an Arrow-enabled ``toPandas``
+    on 3.x); a larger one streams ``toLocalIterator`` rows in
+    ``ROW_CHUNK`` groups; anything else is one ``collect()``."""
+
+    def columns(b):
+        x = columnar.extract_matrix(b, features_col)
+        y = columnar.extract_vector(b, label_col) if label_col else None
+        w = columnar.extract_vector(b, weight_col) if weight_col else None
+        return x, y, w
+
+    if hasattr(selected, "_parts"):  # localspark
+        for part in selected._parts():
+            for b in part:
+                if b.num_rows:
+                    yield columns(b)
+        return
+    cutover = int(float(os.environ.get(ARROW_CUTOVER_VAR, DEFAULT_ARROW_CUTOVER)))
+    if est_bytes <= cutover:
+        to_arrow = getattr(selected, "toArrow", None)
+        if callable(to_arrow):  # pyspark 4.0+
+            for b in to_arrow().to_batches():
+                if b.num_rows:
+                    yield columns(b)
+            return
+        if _pandas_columnar_ok(selected, features_col):
+            # pyspark 3.x: an Arrow-enabled toPandas of an ArrayType column is
+            # a columnar one-job collect; anything else degrades it to pickled
+            # rows, worse than the row iterator below
+            try:
+                pdf = selected.toPandas()
+            except ImportError:
+                pdf = None
+            if pdf is not None:
+                if len(pdf):
+                    yield columns(pdf)
+                return
+    it = getattr(selected, "toLocalIterator", None)
+    rows_iter = it() if callable(it) else iter(selected.collect())
+    buf: list[Any] = []
+    for row in rows_iter:
+        buf.append(row)
+        if len(buf) >= ROW_CHUNK:
+            yield _chunk_from_rows(buf, label_col, weight_col)
+            buf = []
+    if buf:
+        yield _chunk_from_rows(buf, label_col, weight_col)
+
+
+def _pandas_columnar_ok(selected, features_col: str) -> bool:
+    """True only when ``selected.toPandas()`` is a columnar Arrow collect:
+    pandas importable, the session's Arrow transfer on, and the features an
+    ArrayType column. Anything unverifiable answers False."""
+    if not callable(getattr(selected, "toPandas", None)):
+        return False
+    try:
+        import pandas  # noqa: F401
+    except ImportError:
+        return False
+    try:
+        if type(selected.schema[features_col].dataType).__name__ != "ArrayType":
+            return False
+        enabled = selected.sparkSession.conf.get("spark.sql.execution.arrow.pyspark.enabled")
+        return str(enabled).lower() == "true"
+    except Exception:  # noqa: BLE001 - any doubt takes the row path
+        return False
+
+
+def _chunk_from_rows(rows: list, label_col, weight_col):
+    """(x, y, w) of a group of driver-side rows, [features, label?,
+    weight?] by position: plain array rows convert in one ``np.asarray``,
+    DenseVector rows stack their ``values``, irregular groups (sparse,
+    mixed) take the per-row converter."""
+    first = rows[0][0]
+    try:
+        if isinstance(first, (list, tuple, np.ndarray)):
+            x = np.asarray([r[0] for r in rows], dtype=np.float64)
+        elif hasattr(first, "values") and not hasattr(first, "indices"):
+            x = np.asarray([r[0].values for r in rows], dtype=np.float64)
+        else:
+            raise ValueError("irregular rows")
+        if x.ndim != 2:
+            raise ValueError("ragged chunk")
+    except (ValueError, AttributeError):
+        x = np.stack([columnar.row_vector_to_ndarray(r[0]) for r in rows])
+    y = (np.fromiter((r[1] for r in rows), dtype=np.float64, count=len(rows))
+         if label_col else None)
+    wi = 2 if label_col else 1
+    w = (np.fromiter((r[wi] for r in rows), dtype=np.float64, count=len(rows))
+         if weight_col else None)
+    return x, y, w
 
 
 def use_streamed_fit(rows: int, n: int) -> bool:

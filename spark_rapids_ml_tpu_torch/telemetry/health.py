@@ -18,17 +18,22 @@ FAILING (2):
 - ``stream``: the streamed fold's heartbeat (``stream.active``,
   ``stream.last_beat``, booked by ``spark/ingest.py::stream_fold``), stale
   after ``TPU_ML_HEALTH_STALE_S``;
+- ``workers``: the local Spark engine's workers, DEGRADED when the newest
+  task telemetry trailer (``worker.last_trailer``, booked by
+  ``localspark/session.py`` as each task's trailer merges) is older than
+  ``TPU_ML_HEALTH_STALE_S``;
 - ``resilience``: DEGRADED for a poll window with at least
   ``TPU_ML_HEALTH_RETRY_STORM`` retries (``retry.attempts``) or a fault
-  injected (``fault.injected``).
+  injected (``fault.injected``);
+- ``scheduler``: the worker supervisors' slots (``worker.slots``,
+  ``worker.quarantined``, booked by ``resilience/supervisor.py``):
+  DEGRADED while some slot is quarantined, FAILING when all are.
 
-The rollup carries ``scheduler``, the live worker supervisors' leases and
-quarantines (``resilience/supervisor.py::active_summary``), when there are
-any. The JAX package's ``workers`` and ``scheduler`` components, which
-read the series its ``localspark/`` books (the port's engine books
-``worker.last_trailer`` too), are not ported, and neither is the
-``degraded.cpu_fallback`` flag of its ``resilience`` component, which only
-the mesh-local fallback counts (``ROADMAP.md`` Queue A items 5 and 6).
+The rollup also carries ``scheduler``'s detail, the live supervisors'
+leases and quarantines (``resilience/supervisor.py::active_summary``),
+when there are any. The ``degraded.cpu_fallback`` flag of the JAX
+package's ``resilience`` component is not ported: only the mesh-local
+fallback counts it (``ROADMAP.md`` Queue A item 6).
 
 **No probe creates a CUDA context in this process.** Every device read
 goes through ``sample_device_memory``, which returns nothing until CUDA is
@@ -90,7 +95,7 @@ logger = logging.getLogger("spark_rapids_ml_tpu_torch.health")
 OK, DEGRADED, FAILING = 0, 1, 2
 STATE_NAMES = {OK: "OK", DEGRADED: "DEGRADED", FAILING: "FAILING"}
 
-COMPONENTS = ("device", "transport", "stream", "resilience")
+COMPONENTS = ("device", "transport", "stream", "workers", "resilience", "scheduler")
 
 PROBE_MODES = ("off", "inline", "subprocess")
 
@@ -236,7 +241,9 @@ class HealthMonitor:
         self._eval_device()
         self._eval_transport()
         self._eval_stream(snap, now)
+        self._eval_workers(snap, now)
         self._eval_resilience(snap)
+        self._eval_scheduler(snap)
         last_slo = self.slo.evaluate(now)
         with self._lock:
             self._prev_snap = snap
@@ -355,6 +362,30 @@ class HealthMonitor:
             "stream", state,
             f"heartbeat {age:.1f}s old" + ("" if state == OK else f" (> {self.stale_s:.0f}s stale)"),
         )
+
+    def _eval_workers(self, snap, now: float) -> None:
+        last = _gauge_max(snap, "worker.last_trailer")
+        if last is None:
+            self._set_state("workers", OK, "no worker trailers yet")
+            return
+        age = now - last
+        state = DEGRADED if age > self.stale_s else OK
+        self._set_state("workers", state, f"last trailer {age:.1f}s old")
+
+    def _eval_scheduler(self, snap) -> None:
+        slots = _gauge_max(snap, "worker.slots")
+        quarantined = _gauge_max(snap, "worker.quarantined") or 0
+        if slots is None:
+            self._set_state("scheduler", OK, "no supervised workers")
+        elif slots and quarantined >= slots:
+            self._set_state("scheduler", FAILING,
+                            f"all {int(slots)} worker slot(s) quarantined "
+                            "(circuit breaker open everywhere)")
+        elif quarantined > 0:
+            self._set_state("scheduler", DEGRADED,
+                            f"{int(quarantined)}/{int(slots)} worker slot(s) quarantined")
+        else:
+            self._set_state("scheduler", OK, f"{int(slots)} worker slot(s) healthy")
 
     def _eval_resilience(self, snap) -> None:
         with self._lock:

@@ -876,3 +876,20 @@ def test_every_phase_runs_unless_a_group_is_skipped():
     assert chip_smoke.parse_skip(["--skip", "ann,trees"]) == {"ann", "trees"}
     with pytest.raises(SystemExit):
         chip_smoke.parse_skip(["--skip", "kernels"])
+
+
+def test_spark_glue_phase_on_cpu():
+    """Phase 20 at a tiny size: every body over frames of named columns,
+    every driver half, every gate; no kernel launches on the CPU."""
+    c = chip_smoke.phase_spark_features(3000, 48, 3, 3, CPU)
+    assert c["tsvd"]["launches"] == {name: 0 for name in chip_smoke.KERNELS}
+    assert c["tsvd"]["count"] == 3000 and c["robust"]["hist_rows_per_feature"] == [3000]
+    x_pool = chip_smoke.streamed_workload(4000, 32, 2, CPU)[0]
+    a = chip_smoke.phase_spark_linear(x_pool, CPU, rows=3000, classes=3, partitions=3)
+    assert len(a["binary"]["job_s"]) == len(a["softmax"]["job_s"]) == a["jobs"]
+    assert a["logistic_transform"]["labels_equal"]
+    b = chip_smoke.phase_spark_kmeans(CPU, rows=6000, n=16, k=20, partitions=3)
+    assert b["sample"]["bodies_agree"] and b["sample"]["candidates"] > 0
+    assert len(b["lloyd"]) == 3 and all(g["mismatches_not_near_tie"] == 0 for g in b["lloyd"])
+    assert "spark" in chip_smoke.SKIPPABLE and chip_smoke.parse_skip(["--skip", "spark"]) == {
+        "spark"}

@@ -311,21 +311,67 @@ def test_refused_fit_raises_and_a_degraded_fit_runs_only_on_the_cpu(x, monkeypat
 def test_health_components_and_transitions_match_jax():
     p, j = _failing_monitor(health).rollup(), _failing_monitor(jhealth).rollup()
     assert p["state"] == j["state"] == "FAILING"
-    # ``resilience`` reads each package's process-wide registry, where what
-    # other tests booked (retries, injected faults) may have moved it off OK
-    shared = [c for c in health.COMPONENTS if c != "resilience"]
+    # ``workers``, ``resilience`` and ``scheduler`` read each package's
+    # process-wide registry, where what other tests booked (trailers,
+    # retries, injected faults, quarantined slots) may have moved them off OK
+    assert set(p["components"]) == set(j["components"]) == set(health.COMPONENTS)
+    from_registry = ("workers", "resilience", "scheduler")
+    shared = [c for c in health.COMPONENTS if c not in from_registry]
     assert {c: p["components"][c]["state"] for c in shared} == {
         c: j["components"][c]["state"] for c in shared}
-    # the JAX package's other components watch subsystems the port lacks
-    # (its local Spark session), read from that same registry: one
-    # transition each that moved
-    jax_only = set(j["components"]) - set(health.COMPONENTS)
-    assert jax_only == {"workers", "scheduler"}
-    moved_p = p["components"]["resilience"]["state"] != "OK"
-    moved_j = sum(j["components"][c]["state"] != "OK" for c in [*jax_only, "resilience"])
+    # one transition each that moved
+    moved_p = sum(p["components"][c]["state"] != "OK" for c in from_registry)
+    moved_j = sum(j["components"][c]["state"] != "OK" for c in from_registry)
     assert p["transitions"] - moved_p == j["transitions"] - moved_j == 1
     assert set(_failing_monitor(health).fit_summary()) == set(
         _failing_monitor(jhealth).fit_summary())
+
+
+@pytest.fixture()
+def worker_gauges():
+    """No worker gauges in the port's registry during the test; theirs
+    before it restored after it."""
+    saved = {k: v for k, v in REGISTRY._gauges.items() if k[0].startswith("worker.")}
+    for k in saved:
+        del REGISTRY._gauges[k]
+    yield
+    for k in [k for k in REGISTRY._gauges if k[0].startswith("worker.")]:
+        del REGISTRY._gauges[k]
+    REGISTRY._gauges.update(saved)
+
+
+def test_workers_and_scheduler_components_move_and_recover(worker_gauges):
+    """The ``workers`` component reads the newest task trailer's age and the
+    ``scheduler`` the supervisors' quarantined slots, by the JAX monitor's
+    rules; each goes off OK and back."""
+    mon = health.HealthMonitor(probe_fn=lambda: (True, "ok"), stale_s=30.0, interval_s=60.0,
+                               slo_engine=health.slo_mod.SloEngine(()))
+
+    def states():
+        comps = mon.poll_once()["components"]
+        return comps["workers"]["state"], comps["scheduler"]["state"]
+
+    assert states() == ("OK", "OK")
+    assert mon.rollup()["components"]["scheduler"]["detail"] == "no supervised workers"
+    before = REGISTRY.snapshot()
+    steps = [
+        ({"worker.last_trailer": time.monotonic() - 120.0}, ("DEGRADED", "OK")),
+        ({"worker.last_trailer": time.monotonic(), "worker.slots": 4,
+          "worker.quarantined": 1}, ("OK", "DEGRADED")),
+        ({"worker.quarantined": 4}, ("OK", "FAILING")),
+        ({"worker.quarantined": 0}, ("OK", "OK")),
+    ]
+    for gauges, want in steps:
+        for name, value in gauges.items():
+            REGISTRY.gauge_set(name, value)
+        assert states() == want
+    assert mon.rollup()["components"]["scheduler"]["detail"] == "4 worker slot(s) healthy"
+    moved = REGISTRY.snapshot().delta(before)
+    assert {(c, to): moved.counter("health.transitions", component=c, to=to)
+            for c, to in (("workers", "DEGRADED"), ("workers", "OK"), ("scheduler", "DEGRADED"),
+                          ("scheduler", "FAILING"), ("scheduler", "OK"))} == {
+        ("workers", "DEGRADED"): 1, ("workers", "OK"): 1, ("scheduler", "DEGRADED"): 1,
+        ("scheduler", "FAILING"): 1, ("scheduler", "OK"): 1}
 
 
 def test_unported_probe_mode_is_refused():

@@ -228,11 +228,13 @@ def test_port_native_save_crosses_as_arrays_only(x, tmp_path):
 
 
 def test_unported_jax_class_is_refused_without_import(tmp_path):
-    path = tmp_path / "spark_kmeans"
+    # every saveable class of the JAX package has a port counterpart now; a
+    # name of its unported mesh layer (ROADMAP Queue A item 6) stands in
+    path = tmp_path / "mesh_kmeans"
     path.mkdir()
     (path / "metadata.json").write_text(json.dumps({
-        "class": "spark_rapids_ml_tpu.spark.estimators.SparkKMeansModel",
-        "uid": "SparkKMeansModel_1",
+        "class": "spark_rapids_ml_tpu.spark.spmd.MeshKMeansFitFn",
+        "uid": "MeshKMeansFitFn_1",
         "paramMap": {}, "defaultParamMap": {},
     }))
     with pytest.raises(TypeError, match="no counterpart"):

@@ -206,11 +206,24 @@ def test_sub_models_and_refusals(rng):
     with pytest.raises(ValueError, match=r"trainRatio must be in \(0, 1\)"):
         PT.TrainValidationSplit(estimator=PLIN.LinearRegression(device="cpu"),
                                 evaluator=PT.RegressionEvaluator(), trainRatio=1.5).fit((x, y))
-    spark_df = type("DataFrame", (), {"__module__": "pyspark.sql.dataframe"})()
+    # a DataFrame of the port's local engine takes the DataFrame path (one
+    # job for its columns, randomSplit folds); the JAX package's is refused
+    from spark_rapids_ml_tpu_torch.localspark import LocalSparkSession
+    from spark_rapids_ml_tpu_torch.localspark import types as T
+
+    schema = T.StructType([T.StructField("label", T.DoubleType()),
+                           T.StructField("prediction", T.DoubleType())])
+    pred = y + 0.1
+    with LocalSparkSession(parallelism=1, worker_platform="cpu") as spark:
+        frame = spark.createDataFrame(list(zip(y.astype(float), pred.astype(float))), schema)
+        assert PT.n_rows(frame) == len(y)
+        assert PT.RegressionEvaluator().evaluate(frame) == PT.RegressionEvaluator().evaluate(
+            (x, y), predictions=pred)
+    jax_df = type("DataFrame", (), {"__module__": "spark_rapids_ml_tpu.localspark.dataframe"})()
     for call in (lambda: PT.CrossValidator(estimator=PLIN.LinearRegression(device="cpu"),
-                                           evaluator=PT.RegressionEvaluator()).fit(spark_df),
-                 lambda: PT.RegressionEvaluator().evaluate(spark_df)):
-        with pytest.raises(TypeError, match="Queue A item 5"):
+                                           evaluator=PT.RegressionEvaluator()).fit(jax_df),
+                 lambda: PT.RegressionEvaluator().evaluate(jax_df)):
+        with pytest.raises(TypeError, match="JAX package's localspark"):
             call()
 
 
