@@ -26,7 +26,8 @@ Phases, each a plain function that the CPU tests also call at a tiny size:
    ("auto" must be the randomized fit, bit for bit), each gated against an
    f64 reference, and the decomposition stage timed alone per solver;
 6. one pass (resident): the resident fit at precision "default" through
-   the fused one-product instance, against the f64 oracle;
+   the fused one-product instance (its Gram's own diagonal Σhi²), against
+   the f64 oracle;
 7. standardize: fit the resident shape with standardize=True and check it
    against the f64 eigenvectors of the standardized scatter;
 8. main path (streamed): fit PCA on BASELINE config 2 whole (10,000,000 x
@@ -236,6 +237,22 @@ Phases, each a plain function that the CPU tests also call at a tiny size:
    12's near-tie rule; and the transform bodies (MatrixMap for
    StandardScaler and LinearRegression, ProbaPrediction for binary
    logistic, MultiOutput for KMeans) against the models' own transforms.
+21. the mesh (no new kernel; group "mesh"), before phase 8's data is
+   freed: (a) 2,000,000 x 512 rows in four data shards of the card at
+   "high": sharded_gram_stats (4 fused_gram_moments launches) against the
+   one-device Gram (1e-5 x max) and f64 (3e-5), distributed_pca_fit (k=50)
+   and the ring Gram at data = feat = 2 against f64, moments, ranges and a
+   histogram against f64 or exactly; (b) phase 8's 10,000,000 x 512 rows
+   through the per-shard chunk fold on the mesh-local fit's own mesh (one
+   card) and on four shards of it (153 and 612 symmetric_gram_moments
+   launches), against the one-device fold (1e-5 x max) and the f64 oracle,
+   degraded.cpu_fallback 0; (c) distributed_pca_fit_svd over four shards
+   and the sketched fit (data = feat = 2, l = 70) on 1,000,000 of (a)'s
+   rows against f64; (d) MeshGramPartitionFn and MeshSVDFitFn in four
+   spawned processes on cuda:0 over gloo, their rendezvous on a TCPStore,
+   on 8 frames of phase 4's rows: only rank 0 yields, its rows against the
+   in-process mesh program and f64. The kernels line gains
+   phase21_launches.
 
 Each main path reads the kernels' launch counts from 0 around exactly its
 fit. The last lines are one JSON object with every kernel's numbers, the
@@ -292,10 +309,15 @@ from spark_rapids_ml_tpu_torch.ops import linear as LIN
 from spark_rapids_ml_tpu_torch.ops import naive_bayes as NBO
 from spark_rapids_ml_tpu_torch.ops import neighbors as NN
 from spark_rapids_ml_tpu_torch.ops import optim as OPT
+from spark_rapids_ml_tpu_torch.ops import scaler as SCL
 from spark_rapids_ml_tpu_torch.ops import umap as UMO
 from spark_rapids_ml_tpu_torch import autotune
 from spark_rapids_ml_tpu_torch.autotune import cache as tuning_cache
 from spark_rapids_ml_tpu_torch.autotune.policy import TuningConfig, resolve_policy
+from spark_rapids_ml_tpu_torch.parallel import gram as MG
+from spark_rapids_ml_tpu_torch.parallel import mesh as MM
+from spark_rapids_ml_tpu_torch.parallel import sketched as MSK
+from spark_rapids_ml_tpu_torch.parallel import tsqr as MT
 from spark_rapids_ml_tpu_torch.parallel.tree_aggregate import tree_reduce
 from spark_rapids_ml_tpu_torch.resilience import faults
 from spark_rapids_ml_tpu_torch.resilience.retry import FoldHangTimeout
@@ -306,7 +328,7 @@ from spark_rapids_ml_tpu_torch.serving import hbm
 from spark_rapids_ml_tpu_torch.serving import registry as R
 from spark_rapids_ml_tpu_torch.serving import server as S
 from spark_rapids_ml_tpu_torch.serving.batcher import MicroBatcher
-from spark_rapids_ml_tpu_torch.spark import arrow_fns, ingest
+from spark_rapids_ml_tpu_torch.spark import arrow_fns, ingest, spmd
 from spark_rapids_ml_tpu_torch.spark import estimators as spark_est
 from spark_rapids_ml_tpu_torch.telemetry import health, httpd, slo
 from spark_rapids_ml_tpu_torch.telemetry.registry import REGISTRY
@@ -1072,7 +1094,8 @@ def phase_one_pass(rows: int, n: int, k: int, partitions: int, device: torch.dev
     the f64 oracle ≥ 0.9999 (by estimate the bf16 Gram's error is about 4e-4
     of the eigengap at 500,000 rows). The explainedVariance gaps to a
     "highest" fit and to the f64 oracle are printed, and the latter also for
-    the same Gram with its unrepaired diagonal Σhi²."""
+    the kernels' own Gram with its diagonal Σhi², which the unstandardized
+    fit keeps (``ops/linalg.py``'s rule), so the two agree."""
     x = bench_workload(rows, n)
     cuda = device.type == "cuda"
     reset_launches()
@@ -1084,8 +1107,8 @@ def phase_one_pass(rows: int, n: int, k: int, partitions: int, device: torch.dev
     launches = read_launches()
     highest = PCA(device=device).setK(k).setPrecision("highest").fit(x, num_partitions=partitions)
     oracle_pc, oracle_ev = oracle_from_scatter(scatter_f64(x, device), k)
-    # the same fit's Gram with the kernel's own diagonal Σhi², not the Σx²
-    # the tier writes there: what the diagonal rule does to explainedVariance
+    # the kernels' own Gram with its diagonal Σhi², summed here outside the
+    # fit: the unstandardized fit keeps that diagonal
     unrepaired = sum(
         G.fused_gram_moments(torch.from_numpy(columnar.pad_rows(part)[0]).to(device),
                              products=1)[0]
@@ -5911,6 +5934,364 @@ def phase_spark_kmeans(device: torch.device, *, rows: int = SPARK_KMEANS_ROWS,
     return result
 
 
+# -- phase 21: the mesh ------------------------------------------------------------
+
+MESH_ROWS = 2_000_000       # (a): config 2's width in four data shards on one card
+MESH_SHARDS = 4
+MESH_TSQR_ROWS = 1_000_000  # (c)
+MESH_SKETCH_OVERSAMPLE = 20  # l = k + 20 = 70 spans the workload's rank-64 signal
+MESH_BARRIER_RANKS = 4      # (d): four processes on one card over gloo
+MESH_BARRIER_FRAMES = 8     # phase 4's rows in 8 frames, 2 a rank
+MESH_HIST_BINS = 64
+MESH_STATS_TOL = 1e-5       # × max, against the one-device (or in-process) statistics
+MESH_F64_TOL = 3e-5         # × max, "high" against f64: the split's bound, as in the tests
+
+
+def tsqr_ev_tol(n: int) -> float:
+    """The f32 TSQR's bound on explainedVariance, × its largest ratio: each
+    singular value moves by up to c·2⁻²⁴·σ_max (Weyl, Householder QR's
+    backward error; c = 8), so Σs over the n of them by n·c·2⁻²⁴·σ_max."""
+    return 8.0 * n * 2.0**-24
+MESH_SEED = 13
+
+
+def _rel(got, want) -> float:
+    """max |got − want| / max |want|, on the host in f64."""
+    got = got.detach().double().cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(
+        got, np.float64)
+    want = want.detach().double().cpu().numpy() if isinstance(want, torch.Tensor) else np.asarray(
+        want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-300))
+
+
+def _f64_column_stats(x: torch.Tensor, chunk: int = 1 << 18) -> tuple[torch.Tensor, torch.Tensor]:
+    """(Σx, Σx²) per column in f64 on x's device, a chunk at a time."""
+    total = torch.zeros(x.shape[1], dtype=torch.float64, device=x.device)
+    total_sq = torch.zeros_like(total)
+    for a in range(0, x.shape[0], chunk):
+        part = x[a:a + chunk].double()
+        total += part.sum(0)
+        total_sq += (part * part).sum(0)
+    return total, total_sq
+
+
+def phase_mesh_inprocess(x_host: np.ndarray, gram64: np.ndarray, k: int, device: torch.device,
+                         shards: int = MESH_SHARDS, bins: int = MESH_HIST_BINS) -> dict:
+    """Phase 21 (a): the in-process mesh at config 2's width: the rows in
+    ``shards`` data shards on one device at "high". ``sharded_gram_stats``
+    (one fused_gram_moments launch a shard, read from 0 around exactly it)
+    against the one-device ``gram_stats`` of the same rows (1e-5 × max) and
+    f64 (3e-5 × max); ``distributed_pca_fit`` (k) and the ring Gram at data
+    = feat = 2 against f64; moments against f64 (1e-5 × max), ranges and the
+    histogram's counts exactly the one-device ones."""
+    cuda = device.type == "cuda"
+    rows, n = x_host.shape
+    x = torch.from_numpy(x_host).to(device)
+    mesh = MM.create_mesh(data=shards, devices=[device] * shards)
+    oracle_pc, _ = oracle_from_scatter(gram64, k)
+    one = L.gram_stats(x, precision="high")  # also the kernels' warm-up
+    _sync(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    stats = MG.sharded_gram_stats(x, mesh, precision="high")
+    _sync(device)
+    stats_s = time.perf_counter() - t0
+    launches = read_launches()
+    t0 = time.perf_counter()
+    pc, _ = MG.distributed_pca_fit(x, k, mesh, precision="high")
+    _sync(device)
+    fit_s = time.perf_counter() - t0
+    ring_mesh = MM.create_mesh(data=2, feat=2, devices=[device] * 4)
+    t0 = time.perf_counter()
+    ring, ring_sum, ring_count = MG.ring_gram(x, ring_mesh, precision="high")
+    _sync(device)
+    ring_s = time.perf_counter() - t0
+    total64, total_sq64 = _f64_column_stats(x)
+    moments = MG.sharded_moment_stats(x, mesh)
+    w = torch.ones(rows, device=device)
+    ranges = MG.sharded_range_stats(x, w, mesh)
+    hist = MG.sharded_histogram(x, w, ranges.min, ranges.max, bins=bins, mesh=mesh)
+    hist_one = sum(SCL.histogram_stats(part, part.shape[0], ranges.min, ranges.max, bins=bins)
+                   for part in torch.split(x, 1 << 19))
+    result = {
+        "rows": rows, "n": n, "k": k, "shards": shards, "launches": launches,
+        "stats_s": stats_s, "fit_s": fit_s, "ring_s": ring_s,
+        "xtx_rel_vs_one_device": _rel(stats.xtx, one.xtx),
+        "xtx_rel_vs_f64": _rel(stats.xtx, gram64),
+        "col_sum_rel_vs_f64": _rel(stats.col_sum, total64),
+        "count": float(stats.count),
+        "min_cosine_vs_f64_oracle": _min_abs_cosine(pc.cpu().numpy(), oracle_pc),
+        "ring_xtx_rel_vs_f64": _rel(ring, gram64),
+        "ring_col_sum_rel_vs_f64": _rel(ring_sum, total64),
+        "moments_total_rel_vs_f64": _rel(moments.total, total64),
+        "moments_total_sq_rel_vs_f64": _rel(moments.total_sq, total_sq64),
+        "ranges_exact": bool(torch.equal(ranges.min, x.amin(0)) and torch.equal(ranges.max, x.amax(0))
+                             and torch.equal(ranges.max_abs, x.abs().amax(0))
+                             and float(ranges.count) == rows),
+        "histogram_exact": bool(torch.equal(hist, hist_one) and bool((hist.sum(1) == rows).all())),
+    }
+    print(f"mesh (a) in-process: {json.dumps(result)}", flush=True)
+    expected = expected_launches(gram_moments=shards if cuda else 0)
+    if launches != expected:
+        raise AssertionError(f"sharded_gram_stats launched {launches}, expected {expected}")
+    for key, bound in (("xtx_rel_vs_one_device", MESH_STATS_TOL), ("xtx_rel_vs_f64", MESH_F64_TOL),
+                       ("col_sum_rel_vs_f64", MESH_STATS_TOL), ("ring_xtx_rel_vs_f64", MESH_F64_TOL),
+                       ("ring_col_sum_rel_vs_f64", MESH_STATS_TOL),
+                       ("moments_total_rel_vs_f64", MESH_STATS_TOL),
+                       ("moments_total_sq_rel_vs_f64", MESH_STATS_TOL)):
+        if not result[key] <= bound:
+            raise AssertionError(f"mesh (a): {key} = {result[key]} > {bound}")
+    if not (result["count"] == float(ring_count) == rows and result["ranges_exact"]
+            and result["histogram_exact"]):
+        raise AssertionError(f"mesh (a): counts, ranges or histogram not exact: {result}")
+    if not result["min_cosine_vs_f64_oracle"] >= COSINE_BAR:
+        raise AssertionError(f"mesh (a): distributed fit vs the f64 oracle: {result}")
+    return result
+
+
+def _mesh_fold(x: np.ndarray, mesh, n: int, device: torch.device):
+    """``x`` streamed through the per-shard chunk fold on ``mesh`` at
+    "high" and finalized: (stats, StreamFold)."""
+    res = ingest.stream_fold(
+        [x], lambda c, xc, wc: MG.sharded_gram_fold(c, xc, wc, mesh, precision="high"), n=n,
+        init=MG.init_chunk_carry(L.init_gram_carry(n, "meta"), mesh), device=mesh.first_device,
+        chunk_rows=MG.stream_chunk_rows_for_mesh(mesh), put_fn=MG.chunk_put(mesh),
+        min_chunk_rows=mesh.shape[MM.DATA_AXIS],
+    )
+    return MG.finalize_chunk_fold(res.carry, mesh), res
+
+
+def phase_mesh_streamed(data, k: int, device: torch.device, shards: int = MESH_SHARDS,
+                        phase8_fit_s: float | None = None) -> dict:
+    """Phase 21 (b): phase 8's rows streamed through ``sharded_gram_fold``
+    on the mesh-local fit's own mesh (``_mesh_or_fallback``: every card, one
+    here) and on ``shards`` shards of the card, each finalized by one
+    allreduce and decomposed (k); ``symmetric_gram_moments`` launched once a
+    shard a chunk (read from 0 around each fold). Statistics against the
+    one-device fold of phase 8's fit (1e-5 × max), components against the
+    f64 oracle, ``degraded.cpu_fallback`` 0, fit seconds beside phase 8's."""
+    x, gram64 = data
+    rows, n = x.shape
+    cuda = device.type == "cuda"
+    chunk = ingest.stream_chunk_rows()
+    chunks = -(-rows // chunk)
+    oracle_pc, _ = oracle_from_scatter(gram64, k)
+    s0 = REGISTRY.snapshot()
+    t0 = time.perf_counter()
+    one = ingest.stream_fold([x], L.gram_fold_step("high"), n=n,
+                             init=L.init_gram_carry(n, device), device=device).carry
+    _sync(device)
+    one_device_s = time.perf_counter() - t0
+    result = {"rows": rows, "n": n, "k": k, "chunks": chunks, "one_device_fold_s": one_device_s,
+              "phase8_fit_s": phase8_fit_s}
+    meshes = (("own_mesh", spark_est._mesh_or_fallback(device)),
+              ("four_shards", MM.create_mesh(devices=[device] * shards)))
+    for label, mesh in meshes:
+        if mesh is None:
+            raise AssertionError("mesh creation fell back to the one-device fold")
+        reset_launches()
+        t0 = time.perf_counter()
+        stats, res = _mesh_fold(x, mesh, n, device)
+        pc, _ = L.pca_fit_from_cov(L.covariance_from_stats(stats, mean_centering=False), k)
+        _sync(device)
+        fit_s = time.perf_counter() - t0
+        launches = read_launches()
+        shard_count = mesh.shape[MM.DATA_AXIS]
+        entry = {
+            "shards": shard_count, "fit_s": fit_s, "launches": launches,
+            "chunks": res.chunks, "copy_overlapped": res.copy_overlapped,
+            "xtx_rel_vs_one_device": _rel(stats.xtx, one.xtx),
+            "col_sum_rel_vs_one_device": _rel(stats.col_sum, one.col_sum),
+            "count": float(stats.count),
+            "min_cosine_vs_f64_oracle": _min_abs_cosine(pc.cpu().numpy(), oracle_pc),
+        }
+        result[label] = entry
+        expected = expected_launches(
+            symmetric_gram_moments=chunks * shard_count if cuda else 0)
+        if launches != expected or res.chunks != chunks:
+            raise AssertionError(f"mesh (b) {label}: launches {launches}, expected {expected}")
+        if not (entry["xtx_rel_vs_one_device"] <= MESH_STATS_TOL
+                and entry["col_sum_rel_vs_one_device"] <= MESH_STATS_TOL
+                and entry["count"] == rows):
+            raise AssertionError(f"mesh (b) {label}: statistics off the one-device fold: {entry}")
+        if not entry["min_cosine_vs_f64_oracle"] >= COSINE_BAR:
+            raise AssertionError(f"mesh (b) {label}: components vs the f64 oracle: {entry}")
+    result["degraded_cpu_fallback"] = REGISTRY.snapshot().delta(s0).counter(
+        "degraded.cpu_fallback")
+    print(f"mesh (b) streamed: {json.dumps(result)}", flush=True)
+    if result["degraded_cpu_fallback"] != 0:
+        raise AssertionError("mesh (b): the fit degraded to the one-device fold")
+    return result
+
+
+def phase_mesh_tsqr_sketch(x_host: np.ndarray, k: int, device: torch.device,
+                           shards: int = MESH_SHARDS,
+                           oversample: int = MESH_SKETCH_OVERSAMPLE) -> dict:
+    """Phase 21 (c): ``distributed_pca_fit_svd`` (the butterfly TSQR and the
+    SVD of R) over ``shards`` shards and ``sketched_pca_fit`` at data = feat
+    = 2, each against the f64 oracle of the same rows (min |cosine| ≥
+    0.9999). The sketch's l = k + ``oversample`` spans the data's rank-64
+    signal."""
+    rows, n = x_host.shape
+    x = torch.from_numpy(x_host).to(device)
+    oracle_pc, oracle_ev = oracle_from_scatter(scatter_f64(x_host, device), k)
+    mesh = MM.create_mesh(data=shards, devices=[device] * shards)
+    t0 = time.perf_counter()
+    pc, ev = MT.distributed_pca_fit_svd(x, k, mesh)
+    _sync(device)
+    tsqr_s = time.perf_counter() - t0
+    grid = MM.create_mesh(data=2, feat=2, devices=[device] * 4)
+    t0 = time.perf_counter()
+    spc, sev = MSK.sketched_pca_fit(x, k, grid, oversample=oversample)
+    _sync(device)
+    sketch_s = time.perf_counter() - t0
+    result = {
+        "rows": rows, "n": n, "k": k, "shards": shards, "tsqr_s": tsqr_s,
+        "sketch_s": sketch_s, "oversample": oversample,
+        "tsqr_min_cosine_vs_f64_oracle": _min_abs_cosine(pc.cpu().numpy(), oracle_pc),
+        "tsqr_ev_rel_vs_f64": _rel(ev, oracle_ev),
+        "tsqr_ev_tol": tsqr_ev_tol(n),
+        "sketch_min_cosine_vs_f64_oracle": _min_abs_cosine(spc.cpu().numpy(), oracle_pc),
+    }
+    print(f"mesh (c) tsqr and sketched: {json.dumps(result)}", flush=True)
+    if not result["tsqr_ev_rel_vs_f64"] <= result["tsqr_ev_tol"]:
+        raise AssertionError(f"mesh (c): the TSQR's explainedVariance vs f64: {result}")
+    for key in ("tsqr_min_cosine_vs_f64_oracle", "sketch_min_cosine_vs_f64_oracle"):
+        if not result[key] >= COSINE_BAR:
+            raise AssertionError(f"mesh (c): {key} = {result[key]} < {COSINE_BAR}")
+    return result
+
+
+class StoreBarrierContext:
+    """A barrier context for bodies run outside Spark: ``allGather`` rides
+    a ``torch.distributed.TCPStore`` that the parent opened (one key a rank
+    a round; ``get`` waits for each)."""
+
+    def __init__(self, rank: int, size: int, port: int):
+        import datetime
+
+        self.rank, self.size, self.round = rank, size, 0
+        self.store = torch.distributed.TCPStore(
+            "127.0.0.1", port, size + 1, False, timeout=datetime.timedelta(seconds=300))
+
+    def partitionId(self) -> int:
+        return self.rank
+
+    def getTaskInfos(self) -> list:
+        import types
+
+        return [types.SimpleNamespace(address="127.0.0.1")] * self.size
+
+    def allGather(self, message: str = "") -> list[str]:
+        key = f"round{self.round}"
+        self.round += 1
+        self.store.set(f"{key}/{self.rank}", message)
+        return [self.store.get(f"{key}/{r}").decode() for r in range(self.size)]
+
+
+def _mesh_barrier_rank(rank: int, size: int, port: int, path: str, frames: int, k: int,
+                       device_type: str, q) -> None:
+    """One rank of phase 21 (d), in a spawned process: its frames of the
+    rows through the Gram and TSQR barrier bodies; its rows, or its error,
+    go to ``q``."""
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        x = np.load(path, mmap_mode="r")
+        edges = partition_edges(len(x), frames)
+        per = frames // size
+        batches = [ColumnFrame({"features": np.ascontiguousarray(x[edges[f]:edges[f + 1]])})
+                   for f in range(rank * per, (rank + 1) * per)]
+        ctx = StoreBarrierContext(rank, size, port)
+        reset_launches()
+        gram = spmd.MeshGramPartitionFn("features", precision="high",
+                                        device=device_type).mesh_arrays(batches, ctx)
+        svd = spmd.MeshSVDFitFn("features", k, False, device=device_type).mesh_arrays(batches, ctx)
+        q.put((rank, gram, svd, read_launches(), None))
+    except BaseException:  # noqa: BLE001 - reported to the parent, which raises
+        import traceback
+
+        q.put((rank, None, None, None, traceback.format_exc()))
+
+
+def phase_mesh_barrier(x_host: np.ndarray, k: int, device: torch.device,
+                       ranks: int = MESH_BARRIER_RANKS, frames: int = MESH_BARRIER_FRAMES) -> dict:
+    """Phase 21 (d): ``MeshGramPartitionFn`` (at "high") and ``MeshSVDFitFn``
+    in ``ranks`` spawned processes on one device, over gloo (CUDA tensors on
+    the card), their rendezvous through a stub barrier context on a
+    TCPStore, on ``frames`` frames of phase 4's rows. Only rank 0 yields;
+    its rows against the in-process mesh program over the same rows and
+    against f64: the Gram within 1e-5 × max (3e-5 of f64), the TSQR fit
+    min |cosine| ≥ 0.9999 and explainedVariance within ``tsqr_ev_tol``
+    (two f32 TSQRs of the same rows sat 8.5e-5 apart on the card). Each
+    rank launches fused_gram_moments once."""
+    import datetime
+    import multiprocessing as mp
+
+    cuda = device.type == "cuda"
+    rows, n = x_host.shape
+    store = torch.distributed.TCPStore("127.0.0.1", 0, ranks + 1, True,
+                                       timeout=datetime.timedelta(seconds=300),
+                                       wait_for_workers=False)
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-mesh-") as tmp:
+        path = os.path.join(tmp, "rows.npy")
+        np.save(path, x_host)
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_mesh_barrier_rank,
+                             args=(r, ranks, store.port, path, frames, k, device.type, q))
+                 for r in range(ranks)]
+        for p in procs:
+            p.start()
+        try:
+            results = sorted((q.get(timeout=600) for _ in procs), key=lambda t: t[0])
+        finally:
+            for p in procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.kill()
+        stage_s = time.perf_counter() - t0
+    errors = [err for *_, err in results if err]
+    if errors or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"mesh (d): a rank failed: {errors or [p.exitcode for p in procs]}")
+    yielded = [r for r, gram, svd, _, _ in results if gram is not None or svd is not None]
+    x = torch.from_numpy(x_host).to(device)
+    mesh = MM.create_mesh(data=ranks, devices=[device] * ranks)
+    stats = MG.sharded_gram_stats(x, mesh, precision="high")
+    pc, ev = MT.distributed_pca_fit_svd(x, k, mesh)
+    gram64 = scatter_f64(x_host, device)
+    oracle_pc, oracle_ev = oracle_from_scatter(gram64, k)
+    gram, svd = results[0][1], results[0][2]
+    launches = {name: sum(r[3][name] for r in results) for name in KERNELS}
+    result = {
+        "rows": rows, "n": n, "k": k, "ranks": ranks, "frames": frames, "stage_s": stage_s,
+        "yielding_ranks": yielded, "launches": launches,
+        "count": float(gram["count"]), "mesh_size": float(gram["mesh_size"]),
+        "xtx_rel_vs_in_process": _rel(gram["xtx"], stats.xtx),
+        "xtx_rel_vs_f64": _rel(gram["xtx"], gram64),
+        "svd_min_cosine_vs_in_process": _min_abs_cosine(svd["pc"], pc.cpu().numpy()),
+        "svd_ev_rel_vs_in_process": _rel(svd["explainedVariance"], ev),
+        "svd_ev_rel_vs_f64": _rel(svd["explainedVariance"], oracle_ev),
+        "svd_ev_tol": tsqr_ev_tol(n),
+        "svd_min_cosine_vs_f64_oracle": _min_abs_cosine(svd["pc"], oracle_pc),
+    }
+    print(f"mesh (d) barrier: {json.dumps(result)}", flush=True)
+    if yielded != [0]:
+        raise AssertionError(f"mesh (d): ranks {yielded} yielded rows, expected rank 0 alone")
+    if launches != expected_launches(gram_moments=ranks if cuda else 0):
+        raise AssertionError(f"mesh (d): the ranks launched {launches}")
+    if not (result["count"] == rows and result["mesh_size"] == ranks
+            and result["xtx_rel_vs_in_process"] <= MESH_STATS_TOL
+            and result["xtx_rel_vs_f64"] <= MESH_F64_TOL
+            and result["svd_ev_rel_vs_in_process"] <= result["svd_ev_tol"]
+            and result["svd_ev_rel_vs_f64"] <= result["svd_ev_tol"]
+            and result["svd_min_cosine_vs_in_process"] >= COSINE_BAR
+            and result["svd_min_cosine_vs_f64_oracle"] >= COSINE_BAR):
+        raise AssertionError(f"mesh (d): the barrier rows are off: {result}")
+    return result
+
+
 def _timed(name: str, fn, *args, **kwargs):
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
@@ -5929,6 +6310,7 @@ SKIPPABLE = {
     "trees": "phases 16 and 17 (trees, NaiveBayes, the families)",
     "selection": "phase 18 (a), (b), (e) (model selection, the device policy)",
     "spark": "phase 20 (the Spark glue's bodies and driver halves)",
+    "mesh": "phase 21 (the device mesh, its programs and the barrier bodies)",
 }
 
 
@@ -6012,6 +6394,24 @@ def main(argv=()) -> int:
     _timed("recovery (c) streamed", phase_recovery_streamed, stream_data, device)
     tuned = _timed("autotune (b)", phase_autotune, stream_data, MAIN_K, STREAM_PARTITIONS,
                    device)
+    mesh = None
+    if "mesh" not in skip:
+        t_mesh = time.perf_counter()
+        mesh_x, mesh_gram = streamed_workload(MESH_ROWS, MAIN_N, MESH_SHARDS, device,
+                                              seed=MESH_SEED)
+        mesh = {
+            "inprocess": _timed("mesh (a) in-process", phase_mesh_inprocess, mesh_x, mesh_gram,
+                                MAIN_K, device),
+            "streamed": _timed("mesh (b) streamed", phase_mesh_streamed, stream_data, MAIN_K,
+                               device, phase8_fit_s=streamed["fit_s"]),
+            "tsqr_sketch": _timed("mesh (c) tsqr and sketched", phase_mesh_tsqr_sketch,
+                                  mesh_x[:MESH_TSQR_ROWS], MAIN_K, device),
+            "barrier": _timed("mesh (d) barrier", phase_mesh_barrier,
+                              bench_workload(MAIN_ROWS, MAIN_N), MAIN_K, device),
+        }
+        del mesh_x, mesh_gram
+        torch.cuda.empty_cache()
+        print(f"phase mesh (21): {time.perf_counter() - t_mesh:.1f} s", flush=True)
     del stream_data, linreg
     torch.cuda.empty_cache()
     if "serving" not in skip:
@@ -6080,6 +6480,16 @@ def main(argv=()) -> int:
             "phase20_launches": {
                 "truncated_svd_driver_merge":
                     None if spark_c is None else spark_c["tsvd"]["launches"][name],
+            },
+            # phase 21: (a) sharded_gram_stats over four shards, (b) the
+            # chunk fold on the card's own mesh and on four shards of it,
+            # (d) the barrier Gram body's four ranks
+            "phase21_launches": None if mesh is None else {
+                "sharded_gram_stats": mesh["inprocess"]["launches"][name],
+                "sharded_gram_fold_own_mesh": mesh["streamed"]["own_mesh"]["launches"][name],
+                "sharded_gram_fold_four_shards":
+                    mesh["streamed"]["four_shards"]["launches"][name],
+                "barrier_gram_ranks": mesh["barrier"]["launches"][name],
             },
             "max_abs_err": at_main["max_abs_err"],
             "tol": at_main["tol"],

@@ -8,8 +8,8 @@ task. That primitive is exactly what an SPMD mesh program needs from the
 scheduler: a simultaneous launch plus one bootstrap round to agree on the
 process group's address (``torch.distributed``'s here; SURVEY.md §7 hard
 part 2 — Spark tasks vs SPMD mesh). Copy of
-``spark_rapids_ml_tpu/localspark/taskcontext.py``; its consumer, the
-mesh-barrier fit, waits for ROADMAP Queue A item 6.
+``spark_rapids_ml_tpu/localspark/taskcontext.py``; its consumer is the
+mesh-barrier fit (``spark/spmd.py``).
 
 localspark's implementation rendezvouses through the filesystem: the driver
 assigns every concurrently-running task a shared private directory, and each

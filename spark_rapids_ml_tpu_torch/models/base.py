@@ -340,12 +340,15 @@ def _instrumented_fit(fit):
     def fit_with_telemetry(self, *args, **kwargs):
         depth = getattr(_fit_depth, "value", 0)
         _fit_depth.value = depth + 1
-        rows, nbytes = columnar.dataset_size(_dataset_arg(args, kwargs))
+        dataset = _dataset_arg(args, kwargs)
+        rows, nbytes = columnar.dataset_size(dataset)
+        degradable = getattr(self, "_degradable", None)
         try:
             cap = telemetry.begin_fit(
                 type(self).__name__, getattr(self, "uid", "") or "",
                 rows=rows, nbytes=nbytes, device=getattr(self, "device", None),
                 outermost=depth == 0,
+                degradable=bool(degradable is not None and degradable(dataset)),
             )
         except BaseException:
             # a refused fit must not leave the depth raised, or every later

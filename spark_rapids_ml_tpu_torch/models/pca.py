@@ -124,7 +124,8 @@ class PCA(PCAParams, Estimator):
         return self._set(solver=value)
 
     def _stream_gram_stats(
-        self, ds: columnar.PartitionedDataset, k: int, precision: str
+        self, ds: columnar.PartitionedDataset, k: int, precision: str,
+        exact_diagonal: bool = True,
     ) -> ingest.StreamFold:
         """Out-of-core Gram statistics: the partitions drain lazily through
         ``spark.ingest.stream_fold`` into one carry on the card, updated in
@@ -138,7 +139,7 @@ class PCA(PCAParams, Estimator):
 
         return ingest.stream_fold(
             itertools.chain([first], it),
-            L.gram_fold_step(precision),
+            L.gram_fold_step(precision, exact_diagonal=exact_diagonal),
             n=n_cols,
             init=L.init_gram_carry(n_cols, self.device),
             device=self.device,
@@ -156,16 +157,17 @@ class PCA(PCAParams, Estimator):
             raise ValueError(f"k={k} must be <= number of features {n_cols}")
         return mats
 
-    def _resident_gram_stats(self, mats: list[np.ndarray], precision: str) -> L.GramStats:
+    def _resident_gram_stats(self, mats: list[np.ndarray], precision: str,
+                             exact_diagonal: bool = True) -> L.GramStats:
         """Per-partition Gram statistics on the card and a tree reduction of
-        them."""
+        them (``exact_diagonal``: ``linalg``'s rule at ``"default"``)."""
         device = self.device
 
         def partition_task(mat):
             padded, true_rows = columnar.pad_rows(mat)
             xd = to_device(padded, device)
             costmodel.capture("linalg.gram_stats", L.gram_stats, xd, precision=precision)
-            stats = L.gram_stats(xd, precision=precision)
+            stats = L.gram_stats(xd, precision=precision, exact_diagonal=exact_diagonal)
             # padding adds zero rows: fix only the count
             return L.GramStats(
                 stats.xtx, stats.col_sum, torch.full_like(stats.count, true_rows)
@@ -219,12 +221,13 @@ class PCA(PCAParams, Estimator):
         report = None
         with trace_range("compute cov", device):
             if solver != "svd" and columnar.use_streamed_fit(ds):
-                report = self._stream_gram_stats(ds, k, precision)
+                report = self._stream_gram_stats(ds, k, precision, standardize)
                 stats = report.carry
             elif solver == "svd":
                 r = self._reduce_r(self._resident_matrices(ds, k), mean_centering)
             else:
-                stats = self._resident_gram_stats(self._resident_matrices(ds, k), precision)
+                stats = self._resident_gram_stats(self._resident_matrices(ds, k), precision,
+                                                  standardize)
 
         mean = std = None
         with trace_range("eigh", device):

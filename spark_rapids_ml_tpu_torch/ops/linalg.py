@@ -22,8 +22,14 @@ Precision tiers of the Gram pass (``gram_stats`` for the resident fit,
 - ``"default"``: one bf16 pass with an f32 result, the same kernels'
   one-product instances (``products=1``): hiᵀhi with hi = bf16(x). Its
   diagonal Σhi² = Σx²(1 + 2δ + δ²), with δ the relative rounding of x, has
-  the one-sided part Σx²δ² (about 2⁻¹⁸·Σx²/3 for RNE), so under the same
-  rule the diagonal is replaced by the kernels' exact f32 Σx².
+  the one-sided part Σx²δ² (about 2⁻¹⁸·Σx²/3 for RNE). σ reads only the
+  diagonal, so for a standardized fit (``exact_diagonal=True``, the
+  default of these functions) the diagonal is replaced by the kernels'
+  exact f32 Σx². The unstandardized PCA fit passes
+  ``exact_diagonal=False`` and keeps Σhi²: the Gram of hi is then one PSD
+  matrix, and its explainedVariance lies nearer f64 than that of the
+  mixed matrix (``tests/test_torch_pca.py::
+  test_default_diagonal_rule_against_f64``), as in the JAX package.
 
 The fold's precision policy (``TPU_ML_PRECISION_POLICY``,
 ``autotune/policy.py``) ``bf16_f32acc`` rounds the fold's matmul operands to
@@ -144,24 +150,29 @@ def _check_precision(precision: str) -> None:
 
 
 def _kernel_gram(
-    x: torch.Tensor, precision: str, *, symmetric: bool
+    x: torch.Tensor, precision: str, *, symmetric: bool, exact_diagonal: bool = True
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(XᵀX, column sums) from the Gram kernel instance of a kernel tier
     (``"high"`` or ``"default"``), the diagonal replaced by the kernel's
-    Σx² of that tier (see the module note)."""
+    Σx² of that tier, except at ``"default"`` without ``exact_diagonal``
+    (see the module note)."""
     kernel = symmetric_gram_moments if symmetric else fused_gram_moments
     xtx, col_sum, sum_sq = kernel(x, products=_KERNEL_PRODUCTS[precision])
-    xtx.diagonal().copy_(sum_sq)
+    if exact_diagonal or precision != "default":
+        xtx.diagonal().copy_(sum_sq)
     return xtx, col_sum
 
 
-def gram_stats(x: torch.Tensor, *, precision: str = "highest") -> GramStats:
-    """The sufficient-statistics triple of one partition."""
+def gram_stats(x: torch.Tensor, *, precision: str = "highest",
+               exact_diagonal: bool = True) -> GramStats:
+    """The sufficient-statistics triple of one partition (``exact_diagonal``:
+    the module note's rule at ``"default"``)."""
     _check_precision(precision)
     count = torch.tensor(x.shape[0], dtype=x.dtype, device=x.device)
     if precision == "highest":
         return GramStats(gram(x), x.sum(dim=0), count)
-    return GramStats(*_kernel_gram(x, precision, symmetric=False), count)
+    return GramStats(*_kernel_gram(x, precision, symmetric=False,
+                                   exact_diagonal=exact_diagonal), count)
 
 
 def _gram_cost(x: torch.Tensor, *_, **__) -> tuple[float, float]:
@@ -190,9 +201,23 @@ def _fold_tier(precision: str, policy: str) -> str:
     return "default" if policy == _BF16_F32ACC else precision
 
 
+def _split_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a·b from the split's three products: hi = bf16(v) and lo = bf16(v −
+    hi) of each operand, hiᵀhi + hiᵀlo + loᵀhi, each an f32 product of the
+    bf16 values with TF32 off (exact products, f32 sums); loᵀlo (~2⁻¹⁶
+    relative) is dropped. This is ``lax.Precision.HIGH``'s bf16×3, which
+    ``torch.set_float32_matmul_precision("high")`` (TF32) is not."""
+    _require_f32_matmul()
+    a_hi = a.to(torch.bfloat16).float()
+    a_lo = (a - a_hi).to(torch.bfloat16).float()
+    b_hi = b.to(torch.bfloat16).float()
+    b_lo = (b - b_hi).to(torch.bfloat16).float()
+    return a_hi @ b_hi + a_hi @ b_lo + a_lo @ b_hi
+
+
 def gram_stats_weighted(
     x: torch.Tensor, w: torch.Tensor, *, precision: str = "highest",
-    policy: str = DEFAULT_POLICY,
+    policy: str = DEFAULT_POLICY, exact_diagonal: bool = True,
 ) -> GramStats:
     """GramStats of one chunk under the masking convention: ``w`` carries
     instance weights on true rows and 0.0 on pad rows, so xᵀ(x·w), the
@@ -203,11 +228,15 @@ def gram_stats_weighted(
       the host and is copied to ``x``'s device.
     - ``"high"`` and ``"default"`` with unit weights (pass only the chunk's
       true rows with weight 1; PCA has no weight column): the symmetric
-      kernel's instance of the tier. The weights are read where they lie: a
-      host tensor costs no device sync, which is why the streamed fold keeps
-      them on the host.
+      kernel's instance of the tier (``exact_diagonal``: the module note's
+      rule). The weights are read where they lie: a host tensor costs no
+      device sync, which is why the streamed fold keeps them on the host.
+    - ``"high"`` with other weights: xᵀ(x·w) from the split's three products
+      (``_split_product``), outside any kernel as in the JAX package (whose
+      weighted fold is an XLA product at ``Precision.HIGH``); its diagonal is
+      the f32 Σw·x², by the module note's rule.
     - ``"default"`` with other weights: xᵀ(x·w) by ``policy_matmul``'s bf16
-      product. Weighted ``"high"`` folds are not ported and raise.
+      product.
     """
     tier = _fold_tier(precision, policy)
     if tier == "highest":
@@ -216,18 +245,22 @@ def gram_stats_weighted(
         xw = x * w[:, None]
         return GramStats(x.T @ xw, xw.sum(dim=0), w.sum())
     if w.shape == (x.shape[0],) and bool(torch.all(w == 1)):
-        xtx, col_sum = _kernel_gram(x, tier, symmetric=True)
+        xtx, col_sum = _kernel_gram(x, tier, symmetric=True, exact_diagonal=exact_diagonal)
         count = torch.full((), float(x.shape[0]), dtype=x.dtype, device=x.device)
         return GramStats(xtx, col_sum, count)
-    if tier == "high" or w.shape != (x.shape[0],):
+    if w.shape != (x.shape[0],):
         raise ValueError(
-            f"precision {tier!r} folds unit weights only: pass the chunk's "
-            "true rows with weight 1 (weighted 'high' folds are not ported; "
-            f"got weights of shape {tuple(w.shape)} for {x.shape[0]} rows)"
+            f"got weights of shape {tuple(w.shape)} for {x.shape[0]} rows: pass one "
+            "weight per row (unit weights take the kernel's instance)"
         )
     w = w.to(device=x.device, dtype=x.dtype, non_blocking=True)
     xw = x * w[:, None]
-    return GramStats(policy_matmul(x.T, xw, policy=_BF16_F32ACC), xw.sum(dim=0), w.sum())
+    if tier == "high":
+        xtx = _split_product(x.T, xw)
+        xtx.diagonal().copy_((x * xw).sum(dim=0))
+    else:
+        xtx = policy_matmul(x.T, xw, policy=_BF16_F32ACC)
+    return GramStats(xtx, xw.sum(dim=0), w.sum())
 
 
 def fold_gram_stats(
@@ -248,19 +281,21 @@ def init_gram_carry(n: int, device: torch.device | str) -> GramStats:
                      torch.zeros((), **new))
 
 
-def gram_fold_step(precision: str = "highest", policy: str | None = None):
+def gram_fold_step(precision: str = "highest", policy: str | None = None, *,
+                   exact_diagonal: bool = True):
     """The streamed fit's fold step ``step(carry, x, w) -> carry``: adds the
     chunk's weighted stats into ``carry`` **in place** and returns it. This
     is the counterpart of the JAX step's donated carry: a stream of any
     length keeps one set of carry buffers, and every update is queued on the
     current stream without a sync. ``policy=None`` is the process default
     (``TPU_ML_PRECISION_POLICY``), resolved here, once, when the step is
-    made."""
+    made. ``exact_diagonal``: the module note's rule."""
     _check_precision(precision)
     policy = resolve_policy(policy, allowed=FOLD_POLICIES)
 
     def step(carry: GramStats, x: torch.Tensor, w: torch.Tensor) -> GramStats:
-        stats = gram_stats_weighted(x, w, precision=precision, policy=policy)
+        stats = gram_stats_weighted(x, w, precision=precision, policy=policy,
+                                    exact_diagonal=exact_diagonal)
         carry.xtx.add_(stats.xtx)
         carry.col_sum.add_(stats.col_sum)
         carry.count.add_(stats.count)

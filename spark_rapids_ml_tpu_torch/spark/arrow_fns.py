@@ -256,16 +256,19 @@ class FitPartitionFn(_StatsAccumulatorFn):
     Gram per batch on the device, booked as ``linalg.gram_stats`` against
     the cost model (RapidsRowMatrix.scala:122-137)."""
 
-    def __init__(self, input_col: str, precision: str = "highest", device: str = "cuda"):
+    def __init__(self, input_col: str, precision: str = "highest", device: str = "cuda",
+                 exact_diagonal: bool = True):
         self.input_col = input_col
         self.precision = precision
         self.device = str(device)
+        self.exact_diagonal = exact_diagonal  # linalg's rule at "default"
 
     def _batch_stats(self, batch, device):
         padded, true_rows = columnar.pad_rows(columnar.extract_matrix(batch, self.input_col))
         xd = to_device(padded, device)
         costmodel.capture("linalg.gram_stats", L.gram_stats, xd, precision=self.precision)
-        stats = L.gram_stats(xd, precision=self.precision)
+        stats = L.gram_stats(xd, precision=self.precision,
+                             exact_diagonal=self.exact_diagonal)
         # padding adds zero rows: fix only the count
         return L.GramStats(stats.xtx, stats.col_sum, torch.full_like(stats.count, true_rows))
 
@@ -916,8 +919,8 @@ class ProbaPredictionPartitionFn(_MatrixBodyFn):
 
 
 def make_fit_partition_fn(input_col: str, *, precision: str = "highest",
-                          device: str = "cuda") -> FitPartitionFn:
-    return FitPartitionFn(input_col, precision, device)
+                          device: str = "cuda", exact_diagonal: bool = True) -> FitPartitionFn:
+    return FitPartitionFn(input_col, precision, device, exact_diagonal)
 
 
 def make_moments_partition_fn(input_col: str, *, device: str = "cuda") -> MomentsPartitionFn:

@@ -29,10 +29,28 @@ port's local engine (``localspark``), through the Arrow plan functions of
   the plan first materializes; the stateless stages likewise.
 
 The plan functions compute on the estimator's device type (``"cuda"`` by
-default) inside the worker. Only ``"driver-merge"`` runs: ``"mesh-local"``
-and ``"mesh-barrier"`` are accepted as params, as in the JAX package, and
-``fit`` refuses them before any job runs (they wait for ROADMAP Queue A
-item 6). pyspark is optional and imported only for a pyspark DataFrame.
+default) inside the worker. Besides ``"driver-merge"``, the distributions
+of the mesh (``parallel/``, ``spark/spmd.py``):
+
+- ``"mesh-local"``: the rows stream onto the driver's own mesh
+  (``_driver_mesh``: every card of the estimator's device type, one shard
+  on the CPU) through ``ingest.stream_to_mesh``, and the mesh program
+  reduces them: SparkPCA (every solver; above the resident cutover the
+  per-shard chunk fold ``sharded_gram_fold``, resumable with
+  ``checkpoint_dir``; when mesh creation fails with a non-fatal error, or
+  under ``TPU_ML_ADMISSION_POLICY=degrade``, the one-device streamed fold
+  on the estimator's own device, counted as ``degraded.cpu_fallback``),
+  SparkStandardScaler, the range and histogram family (MinMax, MaxAbs,
+  Robust, QuantileDiscretizer) and SparkTruncatedSVD;
+- ``"mesh-barrier"``: one barrier stage whose tasks form a process mesh
+  (``spark/spmd.py``), so the driver receives one reduced row: SparkPCA
+  (the Gram, or TSQR for ``solver="svd"``), SparkStandardScaler and
+  SparkTruncatedSVD.
+
+The other estimators accept the mesh distributions as params, as in the
+JAX package, and refuse them at fit before any job: their mesh programs
+are ROADMAP Queue A item 6's second half. pyspark is optional and imported
+only for a pyspark DataFrame.
 There is no compilation cache to enable (``_sql_mods``): a CUDA graph
 cannot outlive its process.
 """
@@ -218,8 +236,78 @@ def _parse_checkpoint_kwargs(kwargs: dict, default_every: int) -> tuple:
 def _host_stats_on(stats: L.GramStats, device: torch.device) -> L.GramStats:
     """The driver's merged f64 host statistics as f32 tensors on
     ``device``, the dtype every fit of the port decomposes in."""
-    return L.GramStats(*(torch.as_tensor(np.asarray(a), dtype=torch.float32, device=device)
+    return L.GramStats(*(torch.as_tensor(np.array(a, dtype=np.float32), device=device)
                          for a in stats))
+
+
+def _driver_mesh(device: torch.device):
+    """The mesh of a mesh-local fit: one data shard per card of the
+    estimator's device type, or one shard on the CPU."""
+    from spark_rapids_ml_tpu_torch.parallel import mesh as M
+
+    return M.create_mesh(devices=None if device.type == "cuda" else [device])
+
+
+def _mesh_or_fallback(device: torch.device):
+    """The driver's mesh for a mesh-local streamed fit, or None for the
+    one-device fold on ``device``: when mesh creation fails with a non-fatal
+    error (or an injected fault at ``device.init``), or when admission
+    control degraded the fit (``TPU_ML_ADMISSION_POLICY=degrade`` with a
+    component FAILING: the sick mesh is not touched again). Either way it
+    warns and counts ``degraded.cpu_fallback``, the JAX package's flag."""
+    from spark_rapids_ml_tpu_torch.resilience import faults, sites
+    from spark_rapids_ml_tpu_torch.resilience import retry as R
+    from spark_rapids_ml_tpu_torch.telemetry import health
+
+    if health.admission_degrade_active():
+        logger.warning(
+            "DEGRADED: admission control admitted this fit under the degrade policy "
+            "(a health component is FAILING); skipping mesh creation and streaming "
+            "through the one-device fold on %s", device,
+        )
+        REGISTRY.counter_inc("degraded.cpu_fallback")
+        return None
+    try:
+        faults.inject(sites.DEVICE_INIT)
+        return _driver_mesh(device)
+    except Exception as e:  # noqa: BLE001 - classified below
+        if R.classify(e) is R.ErrorClass.FATAL:
+            raise
+        logger.warning(
+            "DEGRADED: device mesh initialization failed (%s: %s); streaming this fit "
+            "through the one-device fold on %s", type(e).__name__, e, device,
+        )
+        REGISTRY.counter_inc("degraded.cpu_fallback")
+        return None
+
+
+def _barrier_single_row(df, fn, fields: list[str], shapes: dict[str, tuple]) -> dict:
+    """One barrier stage (``spark/spmd.py``) decoded to the ONE reduced row
+    it delivers, as host f64 arrays."""
+    from spark_rapids_ml_tpu_torch.spark import spmd
+
+    T, _ = _sql_mods(df)
+    out_df = df.mapInArrow(fn, schema=_spark_arrays_type(T, fields), barrier=True)
+    if hasattr(out_df, "toArrow"):
+        batches = out_df.toArrow().to_batches()
+    else:  # pyspark 3.5
+        batches = [arrow_fns.arrays_to_batch({f: np.asarray(r[f], dtype=np.float64)
+                                              for f in fields})
+                   for r in out_df.collect()]
+    return spmd.single_row_from_batches(batches, fields, shapes)
+
+
+def _mesh_gram_arrays(selected, input_col: str, precision: str, n: int, device: str,
+                      exact_diagonal: bool = True) -> dict:
+    """One barrier-stage Gram psum (``MeshGramPartitionFn``), decoded: the
+    mesh-barrier reduce of SparkPCA and SparkTruncatedSVD."""
+    from spark_rapids_ml_tpu_torch.spark import spmd
+
+    return _barrier_single_row(
+        selected, spmd.MeshGramPartitionFn(input_col, precision=precision, device=device,
+                                           exact_diagonal=exact_diagonal),
+        spmd.MESH_FIELDS, {"xtx": (n, n), "col_sum": (n,), "count": (), "mesh_size": ()},
+    )
 
 
 class _HasDistribution:
@@ -234,9 +322,9 @@ class _HasDistribution:
         "'driver-merge' (per-partition stats rows merged on the driver, the "
         "portable path: architecture parity with the reference's JVM reduce, "
         "RapidsRowMatrix.scala:139), or 'mesh-barrier' / 'mesh-local' (a "
-        "collective over the partitions' process group, or over the driver's "
-        "own devices), which the port accepts and refuses at fit until ROADMAP "
-        "Queue A item 6",
+        "collective over the partitions' process group, spark/spmd.py, or over "
+        "the driver's own device mesh, spark/ingest.py::stream_to_mesh) where "
+        "the estimator's mesh program is ported",
         str,
     )
 
@@ -250,25 +338,38 @@ class _HasDistribution:
         return self._set(distribution=value)
 
     def _check_distribution(self) -> None:
-        """Refuse a mesh distribution before any job of a DataFrame fit."""
+        """Refuse a mesh distribution whose program is not ported, before any
+        job of a DataFrame fit."""
         distribution = self.getOrDefault("distribution")
         if distribution in _MESH_DISTRIBUTIONS:
             raise NotImplementedError(
-                f"distribution={distribution!r} needs the port's device mesh "
-                "(parallel/mesh.py, gram.py, tsqr.py, spark/spmd.py), which waits for "
-                "ROADMAP Queue A item 6; use 'driver-merge'"
+                f"distribution={distribution!r} of {type(self).__name__} needs its mesh "
+                "program (parallel/linear.py, kmeans.py, forest.py and their barrier "
+                "bodies), which is ROADMAP Queue A item 6's second half; use 'driver-merge'"
             )
+
+    def _degradable(self, dataset: Any) -> bool:
+        """Whether admission control may degrade this fit: a mesh-local
+        DataFrame fit whose mesh falls back (``_mesh_or_fallback``) to the
+        one-device fold."""
+        return (self._DEGRADES_MESH_LOCAL and _is_spark_df(dataset)
+                and self.getOrDefault("distribution") == "mesh-local")
+
+    _DEGRADES_MESH_LOCAL = False
 
 
 class SparkPCA(_HasDistribution, PCA):
     """PCA whose ``fit``/``transform`` take a Spark DataFrame (pyspark's or
     ``localspark``'s). Every param of the core ``PCA`` and its persistence
-    carry over; other inputs fall through to the core fit."""
+    carry over; other inputs fall through to the core fit. The Gram pass
+    runs per ``distribution``: one job merged on the driver, the driver's
+    mesh (``_mesh_local_stats``) or one barrier stage."""
 
     _ALLOWED_DISTRIBUTIONS = ("driver-merge", "mesh-barrier", "mesh-local")
+    _DEGRADES_MESH_LOCAL = True
 
     def fit(self, dataset: Any, num_partitions: int | None = None, **kwargs) -> "SparkPCAModel":
-        checkpoint_dir, _ = _parse_checkpoint_kwargs(
+        checkpoint_dir, checkpoint_every = _parse_checkpoint_kwargs(
             kwargs, get_config().stream_checkpoint_every_chunks
         )
         if not _is_spark_df(dataset):
@@ -283,21 +384,22 @@ class SparkPCA(_HasDistribution, PCA):
                                   mean=core.mean, std=core.std, device=self.device)
             model.stream_report = core.stream_report
             return self._copyValues(model)
-        self._check_distribution()
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "checkpoint_dir requires distribution='mesh-local' with a covariance "
-                "solver: only the streamed chunk fold has a resumable cursor"
-            )
         T, _ = _sql_mods(dataset)
         input_col = self.getInputCol()
         solver = self.getOrDefault("solver")
+        distribution = self.getOrDefault("distribution")
+        precision = self.getOrDefault("precision")
         with trace_range("compute cov", self.device):
             selected = dataset.select(input_col)
             n = _infer_n(selected, input_col)
             k = self.getK()
             if k > n:  # before the cluster-wide Gram pass
                 raise ValueError(f"k={k} must be <= number of features {n}")
+            if checkpoint_dir is not None and (distribution != "mesh-local" or solver == "svd"):
+                raise NotImplementedError(
+                    "checkpoint_dir requires distribution='mesh-local' with a covariance "
+                    "solver: only the streamed chunk fold has a resumable cursor"
+                )
             if solver == "svd":
                 if self.getOrDefault("standardize"):
                     raise ValueError(
@@ -305,16 +407,30 @@ class SparkPCA(_HasDistribution, PCA):
                         "and so requires a covariance solver ('full'/'randomized'/"
                         "'auto'); solver='svd' decomposes R factors of the raw rows"
                     )
-                return self._fit_svd(selected, input_col, n, k)
-            fit_fn = arrow_fns.make_fit_partition_fn(
-                input_col, precision=self.getOrDefault("precision"), device=self.device.type
-            )
-            stats = _run_pass(selected, fit_fn,
+                return self._fit_svd(selected, input_col, n, k, distribution)
+            # linalg's diagonal rule at "default": exact Σx² for σ only
+            exact = bool(self.getOrDefault("standardize"))
+            if distribution == "mesh-barrier":
+                arrays = _mesh_gram_arrays(selected, input_col, precision, n, self.device.type,
+                                           exact)
+                stats = _host_stats_on(
+                    L.GramStats(arrays["xtx"], arrays["col_sum"], arrays["count"]), self.device)
+            elif distribution == "mesh-local":
+                stats = self._mesh_local_stats(selected, input_col, n,
+                                               checkpoint_dir=checkpoint_dir,
+                                               checkpoint_every=checkpoint_every)
+            else:
+                fit_fn = arrow_fns.make_fit_partition_fn(
+                    input_col, precision=precision, device=self.device.type,
+                    exact_diagonal=exact,
+                )
+                stats = _host_stats_on(
+                    _run_pass(selected, fit_fn,
                               _spark_arrays_type(T, ["xtx", "col_sum", "count"]),
-                              arrow_fns.stats_from_batches, arrow_fns.stats_from_rows)
+                              arrow_fns.stats_from_batches, arrow_fns.stats_from_rows),
+                    self.device)
         mean = std = None
         with trace_range("eigh", self.device):
-            stats = _host_stats_on(stats, self.device)
             if self.getOrDefault("standardize"):
                 cov, mean, std = L.standardized_cov_from_stats(stats)
             else:
@@ -330,30 +446,124 @@ class SparkPCA(_HasDistribution, PCA):
         )
         return self._copyValues(model)
 
-    def _fit_svd(self, selected, input_col: str, n: int, k: int) -> "SparkPCAModel":
-        """Solver ``"svd"`` over driver-merge: each partition's R factor
-        (``QRPartitionFn``), merged by a ``combine_r`` tree on the driver's
-        device, then the SVD of R. ``meanCentering`` costs one moments pass
-        for the global mean, applied in the workers before padding."""
+    def _fit_svd(self, selected, input_col: str, n: int, k: int,
+                 distribution: str) -> "SparkPCAModel":
+        """Solver ``"svd"`` per distribution. Driver-merge: each partition's
+        R factor (``QRPartitionFn``), merged by a ``combine_r`` tree on the
+        driver's device, then the SVD of R; ``meanCentering`` costs one
+        moments pass for the global mean, applied in the workers before
+        padding. Mesh-local: the butterfly TSQR over the driver's mesh,
+        centred in the program with the pad mask. Mesh-barrier: the same
+        program across the barrier stage's process mesh, so the driver
+        receives only (pc, explained variance)."""
         T, _ = _sql_mods(selected)
-        mean = None
-        if self.getMeanCentering():
-            shapes = {"count": (), "total": (n,), "total_sq": (n,)}
-            arrays = _collect_stats(
-                selected,
-                arrow_fns.make_moments_partition_fn(input_col, device=self.device.type),
-                list(shapes), shapes,
-            )
-            mean = arrays["total"] / max(float(arrays["count"]), 1.0)
-        r = _run_pass(selected, arrow_fns.QRPartitionFn(input_col, mean, device=self.device.type),
-                      _spark_arrays_type(T, ["r"]),
-                      lambda b: arrow_fns.r_from_batches(b, n, self.device),
-                      lambda r: arrow_fns.r_from_rows(r, n, self.device))
-        with trace_range("svd from r", self.device):
-            pc, ev = L.svd_from_r(r, k)
-        model = SparkPCAModel(uid=self.uid, pc=pc.cpu().numpy(),
-                              explainedVariance=ev.cpu().numpy(), device=self.device)
+        mean_centering = self.getMeanCentering()
+        if distribution == "mesh-local":
+            from spark_rapids_ml_tpu_torch.parallel import tsqr as TSQR
+
+            ing = ingest.stream_to_mesh(selected, features_col=input_col, n=n,
+                                        mesh=_driver_mesh(self.device),
+                                        with_weights=mean_centering)
+            with trace_range("svd from r", self.device):
+                if mean_centering:
+                    pc, ev = TSQR.make_distributed_fit_svd_masked(
+                        ing.mesh, k, mean_centering=True)(ing.xs, ing.ws)
+                else:  # zero pad rows are exact for the uncentered QR
+                    pc, ev = TSQR.make_distributed_fit_svd(ing.mesh, k)(ing.xs)
+        elif distribution == "mesh-barrier":
+            from spark_rapids_ml_tpu_torch.spark import spmd
+
+            with trace_range("svd mesh fit", self.device):
+                arrays = _barrier_single_row(
+                    selected, spmd.MeshSVDFitFn(input_col, k, mean_centering,
+                                                device=self.device.type),
+                    spmd.SVD_FIT_FIELDS,
+                    {"pc": (n, k), "explainedVariance": (k,), "count": (), "mesh_size": ()},
+                )
+            pc, ev = arrays["pc"], arrays["explainedVariance"]
+        else:
+            mean = None
+            if mean_centering:
+                shapes = {"count": (), "total": (n,), "total_sq": (n,)}
+                arrays = _collect_stats(
+                    selected,
+                    arrow_fns.make_moments_partition_fn(input_col, device=self.device.type),
+                    list(shapes), shapes,
+                )
+                mean = arrays["total"] / max(float(arrays["count"]), 1.0)
+            r = _run_pass(selected,
+                          arrow_fns.QRPartitionFn(input_col, mean, device=self.device.type),
+                          _spark_arrays_type(T, ["r"]),
+                          lambda b: arrow_fns.r_from_batches(b, n, self.device),
+                          lambda r: arrow_fns.r_from_rows(r, n, self.device))
+            with trace_range("svd from r", self.device):
+                pc, ev = L.svd_from_r(r, k)
+        model = SparkPCAModel(uid=self.uid, pc=arrow_fns._host(pc).astype(np.float32),
+                              explainedVariance=arrow_fns._host(ev).astype(np.float32),
+                              device=self.device)
         return self._copyValues(model)
+
+    def _mesh_local_stats(self, selected, input_col: str, n: int, *,
+                          checkpoint_dir=None, checkpoint_every=None) -> L.GramStats:
+        """Mesh-local: the rows stream onto the driver's mesh and one psum
+        Gram program reduces them (``sharded_gram_stats``: at ``"high"`` one
+        ``fused_gram_moments`` launch per shard); zero pad rows are exact and
+        the true count replaces the padded one. Above the resident cutover
+        (``TPU_ML_STREAM_FIT_MAX_RESIDENT_BYTES``) the [rows, n] array is
+        never assembled: ``stream_fold`` feeds the per-shard chunk fold
+        (``sharded_gram_fold``: one ``symmetric_gram_moments`` launch per
+        shard per chunk at ``"high"``), resumable with ``checkpoint_dir``,
+        and one allreduce finishes it. A mesh that cannot be made degrades
+        that streamed fit to the one-device fold on the estimator's device."""
+        from spark_rapids_ml_tpu_torch.parallel import gram as G
+        from spark_rapids_ml_tpu_torch.parallel import mesh as M
+
+        precision = self.getOrDefault("precision")
+        exact = bool(self.getOrDefault("standardize"))  # linalg's rule at "default"
+        rows = selected.count()
+        if ingest.use_streamed_fit(rows, n):
+            from spark_rapids_ml_tpu_torch.utils.checkpoint import TrainingCheckpointer
+
+            ckpt = TrainingCheckpointer(checkpoint_dir) if checkpoint_dir else None
+            mesh = _mesh_or_fallback(self.device)
+            if mesh is None:
+                return ingest.stream_fold(
+                    selected, L.gram_fold_step(precision, exact_diagonal=exact),
+                    features_col=input_col, n=n,
+                    init=L.init_gram_carry(n, self.device), device=self.device, rows=rows,
+                    checkpointer=ckpt, checkpoint_every=checkpoint_every,
+                ).carry
+            res = ingest.stream_fold(
+                selected,
+                lambda c, x, w: G.sharded_gram_fold(c, x, w, mesh, precision=precision,
+                                                    exact_diagonal=exact),
+                features_col=input_col, n=n,
+                init=G.init_chunk_carry(L.init_gram_carry(n, "meta"), mesh),
+                device=mesh.first_device, rows=rows,
+                chunk_rows=G.stream_chunk_rows_for_mesh(mesh, n=n, rows=rows),
+                put_fn=G.chunk_put(mesh), checkpointer=ckpt,
+                checkpoint_every=checkpoint_every, min_chunk_rows=mesh.shape[M.DATA_AXIS],
+            )
+            # unit weights on true rows only: the weighted count is the rows
+            return _stats_on(G.finalize_chunk_fold(res.carry, mesh), self.device)
+        if checkpoint_dir is not None:
+            raise NotImplementedError(
+                "checkpoint_dir applies to the out-of-core streamed fit; this dataset "
+                "fits resident in device memory (lower TPU_ML_STREAM_FIT_MAX_RESIDENT_BYTES "
+                "to force streaming)"
+            )
+        ing = ingest.stream_to_mesh(selected, features_col=input_col, n=n,
+                                    mesh=_driver_mesh(self.device), rows=rows)
+        stats = G.sharded_gram_stats(ing.xs, ing.mesh, precision=precision,
+                                     exact_diagonal=exact)
+        return _stats_on(L.GramStats(stats.xtx, stats.col_sum,
+                                     torch.full_like(stats.count, float(ing.rows))), self.device)
+
+
+def _stats_on(stats, device: torch.device):
+    """A mesh program's statistics (on the mesh's first device) on the
+    estimator's device."""
+    return type(stats)(*(t.to(device) for t in stats))
 
 
 class SparkPCAModel(PCAModel):
@@ -951,27 +1161,47 @@ class SparkKMeansModel(KMeansModel):
 # -- the scalers and selectors -------------------------------------------------
 
 
-def _collect_range_stats(est, dataset) -> dict:
-    """The range pass of MinMax / MaxAbs / Robust / QuantileDiscretizer:
-    one ``RangeStatsPartitionFn`` job, merged by min / max on the driver
-    (f64 host arrays)."""
+def _collect_range_stats(est, dataset, *, return_ingest: bool = False):
+    """The range pass of MinMax / MaxAbs / Robust / QuantileDiscretizer
+    (f64 host arrays). Driver-merge: one ``RangeStatsPartitionFn`` job,
+    merged by min / max on the driver. Mesh-local: the rows stream onto the
+    driver's mesh (with the pad mask) and ``sharded_range_stats`` folds them
+    by psum and pmin/pmax; with ``return_ingest`` that ingest comes back
+    for the histogram pass, else None."""
     input_col = _resolve_col(est, "inputCol") or "features"
     n = _infer_n(dataset, input_col)
+    ing = None
     with trace_range("scaler range stats", est.device):
-        return _collect_stats(
-            dataset.select(input_col),
-            arrow_fns.make_range_stats_partition_fn(input_col, device=est.device.type),
-            arrow_fns.RANGE_STATS_FIELDS, arrow_fns.range_stats_shapes(n),
-            combine=arrow_fns.RANGE_COMBINE,
-        )
+        if est.getOrDefault("distribution") == "mesh-local":
+            from spark_rapids_ml_tpu_torch.parallel import gram as G
+
+            ing = ingest.stream_to_mesh(dataset.select(input_col), features_col=input_col,
+                                        n=n, mesh=_driver_mesh(est.device), with_weights=True)
+            stats = G.sharded_range_stats(ing.xs, ing.ws, ing.mesh)
+            arrays = {f: arrow_fns._host(getattr(stats, f)) for f in arrow_fns.RANGE_STATS_FIELDS}
+        else:
+            arrays = _collect_stats(
+                dataset.select(input_col),
+                arrow_fns.make_range_stats_partition_fn(input_col, device=est.device.type),
+                arrow_fns.RANGE_STATS_FIELDS, arrow_fns.range_stats_shapes(n),
+                combine=arrow_fns.RANGE_COMBINE,
+            )
+    return (arrays, ing) if return_ingest else arrays
 
 
-def _collect_histogram(est, dataset, mins, maxs, bins: int, missing=None) -> np.ndarray:
-    """The quantile sketch's second pass: one ``HistogramPartitionFn`` job
-    over the driver's [mins, maxs], summed on the driver."""
+def _collect_histogram(est, dataset, mins, maxs, bins: int, missing=None, ing=None) -> np.ndarray:
+    """The quantile sketch's second pass over the driver's [mins, maxs]:
+    psum'd on the mesh when the range pass left its mesh-local ``ing``, else
+    one ``HistogramPartitionFn`` job summed on the driver."""
     input_col = _resolve_col(est, "inputCol") or "features"
     n = len(mins)
     with trace_range("quantile sketch histogram", est.device):
+        if ing is not None:
+            from spark_rapids_ml_tpu_torch.parallel import gram as G
+
+            bounds = [torch.as_tensor(np.asarray(v), dtype=torch.float32) for v in (mins, maxs)]
+            return arrow_fns._host(G.sharded_histogram(ing.xs, ing.ws, *bounds, bins=bins,
+                                                       mesh=ing.mesh))
         return _collect_stats(
             dataset.select(input_col),
             arrow_fns.HistogramPartitionFn(input_col, mins, maxs, bins, missing=missing,
@@ -992,27 +1222,70 @@ def _quantiles_on(device, hist: np.ndarray, mins, maxs, qs) -> np.ndarray:
 
 
 class SparkStandardScaler(_HasDistribution, StandardScaler):
-    """StandardScaler over a DataFrame: one ``MomentsPartitionFn`` job, the
-    moments merged on the driver and finished on the estimator's device."""
+    """StandardScaler over a DataFrame: the moments by distribution (one
+    ``MomentsPartitionFn`` job merged on the driver; the driver's mesh, by a
+    psum or, above the resident cutover, the per-shard chunk fold; or one
+    barrier stage's psum), finished on the estimator's device."""
 
     _ALLOWED_DISTRIBUTIONS = ("driver-merge", "mesh-barrier", "mesh-local")
 
     def fit(self, dataset: Any, num_partitions: int | None = None):
         if not _is_spark_df(dataset):
             return _as_spark(super().fit(dataset, num_partitions), SparkStandardScalerModel)
-        self._check_distribution()
         input_col = _resolve_col(self, "inputCol") or "features"
         n = _infer_n(dataset, input_col)
         shapes = {"count": (), "total": (n,), "total_sq": (n,)}
+        distribution = self.getOrDefault("distribution")
+        selected = dataset.select(input_col)
         with trace_range("scaler moments", self.device):
-            arrays = _collect_stats(
-                dataset.select(input_col),
-                arrow_fns.make_moments_partition_fn(input_col, device=self.device.type),
-                list(shapes), shapes,
-            )
+            if distribution == "mesh-local":
+                arrays = self._mesh_local_moments(selected, input_col, n)
+            elif distribution == "mesh-barrier":
+                from spark_rapids_ml_tpu_torch.spark import spmd
+
+                arrays = _barrier_single_row(
+                    selected, spmd.MeshMomentsPartitionFn(input_col, device=self.device.type),
+                    spmd.MOMENTS_MESH_FIELDS, {**shapes, "mesh_size": ()},
+                )
+                arrays.pop("mesh_size")
+            else:
+                arrays = _collect_stats(
+                    selected,
+                    arrow_fns.make_moments_partition_fn(input_col, device=self.device.type),
+                    list(shapes), shapes,
+                )
         mean, std = self.moments_merged(arrays)
         model = SparkStandardScalerModel(uid=self.uid, mean=mean, std=std, device=self.device)
         return self._copyValues(model)
+
+    def _mesh_local_moments(self, selected, input_col: str, n: int) -> dict:
+        """Mesh-local moments as host arrays: ``sharded_moment_stats`` over
+        the streamed ingest (the true count replaces the padded one), or,
+        above the resident cutover, ``sharded_moment_fold`` per chunk and one
+        allreduce (unit weights on true rows: the weighted count is the
+        rows)."""
+        from spark_rapids_ml_tpu_torch.parallel import gram as G
+        from spark_rapids_ml_tpu_torch.parallel import mesh as M
+
+        rows = selected.count()
+        mesh = _driver_mesh(self.device)
+        if ingest.use_streamed_fit(rows, n):
+            res = ingest.stream_fold(
+                selected, lambda c, x, w: G.sharded_moment_fold(c, x, w, mesh),
+                features_col=input_col, n=n,
+                init=G.init_chunk_carry(S.init_moment_carry(n, "meta"), mesh),
+                device=mesh.first_device, rows=rows,
+                chunk_rows=G.stream_chunk_rows_for_mesh(mesh, n=n, rows=rows),
+                put_fn=G.chunk_put(mesh), min_chunk_rows=mesh.shape[M.DATA_AXIS],
+            )
+            stats = G.finalize_chunk_fold(res.carry, mesh)
+        else:
+            ing = ingest.stream_to_mesh(selected, features_col=input_col, n=n, mesh=mesh,
+                                        rows=rows)
+            stats = G.sharded_moment_stats(ing.xs, ing.mesh)
+            stats = S.MomentStats(torch.full_like(stats.count, float(ing.rows)), stats.total,
+                                  stats.total_sq)
+        return {f: arrow_fns._host(getattr(stats, f)) for f in S.MomentStats._fields}
 
     def moments_merged(self, arrays: dict) -> tuple[np.ndarray, np.ndarray]:
         """The driver half: (mean, sample std) of the merged moments."""
@@ -1036,7 +1309,6 @@ class SparkMinMaxScaler(_HasDistribution, MinMaxScaler):
     def fit(self, dataset: Any, num_partitions: int | None = None):
         if not _is_spark_df(dataset):
             return _as_spark(super().fit(dataset, num_partitions), SparkMinMaxScalerModel)
-        self._check_distribution()
         self._check_range()
         arrays = _collect_range_stats(self, dataset)
         model = SparkMinMaxScalerModel(uid=self.uid, originalMin=arrays["min"],
@@ -1059,7 +1331,6 @@ class SparkMaxAbsScaler(_HasDistribution, MaxAbsScaler):
     def fit(self, dataset: Any, num_partitions: int | None = None):
         if not _is_spark_df(dataset):
             return _as_spark(super().fit(dataset, num_partitions), SparkMaxAbsScalerModel)
-        self._check_distribution()
         arrays = _collect_range_stats(self, dataset)
         model = SparkMaxAbsScalerModel(uid=self.uid, maxAbs=arrays["max_abs"],
                                        device=self.device)
@@ -1083,11 +1354,10 @@ class SparkRobustScaler(_HasDistribution, RobustScaler):
     def fit(self, dataset: Any, num_partitions: int | None = None):
         if not _is_spark_df(dataset):
             return _as_spark(super().fit(dataset, num_partitions), SparkRobustScalerModel)
-        self._check_distribution()
         self._check_quantile_bounds()
-        rstats = _collect_range_stats(self, dataset)
+        rstats, ing = _collect_range_stats(self, dataset, return_ingest=True)
         hist = _collect_histogram(self, dataset, rstats["min"], rstats["max"],
-                                  self.getNumBins())
+                                  self.getNumBins(), ing=ing)
         median, rng = self.robust_merged(rstats, hist)
         model = SparkRobustScalerModel(uid=self.uid, median=median, range=rng,
                                        device=self.device)
@@ -1216,11 +1486,10 @@ class SparkQuantileDiscretizer(_HasDistribution, QuantileDiscretizer):
         if not _is_spark_df(dataset):
             return _as_spark(super().fit(dataset, num_partitions),
                              SparkQuantileDiscretizerModel)
-        self._check_distribution()
-        rstats = _collect_range_stats(self, dataset)
+        rstats, ing = _collect_range_stats(self, dataset, return_ingest=True)
         check_finite_range(rstats["min"], rstats["max"])
         hist = _collect_histogram(self, dataset, rstats["min"], rstats["max"],
-                                  self.getNumBins())
+                                  self.getNumBins(), ing=ing)
         bounds = (torch.as_tensor(rstats[f], dtype=torch.float32, device=self.device)
                   for f in ("min", "max"))
         splits = splits_from_histogram(torch.as_tensor(hist, device=self.device), *bounds,
@@ -1240,17 +1509,19 @@ class SparkQuantileDiscretizerModel(QuantileDiscretizerModel):
 
 
 class SparkTruncatedSVD(_HasDistribution, TruncatedSVD):
-    """TruncatedSVD over a DataFrame on driver-merge: solver ``"svd"`` is
-    one R-factor job (``QRPartitionFn``, merged by a ``combine_r`` tree);
-    the others one Gram job (``FitPartitionFn``: ``fused_gram_moments`` per
-    batch at ``"high"``), decomposed on the estimator's device."""
+    """TruncatedSVD over a DataFrame. Driver-merge: solver ``"svd"`` is one
+    R-factor job (``QRPartitionFn``, merged by a ``combine_r`` tree); the
+    others one Gram job (``FitPartitionFn``: ``fused_gram_moments`` per
+    batch at ``"high"``), decomposed on the estimator's device. Mesh-local:
+    the rows on the driver's mesh, then the psum Gram or the butterfly TSQR.
+    Mesh-barrier: the barrier stage's Gram psum, or its whole TSQR fit
+    (``MeshTSVDFitFn``) for solver ``"svd"``."""
 
     _ALLOWED_DISTRIBUTIONS = ("driver-merge", "mesh-barrier", "mesh-local")
 
     def fit(self, dataset: Any, num_partitions: int | None = None):
         if not _is_spark_df(dataset):
             return _as_spark(super().fit(dataset, num_partitions), SparkTruncatedSVDModel)
-        self._check_distribution()
         T, _ = _sql_mods(dataset)
         input_col = _resolve_col(self, "inputCol") or "features"
         selected = dataset.select(input_col)
@@ -1259,18 +1530,46 @@ class SparkTruncatedSVD(_HasDistribution, TruncatedSVD):
         if k > n:
             raise ValueError(f"k={k} must be <= number of features {n}")
         solver = self.getOrDefault("solver")
+        distribution = self.getOrDefault("distribution")
+        precision = self.getOrDefault("precision")
+        if distribution == "mesh-barrier" and solver == "svd":
+            from spark_rapids_ml_tpu_torch.spark import spmd
+
+            with trace_range("tsvd mesh fit", self.device):
+                arrays = _barrier_single_row(
+                    selected, spmd.MeshTSVDFitFn(input_col, k, device=self.device.type),
+                    spmd.TSVD_FIT_FIELDS,
+                    {"components": (n, k), "singularValues": (k,), "count": (), "mesh_size": ()},
+                )
+            model = SparkTruncatedSVDModel(
+                uid=self.uid, components=arrays["components"].astype(np.float32),
+                singularValues=arrays["singularValues"].astype(np.float32), device=self.device)
+            return self._copyValues(model)
         with trace_range("tsvd reduce", self.device):
-            if solver == "svd":
+            if distribution == "mesh-local":
+                from spark_rapids_ml_tpu_torch.parallel import gram as G
+                from spark_rapids_ml_tpu_torch.parallel import tsqr as TSQR
+
+                ing = ingest.stream_to_mesh(selected, features_col=input_col, n=n,
+                                            mesh=_driver_mesh(self.device))
+                if solver == "svd":  # zero pad rows are exact for the uncentered QR
+                    reduced = TSQR.tsqr_r(ing.xs, ing.mesh).to(self.device)
+                else:
+                    reduced = arrow_fns._host(G.sharded_gram_stats(ing.xs, ing.mesh,
+                                                                   precision=precision).xtx)
+            elif solver == "svd":
                 reduced = _run_pass(
                     selected, arrow_fns.QRPartitionFn(input_col, device=self.device.type),
                     _spark_arrays_type(T, ["r"]),
                     lambda b: arrow_fns.r_from_batches(b, n, self.device),
                     lambda r: arrow_fns.r_from_rows(r, n, self.device),
                 )
+            elif distribution == "mesh-barrier":
+                reduced = _mesh_gram_arrays(selected, input_col, precision, n,
+                                            self.device.type)["xtx"]
             else:
                 fn = arrow_fns.make_fit_partition_fn(
-                    input_col, precision=self.getOrDefault("precision"),
-                    device=self.device.type)
+                    input_col, precision=precision, device=self.device.type)
                 reduced = _collect_stats(selected, fn, ["xtx", "col_sum", "count"],
                                          {"xtx": (n, n), "col_sum": (n,), "count": ()})["xtx"]
         components, sv = self.decompose_merged(reduced, k, solver)

@@ -84,9 +84,25 @@ pyspark DataFrame takes ``toArrow`` (4.0+) or an Arrow-enabled
 ``TPU_ML_MESH_LOCAL_ARROW_MAX_BYTES``, and ``toLocalIterator`` in
 ``ROW_CHUNK``-row groups above it.
 
-Not ported yet (``ROADMAP.md`` Queue A item 6): ``stream_fold`` over a
-DataFrame source, the augmented intercept column, ``MeshIngest`` and
-``stream_to_mesh``.
+``stream_fold`` also takes a DataFrame source (``features_col`` names its
+column; ``selected`` holds [features, label?, weight?]), drained by
+``_iter_chunks`` after one ``count()`` that the drained rows must match, and
+a ``put_fn`` that places each chunk's device view before the fold
+(``parallel.gram.chunk_put`` splits it over a mesh's data shards). A carry
+may hold stacked per-shard partials (``parallel.gram.init_chunk_carry``):
+a checkpoint saves each such leaf as its [shards, ...] stack, the JAX
+fold's layout.
+
+The mesh-local ingest (``stream_to_mesh``) streams a DataFrame into the
+data shards of a mesh (``parallel/mesh.py``) at O(shard) host memory: each
+shard's f32 buffer is filled across batch boundaries, copied to its
+shard's device the moment it is full, and never reused; the tail and the
+empty shards are zero rows with weight 0 (``MeshIngest.ws``, the masking
+convention). ``TPU_ML_MESH_LOCAL_MAX_BYTES`` caps the device footprint with
+an error that names the alternatives.
+
+Not ported yet (``ROADMAP.md`` Queue A): the augmented intercept column,
+which the linear mesh fits use.
 """
 
 from __future__ import annotations
@@ -125,6 +141,7 @@ from spark_rapids_ml_tpu_torch.utils.config import (
 logger = logging.getLogger("spark_rapids_ml_tpu_torch")
 
 ARROW_CUTOVER_VAR = "TPU_ML_MESH_LOCAL_ARROW_MAX_BYTES"
+MAX_BYTES_VAR = "TPU_ML_MESH_LOCAL_MAX_BYTES"
 DEFAULT_ARROW_CUTOVER = 1 << 30
 ROW_CHUNK = 65_536  # rows per driver-side conversion group of toLocalIterator
 
@@ -233,6 +250,138 @@ def _chunk_from_rows(rows: list, label_col, weight_col):
     w = (np.fromiter((r[wi] for r in rows), dtype=np.float64, count=len(rows))
          if weight_col else None)
     return x, y, w
+
+
+@dataclass
+class MeshIngest:
+    """One DataFrame on a mesh's data shards. ``ws`` follows the masking
+    convention: instance weights (1 without a weight column) on true rows,
+    0 on pad rows, so one vector is both the pad mask and the weighting."""
+
+    xs: Any            # Sharded [padded_rows, n] f32, over data
+    ys: Any | None     # Sharded [padded_rows] labels, or None
+    ws: Any | None     # Sharded [padded_rows] weights and pad mask, or None
+    mesh: Any
+    rows: int          # true rows
+    padded_rows: int   # shard rows × data shards
+
+
+def _check_size(padded_rows: int, n_eff: int) -> None:
+    """Refuse an ingest over ``TPU_ML_MESH_LOCAL_MAX_BYTES`` of device
+    memory (f32, the port's staging dtype), naming the alternatives."""
+    est = padded_rows * n_eff * 4
+    cap = os.environ.get(MAX_BYTES_VAR)
+    if cap and est > int(float(cap)):
+        raise ValueError(
+            f"mesh-local ingest needs ~{est / 1e9:.2f} GB of device memory "
+            f"({padded_rows}×{n_eff} float32), over the {MAX_BYTES_VAR}={cap} cap. "
+            "Use distribution='mesh-barrier' (the rows stay sharded across the "
+            "workers) or 'driver-merge' (only [n, n] statistics reach the driver), "
+            "or lower TPU_ML_STREAM_FIT_MAX_RESIDENT_BYTES to stream the fit."
+        )
+
+
+def stream_to_mesh(
+    selected,
+    *,
+    features_col: str,
+    n: int,
+    mesh,
+    label_col: str | None = None,
+    weight_col: str | None = None,
+    with_weights: bool = False,
+    rows: int | None = None,
+) -> MeshIngest:
+    """Stream ``selected`` ([features, label?, weight?]) into the data
+    shards of ``mesh``. One ``count()`` sizes the shards first (``rows``
+    skips it); each shard holds ``bucket_rows(⌈rows / shards⌉)`` rows.
+    ``with_weights`` makes ``ws`` without a weight column (1 on true rows, 0
+    on pads), for the masked programs."""
+    from spark_rapids_ml_tpu_torch.parallel import mesh as M
+
+    if rows is None:
+        rows = selected.count()
+    if rows == 0:
+        raise ValueError("empty dataset")
+    ndev = mesh.shape[M.DATA_AXIS]
+    shard_rows = columnar.bucket_rows(-(-rows // ndev))
+    padded_rows = shard_rows * ndev
+    _check_size(padded_rows, n)
+    want_y = label_col is not None
+    want_w = with_weights or bool(weight_col)
+    parts: dict[str, list[torch.Tensor]] = {"x": [], "y": [], "w": []}
+
+    def fresh():
+        return (np.zeros((shard_rows, n), np.float32),
+                np.zeros(shard_rows, np.float32) if want_y else None,
+                np.zeros(shard_rows, np.float32) if want_w else None)
+
+    x_buf, y_buf, w_buf = fresh()
+    fill = seen = 0
+
+    def flush():
+        nonlocal x_buf, y_buf, w_buf, fill
+        dev = mesh.device(len(parts["x"]))
+        nbytes = 0
+        for key, buf in (("x", x_buf), ("y", y_buf), ("w", w_buf)):
+            if buf is not None:
+                # a fresh buffer each shard: a CPU "copy" is the same memory
+                parts[key].append(torch.from_numpy(buf).to(dev))
+                nbytes += buf.nbytes
+        REGISTRY.counter_inc("h2d.bytes", nbytes, path="mesh")
+        x_buf, y_buf, w_buf = fresh()
+        fill = 0
+
+    for xc, yc, wc in _iter_chunks(selected, features_col, label_col, weight_col,
+                                   est_bytes=rows * n * 8):
+        REGISTRY.counter_inc("ingest.rows", len(xc))
+        REGISTRY.counter_inc("ingest.bytes", xc.nbytes)
+        REGISTRY.histogram_record("ingest.chunk_rows", len(xc))
+        if xc.shape[1] != n:
+            raise ValueError(
+                f"feature dimension changed mid-stream: expected {n}, got "
+                f"{xc.shape[1]} in column {features_col!r}"
+            )
+        if wc is not None:
+            wc = columnar.validate_weights(wc, len(xc), allow_all_zero=True)
+        if seen + len(xc) > rows:
+            raise ValueError(
+                f"dataset produced more rows while streaming than count() reported "
+                f"({rows}); cache() the DataFrame if its source is nondeterministic"
+            )
+        at = 0
+        while at < len(xc):
+            take = min(shard_rows - fill, len(xc) - at)
+            x_buf[fill:fill + take] = xc[at:at + take]
+            if want_y:
+                y_buf[fill:fill + take] = yc[at:at + take]
+            if want_w:
+                w_buf[fill:fill + take] = 1.0 if wc is None else wc[at:at + take]
+            fill += take
+            at += take
+            seen += take
+            if fill == shard_rows:
+                flush()
+    if seen != rows:
+        raise ValueError(
+            f"dataset produced {seen} rows while streaming but count() reported "
+            f"{rows}; cache() the DataFrame if its source is nondeterministic"
+        )
+    while len(parts["x"]) < ndev:  # the partial and the empty tail shards
+        flush()
+
+    def sharded(key: str, sharding):
+        blocks = {(i, 0): parts[key][i] for i in range(ndev)}
+        shape = (padded_rows, n) if key == "x" else (padded_rows,)
+        return M.Sharded(sharding, blocks, shape, rows)
+
+    vec = M.vector_sharding(mesh)
+    return MeshIngest(
+        xs=sharded("x", M.data_sharding(mesh)),
+        ys=sharded("y", vec) if want_y else None,
+        ws=sharded("w", vec) if want_w else None,
+        mesh=mesh, rows=rows, padded_rows=padded_rows,
+    )
 
 
 def use_streamed_fit(rows: int, n: int) -> bool:
@@ -362,9 +511,27 @@ def _bounded_wait(done, timeout_s: float) -> None:
 _CKPT_LEAF = "leaf_{:03d}"
 
 
-def _carry_leaves(carry) -> list[torch.Tensor]:
-    """The carry's tensors in order: a bare tensor or a tuple of them."""
-    return [carry] if isinstance(carry, torch.Tensor) else list(carry)
+def _carry_leaves(carry) -> list:
+    """The carry's leaves in order: tensors, or stacked per-shard partials
+    (``mesh.Sharded``), in a bare leaf or nested tuples of them."""
+    if not isinstance(carry, (tuple, list)):
+        return [carry]
+    return [leaf for part in carry for leaf in _carry_leaves(part)]
+
+
+def _leaf_to_host(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return leaf.join().cpu().numpy()  # the [shards, ...] stack
+
+
+def _leaf_from_host(leaf, array: np.ndarray) -> None:
+    host = torch.from_numpy(np.asarray(array))
+    if isinstance(leaf, torch.Tensor):
+        leaf.copy_(host)
+        return
+    for (i, _), block in leaf.blocks.items():
+        block.copy_(host[i:i + 1])
 
 
 def _save_stream_checkpoint(ckpt, carry, *, chunks, seen, skipped, chunk_rows) -> None:
@@ -372,7 +539,7 @@ def _save_stream_checkpoint(ckpt, carry, *, chunks, seen, skipped, chunk_rows) -
     queued before it: the checkpoint is the stream's position) and the
     cursor, in the JAX fold's format."""
     arrays = {
-        _CKPT_LEAF.format(i): leaf.detach().cpu().numpy()
+        _CKPT_LEAF.format(i): _leaf_to_host(leaf)
         for i, leaf in enumerate(_carry_leaves(carry))
     }
     ckpt.save(chunks, arrays, {
@@ -397,7 +564,7 @@ def _restore_stream_checkpoint(ckpt, carry) -> dict | None:
     if state.get("kind") != "stream_fold":
         return None
     for i, leaf in enumerate(_carry_leaves(carry)):
-        leaf.copy_(torch.from_numpy(np.asarray(arrays[_CKPT_LEAF.format(i)])))
+        _leaf_from_host(leaf, arrays[_CKPT_LEAF.format(i)])
     return state
 
 
@@ -415,6 +582,10 @@ def stream_fold(
     checkpoint_every: int | None = None,
     min_chunk_rows: int | None = None,
     fold_wait_timeout_s: float | None = None,
+    features_col: str | None = None,
+    weight_col: str | None = None,
+    rows: int | None = None,
+    put_fn: Callable | None = None,
 ) -> StreamFold:
     """Fold ``source``, an iterable of host [rows, n] matrices, chunk by
     chunk through ``fold_fn(carry, x, w) -> carry`` (``linalg.gram_fold_step``),
@@ -431,8 +602,23 @@ def stream_fold(
     (``TPU_ML_STREAM_CHUNK_FLOOR``) and ``fold_wait_timeout_s``
     (``TPU_ML_FOLD_WAIT_TIMEOUT_S``) are the recoveries of the module note.
     A resumed fold needs the same source again, from its start. Spans:
-    ``ingest.chunk``, ``fold.dispatch``, ``fold.wait``."""
+    ``ingest.chunk``, ``fold.dispatch``, ``fold.wait``.
+
+    With ``features_col`` the source is a DataFrame ([features, label?,
+    weight?]; ``label_col`` and ``weight_col`` name real columns) whose
+    ``count()`` (or ``rows``) the drained rows must match. ``put_fn`` maps
+    each device view (and the weights) before the fold, e.g.
+    ``parallel.gram.chunk_put(mesh)``."""
     cfg = get_config()
+    if weight_col is not None and label_col is None:
+        raise NotImplementedError(
+            "an unlabeled fold stages unit weights only: weight_col needs label_col"
+        )
+    if features_col is not None:
+        if rows is None:
+            rows = source.count()
+        source = _iter_chunks(source, features_col, label_col, weight_col,
+                              est_bytes=rows * n * 8)
     tune_geometry = chunk_rows is None
     chunk_rows = stream_chunk_rows() if chunk_rows is None else chunk_rows
     nonfinite = nonfinite or cfg.nonfinite_policy
@@ -555,6 +741,8 @@ def stream_fold(
             args = ((block[:, :n], block[:, n], block[:, n + 1]) if labeled
                     else (block, unit_w[:rows]))
             costmodel.capture("stream.fold_step", fold_fn, carry, *args)
+            if put_fn is not None:
+                args = tuple(put_fn(a) for a in args)
             carry = fold_fn(carry, *args)
             if cuda:
                 folded[slot] = fold_stream.record_event()
@@ -694,6 +882,11 @@ def stream_fold(
             dispatch()  # the ragged tail
         if seen == 0:
             raise ValueError("empty dataset")
+        if rows is not None and seen + skipped != rows:
+            raise ValueError(
+                f"dataset produced {seen + skipped} rows while streaming but count() "
+                f"reported {rows}; cache() the DataFrame if its source is nondeterministic"
+            )
         with trace_range("fold.wait", device):
             try:
                 _bounded_wait(folded[1 - slot] if cuda else None, fold_wait_timeout_s)

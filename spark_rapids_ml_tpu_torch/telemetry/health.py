@@ -31,9 +31,9 @@ FAILING (2):
 
 The rollup also carries ``scheduler``'s detail, the live supervisors'
 leases and quarantines (``resilience/supervisor.py::active_summary``),
-when there are any. The ``degraded.cpu_fallback`` flag of the JAX
-package's ``resilience`` component is not ported: only the mesh-local
-fallback counts it (``ROADMAP.md`` Queue A item 6).
+when there are any. ``resilience`` also reads ``degraded.cpu_fallback``,
+which a Spark estimator's mesh-local fit counts when it falls back to the
+one-device fold (``spark/estimators.py::_mesh_or_fallback``).
 
 **No probe creates a CUDA context in this process.** Every device read
 goes through ``sample_device_memory``, which returns nothing until CUDA is
@@ -44,11 +44,11 @@ card in its child only.
 fit (``telemetry/report.py::begin_fit``): under
 ``TPU_ML_ADMISSION_POLICY=refuse`` (default) a fit is refused while a
 component is FAILING. Under ``degrade`` the fit runs inside a degrade
-window, which in the JAX package only its Spark estimators read
-(``spark/estimators.py::_mesh_or_fallback`` fits on one device instead of
-the mesh and counts ``degraded.cpu_fallback``); the port has no such
-consumer yet, so ``begin_fit`` refuses a degraded fit whose device is not
-the CPU rather than run it unchanged on the card.
+window, which only the Spark estimators read, as in the JAX package
+(``spark/estimators.py::_mesh_or_fallback`` folds a mesh-local fit on the
+estimator's one device instead of the mesh and counts
+``degraded.cpu_fallback``); ``begin_fit`` refuses any other degraded fit
+whose device is not the CPU rather than run it unchanged on the card.
 
 State changes set ``health.state{component}``, count
 ``health.transitions{component,to}`` and record a ``health.transition``
@@ -106,7 +106,7 @@ class AdmissionRefused(RuntimeError):
     """A fit refused by admission control: a component is FAILING under
     ``TPU_ML_ADMISSION_POLICY=refuse``, or the policy is ``degrade`` and
     the fit's device is not the CPU (the port has no degraded path for a
-    fit on the card yet)."""
+    fit on the card but a Spark estimator's mesh-local fit)."""
 
 
 def _device_init_gate() -> None:
@@ -395,6 +395,8 @@ class HealthMonitor:
         retries = window.counter("retry.attempts")
         if retries >= self.retry_storm:
             reasons.append(f"retry storm: {retries:g} attempts in one poll window")
+        if snap.counter("degraded.cpu_fallback"):
+            reasons.append("running on degraded cpu fallback")
         if window.counter("fault.injected"):
             reasons.append("fault injection active")
         if reasons:

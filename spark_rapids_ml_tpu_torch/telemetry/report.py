@@ -253,6 +253,7 @@ def begin_fit(
     nbytes: int | None = None,
     device: torch.device | None = None,
     outermost: bool = True,
+    degradable: bool = False,
 ) -> _Capture:
     """Open a fit window: bring up the exporter when ``TPU_ML_HTTP_PORT``
     asks for it, take the admission decision, reset the cards' peak memory
@@ -260,8 +261,10 @@ def begin_fit(
     fit id and label later spans with the estimator. ``rows``/``nbytes``
     are the caller's dataset size when known. Raises ``AdmissionRefused``
     when admission control refuses the fit, and under ``degrade`` for a fit
-    whose ``device`` is not the CPU (the port has no degraded path for a
-    fit on the card yet)."""
+    whose ``device`` is not the CPU unless it is ``degradable``: a Spark
+    estimator's mesh-local fit, whose streamed fold then leaves the mesh for
+    the one-device fold (``spark/estimators.py::_mesh_or_fallback``), as in
+    the JAX package."""
     from spark_rapids_ml_tpu_torch.telemetry import health, httpd
 
     spans.install_fit_id_filter()
@@ -273,16 +276,14 @@ def begin_fit(
             f"(set {health.ADMISSION_POLICY_VAR}=off to override)"
         )
     if admission["action"] == "degrade":
-        if device is None or device.type != "cpu":
+        if not degradable and (device is None or device.type != "cpu"):
             where = device if device is not None else "its stages' devices"
             raise health.AdmissionRefused(
                 f"fit of {estimator} on {where} cannot be degraded: "
-                f"{admission['reason']}. In the JAX package {health.ADMISSION_POLICY_VAR}"
-                "=degrade moves only a Spark estimator's mesh-local fit off the mesh "
-                "(spark/estimators.py::_mesh_or_fallback); the port's mesh-local fit "
-                "and that fallback wait for ROADMAP Queue A item 6, so it has no "
-                "degraded path for a fit on the card. Fit on device='cpu' or set the "
-                "policy to 'refuse' or 'off'"
+                f"{admission['reason']}. The port has no degraded path for a fit on "
+                "the card but a Spark estimator's mesh-local fit, whose streamed fold "
+                "leaves the mesh (spark/estimators.py::_mesh_or_fallback), as in the "
+                "JAX package. Fit on device='cpu' or set the policy to 'refuse' or 'off'"
             )
         health.begin_degrade_window()
     if outermost:

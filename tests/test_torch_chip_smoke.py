@@ -893,3 +893,23 @@ def test_spark_glue_phase_on_cpu():
     assert len(b["lloyd"]) == 3 and all(g["mismatches_not_near_tie"] == 0 for g in b["lloyd"])
     assert "spark" in chip_smoke.SKIPPABLE and chip_smoke.parse_skip(["--skip", "spark"]) == {
         "spark"}
+
+
+def test_mesh_phase_on_cpu(monkeypatch):
+    """Phase 21 at a tiny size on CPU shards: (a) the in-process programs,
+    (b) the chunk fold on the mesh-local fit's own mesh and on four shards,
+    (c) TSQR and the sketch, (d) the barrier bodies in two spawned gloo
+    ranks; every gate, no kernel launches on the CPU."""
+    x, gram = chip_smoke.streamed_workload(4096, 48, 4, CPU, seed=chip_smoke.MESH_SEED)
+    a = chip_smoke.phase_mesh_inprocess(x, gram, 4, CPU, bins=8)
+    assert a["launches"] == {name: 0 for name in chip_smoke.KERNELS}
+    assert a["ranges_exact"] and a["histogram_exact"] and a["count"] == 4096
+    monkeypatch.setenv("TPU_ML_STREAM_CHUNK_ROWS", "512")
+    b = chip_smoke.phase_mesh_streamed((x, gram), 4, CPU)
+    assert b["own_mesh"]["shards"] == 1 and b["four_shards"]["shards"] == 4
+    assert b["own_mesh"]["chunks"] == b["chunks"] == 8 and b["degraded_cpu_fallback"] == 0
+    c = chip_smoke.phase_mesh_tsqr_sketch(x[:2048], 4, CPU, oversample=60)  # l = n: the whole
+    assert c["tsqr_min_cosine_vs_f64_oracle"] >= chip_smoke.COSINE_BAR
+    d = chip_smoke.phase_mesh_barrier(x[:1000], 4, CPU, ranks=2, frames=4)
+    assert d["yielding_ranks"] == [0] and d["mesh_size"] == 2 and d["count"] == 1000
+    assert "mesh" in chip_smoke.SKIPPABLE

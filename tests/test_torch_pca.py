@@ -485,3 +485,56 @@ def test_vector_udt_column_fits_like_jax(mixed):
     from spark_rapids_ml_tpu_torch.utils import columnar
 
     np.testing.assert_array_equal(columnar._from_arrow_column(table.column("features")), x)
+
+
+def _jax_one_pass(x, k):
+    """The JAX package's one-pass tier as its bf16 product computes it
+    (``policy_matmul`` under ``bf16_f32acc``: Σhi² on the diagonal; its CPU
+    backend runs ``Precision.DEFAULT`` as f32): (σ, explainedVariance)."""
+    from spark_rapids_ml_tpu.ops import linalg as JL
+
+    xj = jnp.asarray(x)
+    stats = JL.GramStats(JL.policy_matmul(xj.T, xj, policy="bf16_f32acc"), jnp.sum(xj, 0),
+                         jnp.asarray(float(len(x)), jnp.float32))
+    _, _, std = JL.standardized_cov_from_stats(stats)
+    _, ev = JL.pca_fit_from_cov(JL.covariance_from_stats(stats, mean_centering=False), k)
+    return np.asarray(std, np.float64), np.asarray(ev, np.float64)
+
+
+def test_default_diagonal_rule_against_f64():
+    """The "default" tier's diagonal (ROADMAP Queue C item 1), on rows whose
+    mean is 100σ and on config-2-like rows near zero. σ (standardize) reads
+    only the diagonal: the port's exact Σx² keeps it at 1.3e-3 of f64 where
+    the JAX package's Σhi² is off by 0.60 (μ/σ = 100), and closer near zero
+    too. explainedVariance (unstandardized) reads the whole matrix: Σhi²,
+    which makes it the Gram of the bf16 rows, is nearer f64 on both inputs
+    (5.4e-4 against 3.9e-3 with Σx² at μ/σ = 100; 2.3e-5 against 3.1e-5
+    near zero, measured here), so the unstandardized fit keeps it and agrees
+    with the JAX package's arithmetic (1e-5 of the largest ratio)."""
+    rng = np.random.default_rng(5)
+    k = 4
+    inputs = {
+        "mean_dominates": (100.0 + rng.normal(size=(4096, 32))).astype(np.float32),
+        "near_zero": (rng.normal(size=(4096, 64)) @ rng.normal(size=(64, 32)) * 0.1
+                      ).astype(np.float32),
+    }
+    for name, x in inputs.items():
+        x64 = x.astype(np.float64)
+        std64 = x64.std(axis=0, ddof=1)
+        s64 = np.sqrt(np.clip(np.linalg.eigvalsh(x64.T @ x64)[::-1], 0.0, None))
+        ev64 = (s64 / s64.sum())[:k]
+        std_port = PCA(device="cpu", k=k, precision="default", standardize=True).fit(x).std
+        ev_port = PCA(device="cpu", k=k, precision="default").fit(x).explainedVariance
+        std_jax, ev_jax = _jax_one_pass(x, k)
+
+        def dist(a, b):
+            return float(np.abs(np.asarray(a, np.float64) - b).max() / np.abs(b).max())
+
+        d = {"std_port": dist(std_port, std64), "std_jax": dist(std_jax, std64),
+             "ev_port": dist(ev_port, ev64), "ev_jax": dist(ev_jax, ev64)}
+        assert d["std_port"] < d["std_jax"], (name, d)
+        if name == "mean_dominates":
+            assert d["std_port"] < 0.01 < d["std_jax"], d
+        np.testing.assert_allclose(ev_port, ev_jax, rtol=0, atol=1e-5 * ev_jax.max(),
+                                   err_msg=name)
+        assert d["ev_port"] <= 1.1 * d["ev_jax"], (name, d)

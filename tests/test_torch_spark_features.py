@@ -218,12 +218,24 @@ def test_stateless_stages_transform_a_dataframe_as_locally(df, data, name):
 def test_required_params_and_mesh_refusals(df, data):
     with pytest.raises(ValueError, match="scalingVec must be set"):
         SP.SparkElementwiseProduct(device=CPU).setInputCol("features").transform(df)
-    for est in (SP.SparkStandardScaler(device=CPU), SP.SparkMinMaxScaler(device=CPU),
-                SP.SparkTruncatedSVD(device=CPU).setK(2)):
-        est.setInputCol("features").setDistribution("mesh-local")
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 6"):
-            est.fit(df)
+    # the mesh-local fits, refused before the mesh was ported, now run on
+    # the driver's mesh and agree with the JAX core fits (1e-5 of the
+    # largest entry; the TruncatedSVD components by min |cosine| ≥ 0.9999)
     x, _ = data
+    cases = (
+        (SP.SparkStandardScaler(device=CPU), J.StandardScaler(), ("mean", "std")),
+        (SP.SparkMinMaxScaler(device=CPU), J.MinMaxScaler(), ("originalMin", "originalMax")),
+        (SP.SparkTruncatedSVD(device=CPU).setK(2), J.TruncatedSVD().setK(2), ("singularValues",)),
+    )
+    for est, ref_est, fields in cases:
+        model = est.setInputCol("features").setDistribution("mesh-local").fit(df)
+        ref = ref_est.setInputCol("features").fit(x)
+        for f in fields:
+            _close(getattr(model, f), getattr(ref, f))
+    comps, ref_comps = (np.asarray(m.components, np.float64) for m in (model, ref))
+    cos = np.abs((comps * ref_comps).sum(0)) / (
+        np.linalg.norm(comps, axis=0) * np.linalg.norm(ref_comps, axis=0))
+    assert cos.min() >= 0.9999
     model = SP.SparkStandardScaler(device=CPU).fit(x)
     assert type(model) is SP.SparkStandardScalerModel
     _close(model.mean, x.astype(np.float64).mean(0))

@@ -143,9 +143,15 @@ def test_bad_inputs_fail_before_any_job(spark):
     nulls = spark.createDataFrame([(None,), ([1.0, 2.0],)], schema, numPartitions=1)
     with pytest.raises(ValueError, match="null feature"):
         _est().setK(1).fit(nulls)
+    # the mesh distributions run now (tests/test_torch_spark_mesh.py); their
+    # bad inputs fail before any job too
     for distribution in ("mesh-local", "mesh-barrier"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            _est(distribution=distribution).fit(small)
+        with pytest.raises(ValueError, match="k=5 must be <="):
+            _est(distribution=distribution).setK(5).fit(small)
+        with pytest.raises(NotImplementedError, match="checkpoint_dir"):
+            _est(distribution=distribution).setSolver("svd").fit(small, checkpoint_dir="/x")
+    with pytest.raises(NotImplementedError, match="checkpoint_dir"):
+        _est(distribution="mesh-barrier").fit(small, checkpoint_dir="/nonexistent")
     with pytest.raises(ValueError, match="distribution must be one of"):
         _est(distribution="nowhere")
     with pytest.raises(NotImplementedError, match="checkpoint_dir"):

@@ -223,11 +223,31 @@ def test_fold_gram_stats_matches_jax_and_the_in_place_step(parts, precision):
           pytest.param([1.0, 1.0], id="wrong_length")]
 )
 def test_high_folds_unit_weights_only(w):
-    x = torch.ones((3, N))
-    with pytest.raises(ValueError, match="unit weights"):
-        TL.gram_stats_weighted(x, torch.tensor(w), precision="high")
-    with pytest.raises(ValueError, match="unit weights"):
-        TL.gram_fold_step("high")(TL.init_gram_carry(N, CPU), x, torch.tensor(w))
+    """Unit weights take the symmetric kernel's instance; other weights fold
+    at "high" through the split's three products outside the kernel (as the
+    JAX package's weighted fold is an XLA product at ``Precision.HIGH``,
+    which its CPU backend computes in f32: 3e-5 of max|G|, the split's bound
+    against f32), and a weight vector of the wrong length raises."""
+    rng = np.random.default_rng(11)
+    x = (rng.normal(size=(3, N)) + 3.0).astype(np.float32)
+    if len(w) != len(x):
+        with pytest.raises(ValueError, match="weights of shape"):
+            TL.gram_stats_weighted(torch.from_numpy(x), torch.tensor(w), precision="high")
+        with pytest.raises(ValueError, match="weights of shape"):
+            TL.gram_fold_step("high")(TL.init_gram_carry(N, CPU), torch.from_numpy(x),
+                                      torch.tensor(w))
+        return
+    wf = np.asarray(w, np.float32)
+    ref = JL.gram_stats_weighted(jnp.asarray(x), jnp.asarray(wf), precision=lax.Precision.HIGH)
+    got = TL.gram_stats_weighted(torch.from_numpy(x), torch.from_numpy(wf), precision="high")
+    scale = np.abs(np.asarray(ref.xtx)).max()
+    np.testing.assert_allclose(got.xtx.numpy(), np.asarray(ref.xtx), rtol=0, atol=3e-5 * scale)
+    np.testing.assert_allclose(got.col_sum.numpy(), np.asarray(ref.col_sum), rtol=1e-6)
+    assert got.count.item() == float(ref.count) == wf.sum()
+    stepped = TL.gram_fold_step("high")(TL.init_gram_carry(N, CPU), torch.from_numpy(x),
+                                        torch.from_numpy(wf))
+    for a, b in zip(stepped, got):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def _assert_one_pass_carry(port_xtx, jax_xtx):
