@@ -253,6 +253,30 @@ Phases, each a plain function that the CPU tests also call at a tiny size:
    on 8 frames of phase 4's rows: only rank 0 yields, its rows against the
    in-process mesh program and f64. The kernels line gains
    phase21_launches.
+22. the mesh fits (no new kernel; group "meshfit"), each part in four data
+   shards of the card beside the data of the phase it follows: (a) after
+   phase 21, phase 14's labels and weights: sharded_linear_stats_weighted
+   on 2,000,000 of phase 8's rows against one device and, through phase
+   14's perturbation bound, f64; config 2 whole through the per-shard
+   linear fold with the streamed intercept column against phase 14's
+   one-device carry; (b) the whole-loop binary logistic and squared-hinge
+   fits on 1,000,000 rows against the core estimators, 3 iterations of the
+   10-class softmax against the core fit's, a chunked fit killed after one
+   chunk and resumed bit-equal; (g) MeshLinRegPartitionFn,
+   MeshLogRegFitFn, MeshSoftmaxFitFn (3 classes) and MeshKMeansFitFn in one
+   spawn of four processes over gloo, only rank 0 yielding, against the
+   in-process programs and f64; (c) after phase 12, one mesh k-means‖
+   round and 5 Lloyd steps on 2,000,000 of config 5's blobs (k = 1,000)
+   against one device and f64 under phase 12's near-tie rule, the whole
+   loop and a chunked resume bit-equal; (d) after phase 13, the sharded
+   DBSCAN on 40,000 lattice rows (labels equal to one device's) and the
+   sharded kNN over the 1,000,000-row corpus (4,096 queries) against one
+   device and f64; (f) after phase 15, one streamed Lloyd pass of the IVF
+   index's mesh fold over 2,000,000 SIFT-shaped rows against the
+   one-device fold; (e) after phase 16, a forest through the mesh builder
+   on 1,000,000 HIGGS-shaped rows equal to the one-device build, and the
+   sharded NaiveBayes statistics on 500,000 count rows. The kernels line
+   gains phase22_launches.
 
 Each main path reads the kernels' launch counts from 0 around exactly its
 fit. The last lines are one JSON object with every kernel's numbers, the
@@ -314,8 +338,13 @@ from spark_rapids_ml_tpu_torch.ops import umap as UMO
 from spark_rapids_ml_tpu_torch import autotune
 from spark_rapids_ml_tpu_torch.autotune import cache as tuning_cache
 from spark_rapids_ml_tpu_torch.autotune.policy import TuningConfig, resolve_policy
+from spark_rapids_ml_tpu_torch.parallel import dbscan as MPD
 from spark_rapids_ml_tpu_torch.parallel import gram as MG
+from spark_rapids_ml_tpu_torch.parallel import kmeans as MPK
+from spark_rapids_ml_tpu_torch.parallel import linear as MPL
 from spark_rapids_ml_tpu_torch.parallel import mesh as MM
+from spark_rapids_ml_tpu_torch.parallel import naive_bayes as MPNB
+from spark_rapids_ml_tpu_torch.parallel import neighbors as MPN
 from spark_rapids_ml_tpu_torch.parallel import sketched as MSK
 from spark_rapids_ml_tpu_torch.parallel import tsqr as MT
 from spark_rapids_ml_tpu_torch.parallel.tree_aggregate import tree_reduce
@@ -2773,7 +2802,8 @@ def normal_solve_f64(s, reg: float = 0.0) -> tuple[torch.Tensor, torch.Tensor]:
     return coef, ybar - mu @ coef
 
 
-def linreg_gates(carry, oracle, coef: np.ndarray, intercept: float) -> dict:
+def linreg_gates(carry, oracle, coef: np.ndarray, intercept: float,
+                 stats_rtol: float | None = LINEAR_STATS_RTOL) -> dict:
     """A fit's coefficients against the f64 oracle of its statistics.
 
     ``carry`` is the fit's own f64 carry (the same fold run again), ``oracle``
@@ -2782,8 +2812,8 @@ def linreg_gates(carry, oracle, coef: np.ndarray, intercept: float) -> dict:
     with δ = carry − oracle: ‖β̂ − β*‖ ≤ ‖A_c⁻¹‖·(‖δb‖ + ‖δA‖·‖β*‖), a bound
     set by the f32 products the run measured and by the data's
     conditioning, and the intercept's error follows from it. Gated: the
-    carry's XᵀX within ``LINEAR_STATS_RTOL`` of f64 (normwise), β̂ and b̂
-    within that bound."""
+    carry's XᵀX within ``stats_rtol`` of f64 (normwise; None reports it
+    only), β̂ and b̂ within that bound."""
     device = carry.xtx.device
     m_c, a_c, b_c, mu_c, ybar_c = _centred_f64(carry)
     m, a, b, mu, ybar = _centred_f64(oracle)
@@ -2807,7 +2837,7 @@ def linreg_gates(carry, oracle, coef: np.ndarray, intercept: float) -> dict:
         "intercept_err": b0_err, "intercept_bound": b0_bound,
         "cond": float(evals[-1] / evals[0]),
     }
-    if not stats_rel <= LINEAR_STATS_RTOL:
+    if stats_rtol is not None and not stats_rel <= stats_rtol:
         raise AssertionError(f"the fold's XᵀX is off f64 by {stats_rel}: {out}")
     slack = 1e-9 * float(beta_norm)  # the f64 solves' own rounding
     if not err <= 1.01 * bound + slack or not b0_err <= 1.01 * b0_bound + slack:
@@ -2885,7 +2915,7 @@ def phase_streamed_linreg(data, partitions: int, device: torch.device,
     oracle, oracle_w = linear_stats_f64(x, y, w, device)
     oracle_s = time.perf_counter() - t0
     result = {"rows": rows, "n": n, "oracle_s": oracle_s}
-    models = {}
+    models, carries = {}, {}
     for label, kw, fit_data, stats in (
         ("plain", {}, (x, y), oracle),
         ("weighted", {}, (x, y, w), oracle_w),
@@ -2938,6 +2968,7 @@ def phase_streamed_linreg(data, partitions: int, device: torch.device,
         else:
             entry.update(linreg_gates(carry, stats, model.coefficients, model.intercept))
         models[label] = model
+        carries[label] = carry
         result[label] = entry
         print(f"linear (a) {label}: {json.dumps(entry)}", flush=True)
     # the carry's dtype: the same fold into an f32 carry, solved the same way
@@ -2960,6 +2991,9 @@ def phase_streamed_linreg(data, partitions: int, device: torch.device,
     print(f"linear (a) streamed: {json.dumps({k: v for k, v in result.items() if not isinstance(v, dict)})}",
           flush=True)
     result["model"] = models["plain"]
+    # phase 22 (a) reuses the labels, the weights, and the weighted fit's
+    # carry and f64 oracle
+    result.update(y=y, w=w, weighted_carry=carries["weighted"], weighted_oracle=oracle_w)
     return result
 
 
@@ -6292,6 +6326,701 @@ def phase_mesh_barrier(x_host: np.ndarray, k: int, device: torch.device,
     return result
 
 
+# -- phase 22: the mesh fits ---------------------------------------------------------
+
+MESHFIT_LINEAR_ROWS = 2_000_000   # (a): phase 8's rows, cut from 10,000,000 (f64 gate)
+MESHFIT_NEWTON_ROWS = 1_000_000   # (b)
+MESHFIT_NEWTON_REG = 0.1          # where converged f32 Newton iterates agree to ~1e-7
+MESHFIT_NEWTON_ITER = 25
+# The squared hinge's Hessian counts the rows inside the margin, so two
+# converged f32 fits whose statistics were summed in other orders may
+# settle on active sets that differ in rows at the kink: 5.1e-5 × max
+# apart on the card (each at an f64 gradient of ~1e-8 of its start's).
+MESHFIT_HINGE_TOL = 1e-4
+MESHFIT_BARRIER_SOFTMAX_ITER = 8  # (g): its f64 gradient is 1e-8 of the start's by then
+MESHFIT_SOFTMAX_ITERS = 3
+MESHFIT_CHUNK_ITERS = 2           # (b), (c): the chunked runs' iterations a chunk
+MESHFIT_KMEANS_ROWS = 2_000_000   # (c): config 5's blobs, cut from 50,000,000
+MESHFIT_LLOYD_ITERS = 5
+MESHFIT_DBSCAN_GRIDS = 100        # (d): 40,000 lattice rows, cut from phase 13's 100,000
+MESHFIT_KNN_QUERIES = 4_096       # (d): phase 13's 1,000,000-row corpus, 4,096 queries
+MESHFIT_FOREST_ROWS = 1_000_000   # (e): HIGGS-shaped rows, cut from 11,000,000
+MESHFIT_FOREST_TREES = 5
+MESHFIT_NB_ROWS = 500_000         # (e): phase 16's counts, cut from 2,000,000
+MESHFIT_ANN_ROWS = 2_000_000      # (f): SIFT-shaped rows, cut from 10,000,000
+MESHFIT_BARRIER_ROWS = 500_000    # (g): phase 8's first rows in 8 frames, 2 a rank
+MESHFIT_BARRIER_CLASSES = 3
+MESHFIT_BARRIER_K = 16
+
+
+def _augmented_stats(s) -> LIN.LinearStats:
+    """LinearStats of [X, 1] from those of X: the ones column's products
+    are the weighted column sums and the weight total."""
+    n = s.xtx.shape[0]
+    xtx = torch.zeros((n + 1, n + 1), dtype=s.xtx.dtype, device=s.xtx.device)
+    xtx[:n, :n] = s.xtx
+    xtx[:n, n] = xtx[n, :n] = s.x_sum
+    xtx[n, n] = s.count
+    return LIN.LinearStats(xtx, torch.cat([s.xty, s.y_sum.reshape(1)]),
+                           torch.cat([s.x_sum, s.count.reshape(1)]), s.y_sum, s.y_sq, s.count)
+
+
+def _stats_rel(got, want) -> float:
+    """The largest of the fields' ``_rel`` (max |Δ| over max |want|)."""
+    return max(_rel(g, w) for g, w in zip(got, want))
+
+
+def phase_meshfit_linear(x: np.ndarray, linreg: dict, device: torch.device, *,
+                         rows: int = MESHFIT_LINEAR_ROWS, shards: int = MESH_SHARDS) -> dict:
+    """Phase 22 (a): ``sharded_linear_stats_weighted`` over four shards of
+    the card on the first ``rows`` of phase 8's rows with phase 14's labels
+    and weights, against the one-device ``linear_stats`` (1e-5 × max) and,
+    through phase 14's perturbation bound, f64; then config 2 whole through
+    the per-shard ``sharded_linear_fold`` with the intercept column appended
+    by the streamed fold, against phase 14's one-device weighted carry with
+    the ones column's products added (1e-5 × max) and, through the bound,
+    its f64 oracle."""
+    n = x.shape[1]
+    y, w = linreg["y"], linreg["w"]
+    mesh = MM.create_mesh(data=shards, devices=[device] * shards)
+    xd = torch.from_numpy(x[:rows]).to(device)
+    yd = torch.from_numpy(y[:rows]).to(device)
+    wd = torch.from_numpy(w[:rows].astype(np.float32)).to(device)
+    one = LIN.linear_stats(xd, yd, wd)
+    _sync(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    stats = MPL.sharded_linear_stats_weighted(xd, yd, wd, mesh)
+    _sync(device)
+    stats_s = time.perf_counter() - t0
+    launches = {"sharded_linear_stats": read_launches()}
+    del xd, yd, wd
+    oracle = linear_stats_f64(x[:rows], y[:rows], w[:rows], device)[1]
+    coef, b0 = LIN.solve_from_stats(LIN.as_f64(stats))
+    result = {"rows": rows, "n": n, "shards": shards, "stats_s": stats_s,
+              "stats_rel_vs_one_device": _stats_rel(stats, one),
+              "stats_gates_vs_f64": linreg_gates(LIN.as_f64(stats), oracle, coef.cpu().numpy(),
+                                                 float(b0), stats_rtol=None)}
+
+    reset_launches()
+    t0 = time.perf_counter()
+    res = ingest.stream_fold(
+        [(x, y, w)], lambda c, xc, yc, wc: MG.sharded_linear_fold(c, xc, yc, wc, mesh), n=n,
+        label_col="label", init=MG.init_chunk_carry(LIN.init_linear_carry(n + 1, "meta"), mesh),
+        device=device, chunk_rows=MG.stream_chunk_rows_for_mesh(mesh),
+        put_fn=MG.chunk_put(mesh), min_chunk_rows=shards, augment_intercept=True,
+    )
+    fold = MG.finalize_chunk_fold(res.carry, mesh)
+    _sync(device)
+    fold_s = time.perf_counter() - t0
+    launches["sharded_linear_fold"] = read_launches()
+    want = _augmented_stats(linreg["weighted_carry"])
+    plain = LIN.LinearStats(fold.xtx[:n, :n], fold.xty[:n], fold.x_sum[:n], fold.y_sum,
+                            fold.y_sq, fold.count)
+    coef, b0 = LIN.solve_from_stats(LIN.as_f64(plain))
+    result.update({
+        "fold_rows": len(x), "fold_chunks": res.chunks, "fold_s": fold_s,
+        "fold_rel_vs_one_device": _stats_rel(fold, want),
+        "fold_gates_vs_f64": linreg_gates(LIN.as_f64(plain), linreg["weighted_oracle"],
+                                          coef.cpu().numpy(), float(b0)),
+        "launches": launches,
+    })
+    print(f"meshfit (a) linear: {json.dumps(result)}", flush=True)
+    for key in ("stats_rel_vs_one_device", "fold_rel_vs_one_device"):
+        if not result[key] <= MESH_STATS_TOL:
+            raise AssertionError(f"meshfit (a): {key} = {result[key]} > {MESH_STATS_TOL}")
+    if any(v != expected_launches() for v in launches.values()):
+        raise AssertionError(f"meshfit (a) launched a Gram kernel: {launches}")
+    return result
+
+
+def _centred_classes(w: np.ndarray, classes: int) -> np.ndarray:
+    """Softmax parameters with their class mean taken out: adding one vector
+    to every class changes no probability."""
+    w = np.asarray(w, np.float64).reshape(classes, -1)
+    return w - w.mean(axis=0)
+
+
+class _ChunkKilled(RuntimeError):
+    """A chunked mesh run stopped from outside after its first chunk."""
+
+
+def _dies_after_first(chunk):
+    calls = {"n": 0}
+
+    def run(*args):
+        calls["n"] += 1
+        if calls["n"] == 2:
+            raise _ChunkKilled("killed after the first chunk")
+        return chunk(*args)
+
+    return run
+
+
+def _chunked_resume(run_chunked, chunk, args: tuple, start, *, max_iter: int, tol: float,
+                    key: str) -> dict:
+    """A chunked run killed after its first chunk and resumed from its
+    checkpoint, against the uninterrupted chunked run: bit-equal."""
+    full = run_chunked(chunk, *args, start, start_iter=0, max_iter=max_iter, tol=tol, ckpt=None)
+    tmp = tempfile.mkdtemp(prefix="meshfit")
+    try:
+        try:
+            run_chunked(_dies_after_first(chunk), *args, start, start_iter=0, max_iter=max_iter,
+                        tol=tol, ckpt=TrainingCheckpointer(tmp))
+            raise AssertionError("the killed chunked run ran to its end")
+        except _ChunkKilled:
+            pass
+        step, arrays, state = TrainingCheckpointer(tmp).latest()
+        extra = {"cost0": state["cost"]} if "cost" in state else {}
+        resumed = run_chunked(chunk, *args, torch.from_numpy(arrays[key]), start_iter=step + 1,
+                              max_iter=max_iter, tol=tol, ckpt=TrainingCheckpointer(tmp), **extra)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    equal = bool(torch.equal(resumed[0].cpu(), full[0].cpu())) and resumed[1:] == full[1:]
+    return {"checkpoint_step": step, "iterations": full[-1], "resumed_iterations": resumed[-1],
+            "equal_to_uninterrupted": equal}
+
+
+def phase_meshfit_newton(x_pool: np.ndarray, device: torch.device, *,
+                         rows: int = MESHFIT_NEWTON_ROWS, classes: int = SOFTMAX_CLASSES,
+                         softmax_iters: int = MESHFIT_SOFTMAX_ITERS, shards: int = MESH_SHARDS,
+                         partitions: int = LINEAR_PARTITIONS, seed: int = LINEAR_SEED) -> dict:
+    """Phase 22 (b): on the first ``rows`` of phase 8's rows in four shards
+    of the card, the whole-loop binary logistic and squared-hinge fits
+    (``make_distributed_logreg_fit``) against the port's LogisticRegression
+    and LinearSVC on the same rows at ``regParam`` 0.1 (1e-5 × max, the
+    squared hinge ``MESHFIT_HINGE_TOL``) and each at an f64 gradient within
+    ``NEWTON_GRAD_RTOL`` of its start's; ``softmax_iters`` iterations of the
+    ``classes``-class fit against the core estimator's as many
+    (class-centred parameters, 1e-4 × max: unconverged iterates from f32
+    statistics summed in another order); the chunked binary fit killed
+    after one chunk and resumed, bit-equal."""
+    n = x_pool.shape[1]
+    mesh = MM.create_mesh(data=shards, devices=[device] * shards)
+    x = x_pool[:rows]
+    xd = torch.from_numpy(x).to(device)
+    xa = torch.cat([xd, torch.ones((rows, 1), device=device)], 1)
+    del xd
+    ones = torch.ones(rows, device=device)
+    y = _logistic_labels(xa[:, :n], seed)
+    yd = torch.from_numpy(y).float().to(device)
+    reg = MESHFIT_NEWTON_REG
+    result = {"rows": rows, "d": n + 1, "shards": shards, "reg": reg}
+    reset_launches()
+    for label, loss, cls in (("logistic", "logistic", LogisticRegression),
+                             ("squared_hinge", "squared_hinge", LinearSVC)):
+        fit = MPL.make_distributed_logreg_fit(mesh, reg_param=reg, max_iter=MESHFIT_NEWTON_ITER,
+                                              tol=1e-6, loss=loss)
+        _sync(device)
+        t0 = time.perf_counter()
+        w_mesh, iters, step = fit(xa, yd, ones)
+        _sync(device)
+        mesh_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        core = cls(device=device, regParam=reg, maxIter=MESHFIT_NEWTON_ITER, tol=1e-6).fit(
+            (x, y), num_partitions=partitions)
+        _sync(device)
+        core_s = time.perf_counter() - t0
+        want = _newton_params(core, None)
+        y64 = torch.from_numpy(y).to(device)
+        if loss == "logistic":
+            grad = newton_f64(xa[:, :n], y64, w_mesh, reg, hessian=False)[1]
+            grad0 = newton_f64(xa[:, :n], y64, torch.zeros_like(w_mesh), reg, hessian=False)[1]
+            grad_rel = float(torch.linalg.norm(grad) / torch.linalg.norm(grad0))
+        else:
+            grad_rel = svc_grad_rel_f64(xa[:, :n], y64, w_mesh, reg)
+        result[label] = {"mesh_s": mesh_s, "iterations": int(iters), "final_step": float(step),
+                         "s_per_iteration": mesh_s / max(int(iters), 1), "core_fit_s": core_s,
+                         "rel_vs_core": _rel(w_mesh, want), "grad_rel_f64": grad_rel}
+    chunk = MPL.make_distributed_logreg_chunk(mesh, reg_param=reg, chunk_iters=MESHFIT_CHUNK_ITERS,
+                                              tol=0.0)
+    result["resume"] = _chunked_resume(
+        MPL.run_chunked_newton, chunk, (xa, yd, ones), np.zeros(n + 1),
+        max_iter=3 * MESHFIT_CHUNK_ITERS, tol=0.0, key="w")
+    ys = _softmax_labels(xa[:, :n], classes, seed)
+    ysd = torch.from_numpy(ys).float().to(device)
+    fit = MPL.make_distributed_softmax_fit(mesh, classes, reg_param=reg, max_iter=softmax_iters,
+                                           tol=0.0)
+    _sync(device)
+    t0 = time.perf_counter()
+    w_soft, iters, _ = fit(xa, ysd, ones)
+    _sync(device)
+    soft_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    core = LogisticRegression(device=device, regParam=reg, maxIter=softmax_iters, tol=0.0).fit(
+        (x, ys), num_partitions=partitions)
+    _sync(device)
+    core_s = time.perf_counter() - t0
+    got_c = _centred_classes(w_soft.cpu().numpy(), classes)
+    want_c = _centred_classes(_newton_params(core, classes), classes)
+    result["softmax"] = {"classes": classes, "iterations": int(iters), "mesh_s": soft_s,
+                         "s_per_iteration": soft_s / max(int(iters), 1), "core_fit_s": core_s,
+                         "rel_vs_core": _rel(got_c, want_c)}
+    result["launches"] = read_launches()
+    print(f"meshfit (b) newton: {json.dumps(result)}", flush=True)
+    for label, bound in (("logistic", MESH_STATS_TOL), ("squared_hinge", MESHFIT_HINGE_TOL),
+                         ("softmax", 1e-4)):
+        if not result[label]["rel_vs_core"] <= bound:
+            raise AssertionError(f"meshfit (b) {label} off the core fit: {result[label]}")
+        if not result[label].get("grad_rel_f64", 0.0) <= NEWTON_GRAD_RTOL:
+            raise AssertionError(f"meshfit (b) {label}: f64 gradient at the fit {result[label]}")
+    if not result["resume"]["equal_to_uninterrupted"]:
+        raise AssertionError(f"meshfit (b): the resumed run differs: {result['resume']}")
+    if result["launches"] != expected_launches():
+        raise AssertionError(f"meshfit (b) launched a Gram kernel: {result['launches']}")
+    return result
+
+
+def phase_meshfit_kmeans(device: torch.device, *, rows: int = MESHFIT_KMEANS_ROWS,
+                         n: int = CONFIG5_N, k: int = CONFIG5_K, iters: int = MESHFIT_LLOYD_ITERS,
+                         shards: int = MESH_SHARDS, partitions: int = LINEAR_PARTITIONS,
+                         seed: int = CONFIG5_SEED) -> dict:
+    """Phase 22 (c): config 5's blobs (``rows`` of them) in four shards of
+    the card: one k-means‖ round of the mesh program (its ownership counts
+    against f64 labels but for near ties, their total exact), the weighted
+    k-means++ over its candidates, then ``iters`` Lloyd iterations, each
+    iteration's mesh statistics against the one-device ``kmeans_stats``
+    from the same centres and against an f64 pass (phase 12's near-tie
+    rule); the chunked Lloyd run killed after one chunk and resumed,
+    bit-equal."""
+    mesh = MM.create_mesh(data=shards, devices=[device] * shards)
+    centres = kmeans_centres(k, n, device, seed)
+    edges = partition_edges(rows, partitions)
+    xd = torch.cat([kmeans_partition(p, edges, centres, seed) for p in range(partitions)])
+    del centres
+    ones = torch.ones(rows, device=device)
+    block = block_rows_for(device, KM.DEFAULT_BLOCK_ROWS, k)
+    gate_parts = [(xd[a:b], None, int(b - a)) for a, b in zip(edges[:-1], edges[1:])]
+    result = {"rows": rows, "n": n, "k": k, "shards": shards}
+    reset_launches()
+    init = MPK.make_distributed_kmeans_parallel_init(mesh, k, init_steps=1)
+    _sync(device)
+    t0 = time.perf_counter()
+    cand, counts = init(xd, ones, seed)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    valid = counts > 0
+    f64 = kmeans_f64_pass(gate_parts, cand[valid], block)
+    got = torch.round(counts[valid]).long().cpu()
+    result["init"] = {
+        "init_s": init_s, "candidates": int(cand.shape[0]), "owning_candidates": int(valid.sum()),
+        "count_total": float(counts.sum()),
+        "counts_l1_vs_f64_labels": int((got - f64["counts_f64_labels"].cpu()).abs().sum()),
+        "near_ties": f64["near_ties"],
+    }
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    centers = KM.weighted_kmeans_plus_plus_init(gen, cand, counts, k)
+    start = centers.clone()
+    result["lloyd"] = []
+    for it in range(iters):
+        _sync(device)
+        t0 = time.perf_counter()
+        stats = MPK.sharded_kmeans_stats(xd, centers, mesh, weights=ones, block_rows=block)
+        _sync(device)
+        step_s = time.perf_counter() - t0
+        one = KM.kmeans_stats(xd, centers, ones, block_rows=block)
+        entry = {"mesh_stats_s": step_s,
+                 "counts_l1_vs_one_device": int((stats.counts - one.counts).abs().sum()),
+                 "sums_rel_vs_one_device": _rel(stats.sums, one.sums),
+                 "cost_rel_vs_one_device": _rel(stats.cost, one.cost)}
+        entry.update(_kmeans_gate(f"meshfit (c) Lloyd {it}", {
+            "counts": stats.counts.cpu().numpy(), "cost": float(stats.cost),
+            "sums": stats.sums.cpu().numpy()}, kmeans_f64_pass(gate_parts, centers, block)))
+        result["lloyd"].append(entry)
+        centers = KM.update_centers(stats, centers)
+    fit = MPK.make_distributed_kmeans_fit(mesh, max_iter=iters, tol=0.0, block_rows=block)
+    _sync(device)
+    t0 = time.perf_counter()
+    c_fit, _, done = fit(xd, ones, start)
+    _sync(device)
+    result["fit_s"] = time.perf_counter() - t0
+    result["fit_equals_the_stepwise_loop"] = bool(torch.equal(c_fit, centers)) and done <= iters
+    chunk = MPK.make_distributed_kmeans_chunk(mesh, chunk_iters=MESHFIT_CHUNK_ITERS, tol=0.0,
+                                              block_rows=block)
+    result["resume"] = _chunked_resume(MPK.run_chunked_lloyd, chunk, (xd, ones), start,
+                                       max_iter=iters, tol=0.0, key="centers")
+    result["launches"] = read_launches()
+    print(f"meshfit (c) kmeans: {json.dumps(result)}", flush=True)
+    ini = result["init"]
+    if ini["count_total"] != rows or ini["counts_l1_vs_f64_labels"] > 2 * ini["near_ties"]:
+        raise AssertionError(f"meshfit (c): the k-means‖ counts are off: {ini}")
+    for entry in result["lloyd"]:
+        if entry["counts_l1_vs_one_device"] > 2 * entry["near_ties"] or not (
+                entry["sums_rel_vs_one_device"] <= KMEANS_RTOL
+                and entry["cost_rel_vs_one_device"] <= KMEANS_RTOL):
+            raise AssertionError(f"meshfit (c): a Lloyd step off the one-device one: {entry}")
+    if not (result["fit_equals_the_stepwise_loop"]
+            and result["resume"]["equal_to_uninterrupted"]):
+        raise AssertionError(f"meshfit (c): the whole or resumed loop differs: {result}")
+    if result["launches"] != expected_launches():
+        raise AssertionError(f"meshfit (c) launched a Gram kernel: {result['launches']}")
+    return result
+
+
+def phase_meshfit_distance(device: torch.device, *, grids: int = MESHFIT_DBSCAN_GRIDS,
+                           side: int = DBSCAN_SIDE, n: int = CONFIG5_N,
+                           knn_rows: int = KNN_ROWS, knn_queries: int = MESHFIT_KNN_QUERIES,
+                           k: int = KNN_K, shards: int = MESH_SHARDS, seed: int = 41) -> dict:
+    """Phase 22 (d): ``make_sharded_dbscan`` over four shards of the card on
+    phase 13's lattice rows (``grids`` grids), its labels equal to the
+    one-device ``dbscan_labels`` exactly; ``make_sharded_knn`` on phase 13's
+    corpus against the one-device ``knn_topk`` (scores rtol 1e-5) and the
+    f64 top k (ids outside it only at near ties)."""
+    mesh = MM.create_mesh(data=shards, devices=[device] * shards)
+    x = dbscan_workload(grids, side, n, device)
+    rows = len(x)
+    eps_sq = float(np.float32(DBSCAN_EPS**2))
+    block = block_rows_for(device, DB.DEFAULT_BLOCK_ROWS)
+    xd = torch.from_numpy(x).to(device)
+    ones = torch.ones(rows, device=device)
+    reset_launches()
+    _sync(device)
+    t0 = time.perf_counter()
+    labels = MPD.make_sharded_dbscan(mesh, block_rows=block)(xd, ones, ones, eps_sq,
+                                                             float(DBSCAN_MIN_SAMPLES))[:rows]
+    _sync(device)
+    sharded_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = DB.dbscan_labels(xd, ones, ones.bool(), eps_sq, float(DBSCAN_MIN_SAMPLES),
+                           block_rows=block)
+    _sync(device)
+    one_s = time.perf_counter() - t0
+    result = {"dbscan": {"rows": rows, "sharded_s": sharded_s, "one_device_s": one_s,
+                         "clusters": int(len(torch.unique(one[one >= 0]))),
+                         "label_mismatches": int((labels != one).sum())}}
+    del xd
+    corpus, queries = knn_workload(knn_rows, knn_queries, n, device, seed)
+    valid = torch.ones(knn_rows, device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    s_mesh, i_mesh = MPN.make_sharded_knn(mesh, k)(corpus, valid, queries)
+    _sync(device)
+    knn_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s_one, _ = NN.knn_topk(queries, corpus, valid.bool(), k)
+    _sync(device)
+    one_knn_s = time.perf_counter() - t0
+    d64, _ = knn_f64(queries, corpus, k)
+    gate = knn_f64_gate(queries, corpus, i_mesh.cpu().numpy(),
+                        np.sqrt(np.maximum(-s_mesh.cpu().numpy(), 0.0)), d64, k)
+    result["knn"] = {"corpus_rows": knn_rows, "queries": knn_queries, "k": k,
+                     "sharded_s": knn_s, "one_device_s": one_knn_s,
+                     "scores_rel_vs_one_device": float(((s_mesh - s_one).abs()
+                                                        / s_one.abs().clamp(min=1e-30)).max()),
+                     **gate}
+    result["launches"] = read_launches()
+    print(f"meshfit (d) dbscan and knn: {json.dumps(result)}", flush=True)
+    if result["dbscan"]["label_mismatches"] or result["dbscan"]["clusters"] < grids:
+        raise AssertionError(f"meshfit (d): sharded DBSCAN labels: {result['dbscan']}")
+    kn = result["knn"]
+    if kn["ids_outside_f64_top_k"] or not (kn["max_rel_dist_err"] <= KNN_RTOL
+                                           and kn["scores_rel_vs_one_device"] <= KNN_RTOL):
+        raise AssertionError(f"meshfit (d): sharded kNN: {kn}")
+    if result["launches"] != expected_launches():
+        raise AssertionError(f"meshfit (d) launched a Gram kernel: {result['launches']}")
+    return result
+
+
+def phase_meshfit_trees_nb(higgs: tuple, device: torch.device, *,
+                           rows: int = MESHFIT_FOREST_ROWS, trees: int = MESHFIT_FOREST_TREES,
+                           nb_rows: int = MESHFIT_NB_ROWS, nb_n: int = NB_N,
+                           classes: int = NB_CLASSES, shards: int = MESH_SHARDS,
+                           seed: int = HIGGS_SEED) -> dict:
+    """Phase 22 (e): a RandomForestClassifier (Spark's depth, bins and
+    feature subsets) built on the first ``rows`` HIGGS-shaped rows through
+    the mesh-sharded builder (``_mesh_forest_builder`` over four shards of
+    the card) and through the one-device build: equal field for field
+    (unit weights and Poisson counts: integer histogram sums); then
+    ``sharded_nb_stats`` and ``sharded_nb_centered_sq`` on ``nb_rows`` of
+    phase 16's count rows against the one-device passes (1e-5 × max)."""
+    x, y_cls = higgs[0][:rows], higgs[1][:rows]
+    mesh = MM.create_mesh(data=shards, devices=[device] * shards)
+    est = RandomForestClassifier(device=device, numTrees=trees, maxDepth=FOREST_DEPTH,
+                                 maxBins=FOREST_BINS, seed=seed)
+    builder = spark_est._mesh_forest_builder(device)
+    real_mesh = spark_est._driver_mesh
+    spark_est._driver_mesh = lambda _device: mesh
+    reset_launches()
+    try:
+        _sync(device)
+        t0 = time.perf_counter()
+        sharded, _ = est._fit_arrays(x, y_cls, None, builder=builder)
+        _sync(device)
+        sharded_s = time.perf_counter() - t0
+    finally:
+        spark_est._driver_mesh = real_mesh
+    t0 = time.perf_counter()
+    one, _ = est._fit_arrays(x, y_cls, None)
+    _sync(device)
+    one_s = time.perf_counter() - t0
+    differing = [f for f in FO.TreeArrays._fields
+                 if not np.array_equal(getattr(sharded, f), getattr(one, f))]
+    result = {"forest": {"rows": rows, "trees": trees, "depth": FOREST_DEPTH,
+                         "sharded_s": sharded_s, "one_device_s": one_s,
+                         "split_nodes": int((~one.is_leaf).sum()),
+                         "differing_fields": differing}}
+    counts, labels = nb_count_workload(nb_rows, nb_n, classes, device, seed)
+    cd = torch.from_numpy(counts).to(device)
+    ld = torch.from_numpy(labels).float().to(device)
+    ones = torch.ones(nb_rows, device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    stats = MPNB.sharded_nb_stats(cd, ld, ones, classes, mesh)
+    mu = stats.feat_sum / stats.counts.clamp(min=1.0)[:, None]
+    sq = MPNB.sharded_nb_centered_sq(cd, ld, ones, mu, classes, mesh)
+    _sync(device)
+    nb_s = time.perf_counter() - t0
+    one_stats = NBO.nb_stats(cd, ld, ones, classes)
+    one_sq = NBO.nb_centered_sq(cd, ld, ones, mu, classes)
+    result["naive_bayes"] = {
+        "rows": nb_rows, "n": nb_n, "classes": classes, "sharded_s": nb_s,
+        "counts_exact": bool(torch.equal(stats.counts, one_stats.counts)),
+        "feat_sum_rel_vs_one_device": _rel(stats.feat_sum, one_stats.feat_sum),
+        "centered_sq_rel_vs_one_device": _rel(sq, one_sq),
+    }
+    result["launches"] = read_launches()
+    print(f"meshfit (e) trees and naive bayes: {json.dumps(result)}", flush=True)
+    if differing or not result["forest"]["split_nodes"]:
+        raise AssertionError(f"meshfit (e): the sharded forest differs: {result['forest']}")
+    nb = result["naive_bayes"]
+    if not (nb["counts_exact"] and nb["feat_sum_rel_vs_one_device"] <= NB_RTOL
+            and nb["centered_sq_rel_vs_one_device"] <= NB_RTOL):
+        raise AssertionError(f"meshfit (e): the sharded NaiveBayes statistics: {nb}")
+    if result["launches"] != expected_launches():
+        raise AssertionError(f"meshfit (e) launched a Gram kernel: {result['launches']}")
+    return result
+
+
+def phase_meshfit_ann(device: torch.device, *, rows: int = MESHFIT_ANN_ROWS,
+                      chunk: int = ANN_STREAM_CHUNK, n: int = CONFIG5_N,
+                      clusters: int = ANN_STREAM_CLUSTERS, shards: int = MESH_SHARDS,
+                      seed: int = ANN_SEED) -> dict:
+    """Phase 22 (f): one streamed Lloyd pass of the IVF index over
+    ``ann_stream_workload``'s chunks through the mesh-sharded fold
+    (``_lloyd_mesh_fold``, four shards of the card, one allreduce) and
+    through the one-device fold, from the same √rows centres: the counts
+    equal but for f64 near ties (twice their number), the centres of every
+    cell whose count agrees within 1e-5 × max, the cost rtol 1e-5; then
+    the index's ``_lloyd`` over the mesh for 2 passes, timed."""
+    from spark_rapids_ml_tpu_torch.ann import index as AI
+
+    chunks, _ = ann_stream_workload(rows, chunk, n, clusters, 1, device, seed)
+    nlist = int(np.sqrt(rows))
+    centers = chunks[0][np.random.default_rng(seed).choice(len(chunks[0]), nlist, replace=False)]
+    mesh = MM.create_mesh(data=shards, devices=[device] * shards)
+    old = torch.from_numpy(centers).to(device)
+    reset_launches()
+
+    def one_pass(fold, init, **kw):
+        _sync(device)
+        t0 = time.perf_counter()
+        res = ingest.stream_fold(iter(chunks), fold, n=n, init=init, device=device, **kw)
+        _sync(device)
+        return res.carry, time.perf_counter() - t0
+
+    carry, mesh_s = one_pass(AI._lloyd_mesh_fold(mesh), lambda: AI._init_mesh_carry(centers, mesh),
+                             chunk_rows=MG.stream_chunk_rows_for_mesh(mesh),
+                             put_fn=MG.chunk_put(mesh), min_chunk_rows=shards)
+    got = MG.finalize_chunk_fold(KM.KMeansStats(carry.sums, carry.counts, carry.cost), mesh)
+    z = dict(device=device, dtype=torch.float32)
+    carry1, one_s = one_pass(AI._lloyd_step, lambda: AI._LloydCarry(
+        torch.zeros((nlist, n), **z), torch.zeros(nlist, **z), torch.zeros((), **z), old))
+    want = KM.KMeansStats(carry1.sums, carry1.counts, carry1.cost)
+    f64 = kmeans_f64_pass([(torch.from_numpy(c).to(device), None, len(c)) for c in chunks], old,
+                          block_rows_for(device, KM.DEFAULT_BLOCK_ROWS, nlist))
+    same = got.counts == want.counts
+    new_got, new_want = KM.update_centers(got, old), KM.update_centers(want, old)
+    result = {
+        "rows": rows, "n": n, "nlist": nlist, "shards": shards, "mesh_pass_s": mesh_s,
+        "one_device_pass_s": one_s, "near_ties": f64["near_ties"],
+        "counts_l1_vs_one_device": int((got.counts - want.counts).abs().sum()),
+        "cells_differing": int((~same).sum()),
+        "centers_rel_vs_one_device": _rel(new_got[same], new_want[same]),
+        "cost_rel_vs_one_device": _rel(got.cost, want.cost),
+    }
+    est = AI.IVFFlatIndex(device=device, maxIter=2, seed=seed)
+    est._mesh_or_none = lambda: mesh
+    _sync(device)
+    t0 = time.perf_counter()
+    est._lloyd(lambda: iter(chunks), centers, n, chunks[0][:4096])
+    _sync(device)
+    result["lloyd_two_passes_s"] = time.perf_counter() - t0
+    result["launches"] = read_launches()
+    print(f"meshfit (f) ann: {json.dumps(result)}", flush=True)
+    if result["counts_l1_vs_one_device"] > 2 * result["near_ties"] or not (
+            result["centers_rel_vs_one_device"] <= MESH_STATS_TOL
+            and result["cost_rel_vs_one_device"] <= MESH_STATS_TOL):
+        raise AssertionError(f"meshfit (f): the mesh Lloyd fold off one device: {result}")
+    if result["launches"] != expected_launches():
+        raise AssertionError(f"meshfit (f) launched a Gram kernel: {result['launches']}")
+    return result
+
+
+def _meshfit_barrier_rank(rank: int, size: int, port: int, path: str, frames: int,
+                          device_type: str, q) -> None:
+    """One rank of phase 22 (g), in a spawned process: its frames through the
+    LinearRegression, binary and softmax Newton and KMeans barrier bodies
+    in turn; its rows, or its error, go to ``q``."""
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        data = np.load(path, mmap_mode="r")
+        edges = partition_edges(len(data["x"]), frames)
+        per = frames // size
+        batches = [ColumnFrame({name: np.ascontiguousarray(data[name][edges[f]:edges[f + 1]])
+                                for name in data.files if name != "c0"})
+                   for f in range(rank * per, (rank + 1) * per)]
+        ctx = StoreBarrierContext(rank, size, port)
+        reg = dict(reg_param=MESHFIT_NEWTON_REG, fit_intercept=True,
+                   max_iter=MESHFIT_NEWTON_ITER, tol=1e-6, device=device_type)
+        bodies = {
+            "linreg": spmd.MeshLinRegPartitionFn("x", "y", "w", device=device_type),
+            "logreg": spmd.MeshLogRegFitFn("x", "yb", None, **reg),
+            "softmax": spmd.MeshSoftmaxFitFn("x", "yc", None, MESHFIT_BARRIER_CLASSES,
+                                             **{**reg, "max_iter": MESHFIT_BARRIER_SOFTMAX_ITER}),
+            "kmeans": spmd.MeshKMeansFitFn("blobs", np.asarray(data["c0"]), None, max_iter=10,
+                                           tol=0.0, device=device_type),
+        }
+        reset_launches()
+        rows_out = {name: fn.mesh_arrays(batches, ctx) for name, fn in bodies.items()}
+        q.put((rank, rows_out, read_launches(), None))
+    except BaseException:  # noqa: BLE001 - reported to the parent, which raises
+        import traceback
+
+        q.put((rank, None, None, traceback.format_exc()))
+
+
+def phase_meshfit_barrier(x_host: np.ndarray, linreg: dict, device: torch.device, *,
+                          rows: int = MESHFIT_BARRIER_ROWS, ranks: int = MESH_BARRIER_RANKS,
+                          frames: int = MESH_BARRIER_FRAMES, seed: int = LINEAR_SEED) -> dict:
+    """Phase 22 (g): ``MeshLinRegPartitionFn``, ``MeshLogRegFitFn``,
+    ``MeshSoftmaxFitFn`` (3 classes) and ``MeshKMeansFitFn`` in one spawn of
+    ``ranks`` processes on one device over gloo, each rank running the four
+    bodies in turn on its frames of the first ``rows`` of phase 8's rows
+    (phase 14's labels and weights; logistic and softmax labels; config
+    5-style blobs for KMeans). Only rank 0 yields; each row against the
+    in-process mesh program over the same rows (1e-5 × max; class-centred
+    for softmax) and f64: the statistics through phase 14's bound, the
+    Newton fits' f64 gradient, the KMeans cost."""
+    import datetime
+    import multiprocessing as mp
+
+    n = x_host.shape[1]
+    x = x_host[:rows]
+    xd = torch.from_numpy(x).to(device)
+    yb = _logistic_labels(xd, seed)
+    yc = _softmax_labels(xd, MESHFIT_BARRIER_CLASSES, seed)
+    k = MESHFIT_BARRIER_K
+    centres = kmeans_centres(k, CONFIG5_N, device, CONFIG5_SEED)
+    edges = partition_edges(rows, frames)
+    blobs = torch.cat([kmeans_partition(p, edges, centres, CONFIG5_SEED) for p in range(frames)])
+    c0 = blobs[torch.randperm(rows, generator=torch.Generator().manual_seed(seed))[:k].to(
+        device)].cpu().numpy()
+    data = {"x": x, "y": linreg["y"][:rows], "w": linreg["w"][:rows].astype(np.float32),
+            "yb": yb.astype(np.float32), "yc": yc.astype(np.float32),
+            "blobs": blobs.cpu().numpy(), "c0": c0}
+    store = torch.distributed.TCPStore("127.0.0.1", 0, ranks + 1, True,
+                                       timeout=datetime.timedelta(seconds=300),
+                                       wait_for_workers=False)
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-meshfit-") as tmp:
+        path = os.path.join(tmp, "rows.npz")
+        np.savez(path, **data)
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_meshfit_barrier_rank,
+                             args=(r, ranks, store.port, path, frames, device.type, q))
+                 for r in range(ranks)]
+        for p in procs:
+            p.start()
+        try:
+            results = sorted((q.get(timeout=600) for _ in procs), key=lambda t: t[0])
+        finally:
+            for p in procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.kill()
+        stage_s = time.perf_counter() - t0
+    errors = [err for *_, err in results if err]
+    if errors or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"meshfit (g): a rank failed: {errors or [p.exitcode for p in procs]}")
+    yielded = {name: [r for r, out, _, _ in results if out[name] is not None]
+               for name in results[0][1]}
+    row = results[0][1]
+    launches = {name: sum(r[2][name] for r in results) for name in KERNELS}
+    mesh = MM.create_mesh(data=ranks, devices=[device] * ranks)
+    wd = torch.from_numpy(data["w"]).to(device)
+    ones = torch.ones(rows, device=device)
+    xa = torch.cat([xd, ones[:, None]], 1)
+    result = {"rows": rows, "n": n, "ranks": ranks, "frames": frames, "stage_s": stage_s,
+              "yielding_ranks": yielded, "launches": launches}
+    # LinearRegression: the statistics
+    lin = MPL.sharded_linear_stats_weighted(xd, torch.from_numpy(data["y"]).to(device), wd, mesh)
+    got = LIN.LinearStats(*(torch.as_tensor(np.asarray(row["linreg"][f]), device=device)
+                            for f in LIN.LinearStats._fields))
+    oracle = linear_stats_f64(x, data["y"], linreg["w"][:rows], device)[1]
+    coef, b0 = LIN.solve_from_stats(got)
+    result["linreg"] = {"rel_vs_in_process": _stats_rel(got, lin),
+                        "gates_vs_f64": linreg_gates(got, oracle, coef.cpu().numpy(), float(b0),
+                                                     stats_rtol=None)}
+    # the Newton fits: parameters, and the f64 gradient at them
+    for name, labels, classes in (("logreg", yb, None), ("softmax", yc, MESHFIT_BARRIER_CLASSES)):
+        yd = torch.from_numpy(labels.astype(np.float32)).to(device)
+        if classes is None:
+            fit = MPL.make_distributed_logreg_fit(mesh, reg_param=MESHFIT_NEWTON_REG,
+                                                  max_iter=MESHFIT_NEWTON_ITER, tol=1e-6)
+        else:
+            fit = MPL.make_distributed_softmax_fit(mesh, classes, reg_param=MESHFIT_NEWTON_REG,
+                                                   max_iter=MESHFIT_BARRIER_SOFTMAX_ITER, tol=1e-6)
+        w_in, _, _ = fit(xa, yd, ones)
+        w_row = np.asarray(row[name]["w"], np.float64)
+        rel = (_rel(w_row, w_in) if classes is None else
+               _rel(_centred_classes(w_row, classes), _centred_classes(w_in.cpu().numpy(), classes)))
+        y64 = torch.from_numpy(labels).to(device)
+        wt = torch.from_numpy(w_row).to(device)
+        _, grad, _ = newton_f64(xd, y64, wt, MESHFIT_NEWTON_REG, classes, hessian=False)
+        _, grad0, _ = newton_f64(xd, y64, torch.zeros_like(wt), MESHFIT_NEWTON_REG, classes,
+                                 hessian=False)
+        result[name] = {"iterations": float(row[name]["iterations"]), "rel_vs_in_process": rel,
+                        "grad_rel_f64": float(torch.linalg.norm(grad) / torch.linalg.norm(grad0))}
+    # KMeans: the centres, and the f64 cost at them
+    c_in, _, _ = MPK.make_distributed_kmeans_fit(mesh, max_iter=10, tol=0.0)(
+        blobs, ones, torch.from_numpy(c0).to(device))
+    c_row = np.asarray(row["kmeans"]["centers"], np.float32)
+    f64 = kmeans_f64_pass([(blobs, None, rows)], torch.from_numpy(c_row).to(device),
+                          block_rows_for(device, KM.DEFAULT_BLOCK_ROWS, k), compare=False)
+    result["kmeans"] = {"rel_vs_in_process": _rel(c_row, c_in),
+                        "cost_rel_f64": abs(float(row["kmeans"]["cost"]) - f64["cost64"])
+                        / f64["cost64"]}
+    print(f"meshfit (g) barrier: {json.dumps(result)}", flush=True)
+    if any(v != [0] for v in yielded.values()):
+        raise AssertionError(f"meshfit (g): ranks {yielded} yielded rows, expected rank 0 alone")
+    if launches != expected_launches():
+        raise AssertionError(f"meshfit (g): the ranks launched {launches}")
+    for name in ("linreg", "logreg", "softmax", "kmeans"):
+        if not result[name]["rel_vs_in_process"] <= MESH_STATS_TOL:
+            raise AssertionError(f"meshfit (g): the {name} row off the in-process program: "
+                                 f"{result[name]}")
+    for name in ("logreg", "softmax"):
+        if not result[name]["grad_rel_f64"] <= NEWTON_GRAD_RTOL:
+            raise AssertionError(f"meshfit (g): the {name} row's f64 gradient: {result[name]}")
+    if not result["kmeans"]["cost_rel_f64"] <= KMEANS_RTOL:
+        raise AssertionError(f"meshfit (g): the KMeans row's cost off f64: {result['kmeans']}")
+    return result
+
+
+def _meshfit_launches(meshfit: dict, name: str) -> dict:
+    """One kernel's launches in each part of phase 22 that ran."""
+    out = {}
+    for part, result in meshfit.items():
+        launches = result["launches"]
+        if name in launches:
+            out[part] = launches[name]
+        else:  # (a): one count per program
+            out.update({f"{part}_{prog}": counts[name] for prog, counts in launches.items()})
+    return out
+
+
 def _timed(name: str, fn, *args, **kwargs):
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
@@ -6311,6 +7040,8 @@ SKIPPABLE = {
     "selection": "phase 18 (a), (b), (e) (model selection, the device policy)",
     "spark": "phase 20 (the Spark glue's bodies and driver halves)",
     "mesh": "phase 21 (the device mesh, its programs and the barrier bodies)",
+    "meshfit": "phase 22 (the mesh fits: linear, Newton, KMeans, DBSCAN, kNN, forest, "
+               "NaiveBayes, ANN, the fit barrier bodies)",
 }
 
 
@@ -6412,6 +7143,19 @@ def main(argv=()) -> int:
         del mesh_x, mesh_gram
         torch.cuda.empty_cache()
         print(f"phase mesh (21): {time.perf_counter() - t_mesh:.1f} s", flush=True)
+    meshfit, meshfit_s = {}, []
+
+    def run_meshfit(part: str, label: str, fn, *args):
+        t0 = time.perf_counter()
+        meshfit[part] = _timed(f"meshfit {label}", fn, *args)
+        meshfit_s.append(time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+
+    if "meshfit" not in skip:
+        run_meshfit("linear", "(a) linear", phase_meshfit_linear, stream_data[0], linreg, device)
+        run_meshfit("newton", "(b) newton", phase_meshfit_newton, stream_data[0], device)
+        run_meshfit("barrier", "(g) barrier", phase_meshfit_barrier, stream_data[0], linreg,
+                    device)
     del stream_data, linreg
     torch.cuda.empty_cache()
     if "serving" not in skip:
@@ -6428,8 +7172,12 @@ def main(argv=()) -> int:
     if "spark" not in skip:
         _timed("spark glue (b, d)", phase_spark_kmeans, device)
         torch.cuda.empty_cache()
+    if "meshfit" not in skip:
+        run_meshfit("kmeans", "(c) kmeans", phase_meshfit_kmeans, device)
     if "distance" not in skip:
         _timed("dbscan and knn", phase_distance_family, device)
+    if "meshfit" not in skip:
+        run_meshfit("distance", "(d) dbscan and knn", phase_meshfit_distance, device)
     if "ann" not in skip:
         ann = _timed("ann (a) resident", phase_ann_resident, device)
         _timed("ann (c) serving", phase_ann_serving, ann.pop("model"), ann.pop("queries_h"),
@@ -6437,10 +7185,15 @@ def main(argv=()) -> int:
         torch.cuda.empty_cache()
         _timed("ann (b) streamed", phase_ann_streamed, device)
         torch.cuda.empty_cache()
+    if "meshfit" not in skip:
+        run_meshfit("ann", "(f) ann", phase_meshfit_ann, device)
     if "trees" not in skip:
         higgs = _timed("make higgs data", higgs_workload, HIGGS_ROWS, HIGGS_N, device)
         _timed("trees and naive bayes", phase_trees_nb, device, data=higgs)
         torch.cuda.empty_cache()
+        if "meshfit" not in skip:
+            run_meshfit("trees_nb", "(e) trees and naive bayes", phase_meshfit_trees_nb, higgs,
+                        device)
         _timed("families", phase_families, device, higgs)
         del higgs
         torch.cuda.empty_cache()
@@ -6448,6 +7201,8 @@ def main(argv=()) -> int:
         _timed("selection (a) text", phase_text_selection, device)
         _timed("selection (b) tabular", phase_adult_selection, device)
         _timed("device policy (e)", phase_device_policy, device)
+    if meshfit_s:
+        print(f"phase meshfit (22): {sum(meshfit_s):.1f} s", flush=True)
     for group in sorted(skip):
         print(f"skipped: {SKIPPABLE[group]}", flush=True)
     # each kernel's launches come from the main path that runs it
@@ -6491,6 +7246,9 @@ def main(argv=()) -> int:
                     mesh["streamed"]["four_shards"]["launches"][name],
                 "barrier_gram_ranks": mesh["barrier"]["launches"][name],
             },
+            # phase 22: each part's runs (cuBLAS products, gathers and
+            # index_add_ only, so 0 unless a part launches the kernel)
+            "phase22_launches": _meshfit_launches(meshfit, name) if meshfit else None,
             "max_abs_err": at_main["max_abs_err"],
             "tol": at_main["tol"],
             "ms": at_main["kernel_ms"],

@@ -26,9 +26,13 @@ Spans: ``ann build`` around the whole build; inside it ``ann sample``,
 ``ann init``, one ``ann lloyd`` per pass and ``ann pack`` (the assign pass
 ``ann assign`` and the pack pass).
 
-The index always builds on one device: the JAX package's mesh-sharded fold
-(``_lloyd_mesh_fold_prog``, ``_init_mesh_carry``) is not ported. The index
-is built in f32.
+Where the device's mesh has more than one data shard (``_mesh_or_none``:
+every card of a machine with several), each Lloyd pass is the
+mesh-sharded fold (``_lloyd_mesh_fold``, ``_init_mesh_carry``): the carry's
+leaves are the stacked per-shard partials of ``parallel/gram.py``, each
+shard folds its piece of a chunk into its own slice with no collective, and
+one allreduce ends the pass (``finalize_chunk_fold``). The index is built
+in f32.
 
 Sources must be **re-iterable** (the build makes several passes): a
 [rows, n] ndarray, a list/tuple of chunk arrays, or a zero-arg callable
@@ -94,6 +98,44 @@ def _lloyd_step(carry: _LloydCarry, x: torch.Tensor, w: torch.Tensor) -> _LloydC
     carry.counts.add_(st.counts)
     carry.cost.add_(st.cost)
     return carry
+
+
+def _lloyd_mesh_fold(mesh):
+    """The mesh-sharded ``fold_fn`` of a Lloyd pass: each data shard's
+    ``kmeans_stats`` of its piece of the chunk (``chunk_put``) against its
+    own copy of the centres, added into its slice of the stacked carry in
+    place; no collective."""
+
+    def fold(carry: _LloydCarry, x, w) -> _LloydCarry:
+        for i in mesh.data_indices():
+            xl = x.block(i)
+            centers = carry.centers.block(i)[0]
+            st = KM.kmeans_stats(
+                xl, centers, w.block(i).to(xl.device, non_blocking=True),
+                block_rows=block_rows_for(xl.device, KM.DEFAULT_BLOCK_ROWS, centers.shape[0]),
+            )
+            carry.sums.block(i)[0].add_(st.sums)
+            carry.counts.block(i)[0].add_(st.counts)
+            carry.cost.block(i)[0].add_(st.cost)
+        return carry
+
+    return fold
+
+
+def _init_mesh_carry(centers: np.ndarray, mesh) -> _LloydCarry:
+    """The zero stacked-partials carry of a mesh Lloyd pass, every shard
+    holding its own full copy of the centres."""
+    from spark_rapids_ml_tpu_torch.parallel import gram as G
+
+    k, n = centers.shape
+    meta = dict(dtype=torch.float32, device="meta")
+    zero = G.init_chunk_carry(
+        KM.KMeansStats(torch.empty((k, n), **meta), torch.empty((k,), **meta),
+                       torch.empty((), **meta)), mesh)
+    copies = G.init_chunk_carry(torch.empty((k, n), **meta), mesh)
+    for i in mesh.data_indices():
+        copies.block(i)[0].copy_(torch.from_numpy(np.asarray(centers, np.float32)))
+    return _LloydCarry(zero.sums, zero.counts, zero.cost, copies)
 
 
 def _assign(x: np.ndarray, centers: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
@@ -340,26 +382,44 @@ class IVFFlatIndex(_ANNParams, Estimator):
         sample (``_rebalance_cells``) before the next pass, and a repairing
         pass never takes the convergence exit, since a reseed moves centers
         arbitrarily far."""
+        from spark_rapids_ml_tpu_torch.parallel import gram as G
+        from spark_rapids_ml_tpu_torch.parallel.mesh import DATA_AXIS
         from spark_rapids_ml_tpu_torch.spark import ingest
 
         device = self.device
         k = centers.shape[0]
+        mesh = self._mesh_or_none()
         for _ in range(self.getOrDefault("maxIter")):
             with trace_range("ann lloyd", device):
                 old = to_device(centers, device)
-                res = ingest.stream_fold(
-                    chunks(),
-                    _lloyd_step,
-                    n=n,
-                    init=lambda: _LloydCarry(
-                        sums=torch.zeros((k, n), dtype=torch.float32, device=device),
-                        counts=torch.zeros((k,), dtype=torch.float32, device=device),
-                        cost=torch.zeros((), dtype=torch.float32, device=device),
-                        centers=old,
-                    ),
-                    device=device,
-                )
-                stats = KM.KMeansStats(res.carry.sums, res.carry.counts, res.carry.cost)
+                if mesh is None:
+                    res = ingest.stream_fold(
+                        chunks(),
+                        _lloyd_step,
+                        n=n,
+                        init=lambda: _LloydCarry(
+                            sums=torch.zeros((k, n), dtype=torch.float32, device=device),
+                            counts=torch.zeros((k,), dtype=torch.float32, device=device),
+                            cost=torch.zeros((), dtype=torch.float32, device=device),
+                            centers=old,
+                        ),
+                        device=device,
+                    )
+                    stats = KM.KMeansStats(res.carry.sums, res.carry.counts, res.carry.cost)
+                else:
+                    res = ingest.stream_fold(
+                        chunks(),
+                        _lloyd_mesh_fold(mesh),
+                        n=n,
+                        init=lambda: _init_mesh_carry(centers, mesh),
+                        device=mesh.first_device,
+                        chunk_rows=G.stream_chunk_rows_for_mesh(mesh),
+                        put_fn=G.chunk_put(mesh),
+                        min_chunk_rows=mesh.shape[DATA_AXIS],
+                    )
+                    stats = KM.KMeansStats(*(t.to(device) for t in G.finalize_chunk_fold(
+                        KM.KMeansStats(res.carry.sums, res.carry.counts, res.carry.cost),
+                        mesh)))
                 new = KM.update_centers(stats, old)
                 shift = float(KM.center_shift_sq(old, new))
                 centers, reseeded = _rebalance_cells(
@@ -371,6 +431,19 @@ class IVFFlatIndex(_ANNParams, Estimator):
             if shift <= _SHIFT_TOL:
                 break
         return centers
+
+    def _mesh_or_none(self):
+        """The device's mesh for the Lloyd passes when it has more than one
+        data shard (a machine with several cards), else None: the
+        one-device fold. A mesh that cannot be made builds on one device."""
+        from spark_rapids_ml_tpu_torch.parallel import mesh as M
+
+        if self.device.type != "cuda" or torch.cuda.device_count() <= 1:
+            return None
+        try:
+            return M.local_mesh(self.device)
+        except (RuntimeError, ValueError):
+            return None
 
     def _assign_and_pack(self, chunk_factory, centers: np.ndarray, nlist: int,
                          total: int) -> IVF.IvfBuckets:

@@ -261,9 +261,9 @@ class _ForestEstimator(_ForestParams, Estimator):
     def getImpurity(self) -> str:
         return self.getOrDefault("impurity")
 
-    def _make_model(self, x, y, w):
+    def _make_model(self, x, y, w, builder=None):
         """Fit the arrays and wrap them in the subclass's model."""
-        trees, thresholds = self._fit_arrays(x, y, w)
+        trees, thresholds = self._fit_arrays(x, y, w, builder=builder)
         model = self._model_cls(
             uid=self.uid, trees=trees, thresholds=thresholds,
             numFeatures=x.shape[1], device=self.device,
@@ -271,10 +271,13 @@ class _ForestEstimator(_ForestParams, Estimator):
         return self._copyValues(model)
 
     def _fit_arrays(
-        self, x: np.ndarray, y: np.ndarray, w: np.ndarray | None
+        self, x: np.ndarray, y: np.ndarray, w: np.ndarray | None, builder=None
     ) -> tuple[FO.TreeArrays, np.ndarray]:
         """(trees as host arrays, thresholds): bin edges and bootstrap
-        weights on the host (numpy), binning and the build on the device."""
+        weights on the host (numpy), binning and the build on the device.
+        ``builder`` replaces :func:`ops.forest.build_forest` (the same
+        arguments) so that the Spark estimator can route the build through
+        the mesh-sharded program (``parallel/forest.py``)."""
         n_bins = self.getMaxBins()
         seed = self.getSeed()
         n_trees = self.getNumTrees()
@@ -304,7 +307,8 @@ class _ForestEstimator(_ForestParams, Estimator):
         )
         with trace_range("forest build", device):
             binned_t = bin_on_device(to_device(x, device), edges)
-            trees = FO.build_forest(
+            build = FO.build_forest if builder is None else builder
+            trees = build(
                 binned_t,
                 to_device(row_stats, device),
                 to_device(weights, device),

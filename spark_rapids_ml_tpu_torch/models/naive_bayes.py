@@ -16,8 +16,11 @@ variances), plus a ``device`` argument (default ``"cuda"``).
   (``nb_centered_sq``) Σw(x−μ_c)²/N, floored at 1e-12;
 - the input checks are the JAX package's: integer labels 0..C−1,
   non-negative features for multinomial and bernoulli, 0/1 for bernoulli;
-- ``distribution`` is kept for the params' sake: both values run the same
-  one-device fit (the JAX package's mesh-local statistics are not ported);
+- ``distribution="mesh-local"`` concatenates the rows once onto the
+  device's own mesh (``parallel.mesh.local_mesh``: every card, one shard
+  on the CPU), padded with weight 0, and both passes are one psum each
+  (``parallel/naive_bayes.py``); ``"driver-merge"`` tree-reduces the
+  partitions' statistics on the device;
 - the raw scores (Spark's rawPrediction) are computed on the device in f64
   from the f32 rows, a chunk of rows at a time; probabilities and the
   argmax are host numpy.
@@ -62,8 +65,8 @@ class _NBParams(HasDevice, HasFeaturesCol, HasLabelCol, HasPredictionCol):
     weightCol = Param("weightCol", "optional instance-weight column", str)
     distribution = Param(
         "distribution",
-        "'driver-merge' or 'mesh-local'; the port runs both as one-device "
-        "fits with identical results",
+        "'driver-merge' (partition statistics tree-reduced on the device) or "
+        "'mesh-local' (the rows sharded over the device's mesh, one psum a pass)",
         str,
     )
 
@@ -145,19 +148,35 @@ class NaiveBayes(_NBParams, Estimator):
                     )
 
         device = self.device
-        device_parts = [
-            (
-                to_device(x, device),
-                to_device(np.asarray(y), device),
-                to_device(np.ones(len(x), np.float32) if w is None else w, device),
-            )
-            for x, y, w in parts
-        ]
-        with trace_range("naive bayes stats", device):
-            stats = tree_reduce(
-                [NB.nb_stats(xd, yd, wd, n_classes) for xd, yd, wd in device_parts],
-                NB.combine_nb_stats,
-            )
+        mesh_local = self.getOrDefault("distribution") == "mesh-local"
+        if mesh_local:
+            from spark_rapids_ml_tpu_torch.parallel import mesh as M
+            from spark_rapids_ml_tpu_torch.parallel import naive_bayes as PNB
+
+            # the rows once onto the device's mesh, pad rows at weight 0
+            mesh = M.local_mesh(device)
+            x_all = np.concatenate([p[0] for p in parts]).astype(np.float32, copy=False)
+            y_all = np.concatenate([p[1] for p in parts]).astype(np.float32)
+            w_all = np.concatenate([np.ones(len(x), np.float32) if w is None
+                                    else np.asarray(w, np.float32) for x, _, w in parts])
+            xs, ys, ws = (M.shard(x_all, mesh), M.vector_sharding(mesh).shard(y_all),
+                          M.vector_sharding(mesh).shard(w_all))
+            with trace_range("naive bayes stats (mesh)", device):
+                stats = PNB.sharded_nb_stats(xs, ys, ws, n_classes, mesh)
+        else:
+            device_parts = [
+                (
+                    to_device(x, device),
+                    to_device(np.asarray(y), device),
+                    to_device(np.ones(len(x), np.float32) if w is None else w, device),
+                )
+                for x, y, w in parts
+            ]
+            with trace_range("naive bayes stats", device):
+                stats = tree_reduce(
+                    [NB.nb_stats(xd, yd, wd, n_classes) for xd, yd, wd in device_parts],
+                    NB.combine_nb_stats,
+                )
         counts = stats.counts.cpu().numpy().astype(np.float64)
         feat_sum = stats.feat_sum.cpu().numpy().astype(np.float64)
         lam = self.getSmoothing()
@@ -181,11 +200,14 @@ class NaiveBayes(_NBParams, Estimator):
             mu = feat_sum / safe_counts[:, None]
             with trace_range("naive bayes variance pass", device):
                 mu_d = to_device(mu, device)
-                sq = tree_reduce(
-                    [NB.nb_centered_sq(xd, yd, wd, mu_d, n_classes)
-                     for xd, yd, wd in device_parts],
-                    lambda a, b: a + b,
-                )
+                if mesh_local:
+                    sq = PNB.sharded_nb_centered_sq(xs, ys, ws, mu_d, n_classes, mesh)
+                else:
+                    sq = tree_reduce(
+                        [NB.nb_centered_sq(xd, yd, wd, mu_d, n_classes)
+                         for xd, yd, wd in device_parts],
+                        lambda a, b: a + b,
+                    )
             var = sq.cpu().numpy().astype(np.float64) / safe_counts[:, None]
             theta = mu
             sigma = np.maximum(var, 1e-12)

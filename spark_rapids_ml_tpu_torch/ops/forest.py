@@ -120,9 +120,9 @@ def _running_sums(hist: torch.Tensor) -> torch.Tensor:
 
 
 def build_tree(
-    binned_t: torch.Tensor,   # [F, rows] int32 bin ids in [0, n_bins)
-    row_stats: torch.Tensor,  # [rows, S] per-row stats (unweighted)
-    w: torch.Tensor,          # [rows] bootstrap × instance weights (0 = excluded)
+    binned_t,                 # [F, rows] int32 bin ids in [0, n_bins)
+    row_stats,                # [rows, S] per-row stats (unweighted)
+    w,                        # [rows] bootstrap × instance weights (0 = excluded)
     min_instances: float,     # weighted count floor per child
     min_info_gain: float,
     *,
@@ -131,15 +131,28 @@ def build_tree(
     k_features: int,
     impurity: str,
     generator: torch.Generator | None = None,
+    reduce=None,
 ) -> TreeArrays:
     """Grow one histogram tree level-order. ``generator`` draws the per-node
-    feature subsets when ``k_features`` < F."""
+    feature subsets when ``k_features`` < F.
+
+    ``reduce`` is the sharded build's per-level reduction
+    (``parallel/forest.py``): ``binned_t``, ``row_stats`` and ``w`` are then
+    lists of the owned data shards' blocks, in shard order, and
+    ``reduce(hists) -> hist`` sums the shards' level histograms. Every shard
+    takes the split decisions of the reduced histogram (on the first
+    shard's device) and routes its own rows. With None (the default) the
+    arguments are single tensors: the one-device build."""
     if impurity not in IMPURITIES:
         raise ValueError(f"impurity must be one of {IMPURITIES}")
-    n_feat, rows = binned_t.shape
-    s = row_stats.shape[1]
+    if reduce is None:
+        shards = [(binned_t, row_stats, w)]
+    else:
+        shards = list(zip(binned_t, row_stats, w))
+    n_feat = shards[0][0].shape[0]
+    s = shards[0][1].shape[1]
     max_nodes = 2 ** (max_depth + 1) - 1
-    dev, fdt = row_stats.device, row_stats.dtype
+    dev, fdt = shards[0][1].device, shards[0][1].dtype
 
     feature = torch.full((max_nodes,), -1, dtype=torch.int32, device=dev)
     split_bin = torch.zeros((max_nodes,), dtype=torch.int32, device=dev)
@@ -147,20 +160,25 @@ def build_tree(
     leaf_stats = torch.zeros((max_nodes, s), dtype=fdt, device=dev)
     gain = torch.zeros((max_nodes,), dtype=fdt, device=dev)
 
-    node = torch.zeros((rows,), dtype=torch.int64, device=dev)  # heap node per row
-    active = torch.ones((rows,), dtype=torch.bool, device=dev)
+    # heap node and activity per row, per shard
+    nodes = [torch.zeros((b.shape[1],), dtype=torch.int64, device=b.device) for b, _, _ in shards]
+    actives = [torch.ones((b.shape[1],), dtype=torch.bool, device=b.device) for b, _, _ in shards]
     last_bin = torch.arange(n_bins, device=dev)[None, None, :] < n_bins - 1
     neg_inf = torch.tensor(float("-inf"), dtype=fdt, device=dev)
 
     for d in range(max_depth + 1):
         nodes_d = 2 ** d
         offset = nodes_d - 1
-        # inactive rows keep the heap id of the level they went leaf at:
-        # clipped into range, they add 0 (weight 0) and never route
-        local = torch.clamp(node - offset, 0, nodes_d - 1)
-        wa = torch.where(active, w, torch.zeros_like(w))
-        contrib = row_stats * wa[:, None]
-        hist = level_histogram(binned_t, local, contrib, nodes_d, n_bins)
+        locals_, hists = [], []
+        for (b_t, r_s, w_s), node, active in zip(shards, nodes, actives):
+            # inactive rows keep the heap id of the level they went leaf at:
+            # clipped into range, they add 0 (weight 0) and never route
+            local = torch.clamp(node - offset, 0, nodes_d - 1)
+            wa = torch.where(active, w_s, torch.zeros_like(w_s))
+            contrib = r_s * wa[:, None]
+            hists.append(level_histogram(b_t, local, contrib, nodes_d, n_bins))
+            locals_.append(local)
+        hist = hists[0] if reduce is None else reduce(hists)
 
         left = _running_sums(hist)  # [F, nodes_d, B, S]
         total = left[0, :, -1]      # [nodes_d, S]
@@ -207,13 +225,15 @@ def build_tree(
         gain[offset:offset + nodes_d] = torch.where(do_split, best_gain, 0.0)
 
         # route rows: split nodes send rows to 2·node+1 (+1 if bin > b)
-        row_split = active & do_split[local]
-        rf = best_f[local].to(torch.int64)
-        rb = best_b[local]
-        row_bin = torch.gather(binned_t, 0, rf[None, :])[0]
-        goes_right = (row_bin > rb).to(torch.int64)
-        node = torch.where(row_split, 2 * node + 1 + goes_right, node)
-        active = active & row_split
+        for i, ((b_t, _, _), local) in enumerate(zip(shards, locals_)):
+            sd = b_t.device
+            row_split = actives[i] & do_split.to(sd)[local]
+            rf = best_f.to(sd)[local].to(torch.int64)
+            rb = best_b.to(sd)[local]
+            row_bin = torch.gather(b_t, 0, rf[None, :])[0]
+            goes_right = (row_bin > rb).to(torch.int64)
+            nodes[i] = torch.where(row_split, 2 * nodes[i] + 1 + goes_right, nodes[i])
+            actives[i] = actives[i] & row_split
 
     return TreeArrays(feature, split_bin, is_leaf, leaf_stats, gain)
 

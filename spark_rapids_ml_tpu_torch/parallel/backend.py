@@ -225,21 +225,25 @@ def mapreduce_data_axis(kernel, mesh: Mesh, *, replicated_args: int = 0, in_spec
         in_specs = (MATRIX_SPEC,) + (REPLICATED_SPEC,) * replicated_args
 
     def run(*args):
-        shards = []
-        for a, spec in zip(args, in_specs):
-            if spec == REPLICATED_SPEC:
-                shards.append(None)
-            else:
-                shards.append(Sharding(mesh, spec).shard(a))
-        outs = []
-        for i in mesh.data_indices():
-            dev = mesh.device(i)
-            ops = [s.block(i) if s is not None else torch.as_tensor(a).to(dev)
-                   for a, s in zip(args, shards)]
-            outs.append(kernel(*ops))
-        return psum_tree(mesh, outs)
+        return psum_tree(mesh, [kernel(*ops) for ops in shard_operands(mesh, args, in_specs)])
 
     return run
+
+
+def shard_operands(mesh: Mesh, args: Sequence[Any], in_specs: Sequence[tuple]) -> list[list]:
+    """Each owned data shard's operands, in shard order: the shard's block
+    of each sharded argument (``MATRIX_SPEC`` or ``VECTOR_SPEC``; a tensor,
+    an ndarray or a ``Sharded``) and each replicated one
+    (``REPLICATED_SPEC``) on the shard's device. ``None`` passes through."""
+    shards = [None if spec == REPLICATED_SPEC or a is None else Sharding(mesh, spec).shard(a)
+              for a, spec in zip(args, in_specs)]
+    out = []
+    for i in mesh.data_indices():
+        dev = mesh.device(i)
+        out.append([s.block(i) if s is not None
+                    else (None if a is None else torch.as_tensor(a).to(dev))
+                    for a, s in zip(args, shards)])
+    return out
 
 
 def allreduce(x: Sharded, mesh: Mesh, axis: str = DATA_AXIS) -> torch.Tensor:

@@ -106,6 +106,13 @@ def _default_devices() -> list[torch.device]:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
+def local_mesh(device: torch.device | str) -> Mesh:
+    """The mesh of a mesh-local fit on ``device``: one data shard per card
+    of a CUDA device, one shard on the CPU."""
+    device = torch.device(device)
+    return create_mesh(devices=None if device.type == "cuda" else [device])
+
+
 def create_mesh(data: int | None = None, feat: int = 1, *, devices=None) -> Mesh:
     """A (data, feat) mesh over ``devices`` (default: every card). With
     ``data=None`` the data axis takes every device the feat axis leaves.

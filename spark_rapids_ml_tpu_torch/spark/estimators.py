@@ -35,22 +35,27 @@ of the mesh (``parallel/``, ``spark/spmd.py``):
 - ``"mesh-local"``: the rows stream onto the driver's own mesh
   (``_driver_mesh``: every card of the estimator's device type, one shard
   on the CPU) through ``ingest.stream_to_mesh``, and the mesh program
-  reduces them: SparkPCA (every solver; above the resident cutover the
-  per-shard chunk fold ``sharded_gram_fold``, resumable with
-  ``checkpoint_dir``; when mesh creation fails with a non-fatal error, or
-  under ``TPU_ML_ADMISSION_POLICY=degrade``, the one-device streamed fold
-  on the estimator's own device, counted as ``degraded.cpu_fallback``),
+  reduces them: SparkPCA (every solver) and SparkLinearRegression (above
+  the resident cutover the per-shard chunk folds ``sharded_gram_fold`` and
+  ``sharded_linear_fold``, resumable with ``checkpoint_dir``; when mesh
+  creation fails with a non-fatal error, or under
+  ``TPU_ML_ADMISSION_POLICY=degrade``, the one-device streamed fold on the
+  estimator's own device, counted as ``degraded.cpu_fallback``),
   SparkStandardScaler, the range and histogram family (MinMax, MaxAbs,
-  Robust, QuantileDiscretizer) and SparkTruncatedSVD;
+  Robust, QuantileDiscretizer), SparkTruncatedSVD, the Newton fits of
+  SparkLogisticRegression and SparkLinearSVC and the Lloyd loop of
+  SparkKMeans (k-means‖ seeded on the mesh), each whole loop over the
+  mesh and chunked with ``checkpoint_dir``; the forests build with one
+  histogram psum a level (``_mesh_forest_builder``);
 - ``"mesh-barrier"``: one barrier stage whose tasks form a process mesh
   (``spark/spmd.py``), so the driver receives one reduced row: SparkPCA
-  (the Gram, or TSQR for ``solver="svd"``), SparkStandardScaler and
-  SparkTruncatedSVD.
+  (the Gram, or TSQR for ``solver="svd"``), SparkStandardScaler,
+  SparkTruncatedSVD, SparkLinearRegression, and the whole Newton and Lloyd
+  fits of SparkLogisticRegression (binary or softmax) and SparkKMeans.
 
-The other estimators accept the mesh distributions as params, as in the
-JAX package, and refuse them at fit before any job: their mesh programs
-are ROADMAP Queue A item 6's second half. pyspark is optional and imported
-only for a pyspark DataFrame.
+SparkDBSCANModel labels on the driver's mesh when it has more than one
+data shard. Every estimator accepts the distributions the JAX package
+allows it. pyspark is optional and imported only for a pyspark DataFrame.
 There is no compilation cache to enable (``_sql_mods``): a CUDA graph
 cannot outlive its process.
 """
@@ -143,6 +148,8 @@ from spark_rapids_ml_tpu_torch.models.selector import (
 )
 from spark_rapids_ml_tpu_torch.models.truncated_svd import TruncatedSVD, TruncatedSVDModel
 from spark_rapids_ml_tpu_torch.models.umap import UMAP, UMAPModel
+from spark_rapids_ml_tpu_torch.ops import dbscan as DB
+from spark_rapids_ml_tpu_torch.ops import forest as FO
 from spark_rapids_ml_tpu_torch.ops import kmeans as KM
 from spark_rapids_ml_tpu_torch.ops import linalg as L
 from spark_rapids_ml_tpu_torch.ops import linear as LIN
@@ -152,11 +159,9 @@ from spark_rapids_ml_tpu_torch.telemetry import trace_range
 from spark_rapids_ml_tpu_torch.telemetry.registry import REGISTRY
 from spark_rapids_ml_tpu_torch.utils import columnar
 from spark_rapids_ml_tpu_torch.utils.config import get_config
-from spark_rapids_ml_tpu_torch.utils.device import to_device
+from spark_rapids_ml_tpu_torch.utils.device import block_rows_for, to_device
 
 logger = logging.getLogger("spark_rapids_ml_tpu_torch")
-
-_MESH_DISTRIBUTIONS = ("mesh-local", "mesh-barrier")
 
 
 def _require_pyspark():
@@ -245,7 +250,7 @@ def _driver_mesh(device: torch.device):
     estimator's device type, or one shard on the CPU."""
     from spark_rapids_ml_tpu_torch.parallel import mesh as M
 
-    return M.create_mesh(devices=None if device.type == "cuda" else [device])
+    return M.local_mesh(device)
 
 
 def _mesh_or_fallback(device: torch.device):
@@ -323,8 +328,8 @@ class _HasDistribution:
         "portable path: architecture parity with the reference's JVM reduce, "
         "RapidsRowMatrix.scala:139), or 'mesh-barrier' / 'mesh-local' (a "
         "collective over the partitions' process group, spark/spmd.py, or over "
-        "the driver's own device mesh, spark/ingest.py::stream_to_mesh) where "
-        "the estimator's mesh program is ported",
+        "the driver's own device mesh, spark/ingest.py::stream_to_mesh), as the "
+        "estimator allows",
         str,
     )
 
@@ -336,17 +341,6 @@ class _HasDistribution:
         if value not in self._ALLOWED_DISTRIBUTIONS:
             raise ValueError(f"distribution must be one of {self._ALLOWED_DISTRIBUTIONS}")
         return self._set(distribution=value)
-
-    def _check_distribution(self) -> None:
-        """Refuse a mesh distribution whose program is not ported, before any
-        job of a DataFrame fit."""
-        distribution = self.getOrDefault("distribution")
-        if distribution in _MESH_DISTRIBUTIONS:
-            raise NotImplementedError(
-                f"distribution={distribution!r} of {type(self).__name__} needs its mesh "
-                "program (parallel/linear.py, kmeans.py, forest.py and their barrier "
-                "bodies), which is ROADMAP Queue A item 6's second half; use 'driver-merge'"
-            )
 
     def _degradable(self, dataset: Any) -> bool:
         """Whether admission control may degrade this fit: a mesh-local
@@ -728,6 +722,11 @@ def _on_device(arrays: dict, fields, device: torch.device) -> list[torch.Tensor]
             for f in fields]
 
 
+def _total_weight(ws) -> float:
+    """Σ w of a mesh ingest's weight vector (pad rows weigh 0)."""
+    return float(sum(float(b.sum()) for b in ws.data_blocks()))
+
+
 def _check_weights(arrays: dict, weight_col, field: str = "count") -> None:
     if weight_col and float(np.sum(arrays[field])) == 0.0:
         raise ValueError("all instance weights are zero")
@@ -737,40 +736,109 @@ def _check_weights(arrays: dict, weight_col, field: str = "count") -> None:
 
 
 class SparkLinearRegression(_HasDistribution, LinearRegression):
-    """LinearRegression over a DataFrame: one ``LinRegPartitionFn`` stats
-    job, the partitions' f64 statistics merged on the driver, and
-    ``solve_from_stats`` (the closed form, or FISTA for an elastic net) on
-    the estimator's device. Other inputs fall through to the core fit."""
+    """LinearRegression over a DataFrame. The LinearStats pass runs per
+    ``distribution``: one ``LinRegPartitionFn`` job merged on the driver in
+    f64; the driver's mesh (``_mesh_local_stats``: one psum, or above the
+    resident cutover the per-shard chunk fold, resumable with
+    ``checkpoint_dir``); or one barrier stage (``MeshLinRegPartitionFn``).
+    Then ``solve_from_stats`` (the closed form, or FISTA for an elastic
+    net) on the estimator's device. Other inputs fall through to the core
+    fit."""
 
     _ALLOWED_DISTRIBUTIONS = ("driver-merge", "mesh-barrier", "mesh-local")
+    _DEGRADES_MESH_LOCAL = True
 
     def fit(self, dataset: Any, num_partitions: int | None = None, **kwargs):
-        checkpoint_dir, _ = _parse_checkpoint_kwargs(
+        checkpoint_dir, checkpoint_every = _parse_checkpoint_kwargs(
             kwargs, get_config().stream_checkpoint_every_chunks)
-        if checkpoint_dir is not None:
+        if checkpoint_dir is not None and (
+                not _is_spark_df(dataset) or self.getOrDefault("distribution") != "mesh-local"):
             raise NotImplementedError(
                 "LinearRegression trains in one closed-form pass; checkpoint/resume "
                 "applies only to the mesh-local streamed DataFrame fit's chunk cursor"
             )
         if not _is_spark_df(dataset):
             return _as_spark(super().fit(dataset, num_partitions), SparkLinearRegressionModel)
-        self._check_distribution()
         feats = self.getOrDefault("featuresCol")
         label = self.getOrDefault("labelCol")
         weight_col = self._paramMap.get("weightCol")
         n = _infer_n(dataset, feats)
         shapes = {"xtx": (n, n), "xty": (n,), "x_sum": (n,), "y_sum": (), "y_sq": (),
                   "count": ()}
+        cols = [feats, label] + ([weight_col] if weight_col else [])
+        selected = dataset.select(*cols)
+        distribution = self.getOrDefault("distribution")
         with trace_range("linreg stats", self.device):
-            fn = arrow_fns.make_linreg_partition_fn(feats, label, weight_col,
-                                                    device=self.device.type)
-            cols = [feats, label] + ([weight_col] if weight_col else [])
-            arrays = _collect_stats(dataset.select(*cols), fn, list(shapes), shapes)
+            if distribution == "mesh-local":
+                arrays = self._mesh_local_stats(selected, feats, label, weight_col, n,
+                                                checkpoint_dir=checkpoint_dir,
+                                                checkpoint_every=checkpoint_every)
+            elif distribution == "mesh-barrier":
+                from spark_rapids_ml_tpu_torch.spark import spmd
+
+                arrays = _barrier_single_row(
+                    selected, spmd.MeshLinRegPartitionFn(feats, label, weight_col,
+                                                         device=self.device.type),
+                    spmd.LINREG_MESH_FIELDS, {**shapes, "mesh_size": ()})
+                arrays.pop("mesh_size")
+            else:
+                fn = arrow_fns.make_linreg_partition_fn(feats, label, weight_col,
+                                                        device=self.device.type)
+                arrays = _collect_stats(selected, fn, list(shapes), shapes)
             _check_weights(arrays, weight_col)
         coef, intercept = self.solve_merged(arrays)
         model = SparkLinearRegressionModel(uid=self.uid, coefficients=coef,
                                            intercept=intercept, device=self.device)
         return self._copyValues(model)
+
+    def _mesh_local_stats(self, selected, feats: str, label: str, weight_col: str | None,
+                          n: int, *, checkpoint_dir=None, checkpoint_every=None) -> dict:
+        """Mesh-local LinearStats as host f64 arrays: the rows stream onto
+        the driver's mesh and one psum reduces them
+        (``sharded_linear_stats_weighted``); above the resident cutover the
+        [rows, n] array is never assembled: ``stream_fold`` feeds the
+        per-shard chunk fold (``sharded_linear_fold``, into an f64 carry as
+        the one-device fold's), resumable with ``checkpoint_dir``, and one
+        allreduce finishes it. A mesh that cannot be made degrades the
+        streamed fit to the one-device fold on the estimator's device."""
+        from spark_rapids_ml_tpu_torch.parallel import gram as G
+        from spark_rapids_ml_tpu_torch.parallel import linear as PL
+        from spark_rapids_ml_tpu_torch.parallel import mesh as M
+
+        rows = selected.count()
+        if ingest.use_streamed_fit(rows, n):
+            from spark_rapids_ml_tpu_torch.utils.checkpoint import TrainingCheckpointer
+
+            ckpt = TrainingCheckpointer(checkpoint_dir) if checkpoint_dir else None
+            common = dict(features_col=feats, n=n, label_col=label, weight_col=weight_col,
+                          rows=rows, checkpointer=ckpt, checkpoint_every=checkpoint_every)
+            mesh = _mesh_or_fallback(self.device)
+            if mesh is None:
+                stats = ingest.stream_fold(selected, LIN.linear_fold_step(),
+                                           init=LIN.init_linear_carry(n, self.device),
+                                           device=self.device, **common).carry
+            else:
+                res = ingest.stream_fold(
+                    selected, lambda c, x, y, w: G.sharded_linear_fold(c, x, y, w, mesh),
+                    init=G.init_chunk_carry(LIN.init_linear_carry(n, "meta"), mesh),
+                    device=mesh.first_device,
+                    chunk_rows=G.stream_chunk_rows_for_mesh(mesh, n=n, rows=rows),
+                    put_fn=G.chunk_put(mesh), min_chunk_rows=mesh.shape[M.DATA_AXIS], **common,
+                )
+                stats = G.finalize_chunk_fold(res.carry, mesh)
+        elif checkpoint_dir is not None:
+            raise NotImplementedError(
+                "checkpoint_dir applies to the out-of-core streamed fit; this dataset "
+                "fits resident in device memory (lower TPU_ML_STREAM_FIT_MAX_RESIDENT_BYTES "
+                "to force streaming)"
+            )
+        else:
+            ing = ingest.stream_to_mesh(selected, features_col=feats, n=n,
+                                        mesh=_driver_mesh(self.device), label_col=label,
+                                        weight_col=weight_col, with_weights=True, rows=rows)
+            stats = PL.sharded_linear_stats_weighted(ing.xs, ing.ys, ing.ws, ing.mesh)
+        return {f: v.detach().cpu().numpy().astype(np.float64)
+                for f, v in zip(stats._fields, stats)}
 
     def solve_merged(self, arrays: dict) -> tuple[np.ndarray, float]:
         """The driver half: the merged f64 ``LinearStats`` solved on the
@@ -792,12 +860,23 @@ class SparkLinearRegressionModel(LinearRegressionModel):
 
 
 class SparkLogisticRegression(_HasDistribution, LogisticRegression):
-    """Distributed IRLS over a DataFrame on driver-merge: a label-scan job
-    (the class count), then one job per Newton iteration with the current
-    parameters in the task state and the f64 solve on the estimator's
-    device between jobs (binary ``LogRegNewtonPartitionFn``, or
-    ``SoftmaxNewtonPartitionFn`` for three classes or more);
-    ``checkpoint_dir`` saves between jobs and a killed fit resumes."""
+    """Distributed IRLS over a DataFrame: a label-scan job (the class
+    count), then per ``distribution``:
+
+    - ``"driver-merge"``: one job per Newton iteration with the current
+      parameters in the task state and the f64 solve on the estimator's
+      device between jobs (binary ``LogRegNewtonPartitionFn``, or
+      ``SoftmaxNewtonPartitionFn`` for three classes or more);
+    - ``"mesh-local"``: the rows stream onto the driver's mesh with the
+      intercept column appended, and the whole Newton loop runs over it
+      (``parallel/linear.py``);
+    - ``"mesh-barrier"``: the same loop in one barrier stage
+      (``MeshLogRegFitFn`` or ``MeshSoftmaxFitFn``): no job per iteration.
+
+    ``checkpoint_dir`` saves between jobs, or between chunks of
+    ``checkpoint_every`` iterations on the mesh (for ``"mesh-barrier"`` a
+    path shared by the driver and every executor, where rank 0 saves), and
+    a killed fit resumes."""
 
     _ALLOWED_DISTRIBUTIONS = ("driver-merge", "mesh-barrier", "mesh-local")
 
@@ -806,7 +885,6 @@ class SparkLogisticRegression(_HasDistribution, LogisticRegression):
             return _as_spark(super().fit(dataset, num_partitions, **kwargs),
                              SparkLogisticRegressionModel)
         checkpoint_dir, checkpoint_every = _parse_checkpoint_kwargs(kwargs, 5)
-        self._check_distribution()
         feats = self.getOrDefault("featuresCol")
         label = self.getOrDefault("labelCol")
         weight_col = self._paramMap.get("weightCol")
@@ -829,6 +907,15 @@ class SparkLogisticRegression(_HasDistribution, LogisticRegression):
             )
         d = n + 1 if fit_intercept else n
         n_params = d if n_classes <= 2 else n_classes * d
+        distribution = self.getOrDefault("distribution")
+        if distribution == "mesh-local":
+            return self._fit_mesh_local(selected, feats, label, weight_col, n, n_classes,
+                                        checkpoint_dir=checkpoint_dir,
+                                        checkpoint_every=checkpoint_every)
+        if distribution == "mesh-barrier":
+            return self._fit_mesh_barrier(selected, feats, label, weight_col, n_params,
+                                          n_classes, checkpoint_dir=checkpoint_dir,
+                                          checkpoint_every=checkpoint_every)
         shapes = {"hess": (n_params, n_params), "grad": (n_params,), "loss": (), "count": ()}
         w, start_iter, ckpt = _resume_newton_checkpoint(checkpoint_dir, n_params)
         label_trace = "logreg newton" if n_classes <= 2 else "softmax newton"
@@ -852,6 +939,85 @@ class SparkLogisticRegression(_HasDistribution, LogisticRegression):
                 ):
                     break
         return self._model_from_params(w, n_classes, fit_intercept)
+
+    def _reg(self) -> dict:
+        return dict(reg_param=self.getRegParam(), elastic_net_param=self.getElasticNetParam(),
+                    fit_intercept=self.getFitIntercept())
+
+    def _fit_mesh_local(self, selected, feats: str, label: str, weight_col: str | None, n: int,
+                        n_classes: int, *, checkpoint_dir=None, checkpoint_every: int = 5):
+        """Mesh-local: the rows (intercept column appended) stream onto the
+        driver's mesh, then the whole Newton loop runs over it, binary or
+        softmax; with ``checkpoint_dir`` it runs in chunks of
+        ``checkpoint_every`` iterations with a durable checkpoint between
+        them (``run_chunked_newton``), and a killed fit resumes."""
+        from spark_rapids_ml_tpu_torch.parallel import linear as PL
+
+        fit_intercept = self.getFitIntercept()
+        ing = ingest.stream_to_mesh(selected, features_col=feats, n=n,
+                                    mesh=_driver_mesh(self.device), label_col=label,
+                                    weight_col=weight_col, with_weights=True,
+                                    augment_intercept=fit_intercept)
+        if weight_col and _total_weight(ing.ws) == 0.0:
+            raise ValueError("all instance weights are zero")
+        max_iter, tol = self.getMaxIter(), self.getTol()
+        if checkpoint_dir is not None:
+            d = n + 1 if fit_intercept else n
+            w0, start_iter, ckpt = _resume_newton_checkpoint(
+                checkpoint_dir, d if n_classes <= 2 else n_classes * d)
+            if n_classes > 2:
+                chunk = PL.make_distributed_softmax_chunk(
+                    ing.mesh, n_classes, chunk_iters=checkpoint_every, tol=tol, **self._reg())
+            else:
+                chunk = PL.make_distributed_logreg_chunk(
+                    ing.mesh, chunk_iters=checkpoint_every, tol=tol, **self._reg())
+            with trace_range("logreg mesh-local chunked fit", self.device):
+                w, _ = PL.run_chunked_newton(chunk, ing.xs, ing.ys, ing.ws, w0,
+                                             start_iter=start_iter, max_iter=max_iter,
+                                             tol=tol, ckpt=ckpt)
+        else:
+            with trace_range("logreg mesh-local fit", self.device):
+                if n_classes > 2:
+                    fit = PL.make_distributed_softmax_fit(ing.mesh, n_classes, max_iter=max_iter,
+                                                          tol=tol, **self._reg())
+                else:
+                    fit = PL.make_distributed_logreg_fit(ing.mesh, max_iter=max_iter, tol=tol,
+                                                         **self._reg())
+                w, _, step = fit(ing.xs, ing.ys, ing.ws)
+                LIN.check_newton_outcome(step, w)
+        return self._model_from_params(w.cpu().numpy(), n_classes, fit_intercept)
+
+    def _fit_mesh_barrier(self, selected, feats: str, label: str, weight_col: str | None,
+                          n_params: int, n_classes: int, *, checkpoint_dir=None,
+                          checkpoint_every: int = 5):
+        """Mesh-barrier: one barrier stage is the whole Newton fit
+        (``MeshLogRegFitFn``, or ``MeshSoftmaxFitFn`` for three classes or
+        more). With ``checkpoint_dir`` (a path shared by the driver and
+        every executor) the stage runs in chunks with rank-0 saves; the
+        driver resolves the resume before it launches the stage, and a
+        resume at maxIter launches none."""
+        from spark_rapids_ml_tpu_torch.spark import spmd
+
+        fit_intercept = self.getFitIntercept()
+        w0, start_iter, ckpt = _resume_newton_checkpoint(checkpoint_dir, n_params)
+        if ckpt is not None and start_iter >= self.getMaxIter():
+            return self._model_from_params(np.asarray(w0), n_classes, fit_intercept)
+        options = dict(
+            max_iter=self.getMaxIter(), tol=self.getTol(), checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, w0=w0 if ckpt is not None else None,
+            start_iter=start_iter, device=self.device.type, **self._reg(),
+        )
+        if n_classes > 2:
+            fn = spmd.MeshSoftmaxFitFn(feats, label, weight_col, n_classes, **options)
+        else:
+            fn = spmd.MeshLogRegFitFn(feats, label, weight_col, **options)
+        label_trace = "logreg mesh fit" if n_classes <= 2 else "softmax mesh fit"
+        with trace_range(label_trace, self.device):
+            arrays = _barrier_single_row(
+                selected, fn, spmd.LOGREG_FIT_FIELDS,
+                {"w": (n_params,), "iterations": (), "count": (), "mesh_size": ()})
+        _check_weights(arrays, weight_col)
+        return self._model_from_params(arrays["w"], n_classes, fit_intercept)
 
     def newton_step(self, w: np.ndarray, arrays: dict, n_classes: int):
         """The driver half of one iteration: the merged statistics (f32 on
@@ -909,9 +1075,13 @@ class SparkLogisticRegressionModel(LogisticRegressionModel):
 
 
 class SparkLinearSVC(_HasDistribution, LinearSVC):
-    """LinearSVC over a DataFrame on driver-merge: (features, label,
+    """LinearSVC over a DataFrame. ``"driver-merge"``: (features, label,
     weight) collected through the bounded chunker, then the core
-    squared-hinge Newton loop."""
+    squared-hinge Newton loop. ``"mesh-local"``: the rows stream onto the
+    driver's mesh with the intercept column appended and the whole
+    squared-hinge Newton loop runs over it (``parallel/linear.py``'s binary
+    chunk with ``loss="squared_hinge"``), in chunks with checkpoints under
+    ``checkpoint_dir``."""
 
     _ALLOWED_DISTRIBUTIONS = ("driver-merge", "mesh-local")
 
@@ -921,13 +1091,54 @@ class SparkLinearSVC(_HasDistribution, LinearSVC):
             core = super().fit(dataset, num_partitions, checkpoint_dir=checkpoint_dir,
                                checkpoint_every=checkpoint_every)
             return _as_spark(core, SparkLinearSVCModel)
-        self._check_distribution()
+        if self.getOrDefault("distribution") == "mesh-local":
+            return self._fit_mesh_local(dataset, checkpoint_dir, checkpoint_every)
         x, y, w = _collect_xyw(dataset, self.getOrDefault("featuresCol"),
                                label_col=self.getOrDefault("labelCol"),
                                weight_col=self._paramMap.get("weightCol"))
         core = LinearSVC.fit(self, (x, y) if w is None else (x, y, w),
                              checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every)
         return _as_spark(core, SparkLinearSVCModel)
+
+
+    def _fit_mesh_local(self, dataset, checkpoint_dir, checkpoint_every: int):
+        from spark_rapids_ml_tpu_torch.parallel import linear as PL
+
+        feats = self.getOrDefault("featuresCol")
+        label = self.getOrDefault("labelCol")
+        weight_col = self._paramMap.get("weightCol")
+        fit_intercept = self.getFitIntercept()
+        cols = [feats, label] + ([weight_col] if weight_col else [])
+        n = _infer_n(dataset, feats)
+        ing = ingest.stream_to_mesh(dataset.select(*cols), features_col=feats, n=n,
+                                    mesh=_driver_mesh(self.device), label_col=label,
+                                    weight_col=weight_col, with_weights=True,
+                                    augment_intercept=fit_intercept)
+        if weight_col and _total_weight(ing.ws) == 0.0:
+            raise ValueError("all instance weights are zero")
+        true_labels = np.unique(np.concatenate([
+            y.cpu().numpy()[w.cpu().numpy() > 0]
+            for y, w in zip(ing.ys.data_blocks(), ing.ws.data_blocks())]))
+        if not np.all(np.isin(true_labels, (0.0, 1.0))):
+            raise ValueError(f"LinearSVC requires binary 0/1 labels, got {true_labels[:8]}")
+        max_iter, tol = self.getMaxIter(), self.getTol()
+        d = n + 1 if fit_intercept else n
+        w0, start_iter, ckpt = _resume_newton_checkpoint(checkpoint_dir, d)
+        chunk = PL.make_distributed_logreg_chunk(
+            ing.mesh, reg_param=self.getRegParam(), fit_intercept=fit_intercept,
+            chunk_iters=checkpoint_every if checkpoint_dir is not None else max_iter,
+            tol=tol, loss="squared_hinge",
+        )
+        with trace_range("svc mesh-local fit", self.device):
+            # run_chunked_newton makes the non-finite-data check itself
+            w_dev, _ = PL.run_chunked_newton(chunk, ing.xs, ing.ys, ing.ws, w0,
+                                             start_iter=start_iter, max_iter=max_iter, tol=tol,
+                                             ckpt=ckpt)
+        w_np = w_dev.cpu().numpy()
+        coef, intercept = (w_np[:-1], float(w_np[-1])) if fit_intercept else (w_np, 0.0)
+        model = SparkLinearSVCModel(uid=self.uid, coefficients=coef, intercept=intercept,
+                                    device=self.device)
+        return self._copyValues(model)
 
 
 class SparkLinearSVCModel(LinearSVCModel):
@@ -953,12 +1164,25 @@ class SparkLinearSVCModel(LinearSVCModel):
 
 
 class SparkKMeans(_HasDistribution, KMeans):
-    """KMeans over a DataFrame on driver-merge. Seeding: k-means‖ as jobs
-    (per round a cost job and a Bernoulli sampling job, then a weighting
-    job and a weighted k-means++ on the driver's device), or k-means++ /
-    random on a bounded random sample. Then Lloyd as one
-    ``KMeansPartitionFn`` job per iteration, the centres in the task state;
-    ``checkpoint_dir`` saves between jobs and a killed fit resumes."""
+    """KMeans over a DataFrame. Seeding: k-means‖ as jobs (per round a cost
+    job and a Bernoulli sampling job, then a weighting job and a weighted
+    k-means++ on the driver's device), or k-means++ / random on a bounded
+    random sample. Then Lloyd per ``distribution``:
+
+    - ``"driver-merge"``: one ``KMeansPartitionFn`` job per iteration, the
+      centres in the task state;
+    - ``"mesh-local"``: the rows stream onto the driver's mesh and the
+      whole loop runs over it (``parallel/kmeans.py``); k-means‖ seeds in
+      the program there (psum and all_gather passes over the shards), with
+      the driver-pass init as the fallback when the oversampling
+      degenerates;
+    - ``"mesh-barrier"``: the whole loop in one barrier stage
+      (``MeshKMeansFitFn``).
+
+    ``checkpoint_dir`` saves between jobs, or between chunks of
+    ``checkpoint_every`` iterations on the mesh (for ``"mesh-barrier"`` a
+    path shared by the driver and every executor, where rank 0 saves), and
+    a killed fit resumes."""
 
     _ALLOWED_DISTRIBUTIONS = ("driver-merge", "mesh-barrier", "mesh-local")
 
@@ -968,7 +1192,6 @@ class SparkKMeans(_HasDistribution, KMeans):
         if not _is_spark_df(dataset):
             return _as_spark(super().fit(dataset, num_partitions, **kwargs), SparkKMeansModel)
         checkpoint_dir, checkpoint_every = _parse_checkpoint_kwargs(kwargs, 1)
-        self._check_distribution()
         _, F = _sql_mods(dataset)
         input_col = _resolve_col(self, "inputCol") or "features"
         weight_col = self._paramMap.get("weightCol")
@@ -986,10 +1209,12 @@ class SparkKMeans(_HasDistribution, KMeans):
                 )
         else:
             with trace_range("kmeans init", self.device):
-                if self.getInitMode() == "k-means||":
-                    centers = self._kmeans_parallel_init_df(selected, input_col, weight_col, k)
-                else:
+                if self.getInitMode() != "k-means||":
                     centers = self._sample_init(selected, F, weight_col, k)
+                elif self.getOrDefault("distribution") != "mesh-local":
+                    centers = self._kmeans_parallel_init_df(selected, input_col, weight_col, k)
+                # mesh-local k-means‖ seeds in the program, over the shards
+                # the Lloyd loop ingests (centers None)
         return self._lloyd_df(selected, input_col, weight_col, centers, ckpt=ckpt,
                               checkpoint_every=checkpoint_every, start_iter=start_iter,
                               cost0=cost0)
@@ -1029,7 +1254,18 @@ class SparkKMeans(_HasDistribution, KMeans):
         """Lloyd over jobs: one ``KMeansPartitionFn`` stats job an
         iteration, the merged statistics through ``lloyd_step``; with
         ``ckpt``, a durable checkpoint between jobs. ``cost0`` is the
-        checkpointed cost, so a resume at maxIter still reports it."""
+        checkpointed cost, so a resume at maxIter still reports it. The mesh
+        distributions run their loops instead (``_lloyd_mesh_local``,
+        ``_lloyd_mesh_barrier``)."""
+        distribution = self.getOrDefault("distribution")
+        if distribution == "mesh-local":
+            return self._lloyd_mesh_local(selected, input_col, weight_col, centers, ckpt=ckpt,
+                                          checkpoint_every=checkpoint_every,
+                                          start_iter=start_iter, cost0=cost0)
+        if distribution == "mesh-barrier":
+            return self._lloyd_mesh_barrier(selected, input_col, weight_col, centers, ckpt=ckpt,
+                                            checkpoint_every=checkpoint_every,
+                                            start_iter=start_iter, cost0=cost0)
         k, n = centers.shape
         shapes = {"sums": (k, n), "counts": (k,), "cost": ()}
         tol_sq = self.getTol() ** 2
@@ -1047,6 +1283,82 @@ class SparkKMeans(_HasDistribution, KMeans):
                     break
         model = SparkKMeansModel(uid=self.uid, clusterCenters=centers, trainingCost=cost,
                                  device=self.device)
+        return self._copyValues(model)
+
+    def _lloyd_mesh_local(self, selected, input_col: str, weight_col: str | None,
+                          centers: np.ndarray | None, *, ckpt=None, checkpoint_every: int = 1,
+                          start_iter: int = 0, cost0: float = np.inf) -> "SparkKMeansModel":
+        """Mesh-local Lloyd: the rows stream onto the driver's mesh; with
+        ``centers`` None, k-means‖ seeds there first
+        (``make_distributed_kmeans_parallel_init``, then a weighted
+        k-means++ over the candidates on the device), and when the
+        oversampling degenerates (no more than k candidates own rows) the
+        driver-pass init, which tops up from a uniform sample, seeds
+        instead. Then the whole loop, or with ``ckpt`` chunks of
+        ``checkpoint_every`` iterations with a durable checkpoint between
+        them."""
+        from spark_rapids_ml_tpu_torch.parallel import kmeans as PK
+
+        k = self.getK()
+        n = centers.shape[1] if centers is not None else _infer_n(selected, input_col)
+        ing = ingest.stream_to_mesh(selected, features_col=input_col, n=n,
+                                    mesh=_driver_mesh(self.device), weight_col=weight_col,
+                                    with_weights=True)
+        if weight_col and _total_weight(ing.ws) == 0.0:
+            raise ValueError("all instance weights are zero")
+        if centers is None:
+            with trace_range("kmeans mesh init", self.device):
+                init = PK.make_distributed_kmeans_parallel_init(
+                    ing.mesh, k, init_steps=self.getInitSteps())
+                cand, counts = init(ing.xs, ing.ws, self.getSeed())
+                if int((counts > 0).sum()) <= k:
+                    centers = self._kmeans_parallel_init_df(selected, input_col, weight_col, k)
+                else:
+                    gen = torch.Generator(device=cand.device).manual_seed(self.getSeed() + 1)
+                    centers = KM.weighted_kmeans_plus_plus_init(
+                        gen, cand, counts, k).cpu().numpy()
+        max_iter, tol = self.getMaxIter(), self.getTol()
+        centers0 = torch.as_tensor(np.asarray(centers, dtype=np.float32))
+        if ckpt is not None:
+            with trace_range("kmeans mesh-local chunked fit", self.device):
+                c, cost, _ = PK.run_chunked_lloyd(
+                    PK.make_distributed_kmeans_chunk(ing.mesh, chunk_iters=checkpoint_every,
+                                                     tol=tol),
+                    ing.xs, ing.ws, centers0, start_iter=start_iter, max_iter=max_iter,
+                    tol=tol, ckpt=ckpt, cost0=cost0)
+        else:
+            with trace_range("kmeans mesh-local fit", self.device):
+                c, cost_t, _ = PK.make_distributed_kmeans_fit(ing.mesh, max_iter=max_iter,
+                                                              tol=tol)(ing.xs, ing.ws, centers0)
+            cost = float(cost_t)
+        model = SparkKMeansModel(uid=self.uid, clusterCenters=c.cpu().numpy(),
+                                 trainingCost=float(cost), device=self.device)
+        return self._copyValues(model)
+
+    def _lloyd_mesh_barrier(self, selected, input_col: str, weight_col: str | None,
+                            centers: np.ndarray, *, ckpt=None, checkpoint_every: int = 1,
+                            start_iter: int = 0, cost0: float = np.inf) -> "SparkKMeansModel":
+        """Mesh-barrier Lloyd: one barrier stage is the whole loop
+        (``MeshKMeansFitFn``); a resume at maxIter launches no stage."""
+        from spark_rapids_ml_tpu_torch.spark import spmd
+
+        if start_iter >= self.getMaxIter():
+            model = SparkKMeansModel(uid=self.uid, clusterCenters=centers,
+                                     trainingCost=float(cost0), device=self.device)
+            return self._copyValues(model)
+        k, n = centers.shape
+        fn = spmd.MeshKMeansFitFn(
+            input_col, centers, weight_col, max_iter=self.getMaxIter(), tol=self.getTol(),
+            checkpoint_dir=None if ckpt is None else str(ckpt.dir),
+            checkpoint_every=checkpoint_every, start_iter=start_iter, device=self.device.type,
+        )
+        with trace_range("kmeans mesh fit", self.device):
+            arrays = _barrier_single_row(
+                selected, fn, spmd.KMEANS_FIT_FIELDS,
+                {"centers": (k, n), "cost": (), "iterations": (), "count": (), "mesh_size": ()})
+        _check_weights(arrays, weight_col)
+        model = SparkKMeansModel(uid=self.uid, clusterCenters=arrays["centers"],
+                                 trainingCost=float(arrays["cost"]), device=self.device)
         return self._copyValues(model)
 
     def lloyd_step(self, centers: np.ndarray, arrays: dict) -> tuple[np.ndarray, float, float]:
@@ -1388,7 +1700,6 @@ class SparkImputer(_HasDistribution, Imputer):
     def fit(self, dataset: Any, num_partitions: int | None = None):
         if not _is_spark_df(dataset):
             return _as_spark(super().fit(dataset, num_partitions), SparkImputerModel)
-        self._check_distribution()
         input_col = _resolve_col(self, "inputCol") or "features"
         n = _infer_n(dataset, input_col)
         missing = self.getMissingValue()
@@ -1451,7 +1762,6 @@ class SparkVarianceThresholdSelector(_HasDistribution, VarianceThresholdSelector
         if not _is_spark_df(dataset):
             return _as_spark(super().fit(dataset, num_partitions),
                              SparkVarianceThresholdSelectorModel)
-        self._check_distribution()
         features_col = _resolve_col(self, "featuresCol") or "features"
         n = _infer_n(dataset, features_col)
         shapes = {"count": (), "total": (n,), "total_sq": (n,)}
@@ -1733,8 +2043,28 @@ class SparkDBSCAN(DBSCAN):
 class SparkDBSCANModel(DBSCANModel):
     """Density clustering needs every pairwise relation, so over a
     DataFrame it collects the rows to the driver once and labels them on
-    the model's device (the core kernel); the prediction column comes back
-    appended in row order."""
+    the driver's mesh when it has more than one data shard (the sharded
+    label propagation, ``parallel/dbscan.py``) or on the model's device
+    (the core kernel) otherwise: the same labels either way. The
+    prediction column comes back appended in row order."""
+
+    def _compute_labels(self, x, weights, eps_sq: float, min_samples: float) -> np.ndarray:
+        """The kernel hook: the sharded program over ``_driver_mesh`` (rows
+        padded to a multiple of the shards, pad rows invalid) when it has
+        more than one data shard, the one-device kernel otherwise. The eps,
+        dtype and relabel rules stay in ``_cluster_matrix``."""
+        from spark_rapids_ml_tpu_torch.parallel.dbscan import make_sharded_dbscan
+        from spark_rapids_ml_tpu_torch.parallel.mesh import DATA_AXIS
+
+        mesh = _driver_mesh(self.device)
+        ndev = mesh.shape[DATA_AXIS]
+        if ndev <= 1:
+            return super()._compute_labels(x, weights, eps_sq, min_samples)
+        rows = x.shape[0]
+        xp, w, valid = self._pad_inputs(x, weights, -(-rows // ndev) * ndev)
+        labels = make_sharded_dbscan(mesh, block_rows=block_rows_for(
+            mesh.first_device, DB.DEFAULT_BLOCK_ROWS))(xp, w, valid, eps_sq, min_samples)
+        return labels.cpu().numpy()[:rows]
 
     def clusterLabels(self, dataset: Any) -> np.ndarray:
         if not _is_spark_df(dataset):
@@ -1782,8 +2112,6 @@ class _CollectFit:
     _weighted = True
 
     def fit(self, dataset: Any, num_partitions: int | None = None):
-        if hasattr(self, "_check_distribution") and _is_spark_df(dataset):
-            self._check_distribution()
         if not _is_spark_df(dataset):
             core = super().fit(dataset, num_partitions)
         else:
@@ -1805,11 +2133,46 @@ class SparkRandomForestClassificationModel(RandomForestClassificationModel):
         return _classifier_columns_transform(self, dataset, matrix_fn, "rf transform")
 
 
-class SparkRandomForestClassifier(_CollectFit, _HasDistribution, RandomForestClassifier):
-    """RandomForestClassifier over a DataFrame: collected, then the core
-    build on the driver's device."""
+class _MeshForestFit(_CollectFit):
+    """The forests' DataFrame fit: collected, then the core build on the
+    driver's device; under ``"mesh-local"`` the build runs through the
+    mesh-sharded program on the driver's mesh (``_mesh_forest_builder``)."""
 
     _ALLOWED_DISTRIBUTIONS = ("driver-merge", "mesh-local")
+
+    def fit(self, dataset: Any, num_partitions: int | None = None):
+        if not _is_spark_df(dataset) or self.getOrDefault("distribution") != "mesh-local":
+            return super().fit(dataset, num_partitions)
+        x, y, w = _collect_xyw(dataset, self.getOrDefault("featuresCol"),
+                               label_col=self.getOrDefault("labelCol"),
+                               weight_col=self._paramMap.get("weightCol"))
+        core = self._make_model(x, y, w, builder=_mesh_forest_builder(self.device))
+        return _as_spark(core, self._spark_model)
+
+
+def _mesh_forest_builder(device: torch.device):
+    """A drop-in for ``ops.forest.build_forest`` that builds on the
+    driver's mesh (``_driver_mesh``): rows sharded (pad weight 0, invisible
+    to every histogram), one psum a level (``parallel/forest.py``). With one
+    data shard it is the one-device build."""
+    from spark_rapids_ml_tpu_torch.parallel import forest as PF
+    from spark_rapids_ml_tpu_torch.parallel.mesh import DATA_AXIS
+
+    def build(binned_t, row_stats, weights, min_inst, min_gain, *, generators=None, **static):
+        mesh = _driver_mesh(device)
+        if mesh.shape[DATA_AXIS] <= 1:
+            return FO.build_forest(binned_t, row_stats, weights, min_inst, min_gain,
+                                   generators=generators, **static)
+        return PF.make_sharded_forest(mesh, **static)(binned_t, row_stats, weights, min_inst,
+                                                      min_gain, generators)
+
+    return build
+
+
+class SparkRandomForestClassifier(_MeshForestFit, _HasDistribution, RandomForestClassifier):
+    """RandomForestClassifier over a DataFrame: collected, then the core
+    build on the driver's device, or on its mesh under ``"mesh-local"``."""
+
     _spark_model = SparkRandomForestClassificationModel
 
 
@@ -1821,10 +2184,9 @@ class SparkRandomForestRegressionModel(RandomForestRegressionModel):
                                 self.getOrDefault("predictionCol"), scalar=True)
 
 
-class SparkRandomForestRegressor(_CollectFit, _HasDistribution, RandomForestRegressor):
+class SparkRandomForestRegressor(_MeshForestFit, _HasDistribution, RandomForestRegressor):
     """RandomForestRegressor over a DataFrame, as the classifier."""
 
-    _ALLOWED_DISTRIBUTIONS = ("driver-merge", "mesh-local")
     _spark_model = SparkRandomForestRegressionModel
 
 

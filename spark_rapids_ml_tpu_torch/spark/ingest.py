@@ -290,13 +290,17 @@ def stream_to_mesh(
     label_col: str | None = None,
     weight_col: str | None = None,
     with_weights: bool = False,
+    augment_intercept: bool = False,
     rows: int | None = None,
 ) -> MeshIngest:
     """Stream ``selected`` ([features, label?, weight?]) into the data
     shards of ``mesh``. One ``count()`` sizes the shards first (``rows``
     skips it); each shard holds ``bucket_rows(⌈rows / shards⌉)`` rows.
     ``with_weights`` makes ``ws`` without a weight column (1 on true rows, 0
-    on pads), for the masked programs."""
+    on pads), for the masked programs. ``augment_intercept`` appends a
+    column of ones to the true rows (``xs`` is [rows, n + 1]) for the
+    Newton programs; pad rows weigh 0, so they add nothing to any
+    statistic."""
     from spark_rapids_ml_tpu_torch.parallel import mesh as M
 
     if rows is None:
@@ -306,13 +310,14 @@ def stream_to_mesh(
     ndev = mesh.shape[M.DATA_AXIS]
     shard_rows = columnar.bucket_rows(-(-rows // ndev))
     padded_rows = shard_rows * ndev
-    _check_size(padded_rows, n)
+    n_eff = n + 1 if augment_intercept else n
+    _check_size(padded_rows, n_eff)
     want_y = label_col is not None
     want_w = with_weights or bool(weight_col)
     parts: dict[str, list[torch.Tensor]] = {"x": [], "y": [], "w": []}
 
     def fresh():
-        return (np.zeros((shard_rows, n), np.float32),
+        return (np.zeros((shard_rows, n_eff), np.float32),
                 np.zeros(shard_rows, np.float32) if want_y else None,
                 np.zeros(shard_rows, np.float32) if want_w else None)
 
@@ -352,7 +357,9 @@ def stream_to_mesh(
         at = 0
         while at < len(xc):
             take = min(shard_rows - fill, len(xc) - at)
-            x_buf[fill:fill + take] = xc[at:at + take]
+            x_buf[fill:fill + take, :n] = xc[at:at + take]
+            if augment_intercept:
+                x_buf[fill:fill + take, n] = 1.0
             if want_y:
                 y_buf[fill:fill + take] = yc[at:at + take]
             if want_w:
@@ -372,7 +379,7 @@ def stream_to_mesh(
 
     def sharded(key: str, sharding):
         blocks = {(i, 0): parts[key][i] for i in range(ndev)}
-        shape = (padded_rows, n) if key == "x" else (padded_rows,)
+        shape = (padded_rows, n_eff) if key == "x" else (padded_rows,)
         return M.Sharded(sharding, blocks, shape, rows)
 
     vec = M.vector_sharding(mesh)
@@ -586,6 +593,7 @@ def stream_fold(
     weight_col: str | None = None,
     rows: int | None = None,
     put_fn: Callable | None = None,
+    augment_intercept: bool = False,
 ) -> StreamFold:
     """Fold ``source``, an iterable of host [rows, n] matrices, chunk by
     chunk through ``fold_fn(carry, x, w) -> carry`` (``linalg.gram_fold_step``),
@@ -608,7 +616,9 @@ def stream_fold(
     weight?]; ``label_col`` and ``weight_col`` name real columns) whose
     ``count()`` (or ``rows``) the drained rows must match. ``put_fn`` maps
     each device view (and the weights) before the fold, e.g.
-    ``parallel.gram.chunk_put(mesh)``."""
+    ``parallel.gram.chunk_put(mesh)``. ``augment_intercept`` gives the fold
+    [rows, n + 1] views whose last column is ones (the Newton programs'
+    intercept column)."""
     cfg = get_config()
     if weight_col is not None and label_col is None:
         raise NotImplementedError(
@@ -619,6 +629,7 @@ def stream_fold(
             rows = source.count()
         source = _iter_chunks(source, features_col, label_col, weight_col,
                               est_bytes=rows * n * 8)
+    n_eff = n + 1 if augment_intercept else n
     tune_geometry = chunk_rows is None
     chunk_rows = stream_chunk_rows() if chunk_rows is None else chunk_rows
     nonfinite = nonfinite or cfg.nonfinite_policy
@@ -648,7 +659,8 @@ def stream_fold(
             n=n,
             dtype="float32",
             device=autotune.cache.device_kind(device),
-            measure=autotune.stream_fold_measure(fold_fn, carry, n, device, want_y=labeled),
+            measure=autotune.stream_fold_measure(fold_fn, carry, n_eff, device,
+                                                 want_y=labeled),
             candidates=autotune.candidate_grid(chunk_rows, floor=min_chunk_rows),
         )
         if tuned is not None and tuned.chunk_rows:
@@ -676,7 +688,7 @@ def stream_fold(
 
     # one staging row holds x, then y and w when labels flow; pin_memory
     # raises on a build without CUDA, so only pin for the card
-    width = n + 2 if labeled else n
+    width = n_eff + 2 if labeled else n_eff
     staging = [
         torch.empty((chunk_rows, width), dtype=torch.float32, pin_memory=cuda)
         for _ in range(2)
@@ -738,7 +750,7 @@ def stream_fold(
                 block = on_card[slot][:rows]
             else:
                 block = staging[slot][lo:hi]
-            args = ((block[:, :n], block[:, n], block[:, n + 1]) if labeled
+            args = ((block[:, :n_eff], block[:, n_eff], block[:, n_eff + 1]) if labeled
                     else (block, unit_w[:rows]))
             costmodel.capture("stream.fold_step", fold_fn, carry, *args)
             if put_fn is not None:
@@ -857,12 +869,14 @@ def stream_fold(
                 take = min(chunk_rows - fill, len(xc) - at)
                 rows_at = staging[slot][fill : fill + take]
                 rows_at[:, :n].copy_(_host_tensor(xc[at : at + take]))
+                if augment_intercept:
+                    rows_at[:, n] = 1.0
                 if labeled:
-                    rows_at[:, n].copy_(_host_tensor(yc[at : at + take]))
+                    rows_at[:, n_eff].copy_(_host_tensor(yc[at : at + take]))
                     if wc is None:
-                        rows_at[:, n + 1] = 1.0
+                        rows_at[:, n_eff + 1] = 1.0
                     else:
-                        rows_at[:, n + 1].copy_(_host_tensor(wc[at : at + take]))
+                        rows_at[:, n_eff + 1].copy_(_host_tensor(wc[at : at + take]))
                 fill += take
                 at += take
                 seen += take

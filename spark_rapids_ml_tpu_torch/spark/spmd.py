@@ -29,10 +29,16 @@ batches (Arrow or any frame of named columns) and a barrier context in,
 host arrays out on rank 0. ``__call__`` wraps it with the Arrow codec, so
 the array half runs without pyarrow.
 
-This half holds the Gram (PCA, TruncatedSVD), moments (StandardScaler),
-TSQR (PCA ``solver="svd"``) and TruncatedSVD bodies. The LinearRegression,
-LogisticRegression, softmax and KMeans bodies are ROADMAP Queue A's next
-item.
+The bodies: the Gram (PCA, TruncatedSVD), moments (StandardScaler), TSQR
+(PCA ``solver="svd"``) and TruncatedSVD reductions; LinearStats
+(LinearRegression); and three whole fits in one stage, the binary and
+softmax Newton loops (``MeshLogRegFitFn``, ``MeshSoftmaxFitFn``) and the
+Lloyd loop (``MeshKMeansFitFn``), whose host loops
+(``parallel/linear.py``, ``parallel/kmeans.py``) run in step on every rank
+because each stop decision reads reduced values only. Under
+``checkpoint_dir`` (a path every rank and the driver share) rank 0 alone
+saves between chunks and every rank runs the same loop; the driver
+resolves a resume before it launches the stage.
 """
 
 from __future__ import annotations
@@ -49,9 +55,12 @@ from spark_rapids_ml_tpu_torch.spark import arrow_fns
 from spark_rapids_ml_tpu_torch.utils import columnar
 
 MESH_FIELDS = ["xtx", "col_sum", "count", "mesh_size"]
+LINREG_MESH_FIELDS = ["xtx", "xty", "x_sum", "y_sum", "y_sq", "count", "mesh_size"]
 MOMENTS_MESH_FIELDS = ["total", "total_sq", "count", "mesh_size"]
 SVD_FIT_FIELDS = ["pc", "explainedVariance", "count", "mesh_size"]
 TSVD_FIT_FIELDS = ["components", "singularValues", "count", "mesh_size"]
+LOGREG_FIT_FIELDS = ["w", "iterations", "count", "mesh_size"]
+KMEANS_FIT_FIELDS = ["centers", "cost", "iterations", "count", "mesh_size"]
 
 _RENDEZVOUS_TIMEOUT_S = 300.0
 
@@ -87,6 +96,23 @@ def _rank_device(device: str, rank: int) -> torch.device:
     if dev.type == "cuda" and torch.cuda.device_count() > 1:
         return torch.device("cuda", rank % torch.cuda.device_count())
     return dev
+
+
+def _raise_root_cause(store, rank: int, size: int, error: Exception):
+    """Re-raise a rank's failure so that the stage names its root cause: the
+    failure is posted on the rendezvous store before this rank leaves the
+    group, and a rank whose collective broke because a peer left first
+    raises with that peer's posted failure (a barrier stage reports whichever
+    rank's error arrives first)."""
+    try:
+        store.set(f"failed/{rank}", f"{type(error).__name__}: {error}")
+        peers = [r for r in range(size) if r != rank and store.check([f"failed/{r}"])]
+        cause = store.get(f"failed/{peers[0]}").decode() if peers else None
+    except Exception:  # noqa: BLE001 - the store went with a peer: keep the own error
+        cause = None
+    if cause is not None:
+        raise RuntimeError(f"barrier rank {peers[0]} failed first: {cause}") from error
+    raise error
 
 
 class _MeshReducePartitionFn:
@@ -197,6 +223,8 @@ class _MeshReducePartitionFn:
                 if self.label_col:
                     gy = vec.shard(torch.from_numpy(_pad_to(y_local, shard_rows)))
             out = self._run_on_mesh(mesh, gx, gw, gy)
+        except Exception as e:
+            _raise_root_cause(store, rank, size, e)
         finally:
             B.shutdown()
         if rank != 0:
@@ -235,6 +263,187 @@ class MeshGramPartitionFn(_MeshReducePartitionFn):
             return {"xtx": stats.xtx, "col_sum": stats.col_sum}
 
         return kernel
+
+
+class MeshLinRegPartitionFn(_MeshReducePartitionFn):
+    """LinearStats by one psum over the process mesh: the distributed
+    normal equations, whose [n, n] and [n] reductions never reach the
+    driver but as one row. The count is the weighted one (pad rows weigh
+    0)."""
+
+    FIELDS = LINREG_MESH_FIELDS
+    COUNT_FROM_KERNEL = True
+    USES_VECTORS = True
+
+    def _shard_kernel(self):
+        from spark_rapids_ml_tpu_torch.ops import linear as LIN
+
+        def kernel(x, w, y):
+            return LIN.linear_stats(x, y, w)._asdict()
+
+        return kernel
+
+
+def _weight_total(mesh, gw) -> float:
+    """Σ w over every rank's rows (pad rows weigh 0), from one psum."""
+    from spark_rapids_ml_tpu_torch.parallel import backend as B
+
+    return float(B.psum(mesh, [b.sum() for b in gw.data_blocks()])[0])
+
+
+def _rank0_checkpointer(mesh, checkpoint_dir: str | None):
+    """The checkpointer of a barrier fit: rank 0's alone (the other ranks
+    run the same loop and save nothing)."""
+    if checkpoint_dir is None or mesh.rank not in (None, 0):
+        return None
+    from spark_rapids_ml_tpu_torch.utils.checkpoint import TrainingCheckpointer
+
+    return TrainingCheckpointer(checkpoint_dir)
+
+
+class MeshLogRegFitFn(_MeshReducePartitionFn):
+    """The whole binary Newton fit in one barrier stage: every iteration is
+    the ranks' statistics, one psum and the replicated update
+    (``parallel/linear.py``), so no Spark job runs per iteration; the
+    driver receives the final [d] parameters. With ``checkpoint_dir`` the
+    loop runs in ``checkpoint_every``-iteration chunks from ``w0`` and
+    ``start_iter`` (the driver's resume), rank 0 saving between chunks."""
+
+    FIELDS = LOGREG_FIT_FIELDS
+    USES_VECTORS = True
+    COUNT_FROM_KERNEL = True
+
+    def __init__(self, features_col: str, label_col: str, weight_col: str | None, *,
+                 reg_param: float, fit_intercept: bool, max_iter: int, tol: float,
+                 elastic_net_param: float = 0.0, checkpoint_dir: str | None = None,
+                 checkpoint_every: int = 5, w0: np.ndarray | None = None,
+                 start_iter: int = 0, device: str = "cuda"):
+        super().__init__(features_col, label_col, weight_col, device=device)
+        self.reg_param = float(reg_param)
+        self.elastic_net_param = float(elastic_net_param)
+        self.fit_intercept = bool(fit_intercept)
+        self.max_iter = int(max_iter)
+        self.tol = float(tol)
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = int(checkpoint_every)
+        self.w0 = None if w0 is None else np.asarray(w0)
+        self.start_iter = int(start_iter)
+
+    def _prepare_matrix(self, mat: np.ndarray) -> np.ndarray:
+        if self.fit_intercept:
+            return np.concatenate([mat, np.ones((mat.shape[0], 1), mat.dtype)], axis=1)
+        return mat
+
+    def _reg(self) -> dict:
+        return dict(reg_param=self.reg_param, elastic_net_param=self.elastic_net_param,
+                    fit_intercept=self.fit_intercept)
+
+    def _make_fit(self, mesh):
+        """The whole-loop program: the one hook the softmax body swaps."""
+        from spark_rapids_ml_tpu_torch.parallel import linear as PL
+
+        return PL.make_distributed_logreg_fit(mesh, max_iter=self.max_iter, tol=self.tol,
+                                              **self._reg())
+
+    def _make_chunk(self, mesh):
+        from spark_rapids_ml_tpu_torch.parallel import linear as PL
+
+        return PL.make_distributed_logreg_chunk(mesh, chunk_iters=self.checkpoint_every,
+                                                tol=self.tol, **self._reg())
+
+    def _param_dim(self, d: int) -> int:
+        return d
+
+    def _run_on_mesh(self, mesh, gx, gw, gy):
+        from spark_rapids_ml_tpu_torch.ops import linear as LIN
+        from spark_rapids_ml_tpu_torch.parallel import linear as PL
+
+        count = _weight_total(mesh, gw)
+        cd = self._param_dim(gx.shape[1])
+        if count == 0.0:
+            # all-zero weights: no training (the solve would NaN for the
+            # wrong reason); the driver raises its contract error on the
+            # returned count
+            return {"w": np.zeros(cd), "iterations": np.float64(0.0), "count": np.float64(0.0)}
+        if self.checkpoint_dir is None:
+            w, iters, step = self._make_fit(mesh)(gx, gy, gw)
+            LIN.check_newton_outcome(step, w)
+        else:
+            w, iters = PL.run_chunked_newton(
+                self._make_chunk(mesh), gx, gy, gw,
+                self.w0 if self.w0 is not None else np.zeros(cd),
+                start_iter=self.start_iter, max_iter=self.max_iter, tol=self.tol,
+                ckpt=_rank0_checkpointer(mesh, self.checkpoint_dir),
+            )
+        return {"w": w.cpu().numpy().astype(np.float64), "iterations": np.float64(int(iters)),
+                "count": np.float64(count)}
+
+
+class MeshSoftmaxFitFn(MeshLogRegFitFn):
+    """The multinomial sibling of ``MeshLogRegFitFn``: the whole softmax
+    Newton loop in one barrier stage; ``w`` comes back flattened [C·d]."""
+
+    def __init__(self, features_col: str, label_col: str, weight_col: str | None,
+                 n_classes: int, **kwargs):
+        super().__init__(features_col, label_col, weight_col, **kwargs)
+        self.n_classes = int(n_classes)
+
+    def _make_fit(self, mesh):
+        from spark_rapids_ml_tpu_torch.parallel import linear as PL
+
+        return PL.make_distributed_softmax_fit(mesh, self.n_classes, max_iter=self.max_iter,
+                                               tol=self.tol, **self._reg())
+
+    def _make_chunk(self, mesh):
+        from spark_rapids_ml_tpu_torch.parallel import linear as PL
+
+        return PL.make_distributed_softmax_chunk(mesh, self.n_classes,
+                                                 chunk_iters=self.checkpoint_every,
+                                                 tol=self.tol, **self._reg())
+
+    def _param_dim(self, d: int) -> int:
+        return self.n_classes * d
+
+
+class MeshKMeansFitFn(_MeshReducePartitionFn):
+    """The whole Lloyd fit in one barrier stage (``parallel/kmeans.py``):
+    the initial centres ride the task state, the loop trains on the process
+    mesh, the driver receives the final centres and cost. The weights mask
+    pad rows and carry instance weights; checkpointing as
+    ``MeshLogRegFitFn``'s."""
+
+    FIELDS = KMEANS_FIT_FIELDS
+    USES_VECTORS = True
+    COUNT_FROM_KERNEL = True
+
+    def __init__(self, input_col: str, centers: np.ndarray, weight_col: str | None, *,
+                 max_iter: int, tol: float, checkpoint_dir: str | None = None,
+                 checkpoint_every: int = 5, start_iter: int = 0, device: str = "cuda"):
+        super().__init__(input_col, None, weight_col, device=device)
+        self.centers = np.asarray(centers)
+        self.max_iter = int(max_iter)
+        self.tol = float(tol)
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = int(checkpoint_every)
+        self.start_iter = int(start_iter)
+
+    def _run_on_mesh(self, mesh, gx, gw, gy):
+        from spark_rapids_ml_tpu_torch.parallel import kmeans as PK
+
+        centers0 = torch.as_tensor(self.centers, dtype=torch.float32)
+        if self.checkpoint_dir is None:
+            centers, cost, iters = PK.make_distributed_kmeans_fit(
+                mesh, max_iter=self.max_iter, tol=self.tol)(gx, gw, centers0)
+        else:
+            centers, cost, iters = PK.run_chunked_lloyd(
+                PK.make_distributed_kmeans_chunk(mesh, chunk_iters=self.checkpoint_every,
+                                                 tol=self.tol),
+                gx, gw, centers0, start_iter=self.start_iter, max_iter=self.max_iter,
+                tol=self.tol, ckpt=_rank0_checkpointer(mesh, self.checkpoint_dir),
+            )
+        return {"centers": centers.cpu().numpy().astype(np.float64),
+                "cost": np.float64(float(cost)), "iterations": np.float64(int(iters)),
+                "count": np.float64(_weight_total(mesh, gw))}
 
 
 class MeshMomentsPartitionFn(_MeshReducePartitionFn):

@@ -913,3 +913,39 @@ def test_mesh_phase_on_cpu(monkeypatch):
     d = chip_smoke.phase_mesh_barrier(x[:1000], 4, CPU, ranks=2, frames=4)
     assert d["yielding_ranks"] == [0] and d["mesh_size"] == 2 and d["count"] == 1000
     assert "mesh" in chip_smoke.SKIPPABLE
+
+
+# -- phase 22: the mesh fits -----------------------------------------------------
+
+
+def test_meshfit_phase_on_cpu(linear_stream, monkeypatch):
+    """Phase 22 at a tiny size on CPU shards: (a) the sharded linear
+    statistics and the augmented per-shard fold, (b) the Newton programs
+    against the core fits and the chunked resume, (c) k-means‖ and Lloyd
+    with the resume, (d) sharded DBSCAN and kNN, (e) the sharded forest and
+    NaiveBayes statistics, (f) the IVF index's mesh Lloyd fold, (g) the four
+    fit bodies in two spawned gloo ranks; every gate, no kernel launches."""
+    x, gram = linear_stream
+    linreg = chip_smoke.phase_streamed_linreg((x, gram), 4, CPU)
+    a = chip_smoke.phase_meshfit_linear(x, linreg, CPU, rows=2000)
+    assert a["fold_chunks"] == 6 and a["fold_rel_vs_one_device"] <= chip_smoke.MESH_STATS_TOL
+    b = chip_smoke.phase_meshfit_newton(x, CPU, rows=2000, classes=3, partitions=3)
+    assert b["resume"]["equal_to_uninterrupted"] and b["resume"]["iterations"] == 6
+    c = chip_smoke.phase_meshfit_kmeans(CPU, rows=6000, n=16, k=12, iters=3, partitions=3)
+    assert c["init"]["count_total"] == 6000 and c["fit_equals_the_stepwise_loop"]
+    d = chip_smoke.phase_meshfit_distance(CPU, grids=4, side=6, n=16, knn_rows=3000,
+                                          knn_queries=50, k=5)
+    assert d["dbscan"]["label_mismatches"] == 0
+    higgs = chip_smoke.higgs_workload(8000, 6, CPU, seed=5)
+    e = chip_smoke.phase_meshfit_trees_nb(higgs, CPU, rows=6000, trees=2, nb_rows=3000, nb_n=32,
+                                          classes=4)
+    assert e["forest"]["differing_fields"] == [] and e["naive_bayes"]["counts_exact"]
+    f = chip_smoke.phase_meshfit_ann(CPU, rows=9000, chunk=4000, n=8, clusters=20)
+    assert f["nlist"] == 94
+    g = chip_smoke.phase_meshfit_barrier(x, linreg, CPU, rows=2000, ranks=2, frames=4)
+    assert all(v == [0] for v in g["yielding_ranks"].values())
+    parts = dict(linear=a, newton=b, kmeans=c, distance=d, trees_nb=e, ann=f, barrier=g)
+    for name in chip_smoke.KERNELS:
+        launches = chip_smoke._meshfit_launches(parts, name)
+        assert len(launches) == 8 and set(launches.values()) == {0}
+    assert "meshfit" in chip_smoke.SKIPPABLE

@@ -245,10 +245,43 @@ def test_sampled_seeding_fits_and_never_seeds_from_zero_weight(df, data, mode):
         _close(model.clusterCenters[c], want, 1e-4)
 
 
+@pytest.fixture(scope="module")
+def jax_mesh_local_fit(jax_df):
+    """The JAX package's Spark fit under ``"mesh-local"``: k-means‖ seeded
+    in its mesh program on the suite's 8 virtual devices."""
+    return JE.SparkKMeans().setK(K).setSeed(3).setInitMode("k-means||").setWeightCol(
+        "weight").setDistribution("mesh-local").fit(jax_df)
+
+
 @pytest.mark.parametrize("distribution", ["mesh-local", "mesh-barrier"])
-def test_mesh_distributions_are_refused_at_fit(df, distribution):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 6"):
-        SparkKMeans(device=CPU).setK(K).setDistribution(distribution).fit(df)
+def test_mesh_distributions_are_refused_at_fit(df, jax_mesh_local_fit, distribution,
+                                               monkeypatch):
+    """The mesh distributions fit (mesh-local on four CPU shards of the
+    driver's mesh, seeding by k-means‖ in the mesh program; mesh-barrier as
+    one barrier stage of CPU workers after the k-means‖ jobs) and agree
+    with the JAX package's mesh-local Spark fit: sorted centres within 1e-5
+    (the seeds' draws differ, the blob means do not), the cost at rtol
+    1e-5."""
+    from spark_rapids_ml_tpu_torch.parallel import kmeans as PK
+    from spark_rapids_ml_tpu_torch.parallel import mesh as PM
+    from spark_rapids_ml_tpu_torch.spark import estimators as SE
+
+    monkeypatch.setattr(SE, "_driver_mesh", lambda device: PM.create_mesh(devices=[device] * 4))
+    seeded = {"n": 0}
+    real = PK.make_distributed_kmeans_parallel_init
+
+    def counted(*a, **kw):
+        seeded["n"] += 1
+        return real(*a, **kw)
+
+    monkeypatch.setattr(PK, "make_distributed_kmeans_parallel_init", counted)
+    model = SparkKMeans(device=CPU).setK(K).setSeed(3).setInitMode("k-means||") \
+        .setWeightCol("weight").setDistribution(distribution).fit(df)
+    assert type(model) is SparkKMeansModel
+    assert seeded["n"] == (distribution == "mesh-local")
+    ref = jax_mesh_local_fit
+    _close(_sorted(model.clusterCenters), _sorted(ref.clusterCenters))
+    np.testing.assert_allclose(model.trainingCost, ref.trainingCost, rtol=RTOL)
 
 
 def test_non_spark_input_falls_through_to_the_core_fit(data):

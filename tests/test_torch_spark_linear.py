@@ -243,13 +243,51 @@ def test_killed_newton_fit_resumes_between_jobs(df, tmp_path, monkeypatch):
     np.testing.assert_allclose(core.coefficients, full.coefficients, rtol=0, atol=1e-12)
 
 
+@pytest.fixture(scope="module")
+def jax_mesh_local_fits(data):
+    """The JAX package's Spark fits under ``"mesh-local"`` (its mesh of the
+    suite's 8 virtual devices) on a JAX local session over the same rows:
+    weighted LinearRegression and binary LogisticRegression."""
+    from spark_rapids_ml_tpu import spark as JSP
+    from spark_rapids_ml_tpu.localspark import LocalSparkSession as JaxSession
+    from spark_rapids_ml_tpu.localspark import types as JT
+
+    x, yr, yb, _, w = data
+    schema = JT.StructType([
+        JT.StructField("features", JT.ArrayType(JT.DoubleType())),
+        JT.StructField("reg", JT.DoubleType()), JT.StructField("label", JT.DoubleType()),
+        JT.StructField("weight", JT.DoubleType()),
+    ])
+    with JaxSession(parallelism=2) as s:
+        jdf = s.createDataFrame([(r.tolist(), a, b, c) for r, a, b, c in
+                                 zip(x.astype(np.float64), yr, yb, w)], schema, numPartitions=3)
+        linreg = JSP.SparkLinearRegression().setLabelCol("reg").setWeightCol("weight") \
+            .setRegParam(0.1).setDistribution("mesh-local").fit(jdf)
+        logreg = JSP.SparkLogisticRegression().setWeightCol("weight").setRegParam(0.1) \
+            .setMaxIter(5).setDistribution("mesh-local").fit(jdf)
+    return linreg, logreg
+
+
 @pytest.mark.parametrize("distribution", ["mesh-local", "mesh-barrier"])
-def test_mesh_distributions_are_refused_at_fit(df, distribution):
-    for est in (SparkLinearRegression(device=CPU).setLabelCol("reg"),
-                SparkLogisticRegression(device=CPU)):
-        est.setDistribution(distribution)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 6"):
-            est.fit(df)
+def test_mesh_distributions_are_refused_at_fit(df, jax_mesh_local_fits, distribution,
+                                               monkeypatch):
+    """The mesh distributions fit (mesh-local on four CPU shards of the
+    driver's mesh, mesh-barrier in one barrier stage of CPU workers) and
+    agree with the JAX package's Spark fit under ``"mesh-local"``; only
+    LinearSVC's mesh-barrier, which the JAX package refuses too, is
+    refused."""
+    from spark_rapids_ml_tpu_torch.parallel import mesh as PM
+    from spark_rapids_ml_tpu_torch.spark import estimators as SE
+
+    monkeypatch.setattr(SE, "_driver_mesh", lambda device: PM.create_mesh(devices=[device] * 4))
+    ref_lin, ref_log = jax_mesh_local_fits
+    lin = SparkLinearRegression(device=CPU).setLabelCol("reg").setWeightCol("weight") \
+        .setRegParam(0.1).setDistribution(distribution).fit(df)
+    _coef_close(lin, ref_lin, LINREG_RTOL)
+    log = SparkLogisticRegression(device=CPU).setWeightCol("weight").setRegParam(0.1) \
+        .setMaxIter(5).setDistribution(distribution).fit(df)
+    _coef_close(log, ref_log, NEWTON_ATOL)
+    assert type(lin) is SparkLinearRegressionModel and type(log) is SparkLogisticRegressionModel
     with pytest.raises(ValueError, match="distribution must be one of"):
         SparkLinearSVC(device=CPU).setDistribution("mesh-barrier")
 
