@@ -12,13 +12,17 @@ Phases, each a plain function that the CPU tests also call at a tiny size:
 2. build: compile every CUDA source of the paths, print each Gram
    instance's ptxas line (registers, spills) and its count of HGMMA (wgmma)
    instructions in the built library, and fail on a spill or on no HGMMA;
+   the one-product kernels' pre-pass prints its ptxas line and fails on a
+   spill;
 3. kernels: the four Gram instances (fused and symmetric, each with the
    split's three bf16 products and with one bf16 pass): print each one's
    schedule at its main shape, hold it against its plain PyTorch version on
    the card at the shapes its main path gives it, the north-star width, a
    main-path row count at 129 columns (the plain-load route, where TMA
-   cannot go) and a ragged shape, then time kernel, plain version and a
-   library yardstick with CUDA events;
+   cannot go; for the one-product kernels, the pre-pass's scalar loads) and
+   a ragged shape, then time kernel, plain version and a library yardstick
+   with CUDA events, and for the one-product kernels also
+   torch.mm(hi.T, hi, out_dtype=torch.float32);
 4. main path (resident): fit PCA (500,000 x 512, k=50, precision "high",
    8 partitions) through fused_gram_moments, check it against the f64 host
    oracle and a "highest" fit, transform every row and check the projection;
@@ -435,11 +439,14 @@ KERNEL_SHAPES = {
     name: _SYMMETRIC_SHAPES if name in SYMMETRIC else _FUSED_SHAPES for name in KERNELS
 }
 # the Gram kernel instance of each kernel in the built library: its mangled
-# name holds gram_partial_kernel<symmetric, products>
+# name holds gram_partial_kernel<symmetric, products> for three products;
+# both one-product kernels run gram_1pass_kernel after the pre-pass
 INSTANCES = {
-    name: f"gram_partial_kernelILb{int(name in SYMMETRIC)}ELi{PRODUCTS[name]}E"
+    name: (f"gram_partial_kernelILb{int(name in SYMMETRIC)}ELi3E" if PRODUCTS[name] == 3
+           else "gram_1pass_kernel")
     for name in KERNELS
 }
+PREPASS_INSTANCE = "bf16_moments_kernel"  # the one-product kernels' pre-pass
 # each kernel's launch counter in ops/gram_moments.py
 COUNTERS = {
     "gram_moments": "launches",
@@ -512,28 +519,36 @@ def card_label(device_type: str) -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def ptxas_lines(log: str, mangled: str) -> list[str]:
+    """The ``-Xptxas -v`` lines (registers, spills) of the kernels whose
+    mangled name holds ``mangled``."""
+    ptxas, current = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            current = mangled in line
+        elif current and ("Used" in line or "spill" in line):
+            ptxas.append(line.strip())
+    return ptxas
+
+
+def spill_bytes(ptxas: list[str]) -> int:
+    return sum(int(b) for line in ptxas for b in re.findall(r"(\d+) bytes spill", line))
+
+
 def build_report(log: str, sass: str) -> dict:
     """Each Gram instance's ptxas lines (from ``-Xptxas -v``'s log), its
     spill bytes, and its count of HGMMA instructions in ``cuobjdump -sass``'s
     listing of the built library."""
     report = {}
     for kernel, mangled in INSTANCES.items():
-        ptxas, current = [], False
-        for line in log.splitlines():
-            if "Compiling entry function" in line:
-                current = mangled in line
-            elif current and ("Used" in line or "spill" in line):
-                ptxas.append(line.strip())
+        ptxas = ptxas_lines(log, mangled)
         hgmma, current = 0, False
         for line in sass.splitlines():
             if "Function :" in line:
                 current = mangled in line
             elif current and "HGMMA" in line:
                 hgmma += 1
-        spills = sum(
-            int(b) for line in ptxas for b in re.findall(r"(\d+) bytes spill", line)
-        )
-        report[kernel] = {"ptxas": ptxas, "spill_bytes": spills, "hgmma": hgmma}
+        report[kernel] = {"ptxas": ptxas, "spill_bytes": spill_bytes(ptxas), "hgmma": hgmma}
     return report
 
 
@@ -554,17 +569,28 @@ def phase_build() -> dict:
         print(f"build: {kernel}: {entry['hgmma']} HGMMA instructions", flush=True)
         if not entry["ptxas"] or entry["spill_bytes"] or not entry["hgmma"] > 0:
             raise AssertionError(f"{kernel}: no ptxas line, a spill or no HGMMA: {entry}")
+    prepass = ptxas_lines(logs["gram_moments"], PREPASS_INSTANCE)
+    for line in prepass:
+        print(f"build: one-product pre-pass ({PREPASS_INSTANCE}): {line}", flush=True)
+    if not prepass or spill_bytes(prepass):
+        raise AssertionError(f"{PREPASS_INSTANCE}: no ptxas line or a spill: {prepass}")
     return report
 
 
-def schedule_summary(rows: int, n: int, symmetric: bool, sm_count: int) -> dict:
+def schedule_summary(rows: int, n: int, symmetric: bool, sm_count: int,
+                     one_product: bool = False) -> dict:
     """The kernel's work list at one shape: items, blocks, items and row
-    steps per block (SM)."""
-    plan = G.schedule(rows, n, symmetric, sm_count)
+    steps per block (SM). The one-product kernels' is ``G.schedule_1pass``
+    (the upper tiles at ``G.STEP_1PASS``-row steps, in row parts)."""
+    if one_product:
+        plan, step = G.schedule_1pass(rows, n, sm_count), G.STEP_1PASS
+    else:
+        plan, step = G.schedule(rows, n, symmetric, sm_count), G.STEP
     per_block = np.diff(plan.block_items)
     steps = plan.steps_per_block()
     return {
-        "shape": [rows, n], "tiles": len(plan.tiles), "items": len(plan.items),
+        "shape": [rows, n], "step_rows": step,
+        "tiles": len(plan.tiles), "items": len(plan.items),
         "blocks": plan.blocks, "sm_count": sm_count,
         "items_per_sm": [int(per_block.min()), int(per_block.max())],
         "steps_per_sm": [min(steps), max(steps)],
@@ -659,13 +685,25 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def library_f32_ms(hi: torch.Tensor) -> dict:
+    """The time of ``torch.mm(hi.T, hi, out_dtype=torch.float32)``, the JAX
+    ``"default"`` tier's function (bf16 operands, an f32 result), or the
+    error that call raised on this PyTorch: no other call stands in."""
+    try:
+        return {"library_f32_ms": _time_ms(
+            lambda: torch.mm(hi.T, hi, out_dtype=torch.float32), TIMED_LAUNCHES)}
+    except (TypeError, RuntimeError) as exc:
+        return {"library_f32_ms": None, "library_f32_error": f"{type(exc).__name__}: {exc}"}
+
+
 def phase_kernel_timing(
     shapes, device: torch.device, seed: int = 1, kernel: str = "gram_moments"
 ) -> dict:
     """kernel_ms, plain_ms and library_ms over TIMED_LAUNCHES launches after a
     warm-up. The library yardstick, which the port never calls, is cuBLAS's
     f32 ``x.T @ x`` for the three-product kernels and its bf16 ``hi.T @ hi``
-    (hi = bf16(x), made before the timing) for the one-product ones."""
+    (hi = bf16(x), made before the timing) for the one-product ones, which
+    also get ``library_f32_ms``: ``torch.mm(hi.T, hi, out_dtype=f32)``."""
     wrapper, plain = FUNCTIONS[kernel]
     products = PRODUCTS[kernel]
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -678,6 +716,7 @@ def phase_kernel_timing(
             "kernel_ms": _time_ms(lambda: wrapper(x), TIMED_LAUNCHES),
             "plain_ms": _time_ms(lambda: plain(x), TIMED_LAUNCHES),
             "library_ms": _time_ms(lambda: lib_in.T @ lib_in, TIMED_LAUNCHES),
+            **(library_f32_ms(lib_in) if products == 1 else {}),
             "bound_ms": bound_ms,
             "bound_by": bound_by,
         }
@@ -1160,6 +1199,7 @@ def phase_one_pass(rows: int, n: int, k: int, partitions: int, device: torch.dev
         ),
     }
     print(f"one pass (resident): {json.dumps(result)}", flush=True)
+    print(f"fit time: 'default' resident {rows} x {n}: {fit_s:.4f} s", flush=True)
     expected = expected_launches(gram_moments_1pass=partitions if cuda else 0)
     if launches != expected:
         raise AssertionError(
@@ -1238,6 +1278,8 @@ def phase_streamed_one_pass(
         "policy_min_cosine_vs_f64_oracle": _min_abs_cosine(policy_model.pc, policy_pc),
     }
     print(f"one pass (streamed): {json.dumps(result)}", flush=True)
+    print(f"fit time: 'default' streamed {rows} x {n}: {fit_s:.4f} s; "
+          f"bf16_f32acc streamed {policy_rows} x {n}: {policy_fit_s:.4f} s", flush=True)
     expected = expected_launches(symmetric_gram_moments_1pass=-(-rows // chunk) if cuda else 0)
     if launches != expected or model.stream_report is None:
         raise AssertionError(f"streamed 'default' fit launched {launches}, expected {expected}")
@@ -7076,7 +7118,8 @@ def main(argv=()) -> int:
     schedules = {}
     for name in KERNELS:
         rows, n = KERNEL_SHAPES[name][0]
-        schedules[name] = schedule_summary(rows, n, name in SYMMETRIC, sm_count)
+        schedules[name] = schedule_summary(rows, n, name in SYMMETRIC, sm_count,
+                                           one_product=PRODUCTS[name] == 1)
         print(f"schedule: {name}: {json.dumps(schedules[name])}", flush=True)
     checks, timings = {}, {}
     for name in KERNELS:
@@ -7257,6 +7300,7 @@ def main(argv=()) -> int:
             "bound_ms": at_main["bound_ms"],
             "bound_by": at_main["bound_by"],
             "library_ms": at_main["library_ms"],
+            "library_f32_ms": at_main.get("library_f32_ms"),
             "hgmma": build[name]["hgmma"],
             "ptxas": build[name]["ptxas"],
             "schedule": schedules[name],

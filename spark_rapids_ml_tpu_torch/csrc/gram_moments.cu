@@ -1,6 +1,8 @@
-// Fused split-bf16 Gram + column moments of a [rows, n] f32 matrix, for
-// Hopper (sm_90a). Two kernels share one tile body and differ only in their
-// work list and epilogue:
+// Fused bf16 Gram + column moments of a [rows, n] f32 matrix, for Hopper
+// (sm_90a). Two kinds of kernel live here.
+//
+// The split's three products, the "high" precision tier. Two kernels share
+// one tile body and differ only in their work list and epilogue:
 //
 // - gram_moments_launch replaces the TPU kernel
 //   spark_rapids_ml_tpu/ops/pallas_gram.py::fused_gram_moments (body
@@ -18,21 +20,7 @@
 //   col_sum = sum over rows of (hi + lo)
 //   sum_sq  = sum over rows of (hi + lo)^2
 //
-// with hi = bf16_rn(x) and lo = bf16_rn(x - hi): three products, the "high"
-// precision tier. Each kernel also has a one-product instance (template
-// argument kProducts = 1; entry points gram_moments_1pass_launch and
-// symmetric_gram_moments_1pass_launch), the "default" tier and the
-// bf16_f32acc fold policy, which have no Pallas kernel (the JAX package
-// leaves them to XLA, spark_rapids_ml_tpu/ops/linalg.py:65-85):
-//
-//   gram    = hi^T hi                       (f32 accumulation, no lo written)
-//   col_sum = sum over rows of x,  sum_sq = sum over rows of x^2  (in f32)
-//
-// It keeps the same schedule, ring, load routes, shared-memory layout and
-// reduce pass, and issues one wgmma per 16-row slice instead of three. Its
-// least work is the upper triangle of hi^T hi, rows * n * (n + 1)
-// operations: at n = 512 that is 2.6e5 operations per row (0.27 ns) against
-// 2,048 bytes (0.61 ns), so it is bound by bytes.
+// with hi = bf16_rn(x) and lo = bf16_rn(x - hi).
 //
 // Bound on an H100 SXM. The least work is the upper triangle of hi^T hi and
 // all of hi^T lo, rows * n * (3n + 1) bf16 operations, against rows * n * 4
@@ -83,12 +71,62 @@
 //
 // Left for later: promotion once per several steps where accuracy allows,
 // a coalesced (transposing) mirror write in the reduce pass, and 2-CTA
-// clusters that share one TMA load of a column block. On an H100 the
-// one-product instances take about as long as the three-product ones
-// (PERF.md), so what sets a step's time is what both share (the split's
-// f32 reads and bf16 writes, the per-step wait, barrier and promotion), not
-// the tensor cores; a ring and split tuned for one product are left for
-// later too.
+// clusters that share one TMA load of a column block.
+//
+// One bf16 pass, the "default" tier and the bf16_f32acc fold policy
+// (entry point gram_moments_1pass_launch, which both one-product wrappers,
+// fused and symmetric, call). They replace no TPU kernel: the JAX package
+// leaves this product to XLA (spark_rapids_ml_tpu/ops/linalg.py:65-85):
+//
+//   gram    = hi^T hi   (f32 accumulation)
+//   col_sum = sum over rows of x,  sum_sq = sum over rows of x^2  (in f32)
+//
+// Its least work is the upper triangle of hi^T hi, rows * n * (n + 1)
+// operations, against X read once: at n = 512, 2.6e5 operations per row
+// (0.27 ns) against 2,048 bytes (0.61 ns), bound by bytes; at n = 2,048,
+// 4.2e6 operations (4.2 ns) against 8,192 bytes (2.4 ns), bound by
+// operations. The three-product tile body, run with one product, spent
+// about 1 us a 32-row step with the tensor cores busy 13% of it: each step
+// moved 32 KB of f32 operands and split them on the consumers' path, then
+// drained its wgmmas, met a 256-thread barrier and promoted. Its redesign:
+//
+// - A pre-pass (bf16_moments_kernel) reads X once, coalesced, writes
+//   hi = bf16_rn(x) into a bf16 scratch whose row stride is n rounded up
+//   to 128 features (zeros beyond n), and takes each row block's f32 sums
+//   of x and x^2 in a fixed order. It costs a round trip of X's bf16 copy
+//   through device memory; in return the Gram pass reads half the operand
+//   bytes, takes TMA at every n (the stride is always a multiple of 16
+//   bytes) and splits nothing.
+// - The Gram pass (gram_1pass_kernel) is a plain TMA -> wgmma pipeline: one
+//   producer thread loads 64-row steps of bf16 panels with 128-byte
+//   swizzled TMA boxes (64 features x 64 rows, the layout the wgmma
+//   descriptors read) into a ring of k1Stages stages; two consumer
+//   warpgroups issue four m64n128k16 a step each, keep one wgmma group in
+//   flight (wait_group 1) and release a stage as soon as its group ends.
+//   No consumer split and no barrier between the warpgroups.
+// - A work list that sweeps the rows together
+//   (ops/gram_moments.py::schedule_1pass). Both one-product wrappers take
+//   the upper tiles only; every tile is cut at the same row cuts into
+//   units, dealt round-robin part by part, so at any moment all blocks
+//   read the same few rows and each row of hi comes from device memory
+//   about once and from L2 to every tile that needs it. (Cut into
+//   contiguous shares instead, the blocks read rows spread over all of hi,
+//   far beyond L2, and the pass ran at device-memory speed: 2.5 ms against
+//   1.0 ms at 131,072 x 2,048 on an H100.) The reduce pass sums each
+//   tile's units in row order and writes each strict upper tile to its
+//   mirror, bit-equal, through a shared-memory transpose so that both
+//   writes are coalesced.
+// - Promotion every promote_steps steps (a launch argument,
+//   ops/gram_moments.py::PROMOTE_STEPS) instead of every step: the wgmma
+//   accumulator holds that many steps' products, then is added into the
+//   running f32 sum with ordinary adds.
+// - Determinism as before: no atomics, every sum in a fixed order; the
+//   moments' row-block partials are summed in a fixed order by the reduce
+//   pass.
+//
+// What bounds it now (PERF.md, section 6): the pre-pass runs at about the
+// card's memory rate, and the Gram pass at about the L2's delivery rate
+// and the tensor cores' together.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -497,6 +535,273 @@ __global__ void gram_reduce_kernel(const float* __restrict__ partial_gram,
   }
 }
 
+// ---- the one-product instances ---------------------------------------------
+
+constexpr int k1Step = 64;                            // rows of hi per ring stage
+constexpr int k1Stages = 6;                           // bf16 ring depth
+constexpr int k1Atom = k1Step * kAtom * 2;            // 8 KB: 64 features x 64 rows
+constexpr int k1Panel = 2 * k1Atom;                   // 16 KB: one 128-feature operand
+constexpr int k1Stage = 2 * k1Panel;                  // A then B
+constexpr int k1BarOffset = k1Stages * k1Stage;
+constexpr int k1SmemBytes = k1BarOffset + 2 * k1Stages * 8 + 1024;  // + alignment slack
+constexpr int kPrepassThreads = 128;                  // 4 features each
+constexpr int kPrepassCols = 4 * kPrepassThreads;     // features per pre-pass block
+constexpr int kPrepassUnroll = 8;                     // rows in flight per thread
+constexpr int kMomentsPerBlock = 8;                   // moments per reduce block
+constexpr int kMomentLanes = 256 / kMomentsPerBlock;  // partial sums per moment there
+
+static_assert(k1Step % 16 == 0, "a step is whole 16-row wgmma slices");
+static_assert(k1SmemBytes <= 232448, "shared memory of one block");
+
+// Descriptor of a 128-byte swizzled MN-major bf16 operand whose 64-feature
+// atoms lie k1Atom bytes apart (LBO); 8-row groups 1 KB apart (SBO).
+__device__ __forceinline__ uint64_t mn_desc_1pass(uint32_t addr) {
+  constexpr uint64_t lbo = k1Atom >> 4;
+  constexpr uint64_t sbo = 1024 >> 4;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (lbo << 16) | (sbo << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// The pre-pass. Block (b, c) of a (row_blocks, hi_stride / 512) grid takes
+// rows [b * rows_per_block, (b + 1) * rows_per_block) and features
+// 512c + 4t .. 512c + 4t + 3 for thread t: it writes hi = bf16_rn(x) there
+// (zeros at features n .. hi_stride - 1) and its f32 sums of x and x^2 to
+// moment_parts[b][0][f] and [b][1][f], each thread summing its rows eight
+// at a time, then into its running sums. vec: X's rows are 16-byte
+// aligned (float4 loads), else one float at a time.
+__global__ void __launch_bounds__(kPrepassThreads)
+bf16_moments_kernel(const float* __restrict__ x, long long rows, int n, int vec,
+                    int rows_per_block, __nv_bfloat16* __restrict__ hi, int hi_stride,
+                    float* __restrict__ moment_parts) {
+  const int f = blockIdx.y * kPrepassCols + 4 * threadIdx.x;
+  if (f >= hi_stride) return;
+  const long long r0 = (long long)blockIdx.x * rows_per_block;
+  const long long r1 = min(rows, r0 + rows_per_block);
+  float cs[4] = {0.f, 0.f, 0.f, 0.f}, sq[4] = {0.f, 0.f, 0.f, 0.f};
+  for (long long r = r0; r < r1; r += kPrepassUnroll) {
+    float v[kPrepassUnroll][4];
+#pragma unroll
+    for (int u = 0; u < kPrepassUnroll; ++u) {
+      const long long row = r + u;
+      const float* src = x + row * n + f;
+      if (vec && row < r1 && f < n) {
+        const float4 t = __ldg(reinterpret_cast<const float4*>(src));
+        v[u][0] = t.x, v[u][1] = t.y, v[u][2] = t.z, v[u][3] = t.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[u][e] = (row < r1 && f + e < n) ? __ldg(src + e) : 0.f;
+      }
+    }
+    float step_cs[4] = {0.f, 0.f, 0.f, 0.f}, step_sq[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int u = 0; u < kPrepassUnroll; ++u) {
+      const long long row = r + u;
+      if (row < r1) {
+        const __nv_bfloat162 h01 = __floats2bfloat162_rn(v[u][0], v[u][1]);
+        const __nv_bfloat162 h23 = __floats2bfloat162_rn(v[u][2], v[u][3]);
+        uint2 hv;
+        hv.x = *reinterpret_cast<const uint32_t*>(&h01);
+        hv.y = *reinterpret_cast<const uint32_t*>(&h23);
+        *reinterpret_cast<uint2*>(hi + row * hi_stride + f) = hv;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        step_cs[e] += v[u][e];
+        step_sq[e] += v[u][e] * v[u][e];
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      cs[e] += step_cs[e];
+      sq[e] += step_sq[e];
+    }
+  }
+  float* out = moment_parts + (size_t)blockIdx.x * 2 * n;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if (f + e < n) {
+      out[f + e] = cs[e];
+      out[n + f + e] = sq[e];
+    }
+  }
+}
+
+// The Gram pass over hi: block b walks items [block_items[b],
+// block_items[b + 1]) of items[4 * i] = (bi, bj, step_begin, step_end), in
+// k1Step-row steps. Thread 256 (the producer warpgroup's first) issues the
+// TMA loads, the rest of that warpgroup leaves; threads 0..255 are the
+// consumers (output rows 0..63 and 64..127 of the tile). The accumulator
+// `part` takes promote_steps steps of products (the first wgmma of each
+// run overwrites it), then is added into `acc` with f32 adds.
+__global__ void __launch_bounds__(kThreads, 1)
+gram_1pass_kernel(const __grid_constant__ CUtensorMap hi_map, const int* __restrict__ items,
+                  const int* __restrict__ block_items, int promote_steps,
+                  float* __restrict__ partial_gram) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + k1BarOffset);
+  const uint32_t full0 = smem_addr(bars), empty0 = smem_addr(bars + k1Stages);
+
+  const int tid = threadIdx.x;
+  const int item_begin = block_items[blockIdx.x], item_end = block_items[blockIdx.x + 1];
+  if (tid == 0) {
+    for (int s = 0; s < k1Stages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // ---- producer: one thread keeps the ring full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid != kConsumers) return;
+    int g = 0;
+    for (int it = item_begin; it < item_end; ++it) {
+      const int bi = items[4 * it], bj = items[4 * it + 1];
+      const int s0 = items[4 * it + 2], s1 = items[4 * it + 3];
+      const bool diag = bi == bj;
+      for (int s = s0; s < s1; ++s, ++g) {
+        const int stage = g % k1Stages;
+        const uint32_t full = full0 + 8 * stage;
+        const uint32_t a_dst = smem_addr(smem + stage * k1Stage);
+        const uint32_t b_dst = a_dst + k1Panel;
+        mbar_wait(empty0 + 8 * stage, ((g / k1Stages) & 1) ^ 1);
+        mbar_arrive_expect_tx(full, diag ? k1Panel : k1Stage);
+        for (int atom = 0; atom < 2; ++atom) {
+          tma_load_2d(b_dst + atom * k1Atom, &hi_map, full, bj * kTile + atom * kAtom, s * k1Step);
+          if (!diag)
+            tma_load_2d(a_dst + atom * k1Atom, &hi_map, full, bi * kTile + atom * kAtom,
+                        s * k1Step);
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: wgmma, promote, write partials ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int warp = tid / 32, lane = tid % 32, wg = tid / 128;
+    float acc[64], part[64];
+    int g = 0;
+    for (int it = item_begin; it < item_end; ++it) {
+      const int bi = items[4 * it], bj = items[4 * it + 1];
+      const int s0 = items[4 * it + 2], s1 = items[4 * it + 3];
+      const bool diag = bi == bj;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      int held = 0;        // steps whose products `part` holds
+      int unreleased = -1;  // the previous step's stage, until its group ends
+      for (int s = s0; s < s1; ++s, ++g) {
+        const int stage = g % k1Stages;
+        mbar_wait(full0 + 8 * stage, (g / k1Stages) & 1);
+        const uint32_t a = smem_addr(smem + stage * k1Stage);
+        const uint32_t b = a + k1Panel;
+        const uint32_t a_wg = (diag ? b : a) + wg * k1Atom;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < k1Step / 16; ++kk) {
+          const uint32_t off = kk * 16 * 128;  // two 8-row groups of 128 bytes
+          wgmma_m64n128k16(part, mn_desc_1pass(a_wg + off), mn_desc_1pass(b + off),
+                           (held > 0 || kk > 0) ? 1 : 0);
+        }
+        wgmma_commit();
+        fence_operands(part);
+        ++held;
+        const bool promote = held == promote_steps || s + 1 == s1;
+        if (promote)
+          wgmma_wait_all();
+        else
+          wgmma_wait_one();
+        fence_operands(part);
+        __syncwarp();
+        if (lane == 0) {
+          if (unreleased >= 0) mbar_arrive(empty0 + 8 * unreleased);
+          if (promote) mbar_arrive(empty0 + 8 * stage);
+        }
+        unreleased = promote ? -1 : stage;
+        if (promote) {
+#pragma unroll
+          for (int i = 0; i < 64; ++i) acc[i] += part[i];
+          held = 0;
+        }
+      }
+
+      // accumulator fragment: value 4c + 2h + e of a thread is row
+      // 16 * (warp % 4) + lane / 4 + 8h, column 8c + 2 * (lane % 4) + e
+      float* out = partial_gram + (size_t)it * kTile * kTile;
+      const int row0 = wg * 64 + (warp % 4) * 16 + lane / 4;
+      const int col0 = 2 * (lane % 4);
+#pragma unroll
+      for (int c = 0; c < kTile / 8; ++c)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(out + (row0 + 8 * h) * kTile + 8 * c + col0) =
+              make_float2(acc[4 * c + 2 * h], acc[4 * c + 2 * h + 1]);
+    }
+  }
+}
+
+// The reduce pass of the one-product instances: one 256-thread block per
+// 32 x 32 sub-tile (16 a tile), then one per 8 moments. A tile block sums
+// each element's items (tile_items[first:end] of tiles[4 * t] = (bi, bj,
+// first, end)) in row order, writes it and, for a strict upper
+// tile, its mirror through a shared-memory transpose, both coalesced. A
+// moment block sums the pre-pass's row_blocks partials of 8 moments (index
+// m < 2n: col_sum then sum_sq, in feature order): lane l of 32 takes
+// partials l, l + 32, ... in order, then the 32 lanes' sums are added in
+// lane order.
+__global__ void gram_1pass_reduce_kernel(const float* __restrict__ partial_gram,
+                                         const int* __restrict__ tiles, int num_tiles,
+                                         const int* __restrict__ tile_items,
+                                         const float* __restrict__ moment_parts,
+                                         int row_blocks, int n, float* __restrict__ gram,
+                                         float* __restrict__ col_sum,
+                                         float* __restrict__ sum_sq) {
+  __shared__ float sub[32][33];
+  if (blockIdx.x < num_tiles * 16) {
+    const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+    const int* t = tiles + 4 * (blockIdx.x / 16);
+    const int bi = t[0], bj = t[1], first = t[2], end = t[3];
+    const int q = blockIdx.x % 16, r0 = (q / 4) * 32, c0 = (q % 4) * 32;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int r = r0 + ty + 8 * k, c = c0 + tx;
+      float s = 0.f;
+      for (int k2 = first; k2 < end; ++k2)
+        s += partial_gram[((size_t)tile_items[k2] * kTile + r) * kTile + c];
+      const int i = bi * kTile + r, j = bj * kTile + c;
+      if (i < n && j < n) gram[(size_t)i * n + j] = s;
+      sub[ty + 8 * k][tx] = s;
+    }
+    if (bi < bj) {
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int j = bj * kTile + c0 + ty + 8 * k, i = bi * kTile + r0 + tx;
+        if (i < n && j < n) gram[(size_t)j * n + i] = sub[tx][ty + 8 * k];
+      }
+    }
+  } else {
+    const int mx = threadIdx.x % kMomentsPerBlock, lane = threadIdx.x / kMomentsPerBlock;
+    const int m = (blockIdx.x - num_tiles * 16) * kMomentsPerBlock + mx;
+    float s = 0.f;
+    if (m < 2 * n)
+      for (int p = lane; p < row_blocks; p += kMomentLanes)
+        s += moment_parts[(size_t)p * 2 * n + m];
+    sub[lane][mx] = s;
+    __syncthreads();
+    if (lane == 0 && m < 2 * n) {
+      float total = 0.f;
+#pragma unroll
+      for (int l = 0; l < kMomentLanes; ++l) total += sub[l][mx];
+      (m < n ? col_sum : sum_sq)[m % n] = total;
+    }
+  }
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -602,25 +907,76 @@ extern "C" int symmetric_gram_moments_launch(const float* x, long long rows, int
                          partial_gram, partial_moments, gram, col_sum, sum_sq, stream);
 }
 
-// The one-product instances: gram = hi^T hi, col_sum and sum_sq of x itself,
-// under the same contract as the two entry points above.
-extern "C" int gram_moments_1pass_launch(const float* x, long long rows, int n, int use_tma,
-                                         const int* items, const int* tiles, int num_tiles,
+// The one-product instances (both wrappers, fused and symmetric): gram =
+// hi^T hi over the upper tiles, mirrored, and col_sum, sum_sq of x itself.
+// Three kernels on `stream`: the pre-pass over a (row_blocks, hi_stride /
+// 512) grid, hi_stride = n rounded up to 128, writing hi [rows, hi_stride]
+// bf16 and moment_parts [row_blocks, 2, n] f32; the Gram pass over the
+// work list of ops/gram_moments.py::schedule_1pass at 64-row steps (items
+// and block_items as above, upper tiles only; tiles index tile_items
+// [num_items], which lists each tile's items in row order) into
+// partial_gram [items, 128, 128]; the reduce pass. row_blocks * rows_per_block must cover rows.
+// vec: X's rows are 16-byte aligned (n % 4 == 0, x 16-byte aligned). All
+// scratch is allocated by the caller, hi 16-byte aligned. Returns
+// cudaGetLastError().
+extern "C" int gram_moments_1pass_launch(const float* x, long long rows, int n, int vec,
+                                         int row_blocks, int rows_per_block, const int* items,
+                                         const int* tiles, int num_tiles,
                                          const int* block_items, int blocks,
-                                         float* partial_gram, float* partial_moments,
+                                         const int* tile_items, int promote_steps,
+                                         void* hi, float* partial_gram, float* moment_parts,
                                          float* gram, float* col_sum, float* sum_sq,
                                          void* stream) {
-  return launch<false, 1>(x, rows, n, use_tma, items, tiles, num_tiles, block_items, blocks,
-                          partial_gram, partial_moments, gram, col_sum, sum_sq, stream);
-}
-
-extern "C" int symmetric_gram_moments_1pass_launch(const float* x, long long rows, int n,
-                                                   int use_tma, const int* items,
-                                                   const int* tiles, int num_tiles,
-                                                   const int* block_items, int blocks,
-                                                   float* partial_gram, float* partial_moments,
-                                                   float* gram, float* col_sum, float* sum_sq,
-                                                   void* stream) {
-  return launch<true, 1>(x, rows, n, use_tma, items, tiles, num_tiles, block_items, blocks,
-                         partial_gram, partial_moments, gram, col_sum, sum_sq, stream);
+  const int nt = (n + kTile - 1) / kTile;
+  const int hi_stride = nt * kTile;
+  if (rows < 0 || n <= 0 || num_tiles != nt * (nt + 1) / 2 || blocks < 0 ||
+      rows > 0x7fffffffLL || promote_steps < 1 || row_blocks < 0 || rows_per_block < 0 ||
+      (long long)row_blocks * rows_per_block < rows ||
+      reinterpret_cast<uintptr_t>(hi) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (vec && (n % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  __nv_bfloat16* hi_bf = static_cast<__nv_bfloat16*>(hi);
+  if (rows > 0 && row_blocks > 0) {
+    const dim3 grid(row_blocks, (hi_stride + kPrepassCols - 1) / kPrepassCols);
+    bf16_moments_kernel<<<grid, kPrepassThreads, 0, s>>>(x, rows, n, vec, rows_per_block, hi_bf,
+                                                        hi_stride, moment_parts);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (blocks > 0) {
+    EncodeTiled encode = encoder();
+    if (!encode) return (int)cudaErrorNotSupported;
+    CUtensorMap map;
+    memset(&map, 0, sizeof(map));
+    const cuuint64_t dims[2] = {(cuuint64_t)hi_stride, (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)hi_stride * 2};
+    const cuuint32_t box[2] = {kAtom, k1Step};
+    const cuuint32_t unit[2] = {1, 1};
+    if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, hi, dims, strides, box, unit,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return (int)cudaErrorInvalidValue;
+    static bool attribute_set[64] = {};
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return (int)err;
+    if (device >= 64 || !attribute_set[device]) {
+      err = cudaFuncSetAttribute(gram_1pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 k1SmemBytes);
+      if (err != cudaSuccess) return (int)err;
+      if (device < 64) attribute_set[device] = true;
+    }
+    gram_1pass_kernel<<<blocks, kThreads, k1SmemBytes, s>>>(map, items, block_items,
+                                                            promote_steps, partial_gram);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int moment_blocks = (2 * n + kMomentsPerBlock - 1) / kMomentsPerBlock;
+  gram_1pass_reduce_kernel<<<num_tiles * 16 + moment_blocks, 256, 0, s>>>(
+      partial_gram, tiles, num_tiles, tile_items, moment_parts, rows > 0 ? row_blocks : 0, n, gram,
+      col_sum, sum_sq);
+  return (int)cudaGetLastError();
 }

@@ -18,14 +18,17 @@ XLA and no Pallas kernel computes)
 - ``col_sum`` = Σx and ``sum_sq`` = Σx² over rows, in f32.
 
 The split carries ~16 mantissa bits through bf16 tensor-core products, one
-pass ~8. Two kernels in ``csrc/gram_moments.cu`` compute either, one
-instance per count of products:
+pass ~8. ``csrc/gram_moments.cu`` computes either:
 
-- ``fused_gram_moments`` multiplies every 128-column tile pair (the resident
-  fit's Gram pass);
-- ``symmetric_gram_moments`` multiplies the upper tile pairs only and mirrors
-  the strict upper tiles into the lower half, so mirrored tiles are
-  bit-equal (the streamed fold's Gram pass).
+- with three products, ``fused_gram_moments`` multiplies every 128-column
+  tile pair (the resident fit's Gram pass) and ``symmetric_gram_moments``
+  the upper tile pairs only, mirroring the strict upper tiles into the
+  lower half, so mirrored tiles are bit-equal (the streamed fold's Gram
+  pass);
+- with one product, both wrappers launch one kernel set: a pre-pass that
+  writes hi into a bf16 scratch and takes the moments, then a TMA/wgmma
+  Gram pass over the upper tile pairs at ``STEP_1PASS``-row steps
+  (``schedule_1pass``), mirrored as the symmetric instance's.
 
 Each wrapper launches its kernel for a tensor on the card and runs its plain
 version (``*_reference``) for a tensor on the CPU.
@@ -44,7 +47,17 @@ import torch
 from spark_rapids_ml_tpu_torch.ops import _build
 
 TILE = 128  # output tile edge of the kernel (csrc/gram_moments.cu kTile)
-STEP = 32   # rows per ring stage of the kernel (kStep)
+STEP = 32   # rows per ring stage of the three-product kernel (kStep)
+STEP_1PASS = 64  # rows per ring stage of the one-product Gram pass (k1Step)
+# Steps whose products the one-product kernel's wgmma accumulator holds
+# before they are added into the running f32 sum (promote_steps): 1,024
+# rows. On an H100 (PERF.md, section 6) every 16 steps kept the Gram within
+# 2.0e-6 of max|G| of the f64 sum at 131,072 rows (the gate is 1e-5); every
+# 64 steps reached 1.06e-5.
+PROMOTE_STEPS = 16
+PREPASS_COLS = 512   # features per pre-pass block (kPrepassCols)
+PREPASS_UNROLL = 8   # rows a pre-pass thread sums before its running sums (kPrepassUnroll)
+PREPASS_BLOCKS_PER_SM = 4
 REFERENCE_BLOCK_ROWS = 1024  # the TPU kernel's default row block
 
 PRODUCTS = (3, 1)  # the split's three products, or one bf16 pass
@@ -59,12 +72,13 @@ launches_1pass = 0
 symmetric_launches_1pass = 0
 _launch_lock = threading.Lock()
 
-# (symmetric, products) -> the instance's C entry point and launch counter
+# (symmetric, products) -> the instance's C entry point and launch counter;
+# both one-product wrappers call the one entry point
 _INSTANCES = {
     (False, 3): ("gram_moments_launch", "launches"),
     (True, 3): ("symmetric_gram_moments_launch", "symmetric_launches"),
     (False, 1): ("gram_moments_1pass_launch", "launches_1pass"),
-    (True, 1): ("symmetric_gram_moments_1pass_launch", "symmetric_launches_1pass"),
+    (True, 1): ("gram_moments_1pass_launch", "symmetric_launches_1pass"),
 }
 
 
@@ -144,6 +158,22 @@ class Schedule(NamedTuple):
         return [int(steps[a:b].sum()) for a, b in zip(self.block_items[:-1], self.block_items[1:])]
 
 
+class Schedule1Pass(NamedTuple):
+    """The one-product Gram pass's work list (int32 tables): ``items`` and
+    ``block_items`` as in ``Schedule``, at ``STEP_1PASS``-row steps and in
+    each block's walking order; ``tiles`` [num_tiles, 4] (bi, bj, first,
+    end) with each tile's items ``tile_items[first:end]`` [num_items], in
+    row order, the reduce pass's order."""
+
+    items: np.ndarray
+    tiles: np.ndarray
+    block_items: np.ndarray
+    tile_items: np.ndarray
+
+    blocks = Schedule.blocks
+    steps_per_block = Schedule.steps_per_block
+
+
 @functools.lru_cache(maxsize=64)
 def schedule(rows: int, n: int, symmetric: bool, sm_count: int) -> Schedule:
     """Cut the tile-major line of (tile, row step) pairs into ``sm_count``
@@ -177,6 +207,82 @@ def schedule(rows: int, n: int, symmetric: bool, sm_count: int) -> Schedule:
     return Schedule(*tables)
 
 
+# A partial tile's write and read, in one-product steps of card time: 128 KB
+# at ~3 TB/s against a step's ~0.3 us (the cost model of row_parts).
+PARTIAL_COST_STEPS = 0.15
+
+
+def row_parts(tiles: int, steps: int, sm_count: int) -> int:
+    """How many row parts the one-product work list cuts every tile into,
+    at the same cuts: the q that minimises the longest block's steps
+    (ceil(tiles * q / sm_count) units of ceil(steps / q) steps) plus the
+    partial tiles' traffic (``PARTIAL_COST_STEPS`` a unit), for q up to
+    ``steps`` (and 256)."""
+    def cost(q: int) -> float:
+        slots = -(-tiles * q // sm_count)
+        return slots * -(-steps // q) + PARTIAL_COST_STEPS * tiles * q
+
+    return min(range(1, min(steps, 256) + 1), key=cost)
+
+
+@functools.lru_cache(maxsize=64)
+def schedule_1pass(rows: int, n: int, sm_count: int) -> Schedule1Pass:
+    """The one-product Gram pass's work list, which both one-product
+    wrappers run: the upper tile pairs at ``STEP_1PASS``-row steps, every
+    tile cut at the same ``row_parts`` row cuts into units (tile, part).
+    The T tiles' units are dealt round-robin in part-major order: unit u =
+    part * T + tile goes to block u % blocks as its (u // blocks)-th item.
+    So the k-th items of all blocks are units of the same few parts, all as
+    long to within a step, each walked from its part's first row: the
+    blocks sweep the same rows at the same time, and each row of the bf16
+    copy is read from device memory about once and from L2 by every tile
+    that needs it. Each unit is an item with its own partial tile."""
+    pairs = tile_pairs(n, True)
+    num_tiles, steps = len(pairs), -(-rows // STEP_1PASS)
+    q = row_parts(num_tiles, steps, sm_count) if steps else 0
+    cuts = [j * steps // q for j in range(q + 1)] if q else []
+    units = num_tiles * q
+    blocks = min(sm_count, units)
+    items, block_items, index = [], [0], {}
+    for b in range(blocks):
+        for u in range(b, units, blocks):
+            j, t = divmod(u, num_tiles)
+            index[u] = len(items)
+            items.append((*pairs[t], cuts[j], cuts[j + 1]))
+        block_items.append(len(items))
+    tiles = [(*pair, t * q, (t + 1) * q) for t, pair in enumerate(pairs)]
+    tile_items = [index[j * num_tiles + t] for t in range(num_tiles) for j in range(q)]
+    tables = (np.asarray(items, np.int32).reshape(-1, 4),
+              np.asarray(tiles, np.int32).reshape(-1, 4),
+              np.asarray(block_items, np.int32),
+              np.asarray(tile_items, np.int32))
+    for table in tables:
+        table.setflags(write=False)
+    return Schedule1Pass(*tables)
+
+
+def padded_cols(n: int) -> int:
+    """The row stride, in features, of the one-product kernel's bf16 copy
+    of X: n rounded up to a whole tile, so that every TMA box of the Gram
+    pass lies inside it (features n and beyond are zeros)."""
+    return -(-n // TILE) * TILE
+
+
+def prepass_layout(rows: int, n: int, sm_count: int) -> tuple[int, int]:
+    """(row_blocks, rows_per_block) of the one-product pre-pass: about
+    ``PREPASS_BLOCKS_PER_SM`` blocks an SM over its (row block,
+    ``PREPASS_COLS``-feature block) grid, each taking a whole number of
+    ``PREPASS_UNROLL``-row groups. Each row block writes one partial of
+    each moment, which the reduce pass sums in row-block order."""
+    if rows == 0:
+        return 0, 0
+    col_blocks = -(-padded_cols(n) // PREPASS_COLS)
+    target = max(1, PREPASS_BLOCKS_PER_SM * sm_count // col_blocks)
+    per_block = -(-rows // target)
+    per_block = max(4 * PREPASS_UNROLL, -(-per_block // PREPASS_UNROLL) * PREPASS_UNROLL)
+    return -(-rows // per_block), per_block
+
+
 def load_route(x: torch.Tensor) -> str:
     """How the kernel brings X's tiles in: ``"tma"`` where the tensor map
     allows it (row stride a multiple of 16 bytes, 16-byte-aligned base),
@@ -206,28 +312,23 @@ def _check(x: torch.Tensor) -> None:
 
 _entries: dict[str, object] = {}  # C entry points, set up once at first use
 
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = {
+    # x, rows, n, use_tma, items, tiles, num_tiles, block_items, blocks,
+    # partial_gram, partial_moments, gram, col_sum, sum_sq, stream
+    "three": [_P, _LL, _I, _I, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P],
+    # x, rows, n, vec, row_blocks, rows_per_block, items, tiles, num_tiles,
+    # block_items, blocks, tile_items, promote_steps, hi, partial_gram,
+    # moment_parts, gram, col_sum, sum_sq, stream
+    "one": [_P, _LL, _I, _I, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P],
+}
+
 
 def _entry(symbol: str):
     fn = _entries.get(symbol)
     if fn is None:
         fn = getattr(_build.load_library("gram_moments"), symbol)
-        fn.argtypes = [
-            ctypes.c_void_p,      # x
-            ctypes.c_longlong,    # rows
-            ctypes.c_int,         # n
-            ctypes.c_int,         # use_tma
-            ctypes.c_void_p,      # items
-            ctypes.c_void_p,      # tiles
-            ctypes.c_int,         # num_tiles
-            ctypes.c_void_p,      # block_items
-            ctypes.c_int,         # blocks
-            ctypes.c_void_p,      # partial_gram
-            ctypes.c_void_p,      # partial_moments
-            ctypes.c_void_p,      # gram
-            ctypes.c_void_p,      # col_sum
-            ctypes.c_void_p,      # sum_sq
-            ctypes.c_void_p,      # stream
-        ]
+        fn.argtypes = _ARGTYPES["one" if symbol == "gram_moments_1pass_launch" else "three"]
         fn.restype = ctypes.c_int
         _entries[symbol] = fn
     return fn
@@ -240,13 +341,15 @@ def _sm_count(device: torch.device) -> int:
 
 @functools.lru_cache(maxsize=64)
 def _device_tables(
-    rows: int, n: int, symmetric: bool, sm_count: int, device: torch.device
-) -> tuple[Schedule, torch.Tensor]:
-    """The schedule and its three tables in one int32 tensor on the card,
-    copied once per shape: the streamed fit's chunks reuse it without a
+    rows: int, n: int, symmetric: bool, sm_count: int, device: torch.device,
+    one_product: bool = False,
+) -> tuple[Schedule | Schedule1Pass, torch.Tensor]:
+    """The schedule and its tables in one int32 tensor on the card, copied
+    once per shape: the streamed fit's chunks reuse it without a
     host-to-device copy each."""
-    plan = schedule(rows, n, symmetric, sm_count)
-    flat = np.concatenate([plan.items.ravel(), plan.tiles.ravel(), plan.block_items])
+    plan = schedule_1pass(rows, n, sm_count) if one_product else schedule(
+        rows, n, symmetric, sm_count)
+    flat = np.concatenate([table.ravel() for table in plan])
     return plan, torch.from_numpy(flat).to(device)
 
 
@@ -258,6 +361,16 @@ def _launch(
     not build or load, this raises before anything else is done."""
     symbol, counter = _INSTANCES[(symmetric, products)]
     launch = _entry(symbol)
+    if products == 1:
+        out = _launch_1pass(launch, symbol, x)
+    else:
+        out = _launch_3(launch, symbol, x, symmetric)
+    with _launch_lock:
+        globals()[counter] += 1
+    return out
+
+
+def _launch_3(launch, symbol: str, x: torch.Tensor, symmetric: bool):
     rows, n = x.shape
     plan, table = _device_tables(rows, n, symmetric, _sm_count(x.device), x.device)
     num_items, num_tiles = len(plan.items), len(plan.tiles)
@@ -282,8 +395,48 @@ def _launch(
             f"{symbol} failed with CUDA error {err} "
             f"(x {tuple(x.shape)}, {num_items} items on {plan.blocks} blocks)"
         )
-    with _launch_lock:
-        globals()[counter] += 1
+    return gram, col_sum, sum_sq
+
+
+def _launch_1pass(launch, symbol: str, x: torch.Tensor):
+    """The one-product kernels on one scratch allocation: hi [rows,
+    padded_cols(n)] bf16, then the partial tiles, then the pre-pass's moment
+    partials, each 256-byte aligned."""
+    rows, n = x.shape
+    sm_count = _sm_count(x.device)
+    plan, table = _device_tables(rows, n, True, sm_count, x.device, one_product=True)
+    row_blocks, rows_per_block = prepass_layout(rows, n, sm_count)
+    num_items, num_tiles = len(plan.items), len(plan.tiles)
+    items = table.data_ptr()
+    tiles = items + 16 * num_items
+    block_items = tiles + 16 * num_tiles
+    tile_items = block_items + 4 * (plan.blocks + 1)
+
+    def aligned(nbytes: int) -> int:
+        return -(-nbytes // 256) * 256
+
+    hi_bytes = aligned(rows * padded_cols(n) * 2)
+    partial_bytes = aligned(num_items * TILE * TILE * 4)
+    scratch = torch.empty(hi_bytes + partial_bytes + aligned(row_blocks * 2 * n * 4),
+                          dtype=torch.uint8, device=x.device)
+    hi = scratch.data_ptr()
+    new = dict(dtype=torch.float32, device=x.device)
+    gram = torch.empty((n, n), **new)
+    col_sum = torch.empty((n,), **new)
+    sum_sq = torch.empty((n,), **new)
+    with torch.cuda.device(x.device):
+        err = launch(
+            x.data_ptr(), rows, n, int(load_route(x) == "tma"), row_blocks, rows_per_block,
+            items, tiles, num_tiles, block_items, plan.blocks, tile_items, PROMOTE_STEPS,
+            hi, hi + hi_bytes, hi + hi_bytes + partial_bytes,
+            gram.data_ptr(), col_sum.data_ptr(), sum_sq.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"{symbol} failed with CUDA error {err} (x {tuple(x.shape)}, "
+            f"{num_items} items on {plan.blocks} blocks, {row_blocks} pre-pass row blocks)"
+        )
     return gram, col_sum, sum_sq
 
 
@@ -294,7 +447,10 @@ def fused_gram_moments(
     from the split's three products or from one bf16 pass (``products``).
 
     On the card this launches the instance on the current stream and returns
-    without synchronising; on the CPU it runs the plain version.
+    without synchronising; on the CPU it runs the plain version. With one
+    product the card multiplies the upper tile pairs and mirrors them, as
+    ``symmetric_gram_moments`` does: the Gram is symmetric, so that is the
+    same function for half the work.
     """
     _check_products(products)
     _check(x)

@@ -117,9 +117,15 @@ ptxas info    : Used 168 registers, used 3 barriers
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119gram_partial_kernelILb0ELi3EEEvPKf' for 'sm_90a'
     0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
 ptxas info    : Used 168 registers, used 3 barriers
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119gram_partial_kernelILb0ELi1EEEvPKf' for 'sm_90a'
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117gram_1pass_kernelE14CUtensorMap_stPKiS3_iPf' for 'sm_90a'
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 160 registers, used 3 barriers
+ptxas info    : Used 160 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_124gram_1pass_reduce_kernelEPKfPKiiS1_iiPfS4_S4_' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 30 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119bf16_moments_kernelEPKfxiiiP13__nv_bfloat16iPf' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers
 """
 SASS = """	code for sm_90a
 		Function : _ZN12_GLOBAL__N_119gram_partial_kernelILb0ELi3EEEvPKf
@@ -129,25 +135,33 @@ SASS = """	code for sm_90a
         /*0100*/   FADD R1, R2, R3 ;
 		Function : _ZN12_GLOBAL__N_119gram_partial_kernelILb1ELi3EEEvPKf
         /*0100*/   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
-		Function : _ZN12_GLOBAL__N_119gram_partial_kernelILb1ELi1EEEvPKf
+		Function : _ZN12_GLOBAL__N_117gram_1pass_kernelE14CUtensorMap_stPKiS3_iPf
         /*0100*/   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
         /*0110*/   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], R24 ;
         /*0120*/   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR12], R24 ;
+		Function : _ZN12_GLOBAL__N_124gram_1pass_reduce_kernelEPKfPKiiS1_iiPfS4_S4_
+        /*0100*/   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
 """
 
 
 def test_build_report_reads_each_instance():
-    """Each kernel's instance by its template arguments <symmetric,
-    products> in the mangled name: a one-product instance is not read as
-    its three-product twin, nor the reverse."""
+    """Each kernel's instance by its mangled name: a three-product instance
+    by its template arguments <symmetric, 3>, both one-product kernels by
+    gram_1pass_kernel, which neither its reduce pass nor its pre-pass is
+    read as; the pre-pass's own ptxas lines come apart."""
     report = chip_smoke.build_report(PTXAS_LOG, SASS)
     fused, symmetric = report["gram_moments"], report["symmetric_gram_moments"]
     assert fused["hgmma"] == 2 and symmetric["hgmma"] == 1
     assert fused["spill_bytes"] == 12 and symmetric["spill_bytes"] == 0
     assert any("168 registers" in line for line in symmetric["ptxas"])
     one, sym_one = report["gram_moments_1pass"], report["symmetric_gram_moments_1pass"]
-    assert one["hgmma"] == 0 and any("160 registers" in line for line in one["ptxas"])
-    assert sym_one["hgmma"] == 3 and sym_one["ptxas"] == []
+    assert one == sym_one
+    assert one["hgmma"] == 3 and one["spill_bytes"] == 0
+    assert [line for line in one["ptxas"] if "Used" in line] == [
+        "ptxas info    : Used 160 registers, used 1 barriers"]
+    prepass = chip_smoke.ptxas_lines(PTXAS_LOG, chip_smoke.PREPASS_INSTANCE)
+    assert any("64 registers" in line for line in prepass)
+    assert chip_smoke.spill_bytes(prepass) == 0
     assert chip_smoke.build_report("", "") == {
         k: {"ptxas": [], "spill_bytes": 0, "hgmma": 0} for k in chip_smoke.INSTANCES
     }
@@ -160,6 +174,36 @@ def test_schedule_summary_at_the_main_shapes():
     symmetric = chip_smoke.schedule_summary(65_536, 512, True, 132)
     assert symmetric["tiles"] == 10 and symmetric["steps_per_sm"] == [155, 156]
     assert symmetric["items_per_sm"][0] >= 1
+
+
+def test_library_f32_yardstick_records_an_error_not_a_substitute(monkeypatch):
+    """torch.mm(hi.T, hi, out_dtype=f32) is timed where it runs; where it
+    raises (this CPU build has no kernel for it) the entry holds the error
+    and no time."""
+    calls = []
+
+    def once(fn, reps):
+        calls.append(reps)
+        fn()
+        return 1.5
+
+    monkeypatch.setattr(chip_smoke, "_time_ms", once)
+    hi = torch.ones((64, 8), dtype=torch.bfloat16)
+    entry = chip_smoke.library_f32_ms(hi)
+    if entry["library_f32_ms"] is None:
+        assert "mm" in entry["library_f32_error"] or "dtype" in entry["library_f32_error"]
+    else:
+        assert entry == {"library_f32_ms": 1.5}
+    assert calls == [chip_smoke.TIMED_LAUNCHES]
+
+
+def test_one_pass_schedule_summary_at_the_main_shape():
+    """The one-product Gram pass: the 10 upper tiles at 64-row steps, each
+    cut into 13 row parts of 78 or 79 of its 1,024 steps, one part a block
+    on 130 of 132 SMs."""
+    one = chip_smoke.schedule_summary(65_536, 512, True, 132, one_product=True)
+    assert one["step_rows"] == 64 and one["tiles"] == 10 and one["blocks"] == 130
+    assert one["items"] == 130 and one["steps_per_sm"] == [78, 79]
 
 
 def test_kernel_checks_take_both_load_routes():
@@ -182,8 +226,10 @@ def test_one_pass_kernel_check_phase_on_cpu(kernel):
 
 def test_four_kernels_each_with_its_instance_and_counter():
     assert set(chip_smoke.KERNELS) == set(chip_smoke.INSTANCES) == set(chip_smoke.COUNTERS)
-    assert len(set(chip_smoke.INSTANCES.values())) == 4
-    assert chip_smoke.INSTANCES["symmetric_gram_moments_1pass"] == "gram_partial_kernelILb1ELi1E"
+    # both one-product kernels run one Gram pass
+    assert len(set(chip_smoke.INSTANCES.values())) == 3
+    assert chip_smoke.INSTANCES["symmetric_gram_moments_1pass"] == "gram_1pass_kernel"
+    assert chip_smoke.INSTANCES["symmetric_gram_moments"] == "gram_partial_kernelILb1ELi3E"
     for name, counter in chip_smoke.COUNTERS.items():
         assert hasattr(chip_smoke.G, counter), name
     shapes = chip_smoke.KERNEL_SHAPES

@@ -318,11 +318,13 @@ def test_load_route_follows_the_tensor_map_rules(x_cols, expected):
 
 def _emulate(x, symmetric, sm_count, products=3):
     """The kernel's arithmetic in plain PyTorch, item by item: each step's
-    three products of the split, or its one product hiᵀhi (f32 sums of exact
-    bf16 products), added into the item's f32 partial, moments (of hi + lo,
-    or of x) per step then into the item's sums, and each tile's items
-    summed in the reduce pass's order; the symmetric instance writes each
-    strict upper tile to its mirror."""
+    three products of the split (f32 sums of exact bf16 products), added
+    into the item's f32 partial, moments (of hi + lo) per step then into the
+    item's sums, and each tile's items summed in the reduce pass's order;
+    the symmetric instance writes each strict upper tile to its mirror. One
+    product: ``_emulate_1pass``, the kernels both wrappers launch."""
+    if products == 1:
+        return _emulate_1pass(x, sm_count)
     rows, n = x.shape
     plan = G.schedule(rows, n, symmetric, sm_count)
     steps = -(-rows // G.STEP)
@@ -370,6 +372,67 @@ def _emulate(x, symmetric, sm_count, products=3):
     return gram[:n, :n], col_sum[:n], sum_sq[:n]
 
 
+def _emulate_1pass(x, sm_count, promote_steps=None):
+    """The one-product kernels' arithmetic in plain PyTorch. Gram pass: the
+    items of ``schedule_1pass`` at ``STEP_1PASS``-row steps of hi = bf16(x) (each
+    step's product an f32 sum of exact bf16 products), ``promote_steps``
+    steps summed into a run (from the item's start; the item's last run may
+    be shorter), each run added into the item's f32 partial; the reduce
+    pass sums each tile's items (``tile_items``) in row order and mirrors
+    the strict upper tiles. Moments: each pre-pass row block sums its rows
+    ``PREPASS_UNROLL`` at a time, then into its running sums; the reduce
+    pass's lane l of 32 sums row blocks l, l + 32, ... in order, then the
+    lanes in order."""
+    promote_steps = promote_steps or G.PROMOTE_STEPS
+    rows, n = x.shape
+    plan = G.schedule_1pass(rows, n, sm_count)
+    step = G.STEP_1PASS
+    steps = -(-rows // step)
+    n_pad = G.padded_cols(n)
+    xp = torch.zeros((steps * step, n_pad))
+    xp[:rows, :n] = x
+    hi = xp.to(torch.bfloat16).float()
+
+    def block(b, s0, s1):
+        return hi[s0 * step:s1 * step, b * G.TILE:(b + 1) * G.TILE].reshape(s1 - s0, step, G.TILE)
+
+    partials = []
+    for bi, bj, s0, s1 in plan.items.tolist():
+        prods = block(bi, s0, s1).transpose(1, 2) @ block(bj, s0, s1)
+        acc = torch.zeros((G.TILE, G.TILE))
+        for run in torch.split(prods, promote_steps):
+            part = run[0].clone()
+            for p in run[1:]:
+                part += p
+            acc += part
+        partials.append(acc)
+    gram = torch.zeros((n_pad, n_pad))
+    for bi, bj, first, end in plan.tiles.tolist():
+        tile = torch.zeros((G.TILE, G.TILE))
+        for it in plan.tile_items[first:end].tolist():
+            tile += partials[it]
+        i, j = bi * G.TILE, bj * G.TILE
+        gram[i:i + G.TILE, j:j + G.TILE] = tile
+        if bi < bj:
+            gram[j:j + G.TILE, i:i + G.TILE] = tile.T
+
+    row_blocks, per_block = G.prepass_layout(rows, n, sm_count)
+    parts = []
+    for b in range(row_blocks):
+        cs, sq = torch.zeros(n), torch.zeros(n)
+        for group in torch.split(x[b * per_block:(b + 1) * per_block], G.PREPASS_UNROLL):
+            cs += group.sum(0)
+            sq += (group * group).sum(0)
+        parts.append(torch.stack([cs, sq]))
+    moments = torch.zeros((2, n))
+    for lane in range(32):
+        lane_sum = torch.zeros((2, n))
+        for part in parts[lane::32]:
+            lane_sum += part
+        moments += lane_sum
+    return gram[:n, :n], moments[0], moments[1]
+
+
 @pytest.mark.parametrize("symmetric", [False, True], ids=["fused", "symmetric"])
 @pytest.mark.parametrize("rows,n,sm_count", [(700, 300, 132), (2_000, 260, 7), (33, 7, 132)])
 def test_emulated_schedule_matches_the_plain_version(rng, rows, n, sm_count, symmetric):
@@ -380,6 +443,120 @@ def test_emulated_schedule_matches_the_plain_version(rng, rows, n, sm_count, sym
 @pytest.mark.parametrize("rows,n,sm_count", [(700, 300, 132), (2_000, 260, 7), (33, 7, 132)])
 def test_emulated_one_pass_schedule_matches_the_plain_version(rng, rows, n, sm_count, symmetric):
     _check_emulated_schedule(rng, rows, n, sm_count, symmetric, products=1)
+
+
+@pytest.mark.parametrize("promote_steps", [1, 3, 64])
+@pytest.mark.parametrize("rows,n,sm_count", [(3_000, 200, 5), (700, 300, 132)])
+def test_emulated_one_pass_promotion_matches_the_plain_version(rng, rows, n, sm_count,
+                                                               promote_steps):
+    """The promotion interval changes only the f32 summation order: every
+    interval stays within the kernel check's tolerances of the plain
+    version, and the mirror is bit-equal."""
+    x = torch.from_numpy(rng.normal(size=(rows, n)).astype(np.float32))
+    g, cs, sq = _emulate_1pass(x, sm_count, promote_steps)
+    rg, rcs, rsq = G.symmetric_gram_moments_reference(x, products=1)
+    scale = rg.abs().max().item()
+    torch.testing.assert_close(g, rg, rtol=0, atol=1e-5 * scale)
+    atol = 1e-5 * rows ** 0.5 * x.abs().max().item()
+    torch.testing.assert_close(cs, rcs, rtol=1e-5, atol=atol)
+    torch.testing.assert_close(sq, rsq, rtol=1e-5, atol=atol)
+    assert torch.equal(g, g.T) or torch.equal(
+        g[G.TILE:, :G.TILE], g[:G.TILE, G.TILE:].T)
+
+
+@pytest.mark.parametrize("rows,n", SCHEDULE_SHAPES)
+def test_one_pass_schedule_covers_every_upper_tile_step_once(rows, n):
+    """Both one-product wrappers' work list: every upper tile pair and every
+    64-row step exactly once; ``tile_items`` lists each tile's items in row
+    order, back to back."""
+    plan = G.schedule_1pass(rows, n, 132)
+    steps = -(-rows // G.STEP_1PASS)
+    pairs = G.tile_pairs(n, True)
+    seen = {}
+    for bi, bj, s0, s1 in plan.items.tolist():
+        assert bi <= bj and 0 <= s0 < s1 <= steps
+        for s in range(s0, s1):
+            seen[(bi, bj, s)] = seen.get((bi, bj, s), 0) + 1
+    assert set(seen) == {(bi, bj, s) for bi, bj in pairs for s in range(steps)}
+    assert set(seen.values()) == {1}
+    assert sorted(plan.tile_items.tolist()) == list(range(len(plan.items)))
+    for (bi, bj, first, end), pair in zip(plan.tiles.tolist(), pairs):
+        run = plan.items[plan.tile_items[first:end]]
+        assert (bi, bj) == pair and (run[:, :2] == pair).all()
+        assert run[0, 2] == 0 and run[-1, 3] == steps and (run[1:, 2] == run[:-1, 3]).all()
+
+
+@pytest.mark.parametrize("rows,n", SCHEDULE_SHAPES)
+def test_one_pass_schedule_walks_the_rows_together(rows, n):
+    """Every tile is cut at the same row cuts, and the k-th items of all
+    blocks are parts of one row sweep: their parts never go back from one
+    k to the next, and within a k they are as long to within a step, so
+    the blocks read the same rows at the same time. Each block's steps are
+    within one part of every other's."""
+    plan = G.schedule_1pass(rows, n, 132)
+    cuts = sorted({int(c) for c in plan.items[:, 2:].ravel()})
+    assert {tuple(r) for r in plan.items[:, 2:].tolist()} <= set(zip(cuts, cuts[1:]))
+    part = {c: k for k, c in enumerate(cuts)}
+    slots = {}
+    for b in range(plan.blocks):
+        for k, (bi, bj, s0, s1) in enumerate(plan.items[plan.block_items[b]:plan.block_items[b + 1]]
+                                             .tolist()):
+            slots.setdefault(k, []).append((part[s0], s1 - s0))
+    for k in range(len(slots) - 1):
+        assert max(p for p, _ in slots[k]) <= min(p for p, _ in slots[k + 1])
+    for entries in slots.values():
+        lengths = [length for _, length in entries]
+        assert max(lengths) - min(lengths) <= 1
+    steps = plan.steps_per_block()
+    longest_part = max(b - a for a, b in zip(cuts, cuts[1:]))
+    assert max(steps) - min(steps) <= longest_part and min(steps) >= 1
+
+
+@pytest.mark.parametrize("rows,n,blocks,items", [
+    (65_536, 512, 130, 130),       # 10 tiles x 13 parts, one a block
+    (131_072, 2_048, 132, 1_360),  # 136 tiles x 10 parts, 11 rounds
+    (65_536, 129, 129, 129),       # 3 tiles x 43 parts
+    (33, 7, 1, 1),
+])
+def test_one_pass_schedule_at_the_kernel_shapes(rows, n, blocks, items):
+    plan = G.schedule_1pass(rows, n, 132)
+    assert (plan.blocks, len(plan.items)) == (blocks, items)
+
+
+def test_one_pass_schedule_is_deterministic_and_apart_from_the_three_product_one():
+    for rows, n, sm in ((131_072, 2_048, 132), (4_097, 640, 7)):
+        a = G.schedule_1pass.__wrapped__(rows, n, sm)
+        b = G.schedule_1pass.__wrapped__(rows, n, sm)
+        for x, y in zip(a, b):
+            assert x.dtype == np.int32 and np.array_equal(x, y)
+    # the three-product kernels keep their 32-row steps and contiguous shares
+    assert sum(G.schedule(65_536, 512, True, 132).steps_per_block()) == 10 * 2_048
+    assert sum(G.schedule_1pass(65_536, 512, 132).steps_per_block()) == 10 * 1_024
+    assert G.schedule_1pass(0, 16, 132).blocks == 0  # no rows: no Gram pass
+
+
+@pytest.mark.parametrize("n,padded", [(1, 128), (7, 128), (128, 128), (129, 256), (300, 384),
+                                      (512, 512), (2_048, 2_048)])
+def test_one_pass_scratch_stride_is_padded_to_whole_tiles(n, padded):
+    """hi's row stride: whole 128-feature tiles, so every TMA box of the
+    Gram pass lies inside the copy and its stride (256 bytes a tile) is a
+    multiple of 16 bytes at every n."""
+    assert G.padded_cols(n) == padded
+    assert (G.padded_cols(n) * 2) % 16 == 0
+
+
+@pytest.mark.parametrize("rows,n", SCHEDULE_SHAPES + [(0, 5), (65_536, 2_048)])
+def test_prepass_layout_covers_the_rows(rows, n):
+    row_blocks, per_block = G.prepass_layout(rows, n, 132)
+    if rows == 0:
+        assert (row_blocks, per_block) == (0, 0)
+        return
+    assert per_block % G.PREPASS_UNROLL == 0
+    assert row_blocks * per_block >= rows > (row_blocks - 1) * per_block
+    col_blocks = -(-G.padded_cols(n) // G.PREPASS_COLS)
+    # about PREPASS_BLOCKS_PER_SM blocks an SM where the rows allow
+    assert row_blocks * col_blocks <= G.PREPASS_BLOCKS_PER_SM * 132 + col_blocks
+    assert G.prepass_layout(rows, n, 132) == (row_blocks, per_block)
 
 
 def _check_emulated_schedule(rng, rows, n, sm_count, symmetric, products):
