@@ -281,6 +281,32 @@ Phases, each a plain function that the CPU tests also call at a tiny size:
    on 1,000,000 HIGGS-shaped rows equal to the one-device build, and the
    sharded NaiveBayes statistics on 500,000 count rows. The kernels line
    gains phase22_launches.
+23. lifecycle and the fleet (group "fleet"), last: (a) a RefreshDaemon
+   over IncrementalPCA(k=50, "high") on a seeded stationary stream at
+   config 2's width (8 batches of 65,536 x 512 for version 1, registered
+   over the whole ladder, then 4 deltas; symmetric_gram_moments once a
+   fold), try_swap with a 256-row shadow sample to version 2: its
+   components against the f64 eigenvectors of all 12 batches' scatter,
+   every rung captured before the publish and no capture over 200 one-row
+   requests after it, the blackout printed; probation under an objective no
+   request meets rolls back to version 1 (its answers bit for bit those
+   before the swap); a daemon resumed from the checkpoint after version 1
+   refolds the deltas and finalizes version 2 bit for bit, then a clean
+   cycle (promoted, the prior pruned, torch.cuda.memory_allocated back
+   within 1 MB); a candidate fitted on other data refused by the shadow
+   gate; the gate's divergence on phase 8-style independent rows measured
+   beside it. (b) warm_hedge's rung set, and a serve.dispatch hang on one
+   dispatch while the phase holds that dispatch's rung lock: the hedge
+   answers (serve.hedges 1, won by the hedge), bit for bit the eager
+   projection. (c) a ServeFleet of 2 replica processes on the card serving
+   (a)'s version 1 and phase 14 (a)'s LinearRegression model: 500 one-row
+   requests on each of the fast lane and the UDS JSON wire through the
+   router against the f64 projection (phase 10's bound), a rolling restart
+   of replica 0 and swap_models to (a)'s promoted model, each under 16
+   clients with no failed request, every replica then answering as the
+   promoted model, the exporter's sums against the per-replica registries,
+   the respawn's captures and spawn-to-READY seconds, and the card's memory
+   per replica process. The kernels line gains phase23_launches.
 
 Each main path reads the kernels' launch counts from 0 around exactly its
 fit. The last lines are one JSON object with every kernel's numbers, the
@@ -304,6 +330,7 @@ import socket
 import subprocess
 import tempfile
 import threading
+import urllib.request
 from pathlib import Path
 import sys
 import time
@@ -352,11 +379,13 @@ from spark_rapids_ml_tpu_torch.parallel import neighbors as MPN
 from spark_rapids_ml_tpu_torch.parallel import sketched as MSK
 from spark_rapids_ml_tpu_torch.parallel import tsqr as MT
 from spark_rapids_ml_tpu_torch.parallel.tree_aggregate import tree_reduce
+from spark_rapids_ml_tpu_torch.refresh import RefreshDaemon
 from spark_rapids_ml_tpu_torch.resilience import faults
 from spark_rapids_ml_tpu_torch.resilience.retry import FoldHangTimeout
 from spark_rapids_ml_tpu_torch.serving import buckets as B
 from spark_rapids_ml_tpu_torch.serving import client as serve_client
 from spark_rapids_ml_tpu_torch.serving import fastlane as FL
+from spark_rapids_ml_tpu_torch.serving import fleet as SF
 from spark_rapids_ml_tpu_torch.serving import hbm
 from spark_rapids_ml_tpu_torch.serving import registry as R
 from spark_rapids_ml_tpu_torch.serving import server as S
@@ -364,7 +393,7 @@ from spark_rapids_ml_tpu_torch.serving.batcher import MicroBatcher
 from spark_rapids_ml_tpu_torch.spark import arrow_fns, ingest, spmd
 from spark_rapids_ml_tpu_torch.spark import estimators as spark_est
 from spark_rapids_ml_tpu_torch.telemetry import health, httpd, slo
-from spark_rapids_ml_tpu_torch.telemetry.registry import REGISTRY
+from spark_rapids_ml_tpu_torch.telemetry.registry import REGISTRY, MetricsRegistry
 from spark_rapids_ml_tpu_torch.telemetry.timeline import TIMELINE
 from spark_rapids_ml_tpu_torch.utils import columnar, devicepolicy
 from spark_rapids_ml_tpu_torch.utils.checkpoint import TrainingCheckpointer
@@ -7051,6 +7080,523 @@ def phase_meshfit_barrier(x_host: np.ndarray, linreg: dict, device: torch.device
     return result
 
 
+# -- phase 23: lifecycle and the fleet ------------------------------------------
+
+REFRESH_NAME = "refresh512"
+REFRESH_BATCH_ROWS = 65_536   # one streamed chunk of config 2 a batch
+REFRESH_V1_BATCHES = 8        # version 1: 524,288 rows
+REFRESH_DELTAS = 4            # the deltas version 2 folds in
+REFRESH_SHADOW_ROWS = 256     # TPU_ML_SWAP_SHADOW_ROWS's default
+REFRESH_REQUESTS = 200
+REFRESH_PROBE_ROWS = 300      # 8 one-row answers and one 300-row answer
+REFRESH_SEED = 67
+REFRESH_OTHER_SEED = 71       # the refused candidate's data: another mix
+# an objective no request can meet: probation's burn
+UNMEETABLE_SLO = "serve.latency:p99:0.000000001"
+MEMORY_SLACK_BYTES = 1 << 20
+HEDGE_FACTOR = "4"
+HEDGE_FLOOR_US = "20000"      # 20 ms, far above a one-row replay
+HEDGE_HANG_S = 1.0
+HEDGE_WAIT_S = 10.0
+HEDGE_WARMUPS = 3             # dispatches that set the EWMA before the hedged one
+FLEET_REPLICAS = 2
+FLEET_REQUESTS = 500
+FLEET_THREADS = 16
+
+
+REFRESH_LATENT = 64           # the stream's rank, as the bench data's
+REFRESH_TOP_EIG = 1e3         # λ of the first component
+REFRESH_KTH_EIG = 10.0        # λ of the k-th, 1,000 times the noise's 0.01
+
+
+def _stream_mix(n: int, k: int, device: torch.device, seed: int) -> torch.Tensor:
+    """[latent, n] rows √λᵢ·qᵢ of the stream's mix: Q orthonormal (seeded)
+    and λ falling geometrically from ``REFRESH_TOP_EIG`` at the first
+    component to ``REFRESH_KTH_EIG`` at the k-th (a 9% gap between
+    neighbours at k = 50)."""
+    latent = min(REFRESH_LATENT, n)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, _ = torch.linalg.qr(torch.randn((n, latent), generator=gen, device=device,
+                                       dtype=torch.float64))
+    ratio = (REFRESH_KTH_EIG / REFRESH_TOP_EIG) ** (1.0 / max(k - 1, 1))
+    lam = REFRESH_TOP_EIG * ratio ** torch.arange(latent, device=device, dtype=torch.float64)
+    return (lam.sqrt()[:, None] * q.T).float()
+
+
+def refresh_workload(rows: int, n: int, batches: int, k: int, device: torch.device,
+                     seed: int = REFRESH_SEED) -> tuple[np.ndarray, np.ndarray]:
+    """(x [rows·batches, n] f32 on the host, its f64 Gram), a stationary
+    stream made batch by batch on ``device``: each batch is z·mix + 0.1
+    noise (``_stream_mix``), with z [rows, latent] orthogonalized so that
+    zᵀz = rows·I. Every batch then holds the stream's second moments
+    exactly, and a refresh on more batches moves the components by the noise
+    terms alone. On independent rows (``bench_stream_divergence``) the
+    sampling rotation between 8 and 12 batches flips a component's sign
+    under the reference's orientation rule, and the shadow gate refuses the
+    refresh."""
+    mix = _stream_mix(n, k, device, seed)
+    latent = mix.shape[0]
+    x = np.empty((rows * batches, n), dtype=np.float32)
+    gram64 = torch.zeros((n, n), dtype=torch.float64, device=device)
+    for b in range(batches):
+        gen = torch.Generator(device=device).manual_seed(seed + 1 + b)
+        z, _ = torch.linalg.qr(torch.randn((rows, latent), generator=gen, device=device))
+        part = (z * rows ** 0.5) @ mix + 0.1 * torch.randn((rows, n), generator=gen,
+                                                             device=device)
+        part64 = part.double()
+        gram64 += part64.T @ part64
+        torch.from_numpy(x[b * rows:(b + 1) * rows]).copy_(part)
+        del z, part, part64
+    return x, gram64.cpu().numpy()
+
+
+def bench_stream_divergence(rows: int, n: int, k: int, v1_batches: int, batches: int,
+                            shadow_rows: int, device: torch.device,
+                            seed: int = REFRESH_SEED) -> float:
+    """The shadow divergence between the f64 PCA models (eigenvectors in the
+    reference's orientation, ``ops.linalg.sign_flip``) of the first
+    ``v1_batches`` and of all ``batches`` batches of phase 8-style
+    independent rows (``streamed_workload``'s generator), on the last batch's
+    last ``shadow_rows`` rows: a measurement of the gate on such a stream,
+    not a gate."""
+    mix = torch.randn((64, n), generator=torch.Generator(device=device).manual_seed(seed),
+                      device=device)
+    gram = torch.zeros((n, n), dtype=torch.float64, device=device)
+    grams = {}
+    for p in range(batches):
+        gen = torch.Generator(device=device).manual_seed(seed + 1 + p)
+        base = torch.randn((rows, 64), generator=gen, device=device)
+        part = (base @ mix + 0.1 * torch.randn((rows, n), generator=gen, device=device)).double()
+        gram += part.T @ part
+        if p + 1 in (v1_batches, batches):
+            grams[p + 1] = gram.clone()
+    shadow = part[-shadow_rows:]
+    outs = []
+    for b in (v1_batches, batches):
+        _, vecs = torch.linalg.eigh(grams[b])
+        outs.append((shadow @ L.sign_flip(vecs.flip(1)[:, :k])).cpu().numpy())
+    return R.ModelRegistry._shadow_divergence(*outs)
+
+
+def _probe_answers(client, probe: np.ndarray) -> list[np.ndarray]:
+    """Eight one-row answers and one answer of the whole probe block."""
+    return [client.predict(REFRESH_NAME, probe[i:i + 1]) for i in range(8)] + [
+        client.predict(REFRESH_NAME, probe)]
+
+
+def phase_refresh(device: torch.device, *, rows: int = REFRESH_BATCH_ROWS, n: int = MAIN_N,
+                  k: int = MAIN_K, v1_batches: int = REFRESH_V1_BATCHES,
+                  deltas: int = REFRESH_DELTAS, requests: int = REFRESH_REQUESTS,
+                  shadow_rows: int = REFRESH_SHADOW_ROWS) -> dict:
+    """(a) The refresh loop at config 2's width: a ``RefreshDaemon`` over
+    ``IncrementalPCA(k, "high")`` folds ``v1_batches`` seeded batches
+    (``symmetric_gram_moments`` once a fold), checkpoints and registers
+    version 1 over the whole ladder, folds the deltas and swaps in version 2
+    with a shadow sample. Gates: version 2's components against the f64
+    eigenvectors of every batch's scatter; every rung captured before the
+    publish (``serve.aot_compiles`` = the ladder) and no capture over
+    ``requests`` one-row requests after it; a rollback under an objective
+    no request meets, after which version 1 answers bit for bit as before
+    the swap; a daemon resumed from the checkpoint that refolds the deltas
+    and finalizes version 2 bit for bit, then a clean cycle (promoted, the
+    prior pruned, the card's allocated memory back within 1 MB); and a
+    candidate fitted on other data refused by the shadow gate."""
+    cuda = device.type == "cuda"
+    batches = v1_batches + deltas
+    x, gram64 = refresh_workload(rows, n, batches, k, device)
+    parts = [x[i * rows:(i + 1) * rows] for i in range(batches)]
+    comps64, _ = oracle_from_scatter(gram64, k)
+    probe = parts[0][:min(REFRESH_PROBE_ROWS, B.max_batch_rows())]
+    reg = R.ModelRegistry(device)
+    batcher = MicroBatcher(reg).start()
+    client = serve_client.ServeClient(batcher)
+    ck_dir = tempfile.mkdtemp(prefix="refresh")
+    est_kw = dict(device=device, k=k, precision="high")
+    daemon_kw = dict(registry=reg, checkpoint_dir=ck_dir, min_rows=1, shadow_rows=shadow_rows)
+    try:
+        reset_launches()
+        daemon = RefreshDaemon(REFRESH_NAME, IncrementalPCA(**est_kw), probation_s=3600.0,
+                               probation_slo=UNMEETABLE_SLO, **daemon_kw)
+        t0 = time.perf_counter()
+        for b in parts[:v1_batches]:
+            daemon.fold(b)
+        daemon.checkpoint()  # the resumed daemon below starts from here
+        registered = daemon.try_swap()
+        if registered != {"status": "registered", "version": 1}:
+            raise AssertionError(f"refresh (a): the first finalize gave {registered}")
+        v1 = reg.get(REFRESH_NAME)
+        ladder = sorted(v1.warm_buckets)
+        v1_answers = _probe_answers(client, probe)
+        for b in parts[v1_batches:]:
+            daemon.fold(b)
+        snap = REGISTRY.snapshot()
+        swapped = daemon.try_swap()
+        swap = REGISTRY.snapshot().delta(snap)
+        refresh_s = time.perf_counter() - t0
+        if swapped.get("status") != "swapped" or swapped.get("version") != 2:
+            raise AssertionError(f"refresh (a): the swap gave {swapped}")
+        v2_model = reg.get(REFRESH_NAME).model
+        snap = REGISTRY.snapshot()
+        for i in range(requests):
+            client.predict(REFRESH_NAME, parts[-1][i:i + 1])
+        after = REGISTRY.snapshot().delta(snap)
+        rolled = daemon.probation_check()
+        v1_again = _probe_answers(client, probe)
+
+        # the daemon died after its checkpoint: a new one resumes, refolds
+        # the deltas and runs a clean cycle
+        d2 = RefreshDaemon(REFRESH_NAME, IncrementalPCA(**est_kw), probation_s=0.0,
+                           probation_slo="", **daemon_kw)
+        resumed = d2.resume()
+        resumed_rows = d2.rows_pending
+        for b in parts[v1_batches:]:
+            d2.fold(b)
+        mem_before = torch.cuda.memory_allocated(device) if cuda else 0
+        clean_swap = d2.try_swap()
+        promoted = d2.probation_check()
+        mem_after = torch.cuda.memory_allocated(device) if cuda else 0
+        live = reg.get(REFRESH_NAME)
+        launches = read_launches()
+
+        other_x, _ = refresh_workload(rows, n, 1, k, device, seed=REFRESH_OTHER_SEED)
+        other = PCA(device=device, k=k, precision="highest").fit(other_x)
+        snap = REGISTRY.snapshot()
+        try:
+            reg.swap(REFRESH_NAME, other, shadow_sample=d2._shadow)
+            refusal = None
+        except R.SwapRefused as e:
+            refusal = str(e)
+        refused = REGISTRY.snapshot().delta(snap)
+    finally:
+        batcher.stop()
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    result = {
+        "rows": rows * batches, "n": n, "k": k, "folds": batches + deltas,
+        "refresh_s": refresh_s, "launches": launches, "ladder": ladder,
+        "v2_min_cos_vs_f64": _min_abs_cosine(v2_model.pc, comps64),
+        "swap_aot_compiles": swap.counter("serve.aot_compiles"),
+        "swap_graph_captures": swap.counter("compile.graph_captures", reason="swap"),
+        "blackout_ms": swap.hist("serve.swap_blackout_seconds").total * 1e3,
+        "post_swap_requests": requests,
+        "post_swap_cold_compiles": after.counter("serve.cold_compiles"),
+        "post_swap_captures": after.counter("compile.graph_captures"),
+        "rollback": rolled,
+        "v1_bit_equal_after_rollback": all(
+            np.array_equal(a, b) for a, b in zip(v1_answers, v1_again)),
+        "resumed": resumed, "resumed_rows_pending": resumed_rows,
+        "clean_swap": clean_swap, "promoted": promoted,
+        "prior_pruned": reg.prior_entry(REFRESH_NAME) is None,
+        "resumed_bit_equal": bool(np.array_equal(live.model.pc, v2_model.pc) and np.array_equal(
+            live.model.explainedVariance, v2_model.explainedVariance)),
+        "memory_allocated_delta_bytes": mem_after - mem_before,
+        "refusal": refusal, "refused_shadow": refused.counter(
+            "serve.swap_refused", model=REFRESH_NAME, reason="shadow"),
+        "version_after_refusal": reg.current_version(REFRESH_NAME),
+        "bench_stream_divergence": bench_stream_divergence(
+            rows, n, k, v1_batches, batches, shadow_rows, device),
+    }
+    print(f"fleet (a) refresh: {json.dumps(result)}", flush=True)
+    print(f"fleet (a) swap blackout: {result['blackout_ms']:.4f} ms", flush=True)
+    expected = expected_launches(symmetric_gram_moments=(batches + deltas) if cuda else 0)
+    captures = len(ladder) if cuda else 0
+    checks = {
+        "launches": launches == expected,
+        "ladder": ladder == list(B.bucket_ladder()),
+        "components": result["v2_min_cos_vs_f64"] >= COSINE_BAR,
+        "captured before the publish": (result["swap_aot_compiles"], result["swap_graph_captures"])
+        == (captures, captures),
+        "no capture after the swap": result["post_swap_cold_compiles"] == 0
+        and result["post_swap_captures"] == 0,
+        "rollback": rolled == {"status": "rolled_back", "version": 1, "from_version": 2},
+        "version 1 after the rollback": result["v1_bit_equal_after_rollback"],
+        "resume": resumed and resumed_rows == v1_batches * rows and result["resumed_bit_equal"],
+        "clean cycle": clean_swap.get("status") == "swapped"
+        and promoted.get("status") == "promoted" and result["prior_pruned"],
+        "memory": abs(result["memory_allocated_delta_bytes"]) <= MEMORY_SLACK_BYTES,
+        "refusal": refusal is not None and result["refused_shadow"] == 1
+        and result["version_after_refusal"] == clean_swap.get("version"),
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"refresh (a) failed {failed}: {result}")
+    result.update(registry=reg, v1_model=v1.model, promoted_model=live.model, pool=parts[-1])
+    return result
+
+
+def phase_hedge(reg, name: str, pool: np.ndarray, device: torch.device, *,
+                hang_s: float = HEDGE_HANG_S, wait_s: float = HEDGE_WAIT_S) -> dict:
+    """(b) A hedged dispatch: ``warm_hedge`` captures the model's hedge rung
+    set (on one card, a stream and buffers of its own), then with
+    ``TPU_ML_HEDGE_FACTOR`` and a serve floor set, a ``serve.dispatch`` hang
+    stalls one primary dispatch while this phase holds that dispatch's rung
+    lock, as a replay stuck on the card would. The hedge must answer within
+    ``wait_s`` without that lock (``serve.hedges`` 1, won by the hedge), bit
+    for bit the eager projection of the same padded block."""
+    entry = reg.get(name)
+    rungs = reg.warm_hedge(name)
+    row = pool[:1]
+    bucket = B.serve_bucket(1)
+    padded, _ = B.pad_to_bucket(entry.prepare(row).astype(np.float32), bucket)
+    eager = entry.finalize(
+        entry.kernel(entry.params, torch.from_numpy(padded).to(device)).cpu().numpy(), 1)
+    faults.reset_faults()
+    plan = f"serve.dispatch:hang:{HEDGE_WARMUPS + 1}:{hang_s}"
+    got, answered_s = None, None
+    with _env(TPU_ML_HEDGE_FACTOR=HEDGE_FACTOR, TPU_ML_SERVE_HEDGE_FLOOR_US=HEDGE_FLOOR_US,
+              TPU_ML_FAULT_PLAN=plan):
+        batcher = MicroBatcher(reg, max_delay_s=0.0).start()
+        try:
+            for _ in range(HEDGE_WARMUPS):
+                batcher.submit(name, row).result(30.0)
+            snap = REGISTRY.snapshot()
+            with entry.dispatch_lock(bucket):
+                t0 = time.perf_counter()
+                future = batcher.submit(name, row)
+                try:
+                    got = future.result(wait_s)
+                    answered_s = time.perf_counter() - t0
+                except TimeoutError:
+                    pass
+            if got is None:
+                future.result(60.0)  # the stalled dispatch, once the lock is free
+            delta = REGISTRY.snapshot().delta(snap)
+        finally:
+            batcher.stop()
+            faults.reset_faults()
+    result = {
+        "hedge_rungs": rungs, "warm_buckets": len(entry.warm_buckets),
+        "hedges": delta.counter("serve.hedges", model=name),
+        "hedge_wins": {w: delta.counter("serve.hedge_wins", model=name, winner=w)
+                       for w in ("hedge", "primary")},
+        "answered_ms": None if answered_s is None else answered_s * 1e3,
+        "bit_equal_to_eager": got is not None and bool(np.array_equal(got, eager)),
+    }
+    print(f"fleet (b) hedge: {json.dumps(result)}", flush=True)
+    print(f"fleet (b) hedge rungs: {rungs}", flush=True)
+    if got is None:
+        raise AssertionError(f"hedge (b): no answer within {wait_s} s while the primary held "
+                             f"its rung's lock: {result}")
+    if (rungs != len(entry.warm_buckets) or result["hedges"] != 1
+            or result["hedge_wins"] != {"hedge": 1, "primary": 0}
+            or not result["bit_equal_to_eager"]):
+        raise AssertionError(f"hedge (b): {result}")
+    return result
+
+
+def _fleet_socket_dir() -> str:
+    """A fresh socket directory, or one relative to the working directory
+    where a temporary one's paths are too long for AF_UNIX."""
+    path = tempfile.mkdtemp(prefix="fleet")
+    if len(os.path.join(path, "replica-0.sock.trailer.tmp")) < 100:
+        return path
+    os.rmdir(path)
+    return os.path.relpath(tempfile.mkdtemp(prefix=".fleet-", dir="."))
+
+
+def _fleet_call(sock, rfile, wire: str, model: str, rows: np.ndarray) -> np.ndarray:
+    """One request through a router or replica socket on the fast lane or the
+    UDS JSON wire; the answer as a flat f32 array."""
+    if wire == "fast":
+        sock.sendall(FL.pack_request(model, rows))
+        return FL.read_response(lambda n: _read_exact(rfile, n)).reshape(-1)
+    raw = json.dumps({"model": model, "wire": "json", "instances": rows.tolist()}).encode()
+    sock.sendall(len(raw).to_bytes(4, "big") + raw)
+    resp = json.loads(_read_exact(rfile, int.from_bytes(_read_exact(rfile, 4), "big")))
+    if not resp.get("ok"):
+        raise RuntimeError(f"fleet request failed: {resp}")
+    return np.asarray(resp["predictions"], dtype=np.float32).reshape(-1)
+
+
+def _connect(path: str):
+    sock = socket.socket(socket.AF_UNIX)
+    sock.connect(path)
+    return sock, sock.makefile("rb")
+
+
+def _under_load(fleet, models: list[str], pool: np.ndarray, threads: int, action):
+    """Run ``action()`` while ``threads`` clients send one-row fast-lane
+    requests through the router; returns (its result, requests answered,
+    failures)."""
+    stop = threading.Event()
+    failures: list[Exception] = []
+    done = [0] * threads
+
+    def client(t: int) -> None:
+        try:
+            sock, rfile = _connect(fleet.router_path)
+        except OSError as e:
+            failures.append(e)
+            return
+        with sock:
+            i = t
+            while not stop.is_set():
+                try:
+                    _fleet_call(sock, rfile, "fast", models[i % len(models)],
+                                pool[i % len(pool):i % len(pool) + 1])
+                    done[t] += 1
+                    i += threads
+                except Exception as e:  # noqa: BLE001 - the failure is the finding
+                    failures.append(e)
+                    return
+
+    workers = [threading.Thread(target=client, args=(t,)) for t in range(threads)]
+    for w in workers:
+        w.start()
+    try:
+        out = action()
+    finally:
+        stop.set()
+        for w in workers:
+            w.join(60.0)
+    return out, sum(done), failures
+
+
+def phase_fleet(models: dict, promoted, pool: np.ndarray, device: torch.device, *,
+                replicas: int = FLEET_REPLICAS, requests: int = FLEET_REQUESTS,
+                threads: int = FLEET_THREADS) -> dict:
+    """(c) A ``ServeFleet`` of ``replicas`` processes on the card serving
+    ``models``: ``requests`` one-row requests on each of the fast lane and
+    the UDS JSON wire through the router, each held to the f64 projection by
+    phase 10's bound (and counted bit-equal against this process's registry
+    answer); a rolling restart of replica 0 under ``threads`` clients with no
+    failed request; ``swap_models`` to ``promoted`` (refresh512's promoted
+    version) under the same load, after which every replica answers as the
+    promoted model; the exporter's sums against the per-replica registries;
+    and the card's memory per replica process (``mem_get_info`` before and
+    after the spawn)."""
+    cuda = device.type == "cuda"
+    names = sorted(models)
+    parent = R.ModelRegistry(device)
+    for name, m in models.items():
+        parent.register(name, m)
+    parent.register(f"{REFRESH_NAME}_promoted", promoted)
+    ladder = list(B.bucket_ladder())
+    rows = pool[:requests]
+    ref64 = {name: f64_projection(parent.get(name), rows).reshape(requests, -1) for name in names}
+    local = {name: np.concatenate([parent.predict(name, rows[i:i + 1]).reshape(1, -1)
+                                   for i in range(requests)]) for name in names}
+    sock_dir = _fleet_socket_dir()
+    free0 = torch.cuda.mem_get_info(device)[0] if cuda else 0
+    t0 = time.perf_counter()
+    fleet = SF.ServeFleet(models, replicas=replicas, socket_dir=sock_dir, device=device.type)
+    try:
+        fleet.start()
+        start_s = time.perf_counter() - t0
+        free1 = torch.cuda.mem_get_info(device)[0] if cuda else 0
+        wires = {}
+        sock, rfile = _connect(fleet.router_path)
+        with sock:
+            for wire in ("fast", "uds_json"):
+                max_rel, bit_equal = 0.0, 0
+                t1 = time.perf_counter()
+                for i in range(requests):
+                    name = names[i % len(names)]
+                    got = _fleet_call(sock, rfile, wire, name, rows[i:i + 1])
+                    want = ref64[name][i]
+                    scale = max(float(np.abs(ref64[name]).max()), 1e-30)
+                    max_rel = max(max_rel, float(np.abs(got - want).max()) / scale)
+                    bit_equal += bool(np.array_equal(got, local[name][i].astype(np.float32)))
+                wires[wire] = {"requests": requests, "max_rel_err_vs_f64": max_rel,
+                               "bit_equal_to_parent": bit_equal,
+                               "mean_ms": (time.perf_counter() - t1) / requests * 1e3}
+        snap = REGISTRY.snapshot()
+        ok, during_restart, restart_failures = _under_load(
+            fleet, names, pool, threads, lambda: fleet.restart_replica(0))
+        restart_delta = REGISTRY.snapshot().delta(snap)
+        respawn = fleet.replica(0)
+        restart = {"ok": ok, "requests_during": during_restart,
+                   "failures": [repr(e) for e in restart_failures[:3]],
+                   "drain_events": restart_delta.counter("serve.drain_events"),
+                   "replica_restarts": restart_delta.counter("serve.replica_restarts"),
+                   "respawn_ready_s": respawn.ready_s}
+        print(f"fleet (c) restart: {json.dumps(restart)}", flush=True)
+        snap = REGISTRY.snapshot()
+        swapped, during_swap, swap_failures = _under_load(
+            fleet, names, pool, threads, lambda: fleet.swap_models({REFRESH_NAME: promoted}))
+        swap_delta = REGISTRY.snapshot().delta(snap)
+        # the first respawn's shutdown report, read when the walk replaced it
+        restart.update(respawn_graph_captures=respawn.graph_captures,
+                       respawn_warm_rungs=respawn.warm_rungs,
+                       respawn_cold_compiles=respawn.cold_compiles)
+        promoted_rows = rows[:8]
+        promoted_local = np.concatenate([
+            parent.predict(f"{REFRESH_NAME}_promoted", promoted_rows[i:i + 1]).reshape(1, -1)
+            for i in range(len(promoted_rows))])
+        promoted64 = f64_projection(parent.get(f"{REFRESH_NAME}_promoted"), promoted_rows)
+        per_replica = {}
+        for slot in range(replicas):
+            sock, rfile = _connect(fleet.replica_socket(slot))
+            with sock:
+                got = np.stack([_fleet_call(sock, rfile, "fast", REFRESH_NAME,
+                                            promoted_rows[i:i + 1])
+                                for i in range(len(promoted_rows))])
+            per_replica[str(slot)] = {
+                "max_rel_err_vs_f64": float(np.abs(got - promoted64).max()
+                                            / np.abs(promoted64).max()),
+                "bit_equal_to_parent": int(sum(np.array_equal(g, w)
+                                               for g, w in zip(got, promoted_local))),
+            }
+        swap = {"ok": swapped, "requests_during": during_swap,
+                "failures": [repr(e) for e in swap_failures[:3]],
+                "drain_events": swap_delta.counter("serve.drain_events"),
+                "replica_restarts": swap_delta.counter("serve.replica_restarts"),
+                "replicas": per_replica}
+        print(f"fleet (c) swap_models: {json.dumps(swap)}", flush=True)
+        per_slot = {}
+        for slot in range(replicas):
+            stats = fleet.scrape_stats(slot)
+            if stats is None:
+                raise AssertionError(f"fleet (c): replica {slot} not scrapable")
+            scraped = MetricsRegistry()
+            scraped.merge_wire(stats["registry"])
+            per_slot[slot] = scraped.snapshot()
+        harvested = fleet._final_registry.snapshot()
+        merged = fleet.fleet_registry(include_router=False).snapshot()
+        sums = {name: {"merged": merged.counter(name),
+                       "replicas": sum(s.counter(name) for s in per_slot.values())
+                       + harvested.counter(name)}
+                for name in ("serve.requests", "serve.rows", "serve.batches")}
+        exporter = fleet.start_exporter()
+        with urllib.request.urlopen(exporter.url("/metrics"), timeout=30) as resp:
+            metrics_status, body = resp.status, resp.read().decode()
+        stats = fleet.stats()
+    finally:
+        fleet.stop()
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    mem_per_replica = (free0 - free1) / replicas if cuda else None
+    result = {
+        "replicas": replicas, "models": names, "ladder": ladder, "start_s": start_s,
+        "memory_per_replica_bytes": mem_per_replica, "wires": wires, "restart": restart,
+        "swap_models": swap, "exporter_sums": sums, "metrics_status": metrics_status,
+        "served_per_replica": stats["served_per_replica"],
+    }
+    print(f"fleet (c): {json.dumps(result)}", flush=True)
+    print(f"fleet (c) respawn: {restart['respawn_graph_captures']} graph captures, "
+          f"{restart['respawn_ready_s']} s spawn to READY", flush=True)
+    if cuda:
+        print(f"fleet (c) card memory per replica: {mem_per_replica / 2**20:.1f} MiB",
+              flush=True)
+    rungs = len(names) * len(ladder)
+    checks = {
+        "wires": all(w["max_rel_err_vs_f64"] <= SERVE_REL_TOL for w in wires.values()),
+        "restart": ok and not restart_failures and restart["drain_events"] == 1
+        and restart["replica_restarts"] == 1 and respawn.ready_s is not None,
+        "respawn": (restart["respawn_graph_captures"], restart["respawn_warm_rungs"],
+                    restart["respawn_cold_compiles"]) == (rungs if cuda else 0, rungs, 0),
+        "swap_models": swapped and not swap_failures and swap["drain_events"] == replicas
+        and swap["replica_restarts"] == replicas,
+        "every replica serves the promoted model": all(
+            r["max_rel_err_vs_f64"] <= SERVE_REL_TOL for r in per_replica.values()),
+        "exporter": metrics_status == 200 and all(
+            f'replica="{s}"' in body for s in range(replicas))
+        and all(v["merged"] == v["replicas"] for v in sums.values()),
+    }
+    failed = [name for name, good in checks.items() if not good]
+    if failed:
+        raise AssertionError(f"fleet (c) failed {failed}: {result}")
+    return result
+
+
 def _meshfit_launches(meshfit: dict, name: str) -> dict:
     """One kernel's launches in each part of phase 22 that ran."""
     out = {}
@@ -7084,6 +7630,7 @@ SKIPPABLE = {
     "mesh": "phase 21 (the device mesh, its programs and the barrier bodies)",
     "meshfit": "phase 22 (the mesh fits: linear, Newton, KMeans, DBSCAN, kNN, forest, "
                "NaiveBayes, ANN, the fit barrier bodies)",
+    "fleet": "phase 23 (the refresh daemon, hot swap and rollback, the hedge, the serve fleet)",
 }
 
 
@@ -7199,6 +7746,7 @@ def main(argv=()) -> int:
         run_meshfit("newton", "(b) newton", phase_meshfit_newton, stream_data[0], device)
         run_meshfit("barrier", "(g) barrier", phase_meshfit_barrier, stream_data[0], linreg,
                     device)
+    linreg_model = linreg["model"]  # phase 23 (c) serves it
     del stream_data, linreg
     torch.cuda.empty_cache()
     if "serving" not in skip:
@@ -7246,6 +7794,17 @@ def main(argv=()) -> int:
         _timed("device policy (e)", phase_device_policy, device)
     if meshfit_s:
         print(f"phase meshfit (22): {sum(meshfit_s):.1f} s", flush=True)
+    refresh = None
+    if "fleet" not in skip:
+        t_fleet = time.perf_counter()
+        torch.cuda.empty_cache()
+        refresh = _timed("fleet (a) refresh", phase_refresh, device)
+        _timed("fleet (b) hedge", phase_hedge, refresh["registry"], REFRESH_NAME,
+               refresh["pool"], device)
+        _timed("fleet (c) serve fleet", phase_fleet,
+               {REFRESH_NAME: refresh["v1_model"], "linreg512": linreg_model},
+               refresh["promoted_model"], refresh["pool"], device)
+        print(f"phase fleet (23): {time.perf_counter() - t_fleet:.1f} s", flush=True)
     for group in sorted(skip):
         print(f"skipped: {SKIPPABLE[group]}", flush=True)
     # each kernel's launches come from the main path that runs it
@@ -7292,6 +7851,11 @@ def main(argv=()) -> int:
             # phase 22: each part's runs (cuBLAS products, gathers and
             # index_add_ only, so 0 unless a part launches the kernel)
             "phase22_launches": _meshfit_launches(meshfit, name) if meshfit else None,
+            # phase 23 (a): the refresh daemons' folds (IncrementalPCA at
+            # "high": symmetric_gram_moments once a fold, the resumed
+            # daemon's refolds included)
+            "phase23_launches": None if refresh is None else {
+                "refresh_folds": refresh["launches"][name]},
             "max_abs_err": at_main["max_abs_err"],
             "tol": at_main["tol"],
             "ms": at_main["kernel_ms"],

@@ -192,8 +192,8 @@ class _Worker:
             if t.get("events"):
                 TIMELINE.merge(t["events"], partition=label)
             # worker liveness: the monotonic stamp of the last merged
-            # trailer, the series the JAX monitor's ``workers`` component
-            # reads (not ported to the port's monitor yet)
+            # trailer, the series the health monitor's ``workers``
+            # component reads (telemetry/health.py)
             REGISTRY.gauge_set("worker.last_trailer", time.monotonic())
         except Exception:
             logger.warning(

@@ -24,13 +24,24 @@ lands on a captured rung and never causes a capture.
   (``serve.queue_delay_seconds`` and the µs-resolution
   ``serve.queue_delay_us``).
 
+- Hedged dispatch (``_device_dispatch``): a dispatch still running after
+  ``max(TPU_ML_SERVE_HEDGE_FLOOR_US, TPU_ML_HEDGE_FACTOR × EWMA)`` is
+  resent (``serve.hedges``) through the registry's hedge rung set
+  (``hedge_dispatch_padded``: the second card, or a stream and buffers of
+  its own on the same card), under the discipline of every hedger in the
+  repo (``resilience.supervisor.hedge_threshold_s``): the first result wins
+  (``serve.hedge_wins{winner}``) and only the winner's time feeds the EWMA;
+  the loser leaves a ``hedge_lost`` dispatch span. No EWMA yet, factor 0,
+  or a bucket with no warm hedge rung means no hedge: a resend on the
+  primary's own rung would queue behind it.
+
 Input keeps its dtype until ``prepare`` has run; the one conversion to the
-device dtype, float32, happens at submission. The JAX package's
-second-device hedge (``_device_dispatch``) waits for the resilience slice.
+device dtype, float32, happens at submission.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import logging
 import os
 import threading
@@ -38,6 +49,7 @@ import time
 
 import numpy as np
 
+from spark_rapids_ml_tpu_torch.resilience import supervisor
 from spark_rapids_ml_tpu_torch.serving import buckets, hbm
 from spark_rapids_ml_tpu_torch.serving.registry import (
     X_DTYPE,
@@ -50,8 +62,10 @@ from spark_rapids_ml_tpu_torch.telemetry.registry import REGISTRY
 from spark_rapids_ml_tpu_torch.telemetry.timeline import TIMELINE
 from spark_rapids_ml_tpu_torch.utils.config import (
     DEFAULT_SERVE_ADAPTIVE_WINDOW,
+    DEFAULT_SERVE_HEDGE_FLOOR_US,
     DEFAULT_SERVE_MAX_DELAY_US,
     SERVE_ADAPTIVE_WINDOW_VAR,
+    SERVE_HEDGE_FLOOR_US_VAR,
     SERVE_MAX_DELAY_US_VAR,
     lenient_float,
 )
@@ -66,6 +80,13 @@ _WINDOW_FLOOR_S = 25e-6
 def coalesce_window_s() -> float:
     """The coalescing window's ceiling (``TPU_ML_SERVE_MAX_DELAY_US``)."""
     return max(0.0, lenient_float(SERVE_MAX_DELAY_US_VAR, DEFAULT_SERVE_MAX_DELAY_US)) / 1e6
+
+
+def serve_hedge_floor_s() -> float:
+    """The serve-scale hedge floor (``TPU_ML_SERVE_HEDGE_FLOOR_US``) in
+    seconds: the stage-scale ``TPU_ML_HEDGE_FLOOR_S`` (1 s) is three orders
+    of magnitude above a serve objective, so serving carries its own."""
+    return max(0.0, lenient_float(SERVE_HEDGE_FLOOR_US_VAR, DEFAULT_SERVE_HEDGE_FLOOR_US)) / 1e6
 
 
 def adaptive_window_enabled() -> bool:
@@ -127,6 +148,9 @@ class MicroBatcher:
         self._device_ewma: dict[str, float] = {}
         self._thread: threading.Thread | None = None
         self._stopping = False
+        # the two-worker pool of hedged dispatch (primary and one resend),
+        # made at the first hedged dispatch and joined in stop()
+        self._hedge_pool: concurrent.futures.ThreadPoolExecutor | None = None
 
     # -- lifecycle ------------------------------------------------------------
 
@@ -153,6 +177,10 @@ class MicroBatcher:
             if self._thread.is_alive():
                 logger.warning("micro-batcher worker did not join within %.1fs", timeout)
             self._thread = None
+        pool, self._hedge_pool = self._hedge_pool, None
+        if pool is not None:
+            # deterministic teardown: the hedge workers are joined, not left
+            pool.shutdown(wait=True)
 
     # -- submission -----------------------------------------------------------
 
@@ -254,6 +282,58 @@ class MicroBatcher:
                 del self._groups[key]
         return joined
 
+    def _ensure_hedge_pool(self) -> concurrent.futures.ThreadPoolExecutor:
+        if self._hedge_pool is None:
+            self._hedge_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=2, thread_name_prefix="tpu-ml-serve-hedge"
+            )
+        return self._hedge_pool
+
+    def _device_dispatch(self, entry, model: str, padded: np.ndarray, bucket: int,
+                         links: str = "") -> tuple[np.ndarray, float]:
+        """One dispatch under the hedging discipline; returns the raw output
+        and the winner's seconds. Past the threshold (see the module note)
+        the block is resent through the hedge rung set; the first result
+        fulfills the batch, and the loser's time is dropped."""
+        threshold = supervisor.hedge_threshold_s(
+            self._device_ewma.get(model, 0.0), floor_s=serve_hedge_floor_s()
+        )
+
+        def timed(dispatch) -> tuple[np.ndarray, float]:
+            t = time.perf_counter()
+            out = dispatch(entry, padded, bucket)
+            return out, time.perf_counter() - t
+
+        if threshold is None or bucket not in entry.hedge_buckets:
+            return timed(self.registry.dispatch_padded)
+        pool = self._ensure_hedge_pool()
+        t_primary = time.perf_counter()
+        primary = pool.submit(timed, self.registry.dispatch_padded)
+        try:
+            return primary.result(timeout=threshold)
+        except concurrent.futures.TimeoutError:
+            pass
+        REGISTRY.counter_inc("serve.hedges", model=model)
+        t_hedge = time.perf_counter()
+        hedge = pool.submit(timed, self.registry.hedge_dispatch_padded)
+        done, _ = concurrent.futures.wait(
+            {primary, hedge}, return_when=concurrent.futures.FIRST_COMPLETED
+        )
+        winner = primary if primary in done else hedge
+        raw, dev_s = winner.result()
+        REGISTRY.counter_inc(
+            "serve.hedge_wins", model=model, winner="primary" if winner is primary else "hedge"
+        )
+        if links:
+            # the loser's time is dropped, but its trace edge stays: a
+            # hedge_lost dispatch span closed at the decision, linked to the
+            # same requests
+            TIMELINE.record_span(
+                "serve.dispatch", t_hedge if winner is primary else t_primary,
+                time.perf_counter(), model=model, links=links, hedge_lost="1",
+            )
+        return raw, dev_s
+
     def _dispatch(self, key: tuple[str, int], taken: list[_Pending], window_s: float) -> None:
         model = key[0]
         t0 = time.perf_counter()
@@ -292,14 +372,12 @@ class MicroBatcher:
             REGISTRY.counter_inc("serve.bucket_hits", model=model, bucket=bucket)
             padded, _ = buckets.pad_to_bucket(combined, bucket)
             t_disp = time.perf_counter()
-            raw = self.registry.dispatch_padded(entry, padded, bucket)
-            t_done = time.perf_counter()
+            raw, dev_s = self._device_dispatch(entry, model, padded, bucket, links=links)
             if links:
                 TIMELINE.record_span(
-                    "serve.dispatch", t_disp, t_done,
+                    "serve.dispatch", t_disp, time.perf_counter(),
                     model=model, bucket=str(bucket), links=links,
                 )
-            dev_s = t_done - t_disp
             prev = self._device_ewma.get(model)
             self._device_ewma[model] = dev_s if prev is None else 0.5 * prev + 0.5 * dev_s
             REGISTRY.counter_inc("serve.batches", model=model)

@@ -20,6 +20,10 @@ the other's server.
   cast into the leased buffer (``fill_f32``) instead of a fresh
   ``tobytes()``. A pool made for a CUDA registry takes its buffers from
   pinned host memory.
+- **Relay helpers.** ``request_struct_size``/``peek_request`` and
+  ``response_struct_size``/``peek_response_payload_len`` read a frame's
+  fixed struct, so the fleet router (``serving/fleet.py``) routes and
+  relays fast-lane frames without parsing their payloads.
 - **Counted JSON codec.** ``json_loads``/``json_dumps`` wrap the stdlib
   codec and book ``serve.json_codec{op=decode|encode}``; every serve-path
   JSON touch goes through them, so the fast lane's count is checkably 0.
@@ -134,6 +138,30 @@ def read_request(read_exact):
     mat = np.frombuffer(payload, dtype=_DTYPE).reshape(rows, cols)
     trace = tracectx.from_wire(trace_id, span_id, origin_us)
     return model, mat, bool(flags & FLAG_QUERY), trace
+
+
+def request_struct_size() -> int:
+    """Size of the fixed request struct that follows the magic."""
+    return _REQ_STRUCT.size
+
+
+def peek_request(raw: bytes) -> tuple[int, int, int]:
+    """(name_len, rows, cols) of a packed request struct: what a router
+    needs to route the frame without touching its payload."""
+    version, _flags, name_len, rows, cols = _REQ_STRUCT.unpack(raw)[:5]
+    if version != FASTLANE_VERSION:
+        raise ValueError(f"unsupported fastlane version {version}")
+    return name_len, rows, cols
+
+
+def response_struct_size() -> int:
+    """Size of the fixed response struct that follows the magic."""
+    return _RESP_STRUCT.size
+
+
+def peek_response_payload_len(raw: bytes) -> int:
+    """The payload length of a packed response struct (a relay's sizing)."""
+    return _RESP_STRUCT.unpack(raw)[5]
 
 
 def peek_trace(raw: bytes):

@@ -15,6 +15,10 @@ parameters forever; this module keeps the serving side within a budget:
   least-recently-used resident models out (``serve.page_out``); a request
   for a paged-out model pages it back in before dispatch
   (``serve.page_in``), evicting colder ones.
+- **Hot swap.** ``account(entry, key=...)`` books a swapped-out prior
+  version under ``<name>@prior``; the LRU walk never pages such a booking
+  out, so a rollback restores it without a page-in. ``forget`` drops a
+  booking when probation prunes the prior.
 
 **Paging and CUDA graphs.** JAX's executables are shape-keyed and survive
 paging untouched. A CUDA graph instead holds the device addresses of the
@@ -54,6 +58,10 @@ from spark_rapids_ml_tpu_torch.utils.config import (
 )
 
 logger = logging.getLogger("spark_rapids_ml_tpu_torch.serving")
+
+
+#: The booking key suffix of a hot-swapped slot's retained prior version.
+PRIOR_SUFFIX = "@prior"
 
 
 class ServeShed(RuntimeError):
@@ -108,14 +116,24 @@ class HbmFleetManager:
         self._seq = 0
         self._last_breaches = 0
 
-    def account(self, entry: Any) -> None:
+    def account(self, entry: Any, *, key: str | None = None) -> None:
         """Admit a (re-)registered servable: measure its parameters, mark it
         most recently used, and page colder models out until the fleet fits
-        the budget again."""
+        the budget again. ``key`` overrides the booking key: a hot swap
+        books the prior version under ``<name>@prior``, where it stays
+        resident (never paged out: a rollback must not page) until
+        probation clears."""
+        key = key or entry.name
         with self._lock:
             self._seq += 1
-            self._models[entry.name] = _Resident(entry, param_bytes(entry.params), self._seq)
-            self._evict_to_fit(protect=entry.name)
+            self._models[key] = _Resident(entry, param_bytes(entry.params), self._seq)
+            self._evict_to_fit(protect=key)
+            self._publish()
+
+    def forget(self, name: str) -> None:
+        """Drop a booking (a pruned prior, a demoted candidate)."""
+        with self._lock:
+            self._models.pop(name, None)
             self._publish()
 
     def _publish(self) -> None:
@@ -154,14 +172,15 @@ class HbmFleetManager:
         logger.info("paged out servable %s (%d bytes)", rec.entry.name, rec.nbytes)
 
     def _evict_to_fit(self, protect: str) -> None:
-        """Page out least-recently-used residents (never ``protect``) until
-        the resident total fits the budget."""
+        """Page out least-recently-used residents (never ``protect``, never
+        a retained prior) until the resident total fits the budget."""
         budget = budget_bytes(self._models[protect].entry.device)
         if budget is None:
             return
         used = sum(r.nbytes for r in self._models.values() if r.resident)
         victims = sorted(
-            (r for k, r in self._models.items() if r.resident and k != protect),
+            (r for k, r in self._models.items()
+             if r.resident and k != protect and not k.endswith(PRIOR_SUFFIX)),
             key=lambda r: r.seq,
         )
         for rec in victims:

@@ -49,10 +49,28 @@ linear, forest and ann families.
   blessed precision policy; an explicit ``bf16_f32acc`` entry selects
   ``_pca_kernel_bf16`` or ``_linear_kernel_bf16``. The default is ``f32``,
   the eager-parity path.
+- **Hot swap, rollback, the shadow gate.** ``swap`` captures the
+  candidate's graph for every bucket of the live entry's warm set before
+  the publish (so requests after a swap capture nothing), scores candidate
+  and live on a shadow sample and refuses a divergent candidate
+  (``SwapRefused``), then publishes it under the registry lock: the lock's
+  hold is the blackout (``serve.swap_blackout_seconds``). The displaced
+  version stays dispatchable and resident (booked as ``<name>@prior``)
+  until ``prune_prior`` frees its graphs and parameters, each rung under
+  its lock as paging does, or ``rollback`` republishes it with its graphs
+  as they are. The fault site ``serve.swap`` fires before the publish,
+  ``serve.dispatch`` at the top of ``dispatch_padded``.
+- **Hedged dispatch.** A rung is not reentrant: it owns static buffers and
+  a lock held for the whole replay, so a resend on the same rung would
+  queue behind the stuck primary. ``warm_hedge`` therefore captures a rung
+  set of the entry's own (``serve.aot_compiles{device="hedge"}``): on the
+  second card when there is one, else on the same card on a stream of its
+  own, with its own copy of the parameters and its own buffers.
+  ``hedge_dispatch_padded`` replays it and never takes a primary rung's
+  lock. On the CPU the hedge runs the kernel eagerly, as the primary does.
 
 The JAX package's persistent XLA compile cache has no counterpart: a CUDA
-graph cannot outlive its process. Hot swap, rollback and the shadow gate,
-hedged dispatch and the fault sites are not ported yet.
+graph cannot outlive its process.
 """
 
 from __future__ import annotations
@@ -76,15 +94,29 @@ from spark_rapids_ml_tpu_torch.ops import forest as FO
 from spark_rapids_ml_tpu_torch.ops import linalg as L
 from spark_rapids_ml_tpu_torch.ops import linear as LIN
 from spark_rapids_ml_tpu_torch.ops import scaler as S
+from spark_rapids_ml_tpu_torch.resilience import faults, sites
 from spark_rapids_ml_tpu_torch.serving import buckets, hbm
 from spark_rapids_ml_tpu_torch.telemetry import compilemon
 from spark_rapids_ml_tpu_torch.telemetry.registry import REGISTRY
+from spark_rapids_ml_tpu_torch.telemetry.timeline import TIMELINE
 from spark_rapids_ml_tpu_torch.utils import columnar
+from spark_rapids_ml_tpu_torch.utils.config import (
+    DEFAULT_SWAP_SHADOW_TOLERANCE,
+    SWAP_SHADOW_TOLERANCE_VAR,
+    lenient_float,
+)
 from spark_rapids_ml_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger("spark_rapids_ml_tpu_torch.serving")
 
 FAMILIES = ("pca", "scaler", "linear", "forest", "ann")
+
+
+class SwapRefused(RuntimeError):
+    """A hot-swap candidate refused before the publish: shadow divergence
+    past the tolerance, or a shape that differs from the live entry's. The
+    old version keeps serving; nothing was torn."""
+
 
 #: Input dtypes a serve request may carry. Integer and bool payloads (JSON
 #: numbers decode to them) are widened to float64 first; anything else is
@@ -197,8 +229,21 @@ def _host_tensor(padded: np.ndarray) -> torch.Tensor:
 # -- CUDA graph rungs --------------------------------------------------------
 
 # Captures are serialized process-wide: a capture is cheap and rare, and one
-# at a time keeps the capture stream's set-up simple to reason about.
+# at a time keeps the capture stream's set-up simple to reason about. One
+# capture stream per device serves every entry (each stream that runs a
+# cuBLAS product keeps a workspace of its own for the life of the process),
+# and one hedge stream per device replays every hedge rung.
 _CAPTURE_LOCK = threading.Lock()
+_CAPTURE_STREAMS: dict[torch.device, Any] = {}
+_HEDGE_STREAMS: dict[torch.device, Any] = {}
+
+
+def _stream_for(streams: dict, device: torch.device):
+    with _CAPTURE_LOCK:
+        stream = streams.get(device)
+        if stream is None:
+            stream = streams[device] = torch.cuda.Stream(device)
+        return stream
 
 
 class _Rung:
@@ -219,8 +264,9 @@ class _Rung:
         self.done = torch.cuda.Event()
 
     def run(self, padded: np.ndarray) -> np.ndarray:
-        """One dispatch of a padded [bucket, n] host block; the caller holds
-        ``lock``. Returns a host copy of the raw [bucket, k] output."""
+        """One dispatch of a padded [bucket, n] host block on the current
+        stream; the caller holds ``lock``. Returns a host copy of the raw
+        [bucket, k] output."""
         np.copyto(self.host_x.numpy(), padded, casting="same_kind")
         self.x.copy_(self.host_x, non_blocking=True)
         self.graph.replay()
@@ -236,11 +282,22 @@ class _Rung:
         self.graph = self.x = self.out = self.host_x = self.host_out = None
 
 
+def _release_rungs(rungs: dict[int, _Rung]) -> None:
+    """Release every rung under its own lock (an in-flight replay finishes
+    before its graph goes) and forget them."""
+    for rung in rungs.values():
+        with rung.lock:
+            rung.release()
+    rungs.clear()
+
+
 @dataclass(eq=False)
 class ServableEntry:
     """One registered model: its pure kernel, its device parameters (None
     while paged out, ``host_params`` holding them), its host ``prepare``
-    hook, its captured rungs and the buckets already warm."""
+    hook, its captured rungs and the buckets already warm, and its hedge
+    rung set (``hedge_buckets`` the warm ones, ``hedge_rungs`` their graphs
+    on a card)."""
 
     name: str
     family: str
@@ -252,13 +309,20 @@ class ServableEntry:
     device: torch.device
     policy: str = "f32"
     finalize: Callable = _identity_finalize  # host post hook, (np, true_rows) -> np
-    version: int = 1                # bumped by a hot swap (not ported yet)
+    version: int = 1                # bumped by each hot swap of the slot
     warm_buckets: set[int] = field(default_factory=set)
     model: Any = None
     host_params: tuple | None = None
     rungs: dict[int, _Rung] = field(default_factory=dict)
     lock: threading.RLock = field(default_factory=threading.RLock)
-    _capture_stream: Any = None
+    # the CPU's per-bucket dispatch locks (a card's are its rungs' locks)
+    cpu_locks: dict[int, threading.Lock] = field(default_factory=dict)
+    hedge_params: tuple | None = None
+    hedge_rungs: dict[int, _Rung] = field(default_factory=dict)
+    hedge_buckets: set[int] = field(default_factory=set)
+    # set by ``release``: a dispatch that still holds the entry re-resolves
+    # its slot by name
+    released: bool = False
 
     def describe(self) -> dict:
         return {
@@ -282,40 +346,38 @@ class ServableEntry:
 
     # -- graphs ---------------------------------------------------------------
 
-    def _capture(self, bucket: int, reason: str) -> _Rung:
-        """Capture the kernel at ``bucket`` rows on a side stream: one eager
-        warm-up launch (the stream's cuBLAS workspace), then the graph. The
-        caller holds ``lock`` and the parameters are resident."""
-        t0 = time.perf_counter()
+    def _capture_rung(self, bucket: int, params: tuple, device: torch.device) -> _Rung:
+        """Capture the kernel over ``params`` at ``bucket`` rows on
+        ``device``'s capture stream: one eager warm-up launch (the stream's
+        cuBLAS workspace), then the graph."""
+        stream = _stream_for(_CAPTURE_STREAMS, device)
         with _CAPTURE_LOCK:
-            if self._capture_stream is None:
-                self._capture_stream = torch.cuda.Stream(self.device)
-            stream = self._capture_stream
-            rung = _Rung(bucket, self.n_features, self.device)
-            current = torch.cuda.current_stream(self.device)
+            rung = _Rung(bucket, self.n_features, device)
+            current = torch.cuda.current_stream(device)
             stream.wait_stream(current)
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.stream(stream):
-                self.kernel(self.params, rung.x)
+                self.kernel(params, rung.x)
                 graph.capture_begin(capture_error_mode="thread_local")
                 try:
-                    out = self.kernel(self.params, rung.x)
+                    out = self.kernel(params, rung.x)
                 finally:
                     graph.capture_end()
             current.wait_stream(stream)
             rung.graph, rung.out = graph, out
             rung.host_out = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        self.rungs[bucket] = rung
-        compilemon.record_graph_capture(time.perf_counter() - t0, reason)
         return rung
 
     def warm(self, bucket: int, reason: str) -> None:
         """Make ``bucket`` warm: capture its graph on a CUDA device and book
-        the capture (``serve.aot_compiles`` at registration and for a cold
-        bucket, ``serve.graph_recaptures`` after paging)."""
+        the capture (``serve.aot_compiles`` at registration, at a swap and
+        for a cold bucket, ``serve.graph_recaptures`` after paging). The
+        parameters are resident."""
         with self.lock:
             if self.graphed:
-                self._capture(bucket, reason)
+                t0 = time.perf_counter()
+                self.rungs[bucket] = self._capture_rung(bucket, self.params, self.device)
+                compilemon.record_graph_capture(time.perf_counter() - t0, reason)
                 if reason == "page_in":
                     REGISTRY.counter_inc(
                         "serve.graph_recaptures", model=self.name, bucket=bucket, reason=reason
@@ -342,19 +404,47 @@ class ServableEntry:
                 rung = self.rungs[bucket]
             return rung
 
+    def dispatch_lock(self, bucket: int) -> threading.Lock:
+        """The lock a primary dispatch of ``bucket`` holds for its whole run:
+        the rung's on a card, a per-bucket lock on the CPU."""
+        with self.lock:
+            if self.graphed:
+                return self.rungs[bucket].lock
+            return self.cpu_locks.setdefault(bucket, threading.Lock())
+
+    # -- the hedge rung set ---------------------------------------------------
+
+    def warm_hedge_rung(self, bucket: int, device: torch.device) -> None:
+        """Add ``bucket`` to the hedge set: on a card, capture a rung of its
+        own on ``device`` over the hedge copy of the parameters (booked as
+        ``serve.aot_compiles{device="hedge"}``); on the CPU, mark the bucket
+        (the hedge runs the kernel eagerly). The parameters are resident."""
+        with self.lock:
+            if self.hedge_params is None:
+                self.hedge_params = (
+                    tuple(p.to(device, copy=True) for p in self.params)
+                    if self.graphed else self.params
+                )
+            if self.graphed:
+                t0 = time.perf_counter()
+                self.hedge_rungs[bucket] = self._capture_rung(bucket, self.hedge_params, device)
+                compilemon.record_graph_capture(time.perf_counter() - t0, "hedge")
+                REGISTRY.counter_inc(
+                    "serve.aot_compiles", model=self.name, bucket=bucket, device="hedge"
+                )
+            self.hedge_buckets.add(bucket)
+
     # -- paging (driven by serving/hbm.py) ------------------------------------
 
     def page_out(self) -> None:
         """Drop every graph (each under its rung's lock, so an in-flight
         replay finishes first), then move the parameters to host memory,
-        pinned for a CUDA device, and free them on the device."""
+        pinned for a CUDA device, and free them on the device. The hedge
+        set keeps its own copy and stays."""
         with self.lock:
             if self.params is None:
                 return
-            for rung in self.rungs.values():
-                with rung.lock:
-                    rung.release()
-            self.rungs.clear()
+            _release_rungs(self.rungs)
             if self.host_params is None:
                 self.host_params = tuple(
                     torch.empty(p.shape, dtype=p.dtype, pin_memory=p.is_cuda)
@@ -373,6 +463,18 @@ class ServableEntry:
             self.params = tuple(h.to(self.device, copy=True) for h in self.host_params)
             for bucket in sorted(self.warm_buckets):
                 self.warm(bucket, "page_in")
+
+    def release(self) -> None:
+        """Free the version for good (a pruned prior, a demoted or refused
+        candidate): every graph, the hedge set's included, each under its
+        rung's lock as ``page_out`` does, then the parameters and their host
+        copies. A dispatch that still holds the entry re-resolves its slot."""
+        with self.lock:
+            self.released = True
+            _release_rungs(self.rungs)
+            _release_rungs(self.hedge_rungs)
+            self.hedge_buckets.clear()
+            self.params = self.host_params = self.hedge_params = None
 
 
 # -- kernel extraction -------------------------------------------------------
@@ -500,6 +602,9 @@ class ModelRegistry:
     def __init__(self, device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
         self._entries: dict[str, ServableEntry] = {}
+        # the prior version of a hot-swapped slot, kept dispatchable and
+        # resident until probation prunes it or a rollback restores it
+        self._prior: dict[str, ServableEntry] = {}
         self._lock = threading.RLock()
 
     def register(
@@ -543,19 +648,189 @@ class ModelRegistry:
         with self._lock:
             return [e.describe() for _, e in sorted(self._entries.items())]
 
+    # -- versioned hot swap and rollback --------------------------------------
+
+    @staticmethod
+    def _prior_key(name: str) -> str:
+        return f"{name}{hbm.PRIOR_SUFFIX}"
+
+    def _run_entry(self, entry: ServableEntry, mat: np.ndarray) -> np.ndarray:
+        """Score a validated host matrix through one given entry: the shadow
+        gate's scorer and ``predict``'s body without the name lookup (so a
+        gate never races the slot it gates)."""
+        prepared = entry.prepare(mat)
+        if prepared.dtype != X_DTYPE:
+            prepared = prepared.astype(X_DTYPE)
+        bucket = buckets.serve_bucket(prepared.shape[0])
+        padded, true_rows = buckets.pad_to_bucket(prepared, bucket)
+        return entry.finalize(self.dispatch_padded(entry, padded, bucket), true_rows)
+
+    @staticmethod
+    def _shadow_divergence(live_out: np.ndarray, cand_out: np.ndarray) -> float:
+        """The candidate's divergence from the live model on the shadow
+        sample: max absolute difference over the live output's max
+        magnitude, in f64. A shape mismatch or a non-finite value is
+        infinite divergence."""
+        a = np.asarray(live_out, dtype=np.float64)
+        b = np.asarray(cand_out, dtype=np.float64)
+        if a.shape != b.shape or not (np.all(np.isfinite(a)) and np.all(np.isfinite(b))):
+            return float("inf")
+        scale = float(np.max(np.abs(a))) + 1e-12
+        return float(np.max(np.abs(a - b))) / scale
+
+    def shadow_tolerance(self) -> float:
+        """``TPU_ML_SWAP_SHADOW_TOLERANCE`` (0.25 when unset or malformed)."""
+        return lenient_float(SWAP_SHADOW_TOLERANCE_VAR, DEFAULT_SWAP_SHADOW_TOLERANCE)
+
+    def swap(
+        self,
+        name: str,
+        model: Any,
+        *,
+        shadow_sample: np.ndarray | None = None,
+        tolerance: float | None = None,
+        bucket_list: tuple[int, ...] | None = None,
+    ) -> ServableEntry:
+        """Hot-swap slot ``name`` to a freshly fitted ``model``, atomically.
+
+        The costly work comes before the publish: the candidate's graph is
+        captured for every bucket of the live entry's warm set (booked as
+        ``serve.aot_compiles``), so no request after the swap captures, and
+        the shadow gate scores candidate and live on ``shadow_sample`` and
+        raises ``SwapRefused`` past ``tolerance`` (default
+        ``TPU_ML_SWAP_SHADOW_TOLERANCE``). The publish is one dict store under
+        the registry lock; its hold is the blackout
+        (``serve.swap_blackout_seconds``). In-flight dispatches finish on the
+        entry they hold. The displaced version stays resident, booked as
+        ``<name>@prior``, until ``prune_prior`` or ``rollback``."""
+        live = self.get(name)
+        candidate = servable_from_model(name, model, self.device)
+        if candidate.n_features != live.n_features:
+            REGISTRY.counter_inc("serve.swap_refused", model=name, reason="shape")
+            raise SwapRefused(
+                f"swap of {name!r} refused: candidate n_features "
+                f"{candidate.n_features} != live {live.n_features}"
+            )
+        try:
+            ladder = (
+                tuple(bucket_list) if bucket_list
+                else tuple(sorted(live.warm_buckets)) or buckets.bucket_ladder()
+            )
+            for b in ladder:
+                candidate.warm(b, "swap")
+            if shadow_sample is not None and len(shadow_sample):
+                sample = validate_request(shadow_sample, live.n_features, name)
+                div = self._shadow_divergence(
+                    self._run_entry(live, sample), self._run_entry(candidate, sample)
+                )
+                tol = self.shadow_tolerance() if tolerance is None else tolerance
+                if div > tol:
+                    REGISTRY.counter_inc("serve.swap_refused", model=name, reason="shadow")
+                    raise SwapRefused(
+                        f"swap of {name!r} refused by the shadow gate: relative "
+                        f"divergence {div:.3g} > tolerance {tol:.3g} on "
+                        f"{len(sample)} held-back rows"
+                    )
+            # the swap barrier: an injected hang or death lands before the
+            # publish, so the old version keeps serving (never a torn slot)
+            faults.inject(sites.SERVE_SWAP)
+        except BaseException:
+            candidate.release()
+            raise
+        t0 = time.perf_counter()
+        with self._lock:
+            prior = self._entries.get(name, live)
+            candidate.version = prior.version + 1
+            self._entries[name] = candidate
+            stale = self._prior.get(name)
+            self._prior[name] = prior
+        blackout = time.perf_counter() - t0
+        REGISTRY.histogram_record("serve.swap_blackout_seconds", blackout, model=name)
+        REGISTRY.counter_inc("serve.swaps", model=name)
+        REGISTRY.gauge_set("serve.model_version", candidate.version, model=name)
+        TIMELINE.record_instant("serve.swap", model=name, version=candidate.version)
+        # the prior's booking moves to the prior key, where it stays resident
+        # (a rollback must not page) until probation clears; the candidate
+        # books under the live key
+        fleet = hbm.get_fleet()
+        fleet.forget(name)
+        fleet.account(prior, key=self._prior_key(name))
+        fleet.account(candidate)
+        if stale is not None and stale is not prior:
+            stale.release()  # a prior still held from an earlier swap
+        logger.info(
+            "hot-swapped servable %s to version %d (blackout %.3f ms)",
+            name, candidate.version, blackout * 1e3,
+        )
+        return candidate
+
+    def rollback(self, name: str) -> ServableEntry:
+        """Restore the retained prior version of ``name`` with its graphs as
+        they are (no recapture): the probation escape hatch. Atomic like the
+        swap; the demoted candidate is released after the publish (an
+        in-flight replay on it finishes first)."""
+        with self._lock:
+            prior = self._prior.pop(name, None)
+            if prior is None:
+                raise KeyError(f"no prior version of {name!r} to roll back to")
+            demoted = self._entries.get(name)
+            self._entries[name] = prior
+        REGISTRY.counter_inc("serve.rollback", model=name)
+        REGISTRY.gauge_set("serve.model_version", prior.version, model=name)
+        TIMELINE.record_instant("serve.rollback", model=name, version=prior.version)
+        fleet = hbm.get_fleet()
+        fleet.account(prior)  # rebooked under the live key, most recently used
+        fleet.forget(self._prior_key(name))
+        if demoted is not None and demoted is not prior:
+            demoted.release()
+        logger.warning("rolled back servable %s to version %d", name, prior.version)
+        return prior
+
+    def prune_prior(self, name: str) -> bool:
+        """Probation cleared: free the retained prior version (its graphs,
+        each under its rung's lock, and its parameters) and forget its
+        booking. False when there is none."""
+        with self._lock:
+            prior = self._prior.pop(name, None)
+        if prior is None:
+            return False
+        hbm.get_fleet().forget(self._prior_key(name))
+        prior.release()
+        logger.info(
+            "pruned prior version %d of servable %s (probation cleared)", prior.version, name
+        )
+        return True
+
+    def prior_entry(self, name: str) -> ServableEntry | None:
+        with self._lock:
+            return self._prior.get(name)
+
+    def current_version(self, name: str) -> int:
+        return self.get(name).version
+
+    # -- dispatch -------------------------------------------------------------
+
     def dispatch_padded(
         self, entry: ServableEntry, padded: np.ndarray, bucket: int
     ) -> np.ndarray:
         """Run one padded [bucket, n] block through the entry's graph (its
-        kernel, eagerly, on the CPU); returns the raw, still padded output as
-        a host array. Pages the parameters back in first when the fleet
-        evicted them."""
+        kernel, eagerly, on the CPU, under the bucket's lock); returns the
+        raw, still padded output as a host array. Pages the parameters back
+        in first when the fleet evicted them. An entry released meanwhile (a
+        pruned prior, a demoted candidate) hands the block to its slot's
+        current version."""
+        # the fault gate, counted per process: before any state, so a retry
+        # re-enters clean
+        faults.inject(sites.SERVE_DISPATCH)
         if padded.shape != (bucket, entry.n_features):
             raise ValueError(
                 f"padded block {padded.shape} is not [{bucket}, {entry.n_features}]"
             )
         fleet = hbm.get_fleet()
         while True:
+            if entry.released:
+                entry = self.get(entry.name)
+                continue
             fleet.ensure_resident(entry)
             if not entry.graphed:
                 with entry.lock:
@@ -565,15 +840,66 @@ class ModelRegistry:
                         )
                         entry.warm_buckets.add(bucket)
                     params = entry.params
-                if params is not None:
+                if params is None:
+                    continue
+                with entry.dispatch_lock(bucket):
                     return entry.kernel(params, _host_tensor(padded)).numpy()
-                continue
             rung = entry.rung(bucket)
             if rung is None:
-                continue  # paged out between the two calls: page in again
+                continue  # paged out or released between the two calls
             with rung.lock:
                 if rung.graph is not None:
                     return rung.run(padded)
+
+    # -- hedged dispatch ------------------------------------------------------
+
+    def warm_hedge(
+        self,
+        name: str,
+        *,
+        bucket_list: tuple[int, ...] | None = None,
+        device_index: int = 1,
+    ) -> int:
+        """Capture the model's hedge rung set, so that a hedged resend runs
+        there instead of queueing behind the primary: on card
+        ``device_index`` when the host has it, else on the entry's card on a
+        hedge stream of its own. Returns the number of hedge rungs (on the
+        CPU, of hedge buckets); buckets outside the warm set are skipped."""
+        entry = self.get(name)
+        ladder = tuple(bucket_list) if bucket_list else tuple(sorted(entry.warm_buckets))
+        device = entry.device
+        if entry.graphed and device_index < torch.cuda.device_count():
+            device = torch.device("cuda", device_index)
+        hbm.get_fleet().ensure_resident(entry)  # the hedge copies the parameters
+        warmed = 0
+        for b in ladder:
+            if b in entry.warm_buckets:
+                entry.warm_hedge_rung(b, device)
+                warmed += 1
+        return warmed
+
+    def hedge_dispatch_padded(
+        self, entry: ServableEntry, padded: np.ndarray, bucket: int
+    ) -> np.ndarray:
+        """The straggler resend: one dispatch through the entry's hedge
+        rung set, the hedge rung's replay on the hedge device's hedge stream
+        under the hedge rung's lock (on the CPU, the kernel, eagerly). It
+        takes no primary rung's lock and no fault gate, and raises when
+        ``bucket`` has no warm hedge rung."""
+        if padded.shape != (bucket, entry.n_features):
+            raise ValueError(
+                f"padded block {padded.shape} is not [{bucket}, {entry.n_features}]"
+            )
+        if bucket not in entry.hedge_buckets:
+            raise RuntimeError(f"{entry.name}: no warm hedge rung for bucket {bucket}")
+        if not entry.graphed:
+            return entry.kernel(entry.hedge_params, _host_tensor(padded)).numpy()
+        rung = entry.hedge_rungs[bucket]
+        with rung.lock:
+            if rung.graph is None:
+                raise RuntimeError(f"{entry.name}: the hedge rung of bucket {bucket} was released")
+            with torch.cuda.stream(_stream_for(_HEDGE_STREAMS, rung.x.device)):
+                return rung.run(padded)
 
     def predict(self, name: str, x: Any) -> np.ndarray:
         """The direct (unbatched) serve path: validate, prepare, pad,

@@ -25,7 +25,10 @@ with the length-prefixed JSON-header protocol (``_uds_handle_one``) and,
 on the same socket, the fast lane (``serving/fastlane.py``): a frame that
 opens with ``FASTLANE_MAGIC`` goes from its fixed struct to the batcher
 without a dict or a JSON codec pass. Both take ANN queries: a UDS header
-with ``"kind": "query"``, a fast-lane frame with ``FLAG_QUERY``.
+with ``"kind": "query"``, a fast-lane frame with ``FLAG_QUERY``. A UDS
+header with ``"kind": "stats"`` is the fleet's scrape frame: the answer is
+the process's registry and flight-recorder tail (``since_seq``), in plain
+JSON.
 
 Every request books ``serve.requests`` and a ``serve.latency`` histogram
 sample (labels model, transport, wire); failures book ``serve.errors``.
@@ -369,6 +372,23 @@ def _uds_handle_one(rfile, wfile, batcher: MicroBatcher, pool) -> bool:
     wire = str(header.get("wire", "json"))
     accept = str(header.get("accept", wire))
     kind = str(header.get("kind", "predict"))
+    if kind == "stats":
+        # the scrape frame: the fleet router pulls this replica's registry
+        # and flight-recorder tail over its serve socket, in plain stdlib
+        # JSON (scrape traffic stays off the counted serve.json_codec)
+        resp = {
+            "ok": True,
+            "kind": "stats",
+            "registry": REGISTRY.snapshot().to_wire(),
+            "events": TIMELINE.events(int(header.get("since_seq", 0) or 0)),
+            "seq": TIMELINE.seq(),
+            "mono_us": int(time.perf_counter() * 1e6),
+            "pid": os.getpid(),
+        }
+        raw = json.dumps(resp).encode()
+        wfile.write(len(raw).to_bytes(4, "big") + raw)
+        wfile.flush()
+        return True
     parent = tracectx.from_header(str(header.get("trace", "")))
     ctx = parent.child() if parent is not None else tracectx.mint(origin="uds")
     t0 = time.perf_counter()
@@ -533,8 +553,10 @@ class ServingHTTPServer(httpd.HealthHTTPServer):
 def serve_summary(snap) -> dict:
     """JSON-safe summary of the serving activity in one snapshot window
     (``REGISTRY.snapshot().delta(before)``): request, batch and capture
-    counters, bucket hits, the transport mix, paging, the JSON codec count
-    and the latency, queue-delay and window histograms."""
+    counters, bucket hits, the transport mix, paging, the JSON codec count,
+    the latency, queue-delay and window histograms, the hedges and their
+    winners, and the fleet's routing, drains, restarts, swaps, refusals,
+    rollbacks and swap blackouts."""
     bucket_hits: dict[str, float] = {}
     transport_mix: dict[str, float] = {}
     lanes = set()
@@ -550,6 +572,12 @@ def serve_summary(snap) -> dict:
         d = dict(lbl)
         if n == "serve.latency" and "transport" in d and "wire" in d:
             lanes.add((d["transport"], d["wire"]))
+    hedge_wins: dict[str, float] = {}
+    for (n, lbl), v in snap.counters.items():
+        if n == "serve.hedge_wins":
+            w = str(dict(lbl).get("winner", "?"))
+            hedge_wins[w] = hedge_wins.get(w, 0) + v
+    replica_gauges = [v for (n, _), v in snap.gauges.items() if n == "serve.fleet_replicas"]
     return {
         "type": "serve_summary",
         "coalesce_window_s": coalesce_window_s(),
@@ -580,6 +608,19 @@ def serve_summary(snap) -> dict:
             "decode": snap.counter("serve.json_codec", op="decode"),
         },
         "traces_minted": snap.counter("serve.traces"),
+        "hedges": snap.counter("serve.hedges"),
+        "hedge_wins": hedge_wins,
+        "fleet": {
+            "replicas": int(max(replica_gauges)) if replica_gauges else 0,
+            "route_hits": snap.counter("serve.route_hits"),
+            "route_misses": snap.counter("serve.route_misses"),
+            "drain_events": snap.counter("serve.drain_events"),
+            "replica_restarts": snap.counter("serve.replica_restarts"),
+            "swaps": snap.counter("serve.swaps"),
+            "swap_refused": snap.counter("serve.swap_refused"),
+            "rollbacks": snap.counter("serve.rollback"),
+            "swap_blackout": snap.hist("serve.swap_blackout_seconds").to_dict(),
+        },
     }
 
 

@@ -7,8 +7,10 @@ is booked here by the code that makes it (``record_graph_capture``):
 
 - ``compile.graph_captures{reason}``: one per captured graph, ``reason``
   being ``register`` (the ladder at registration), ``cold`` (a bucket
-  outside the warm set, captured on demand) or ``page_in`` (the ladder
-  recaptured after HBM paging moved the model's parameters);
+  outside the warm set, captured on demand), ``page_in`` (the ladder
+  recaptured after HBM paging moved the model's parameters), ``swap`` (a
+  hot-swap candidate's ladder, captured before the publish) or ``hedge``
+  (the hedge rung set ``warm_hedge`` captures);
 - ``compile.graph_capture_seconds``: host seconds of each capture, the warm-up
   launch included.
 
@@ -24,7 +26,7 @@ import torch
 
 from spark_rapids_ml_tpu_torch.telemetry.registry import REGISTRY
 
-CAPTURE_REASONS = ("register", "cold", "page_in")
+CAPTURE_REASONS = ("register", "cold", "page_in", "swap", "hedge")
 
 
 def record_graph_capture(seconds: float, reason: str) -> None:

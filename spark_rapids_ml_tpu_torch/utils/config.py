@@ -6,7 +6,10 @@ environment variable names and defaults, so one environment configures both
 packages. ``get_config()`` reads the environment on every call.
 
 The serving runtime's knobs (``TPU_ML_SERVE_*``, ``TPU_ML_TRACE_*``,
-``TPU_ML_TIMELINE_EVENTS``, ``TPU_ML_TUNING_CACHE_PATH``) and the telemetry
+``TPU_ML_TIMELINE_EVENTS``, ``TPU_ML_TUNING_CACHE_PATH``), the fleet's,
+hot swap's and the refresh daemon's (``TPU_ML_SERVE_FLEET_*``,
+``TPU_ML_SERVE_DRAIN_TIMEOUT_S``, ``TPU_ML_SERVE_HEDGE_FLOOR_US``,
+``TPU_ML_SWAP_*``, ``TPU_ML_REFRESH_*``) and the telemetry
 and health knobs (``TPU_ML_TELEMETRY_PATH``, ``TPU_ML_TIMELINE_PATH``,
 ``TPU_ML_HTTP_PORT``, ``TPU_ML_SLO*``, ``TPU_ML_HEALTH_*``,
 ``TPU_ML_ADMISSION_POLICY``) and the ANN knobs (``TPU_ML_ANN_CAP_PERCENTILE``,
@@ -61,6 +64,18 @@ TRACE_SAMPLE_VAR, DEFAULT_TRACE_SAMPLE = "TPU_ML_TRACE_SAMPLE", 1.0
 TRACE_EXEMPLARS_VAR, DEFAULT_TRACE_EXEMPLARS = "TPU_ML_TRACE_EXEMPLARS", 4
 TIMELINE_EVENTS_VAR, DEFAULT_TIMELINE_EVENTS = "TPU_ML_TIMELINE_EVENTS", 4096
 TUNING_CACHE_PATH_VAR = "TPU_ML_TUNING_CACHE_PATH"  # empty: in-process only
+# the serve fleet, hot swap and the refresh daemon
+# (spark_rapids_ml_tpu/utils/knobs.py:219-266), with their defaults
+SERVE_HEDGE_FLOOR_US_VAR, DEFAULT_SERVE_HEDGE_FLOOR_US = "TPU_ML_SERVE_HEDGE_FLOOR_US", 2000.0
+SERVE_FLEET_REPLICAS_VAR, DEFAULT_SERVE_FLEET_REPLICAS = "TPU_ML_SERVE_FLEET_REPLICAS", 0
+SERVE_FLEET_SOCKET_DIR_VAR = "TPU_ML_SERVE_FLEET_SOCKET_DIR"  # empty: a fresh temporary dir
+SERVE_DRAIN_TIMEOUT_S_VAR, DEFAULT_SERVE_DRAIN_TIMEOUT_S = "TPU_ML_SERVE_DRAIN_TIMEOUT_S", 30.0
+REFRESH_INTERVAL_S_VAR, DEFAULT_REFRESH_INTERVAL_S = "TPU_ML_REFRESH_INTERVAL_S", 30.0
+REFRESH_MIN_ROWS_VAR, DEFAULT_REFRESH_MIN_ROWS = "TPU_ML_REFRESH_MIN_ROWS", 1
+REFRESH_CHECKPOINT_DIR_VAR = "TPU_ML_REFRESH_CHECKPOINT_DIR"  # empty: memory only
+SWAP_SHADOW_ROWS_VAR, DEFAULT_SWAP_SHADOW_ROWS = "TPU_ML_SWAP_SHADOW_ROWS", 256
+SWAP_SHADOW_TOLERANCE_VAR, DEFAULT_SWAP_SHADOW_TOLERANCE = "TPU_ML_SWAP_SHADOW_TOLERANCE", 0.25
+SWAP_PROBATION_S_VAR, DEFAULT_SWAP_PROBATION_S = "TPU_ML_SWAP_PROBATION_S", 60.0
 # telemetry, SLOs, health and admission (spark_rapids_ml_tpu/utils/knobs.py
 # :339-340, :356, :405-415), with their defaults
 TELEMETRY_PATH_VAR = "TPU_ML_TELEMETRY_PATH"  # empty: no report sink

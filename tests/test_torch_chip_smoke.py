@@ -995,3 +995,58 @@ def test_meshfit_phase_on_cpu(linear_stream, monkeypatch):
         launches = chip_smoke._meshfit_launches(parts, name)
         assert len(launches) == 8 and set(launches.values()) == {0}
     assert "meshfit" in chip_smoke.SKIPPABLE
+
+
+# -- phase 23: lifecycle and the fleet --------------------------------------------
+
+
+def test_fleet_phase_on_cpu(monkeypatch):
+    """Phase 23 at a tiny size (64 columns, k = 5, 2 replicas, 100
+    requests): (a) the refresh loop's swap, rollback, resume, clean cycle
+    and refusal, (b) the hedge answering while the primary holds its rung's
+    lock, (c) the fleet's wires, rolling restart and swap_models under load;
+    every gate, no kernel launch and no graph on the CPU."""
+    monkeypatch.setenv("TPU_ML_SERVE_MAX_BATCH_ROWS", "64")
+    a = chip_smoke.phase_refresh(CPU, rows=512, n=64, k=5, v1_batches=2, deltas=2,
+                                 requests=20, shadow_rows=32)
+    assert a["launches"] == {name: 0 for name in chip_smoke.KERNELS}
+    assert a["folds"] == 6 and a["ladder"] == [8, 16, 32, 64]
+    assert a["rollback"]["status"] == "rolled_back" and a["v1_bit_equal_after_rollback"]
+    assert a["resumed_bit_equal"] and a["promoted"]["status"] == "promoted"
+    assert a["refusal"] is not None and a["bench_stream_divergence"] > 0
+    b = chip_smoke.phase_hedge(a["registry"], chip_smoke.REFRESH_NAME, a["pool"], CPU,
+                               hang_s=0.3, wait_s=5.0)
+    assert b["hedge_rungs"] == 4 and b["hedge_wins"] == {"hedge": 1, "primary": 0}
+    x = a["pool"]
+    lin = chip_smoke.LinearRegression(device=CPU).fit((x, x @ np.arange(64.0)))
+    c = chip_smoke.phase_fleet({chip_smoke.REFRESH_NAME: a["v1_model"], "linreg512": lin},
+                               a["promoted_model"], x, CPU, replicas=2, requests=100, threads=4)
+    assert all(w["bit_equal_to_parent"] == 100 for w in c["wires"].values())
+    assert c["restart"]["respawn_warm_rungs"] == 8 and c["restart"]["respawn_graph_captures"] == 0
+    assert c["swap_models"]["failures"] == [] and c["restart"]["failures"] == []
+    assert "fleet" in chip_smoke.SKIPPABLE
+
+
+def test_a_same_rung_hedge_fails_the_hedge_check(monkeypatch):
+    """The phase's hedge check fails when the hedge goes through the
+    primary's own rung: it then waits on the lock the phase holds."""
+    monkeypatch.setenv("TPU_ML_SERVE_MAX_BATCH_ROWS", "64")
+    x = chip_smoke.bench_workload(256, 16)
+    reg = chip_smoke.R.ModelRegistry(CPU)
+    reg.register(chip_smoke.REFRESH_NAME, chip_smoke.PCA(device=CPU).setK(3).fit(x))
+    monkeypatch.setattr(reg, "hedge_dispatch_padded", reg.dispatch_padded)
+    with pytest.raises(AssertionError, match="no answer within"):
+        chip_smoke.phase_hedge(reg, chip_smoke.REFRESH_NAME, x, CPU, hang_s=0.2, wait_s=1.0)
+
+
+def test_the_gate_divergence_of_the_refresh_stream_is_small():
+    """The phase's stationary stream: 12 batches' f64 components and 8's
+    agree, so the shadow gate passes a refresh; the independent-row stream's
+    measurement is a number, not a gate."""
+    x, gram = chip_smoke.refresh_workload(256, 64, 3, 5, CPU)
+    np.testing.assert_allclose(gram, x.astype(np.float64).T @ x.astype(np.float64),
+                               rtol=1e-9, atol=1e-6)
+    first, _ = chip_smoke.refresh_workload(256, 64, 2, 5, CPU)
+    assert np.array_equal(first, x[:512])
+    div = chip_smoke.bench_stream_divergence(256, 64, 5, 2, 3, 32, CPU)
+    assert np.isfinite(div) and div > 0
