@@ -307,6 +307,24 @@ Phases, each a plain function that the CPU tests also call at a tiny size:
    promoted model, the exporter's sums against the per-replica registries,
    the respawn's captures and spawn-to-READY seconds, and the card's memory
    per replica process. The kernels line gains phase23_launches.
+24. bridges (group "bridges"), on phase 4's rows right after phase 18 (d),
+   staged as one parquet file (a row id and list<float32> features) under
+   the checkout's build/jvm_bridge, removed after: (a) the JVM bridge's
+   CLI, jvm_bridge.main(["fit-pca", ..., "--k", "50", "--num-partitions",
+   "8", "--device", "cuda"]) under TPU_ML_DEFAULT_PRECISION=high (the
+   bounded device probe, the parquet read, the fit, the stock-Spark-layout
+   save): fused_gram_moments 8 times, the saved model loaded on the card
+   at min |cosine| to the f64 oracle and its components bit for bit a
+   direct PCA fit's, the command's and the fit's seconds; (b)
+   jvm_bridge.main(["transform-pca", ...]) with that model in 65,536-row
+   batches (8, the last of 41,248 rows): the written ids in order, every
+   written row within 1e-5 x max|y| of the f64 projection, rows/s and
+   each batch's projection seconds; (c) the native row bridge
+   (csrc/tpuml_bridge.cpp, built with g++ at first use): its build seconds
+   and version(), transform_rows(use_native=True) on 4,096 rows against
+   transform_rows() (1e-12 relative, both f64 on the host) and against
+   (b)'s projection, microseconds per row of both host paths. The kernels
+   line gains phase24_launches.
 
 Each main path reads the kernels' launch counts from 0 around exactly its
 fit. The last lines are one JSON object with every kernel's numbers, the
@@ -345,10 +363,12 @@ from spark_rapids_ml_tpu_torch import (
     IndexToString, KMeans, LinearRegression, LinearSVC, LogisticRegression,
     MulticlassClassificationEvaluator, MultilayerPerceptronClassifier, NaiveBayes,
     NaiveBayesModel, NearestNeighbors, Normalizer, OneHotEncoder, OneVsRest, ParamGridBuilder,
+    PCAModel,
     Pipeline, RandomForestClassifier, RandomForestRegressor, RegressionEvaluator,
     StandardScaler, StringIndexer, Tokenizer, TrainValidationSplit, TruncatedSVD,
     VectorAssembler,
 )
+from spark_rapids_ml_tpu_torch import bridge, jvm_bridge
 from spark_rapids_ml_tpu_torch.ann.serving import unpack_query_result
 from spark_rapids_ml_tpu_torch.ops import _build
 from spark_rapids_ml_tpu_torch.models import fm as PFM
@@ -395,7 +415,7 @@ from spark_rapids_ml_tpu_torch.spark import estimators as spark_est
 from spark_rapids_ml_tpu_torch.telemetry import health, httpd, slo
 from spark_rapids_ml_tpu_torch.telemetry.registry import REGISTRY, MetricsRegistry
 from spark_rapids_ml_tpu_torch.telemetry.timeline import TIMELINE
-from spark_rapids_ml_tpu_torch.utils import columnar, devicepolicy
+from spark_rapids_ml_tpu_torch.utils import columnar, devicepolicy, persistence
 from spark_rapids_ml_tpu_torch.utils.checkpoint import TrainingCheckpointer
 from spark_rapids_ml_tpu_torch.utils.device import block_rows_for, to_device
 
@@ -1269,9 +1289,7 @@ def phase_streamed_one_pass(
     oracle_pc, oracle_ev = oracle_from_scatter(gram64, k)
 
     x_policy = x[:policy_rows]
-    before = os.environ.get("TPU_ML_PRECISION_POLICY")
-    os.environ["TPU_ML_PRECISION_POLICY"] = "bf16_f32acc"
-    try:
+    with _env(TPU_ML_PRECISION_POLICY="bf16_f32acc"):
         reset_launches()
         t0 = time.perf_counter()
         policy_model = PCA(device=device).setK(k).setPrecision("highest").fit(
@@ -1281,11 +1299,6 @@ def phase_streamed_one_pass(
             torch.cuda.synchronize(device)
         policy_fit_s = time.perf_counter() - t0
         policy_launches = read_launches()
-    finally:
-        if before is None:
-            del os.environ["TPU_ML_PRECISION_POLICY"]
-        else:
-            os.environ["TPU_ML_PRECISION_POLICY"] = before
     policy_pc, _ = oracle_from_scatter(scatter_f64(x_policy, device), k)
     result = {
         "rows": rows, "n": n, "k": k, "partitions": partitions,
@@ -2050,7 +2063,7 @@ def serve_shedding(srv, model: str, pool: np.ndarray, requests: int) -> dict:
                     finally:
                         conn.close()
                     codes[resp.status] = codes.get(resp.status, 0) + 1
-                    time.sleep(0.005)
+                    time.sleep(0.005)  # tpulint: disable=TPL004 -- paces the shed probe's requests, not a retry
                 breaches = mon.slo.total_breaches()
             finally:
                 health.stop_monitor()
@@ -7597,6 +7610,178 @@ def phase_fleet(models: dict, promoted, pool: np.ndarray, device: torch.device, 
     return result
 
 
+BRIDGE_BATCH_ROWS = jvm_bridge.DEFAULT_BATCH_ROWS  # transform-pca's default batch
+BRIDGE_NATIVE_ROWS = 4_096  # rows of the native row bridge's check
+BRIDGE_PROJ_RTOL = 1e-5  # |y − y64| ≤ this × max|y64|, the card's f32 projection
+BRIDGE_WORKDIR = _build.BUILD_DIR.parent / "jvm_bridge"  # the checkout's ignored build/
+
+
+@contextlib.contextmanager
+def _timing_calls(module, name: str, seconds: list):
+    """Wrap ``module.name`` for the block so that each call's wall time is
+    appended to ``seconds`` (the function returns host arrays or a model
+    whose fit has synced, so the time is the call's own)."""
+    fn = getattr(module, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def _stage_parquet(path: Path, x: np.ndarray) -> None:
+    """The Scala shim's hand-off: a row-id column and ``features`` as
+    list<float32>, one file of one row group, so that ``transform-pca``'s
+    batches are cut by ``--batch-rows`` alone."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    offsets = pa.array(np.arange(0, x.size + 1, x.shape[1], dtype=np.int32))
+    table = pa.table({
+        "id": pa.array(np.arange(len(x), dtype=np.int64)),
+        "features": pa.ListArray.from_arrays(offsets, pa.array(x.reshape(-1))),
+    })
+    path.mkdir(parents=True, exist_ok=True)
+    pq.write_table(table, path / "part-00000.snappy.parquet", row_group_size=len(x))
+    (path / "_SUCCESS").write_text("")
+
+
+def phase_bridges(rows: int, n: int, k: int, partitions: int, device: torch.device, *,
+                  batch_rows: int = BRIDGE_BATCH_ROWS,
+                  native_rows: int = BRIDGE_NATIVE_ROWS,
+                  workdir: Path = BRIDGE_WORKDIR) -> dict:
+    """Phase 24 on phase 4's rows, staged as parquet under ``workdir`` as
+    the Scala shim stages them: (a) ``jvm_bridge.main(["fit-pca", ...])``
+    under ``TPU_ML_DEFAULT_PRECISION=high`` (the bounded device probe, the
+    parquet read, the fit, the stock-Spark-layout save), its launches read
+    from 0 around exactly that command, the saved model loaded on
+    ``device`` against the f64 oracle and bit for bit against a direct
+    ``PCA`` fit at "high"; (b) ``jvm_bridge.main(["transform-pca", ...])``
+    with that saved model in ``batch_rows`` batches, every written row
+    against the f64 projection, each batch's projection timed; (c) the
+    native row bridge (``csrc/tpuml_bridge.cpp``, g++): its build and
+    ``version()``, ``transform_rows(use_native=True)`` against
+    ``transform_rows()`` and against (b)'s projection."""
+    import pyarrow.parquet as pq
+
+    x = bench_workload(rows, n)
+    cuda = device.type == "cuda"
+    staged, model_dir, out_dir = workdir / "in", workdir / "model", workdir / "out"
+    shutil.rmtree(workdir, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        _stage_parquet(staged, x)
+        stage_s = time.perf_counter() - t0
+
+        # (a) fit-pca, through the knob a deployment sets for the shim
+        fit_s: list = []
+        with _env(TPU_ML_DEFAULT_PRECISION="high"), \
+                _timing_calls(jvm_bridge, "fit_pca_matrix", fit_s):
+            reset_launches()
+            t0 = time.perf_counter()
+            jvm_bridge.main(["fit-pca", "--input", str(staged), "--output", str(model_dir),
+                             "--k", str(k), "--num-partitions", str(partitions),
+                             "--device", device.type])
+            fit_cli_s = time.perf_counter() - t0
+            launches = read_launches()
+            direct = PCA(device=device).setK(k).setPrecision("high").fit(
+                x, num_partitions=partitions)
+        expected = expected_launches(gram_moments=partitions if cuda else 0)
+        if launches != expected:
+            raise AssertionError(f"phase 24 (a) fit-pca launches {launches}, expected {expected}")
+        model = PCAModel.load(str(model_dir), device=device)
+        if not persistence.is_spark_ml_layout(str(model_dir)):
+            raise AssertionError("phase 24 (a) fit-pca did not write the stock Spark ML layout")
+        if not np.array_equal(model.pc, direct.pc):
+            raise AssertionError("phase 24 (a) fit-pca's components are not a direct fit's, "
+                                 "bit for bit")
+        oracle_pc, _ = oracle_from_scatter(scatter_f64(x, device), k)
+        min_cos = _min_abs_cosine(model.pc, oracle_pc)
+        if not min_cos >= COSINE_BAR:
+            raise AssertionError(f"phase 24 (a) min cosine vs the f64 oracle {min_cos} < {COSINE_BAR}")
+
+        # (b) transform-pca with the saved model, each batch's projection timed
+        batch_s: list = []
+        with _timing_calls(jvm_bridge, "project_batch", batch_s):
+            t0 = time.perf_counter()
+            jvm_bridge.main(["transform-pca", "--input", str(staged), "--model", str(model_dir),
+                             "--output", str(out_dir), "--batch-rows", str(batch_rows),
+                             "--device", device.type])
+            transform_cli_s = time.perf_counter() - t0
+        written = pq.read_table(out_dir)
+        if written.column_names != ["id", "features", "pca_features"] or not np.array_equal(
+                written.column("id").to_numpy(), np.arange(rows)):
+            raise AssertionError(f"phase 24 (b) transform-pca wrote {written.schema}")
+        y = columnar.extract_matrix(written, "pca_features")
+        del written
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    bounds = [(a, min(a + batch_rows, rows)) for a in range(0, rows, batch_rows)]
+    if len(batch_s) != len(bounds):
+        raise AssertionError(f"phase 24 (b) {len(batch_s)} batches, expected {len(bounds)}")
+    pc64 = torch.from_numpy(model.pc).to(device=device, dtype=torch.float64)
+    y64 = np.concatenate([
+        (torch.from_numpy(x[a:b]).to(device=device, dtype=torch.float64) @ pc64).cpu().numpy()
+        for a, b in bounds
+    ])
+    proj_tol = BRIDGE_PROJ_RTOL * float(np.abs(y64).max())
+    proj_err = float(np.abs(y - y64).max())
+    if y.shape != (rows, k) or y.dtype != np.float64 or not proj_err <= proj_tol:
+        raise AssertionError(
+            f"phase 24 (b) transform-pca {y.shape} {y.dtype}: error {proj_err} > {proj_tol}")
+
+    # (c) the native row bridge: built with g++ at first use
+    built_before = _build.library_path(bridge.SOURCE).exists()
+    t0 = time.perf_counter()
+    version = bridge.version()
+    build_s = time.perf_counter() - t0
+    rows_in = list(x[:native_rows].astype(np.float64))  # a JVM row is doubles
+    t0 = time.perf_counter()
+    native = np.stack(model.transform_rows(rows_in, use_native=True))
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = np.stack(model.transform_rows(rows_in))
+    host_s = time.perf_counter() - t0
+    native_rel = float(np.abs(native - host).max() / np.abs(host).max())
+    native_vs_card = float(np.abs(native - y[:native_rows]).max())
+    if not native_rel <= 1e-12:
+        raise AssertionError(f"phase 24 (c) native rows off the numpy rows: {native_rel} > 1e-12")
+    if not native_vs_card <= proj_tol:
+        raise AssertionError(f"phase 24 (c) native rows off the card's: {native_vs_card} > {proj_tol}")
+
+    result = {
+        "rows": rows, "n": n, "k": k, "partitions": partitions,
+        "stage_parquet_s": stage_s,
+        "launches": launches,
+        "fit_cli_s": fit_cli_s,
+        "fit_s": fit_s[0],
+        "min_cosine_vs_f64_oracle": min_cos,
+        "components_bit_equal_direct_fit": True,
+        "batches": len(bounds), "last_batch_rows": bounds[-1][1] - bounds[-1][0],
+        "transform_cli_s": transform_cli_s,
+        "batch_s": batch_s,
+        "transform_rows_per_s": rows / transform_cli_s,
+        "projection_rows_per_s": rows / sum(batch_s),
+        "transform_max_abs_err": proj_err, "transform_tol": proj_tol,
+        "native_version": version,
+        "native_build_s": None if built_before else build_s,
+        "native_rows": native_rows,
+        "native_us_per_row": native_s / native_rows * 1e6,
+        "numpy_us_per_row": host_s / native_rows * 1e6,
+        "native_rel_err_vs_numpy": native_rel,
+        "native_max_abs_err_vs_card": native_vs_card,
+    }
+    print(f"bridges: {json.dumps(result)}", flush=True)
+    return result
+
+
 def _meshfit_launches(meshfit: dict, name: str) -> dict:
     """One kernel's launches in each part of phase 22 that ran."""
     out = {}
@@ -7631,6 +7816,7 @@ SKIPPABLE = {
     "meshfit": "phase 22 (the mesh fits: linear, Newton, KMeans, DBSCAN, kNN, forest, "
                "NaiveBayes, ANN, the fit barrier bodies)",
     "fleet": "phase 23 (the refresh daemon, hot swap and rollback, the hedge, the serve fleet)",
+    "bridges": "phase 24 (the JVM bridge's fit and transform halves, the native row bridge)",
 }
 
 
@@ -7697,6 +7883,10 @@ def main(argv=()) -> int:
            MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS, device)
     _timed("recovery (d) resident", phase_recovery_resident,
            MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS, device)
+    bridges = None
+    if "bridges" not in skip:  # on phase 4's rows while they are still made
+        bridges = _timed("bridges (24)", phase_bridges,
+                         MAIN_ROWS, MAIN_N, MAIN_K, MAIN_PARTITIONS, device)
     bench_workload.cache_clear()
     stream_data = _timed("make streamed data", streamed_workload,
                          STREAM_ROWS, MAIN_N, STREAM_PARTITIONS, device)
@@ -7856,6 +8046,9 @@ def main(argv=()) -> int:
             # daemon's refolds included)
             "phase23_launches": None if refresh is None else {
                 "refresh_folds": refresh["launches"][name]},
+            # phase 24 (a): the JVM bridge's fit-pca fit half at "high"
+            "phase24_launches": None if bridges is None else {
+                "fit_pca": bridges["launches"][name]},
             "max_abs_err": at_main["max_abs_err"],
             "tol": at_main["tol"],
             "ms": at_main["kernel_ms"],

@@ -21,7 +21,7 @@ import enum
 import os
 from dataclasses import dataclass
 
-PRECISION_POLICY_VAR = "TPU_ML_PRECISION_POLICY"
+from spark_rapids_ml_tpu_torch.utils.config import PRECISION_POLICY_VAR
 
 
 class PrecisionPolicy(str, enum.Enum):

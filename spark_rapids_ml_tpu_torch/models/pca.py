@@ -297,12 +297,18 @@ class PCAModel(PCAParams, Model):
                 self._project_matrix,
             )
 
-    def transform_rows(self, rows) -> list[np.ndarray]:
+    def transform_rows(self, rows, use_native: bool = False) -> list[np.ndarray]:
         """Row-at-a-time host projection pcᵀ·row (the reference's ``apply``),
-        in numpy; the card is not involved."""
+        in numpy; the card is not involved. With ``use_native=True`` the rows
+        are packed and projected through the native row bridge (``bridge``)
+        instead, after the same host standardization."""
         mat = columnar.standardize_host(
             np.stack([np.asarray(r) for r in rows]), self.mean, self.std
         )
+        if use_native:
+            from spark_rapids_ml_tpu_torch import bridge
+
+            return list(bridge.project(bridge.pack_rows(list(mat)), self.pc))
         pct = self.pc.T
         return [pct @ r for r in mat]
 

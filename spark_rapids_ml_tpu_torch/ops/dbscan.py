@@ -137,7 +137,7 @@ def dbscan_labels(
         new = torch.where(core, torch.minimum(labels, donated_min(labels)), labels)
         for _ in range(2):  # pointer jumping
             new = torch.where(core, new[torch.clamp(new, 0, rows - 1).long()], new)
-        changed = bool(torch.any(new != labels))
+        changed = bool(torch.any(new != labels))  # tpulint: disable=TPL002 -- the propagation loop stops on the host: one flag per sweep
         labels = new
         if not changed:
             break

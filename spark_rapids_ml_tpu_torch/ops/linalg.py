@@ -244,7 +244,7 @@ def gram_stats_weighted(
         w = w.to(device=x.device, dtype=x.dtype, non_blocking=True)
         xw = x * w[:, None]
         return GramStats(x.T @ xw, xw.sum(dim=0), w.sum())
-    if w.shape == (x.shape[0],) and bool(torch.all(w == 1)):
+    if w.shape == (x.shape[0],) and bool(torch.all(w == 1)):  # tpulint: disable=TPL002 -- one read per fit picks the unweighted Gram
         xtx, col_sum = _kernel_gram(x, tier, symmetric=True, exact_diagonal=exact_diagonal)
         count = torch.full((), float(x.shape[0]), dtype=x.dtype, device=x.device)
         return GramStats(xtx, col_sum, count)
@@ -579,7 +579,7 @@ def min_cosine_vs_f64_oracle(x_host, pc, k: int) -> float:
     oracle (uncentered scatter eigh, descending)."""
     xa = np.asarray(x_host, dtype=np.float64)
     if isinstance(pc, torch.Tensor):
-        pc = pc.detach().cpu().numpy()
+        pc = pc.detach().cpu().numpy()  # tpulint: disable=TPL002 -- a host check against the f64 oracle, off the fit path
     pc = np.asarray(pc, dtype=np.float64)
     _, evecs = np.linalg.eigh(xa.T @ xa)
     oracle = evecs[:, ::-1][:, :k]

@@ -204,7 +204,7 @@ def solve_normal(
     m, a, b = _centered(stats, fit_intercept)
     a = a + reg_param * m * torch.eye(a.shape[0], dtype=a.dtype, device=a.device)
     coef = _cholesky_solve(a, b)
-    if coef is None or not bool(torch.isfinite(coef).all()):
+    if coef is None or not bool(torch.isfinite(coef).all()):  # tpulint: disable=TPL002 -- the host picks the lstsq fallback, once per solve
         coef = torch.linalg.pinv(a, hermitian=True) @ b
     return coef, _intercept(stats, m, coef, fit_intercept)
 
@@ -423,7 +423,7 @@ def _regularized_newton_solve(
 
         new_w = _fista(sub_grad, eta * lam1 * pen, eta, w, 200, 1e-10)
         step = torch.linalg.norm(new_w - w)
-    if bool(torch.isfinite(step)) and bool(torch.isfinite(new_w).all()):
+    if bool(torch.isfinite(step)) and bool(torch.isfinite(new_w).all()):  # tpulint: disable=TPL002 -- the Newton step's acceptance test, once per iteration
         return new_w, step
     return w, nan
 
@@ -437,9 +437,9 @@ def check_newton_outcome(step_norm, w) -> None:
     import numpy as np
 
     if isinstance(step_norm, torch.Tensor):
-        step_norm = step_norm.item()
+        step_norm = step_norm.item()  # tpulint: disable=TPL002 -- the outcome check runs once, after the loop
     if isinstance(w, torch.Tensor):
-        w = w.cpu().numpy()
+        w = w.cpu().numpy()  # tpulint: disable=TPL002 -- the outcome check runs once, after the loop
     if np.isnan(float(step_norm)) and not np.asarray(w).any():
         raise ValueError(
             "the first Newton step produced non-finite statistics from the "

@@ -62,11 +62,11 @@ def minimize(
     dtype = {torch.float32: np.float32, torch.float64: np.float64}[flat0.dtype]
     with torch.no_grad():
         flat = flat0
-        prev, cur = dtype(np.inf), dtype(loss_fn(flat).item())
+        prev, cur = dtype(np.inf), dtype(loss_fn(flat).item())  # tpulint: disable=TPL002 -- the convergence test reads the loss on the host, as optax's loop does
         it = 0
         while it < max_iter and np.abs(prev - cur) > tol:
             flat, value = step(flat)
-            prev, cur = (dtype(v) for v in torch.stack([value, loss_fn(flat)]).tolist())
+            prev, cur = (dtype(v) for v in torch.stack([value, loss_fn(flat)]).tolist())  # tpulint: disable=TPL002 -- the convergence test reads the loss on the host, once per iteration
             it += 1
             if callback is not None:
                 callback(it, flat, float(cur))
@@ -204,7 +204,7 @@ class LBFGS:
     # -- the zoom line search ----------------------------------------------
     def _on_line(self, flat, d, stepsize: float):
         value, grad = value_and_grad(self.fn, flat + stepsize * d)
-        v, slope = torch.stack([value, torch.dot(grad, d)]).tolist()
+        v, slope = torch.stack([value, torch.dot(grad, d)]).tolist()  # tpulint: disable=TPL002 -- the line search's Wolfe test reads value and slope per trial step
         return v, grad, slope
 
     def _decrease_error(self, stepsize, value, slope, value_init, slope_init) -> float:
@@ -220,7 +220,7 @@ class LBFGS:
 
     def _linesearch(self, flat, d, value: float, grad):
         """(stepsize, value, grad) of the accepted step."""
-        slope0 = torch.dot(d, grad).item()
+        slope0 = torch.dot(d, grad).item()  # tpulint: disable=TPL002 -- the line search starts from the host slope
         s = dict(count=0, stepsize=0.0, value=value, grad=grad, slope=slope0,
                  decrease_error=math.inf, interval_found=False, done=False, failed=False,
                  low=0.0, value_low=value, slope_low=slope0,
@@ -305,5 +305,5 @@ class LBFGS:
         else:
             value_t, grad = value_and_grad(self.fn, flat)
         d = self._direction(flat, grad)
-        lr, self._value, self._grad = self._linesearch(flat, d, value_t.item(), grad)
+        lr, self._value, self._grad = self._linesearch(flat, d, value_t.item(), grad)  # tpulint: disable=TPL002 -- the line search starts from the host value
         return flat + lr * d, value_t

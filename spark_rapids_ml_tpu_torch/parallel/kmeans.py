@@ -226,7 +226,7 @@ def run_chunked_lloyd(chunk_fn, x, w_vec, centers0, *, start_iter: int, max_iter
         it += int(done)
         cost = float(cost_j)
         if ckpt is not None:
-            ckpt.save(it - 1, {"centers": c.cpu().numpy()}, {"cost": cost})
+            ckpt.save(it - 1, {"centers": c.cpu().numpy()}, {"cost": cost})  # tpulint: disable=TPL002 -- a checkpoint is written from the host
         if float(shift) <= tol_sq:
             break
     return torch.as_tensor(c), cost, it

@@ -194,7 +194,7 @@ class WorkerSupervisor:
             # not a retry loop: this paces the respawn of an already-dead
             # worker — there is no callable to re-attempt under the shared
             # policy, and the breaker (not a deadline) bounds the spend
-            time.sleep(min(wait, _MAX_BACKOFF_S))
+            time.sleep(min(wait, _MAX_BACKOFF_S))  # tpulint: disable=TPL004 -- the respawn backoff: the breaker bounds it
         worker = self._spawn_fn({WORKER_SLOT_VAR: str(slot)})
         with self._lock:
             lease = self._slots[slot]

@@ -243,7 +243,7 @@ class ResponseBufferPool:
     def _allocate(self, nbytes: int):
         self.allocations += 1
         if self.pinned:
-            return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True).numpy()
+            return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True).numpy()  # tpulint: disable=TPL002 -- a view of pinned host memory, no device
         return bytearray(nbytes)
 
     @contextlib.contextmanager

@@ -128,8 +128,11 @@ from spark_rapids_ml_tpu_torch.telemetry.spans import current_fit_id
 from spark_rapids_ml_tpu_torch.telemetry.timeline import TIMELINE
 from spark_rapids_ml_tpu_torch.utils import columnar
 from spark_rapids_ml_tpu_torch.utils.config import (
+    DEFAULT_MESH_LOCAL_ARROW_MAX_BYTES as DEFAULT_ARROW_CUTOVER,
     DEFAULT_STREAM_CHUNK_FLOOR,
     FOLD_WAIT_TIMEOUT_S_VAR,
+    MESH_LOCAL_ARROW_MAX_BYTES_VAR as ARROW_CUTOVER_VAR,
+    MESH_LOCAL_MAX_BYTES_VAR as MAX_BYTES_VAR,
     PROGRESS_VAR,
     STREAM_CHUNK_FLOOR_VAR,
     STREAM_CHUNK_VAR,
@@ -140,9 +143,6 @@ from spark_rapids_ml_tpu_torch.utils.config import (
 
 logger = logging.getLogger("spark_rapids_ml_tpu_torch")
 
-ARROW_CUTOVER_VAR = "TPU_ML_MESH_LOCAL_ARROW_MAX_BYTES"
-MAX_BYTES_VAR = "TPU_ML_MESH_LOCAL_MAX_BYTES"
-DEFAULT_ARROW_CUTOVER = 1 << 30
 ROW_CHUNK = 65_536  # rows per driver-side conversion group of toLocalIterator
 
 

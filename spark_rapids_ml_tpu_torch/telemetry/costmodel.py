@@ -49,12 +49,9 @@ import threading
 import torch
 
 from spark_rapids_ml_tpu_torch.telemetry.registry import REGISTRY
-from spark_rapids_ml_tpu_torch.utils.config import PEAK_TFLOPS_VAR
+from spark_rapids_ml_tpu_torch.utils.config import DEFAULT_PEAK_TFLOPS, PEAK_TFLOPS_VAR
 
 logger = logging.getLogger("spark_rapids_ml_tpu_torch")
-
-# NVIDIA H100 SXM5 (80GB HBM3, 700 W) dense bf16 tensor-core peak, data sheet
-DEFAULT_PEAK_TFLOPS = 989.4
 
 _LOCK = threading.Lock()
 _KERNELS: dict[str, dict] = {}  # kernel name -> its largest signature's entry

@@ -1,32 +1,13 @@
-"""Runtime knobs the port's PCA paths read.
+"""Runtime knobs the port reads, under the names and defaults of the
+inventory (``utils/knobs.py``).
 
-A copy of the knobs of ``spark_rapids_ml_tpu/utils/config.py`` and
-``spark_rapids_ml_tpu/spark/ingest.py`` that these paths need, under the same
-environment variable names and defaults, so one environment configures both
-packages. ``get_config()`` reads the environment on every call.
-
-The serving runtime's knobs (``TPU_ML_SERVE_*``, ``TPU_ML_TRACE_*``,
-``TPU_ML_TIMELINE_EVENTS``, ``TPU_ML_TUNING_CACHE_PATH``), the fleet's,
-hot swap's and the refresh daemon's (``TPU_ML_SERVE_FLEET_*``,
-``TPU_ML_SERVE_DRAIN_TIMEOUT_S``, ``TPU_ML_SERVE_HEDGE_FLOOR_US``,
-``TPU_ML_SWAP_*``, ``TPU_ML_REFRESH_*``) and the telemetry
-and health knobs (``TPU_ML_TELEMETRY_PATH``, ``TPU_ML_TIMELINE_PATH``,
-``TPU_ML_HTTP_PORT``, ``TPU_ML_SLO*``, ``TPU_ML_HEALTH_*``,
-``TPU_ML_ADMISSION_POLICY``) and the ANN knobs (``TPU_ML_ANN_CAP_PERCENTILE``,
-``TPU_ML_ANN_SAMPLE_ROWS``) are copies of
-``spark_rapids_ml_tpu/utils/knobs.py``'s, names and defaults alike. Their
-modules read them at each use through ``lenient_int``/``lenient_float``,
+Each knob both packages read keeps the JAX package's name and default, so
+one environment configures both (``TPU_ML_PEAK_TFLOPS`` keeps its name, but
+its default is the card's peak). ``get_config()`` reads the environment on
+every call. The serving, telemetry, health, fleet, refresh and ANN modules
+read their knobs at each use through ``lenient_int``/``lenient_float``,
 which take an unset, empty or malformed value as the default, as the JAX
 package's serving modules do.
-
-The resilience knobs (``TPU_ML_TASK_RETRIES``, ``TPU_ML_RETRY_*``,
-``TPU_ML_STREAM_CHECKPOINT_EVERY_CHUNKS``, ``TPU_ML_FOLD_WAIT_TIMEOUT_S``,
-``TPU_ML_STREAM_CHUNK_FLOOR``, ``TPU_ML_PROGRESS``, ``TPU_ML_FAULT_PLAN``,
-``TPU_ML_HEDGE_*``, ``TPU_ML_WORKER_*``, ``TPU_ML_HEALTH_RETRY_STORM``)
-are copies of the JAX package's too, names and defaults alike. So are the
-tuner's (``TPU_ML_AUTOTUNE``, ``TPU_ML_AUTOTUNE_TRIALS``) and the local
-Spark engine's (``TPU_ML_BARRIER_TIMEOUT_S``, ``TPU_ML_BARRIER_RETRIES``);
-``TPU_ML_PEAK_TFLOPS`` keeps its name, but its default is the card's peak.
 
 ``TPU_ML_MESH_LOCAL_WIRE_DTYPE`` only sizes the streamed-fit cutover, as the
 JAX package's wire would be sized: the port stages and computes in f32
@@ -42,97 +23,133 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from spark_rapids_ml_tpu_torch.autotune.policy import resolve_policy
-from spark_rapids_ml_tpu_torch.ops.linalg import PRECISIONS
+from spark_rapids_ml_tpu_torch.utils import knobs as K
 
-MIN_BUCKET_VAR = "TPU_ML_MIN_BUCKET"
-MAX_WORKERS_VAR = "TPU_ML_MAX_WORKERS"
-DEFAULT_PRECISION_VAR = "TPU_ML_DEFAULT_PRECISION"
-STREAM_CUTOVER_VAR = "TPU_ML_STREAM_FIT_MAX_RESIDENT_BYTES"
-WIRE_DTYPE_VAR = "TPU_ML_MESH_LOCAL_WIRE_DTYPE"
-STREAM_CHUNK_VAR = "TPU_ML_STREAM_CHUNK_ROWS"
-NONFINITE_POLICY_VAR = "TPU_ML_NONFINITE_POLICY"
-
-# serving (spark_rapids_ml_tpu/utils/knobs.py:186-242), with their defaults
-SERVE_MIN_BUCKET_VAR, DEFAULT_SERVE_MIN_BUCKET = "TPU_ML_SERVE_MIN_BUCKET", 8
-SERVE_MAX_BATCH_ROWS_VAR, DEFAULT_SERVE_MAX_BATCH_ROWS = "TPU_ML_SERVE_MAX_BATCH_ROWS", 4096
-SERVE_MAX_DELAY_US_VAR, DEFAULT_SERVE_MAX_DELAY_US = "TPU_ML_SERVE_MAX_DELAY_US", 2000.0
-SERVE_ADAPTIVE_WINDOW_VAR, DEFAULT_SERVE_ADAPTIVE_WINDOW = "TPU_ML_SERVE_ADAPTIVE_WINDOW", "1"
-SERVE_UDS_PATH_VAR = "TPU_ML_SERVE_UDS_PATH"  # empty: no UDS listener
-SERVE_HBM_BUDGET_BYTES_VAR = "TPU_ML_SERVE_HBM_BUDGET_BYTES"  # empty: from the card
-TRACE_SAMPLE_VAR, DEFAULT_TRACE_SAMPLE = "TPU_ML_TRACE_SAMPLE", 1.0
-TRACE_EXEMPLARS_VAR, DEFAULT_TRACE_EXEMPLARS = "TPU_ML_TRACE_EXEMPLARS", 4
-TIMELINE_EVENTS_VAR, DEFAULT_TIMELINE_EVENTS = "TPU_ML_TIMELINE_EVENTS", 4096
-TUNING_CACHE_PATH_VAR = "TPU_ML_TUNING_CACHE_PATH"  # empty: in-process only
-# the serve fleet, hot swap and the refresh daemon
-# (spark_rapids_ml_tpu/utils/knobs.py:219-266), with their defaults
-SERVE_HEDGE_FLOOR_US_VAR, DEFAULT_SERVE_HEDGE_FLOOR_US = "TPU_ML_SERVE_HEDGE_FLOOR_US", 2000.0
-SERVE_FLEET_REPLICAS_VAR, DEFAULT_SERVE_FLEET_REPLICAS = "TPU_ML_SERVE_FLEET_REPLICAS", 0
-SERVE_FLEET_SOCKET_DIR_VAR = "TPU_ML_SERVE_FLEET_SOCKET_DIR"  # empty: a fresh temporary dir
-SERVE_DRAIN_TIMEOUT_S_VAR, DEFAULT_SERVE_DRAIN_TIMEOUT_S = "TPU_ML_SERVE_DRAIN_TIMEOUT_S", 30.0
-REFRESH_INTERVAL_S_VAR, DEFAULT_REFRESH_INTERVAL_S = "TPU_ML_REFRESH_INTERVAL_S", 30.0
-REFRESH_MIN_ROWS_VAR, DEFAULT_REFRESH_MIN_ROWS = "TPU_ML_REFRESH_MIN_ROWS", 1
-REFRESH_CHECKPOINT_DIR_VAR = "TPU_ML_REFRESH_CHECKPOINT_DIR"  # empty: memory only
-SWAP_SHADOW_ROWS_VAR, DEFAULT_SWAP_SHADOW_ROWS = "TPU_ML_SWAP_SHADOW_ROWS", 256
-SWAP_SHADOW_TOLERANCE_VAR, DEFAULT_SWAP_SHADOW_TOLERANCE = "TPU_ML_SWAP_SHADOW_TOLERANCE", 0.25
-SWAP_PROBATION_S_VAR, DEFAULT_SWAP_PROBATION_S = "TPU_ML_SWAP_PROBATION_S", 60.0
-# telemetry, SLOs, health and admission (spark_rapids_ml_tpu/utils/knobs.py
-# :339-340, :356, :405-415), with their defaults
-TELEMETRY_PATH_VAR = "TPU_ML_TELEMETRY_PATH"  # empty: no report sink
-TIMELINE_PATH_VAR = "TPU_ML_TIMELINE_PATH"  # empty: no timeline sink
-HTTP_PORT_VAR = "TPU_ML_HTTP_PORT"  # empty: fits start no exporter
-SLO_VAR = "TPU_ML_SLO"  # empty: no objectives
-SLO_WINDOW_S_VAR, DEFAULT_SLO_WINDOW_S = "TPU_ML_SLO_WINDOW_S", 300.0
-SLO_BURN_VAR, DEFAULT_SLO_BURN = "TPU_ML_SLO_BURN", 2
-HEALTH_INTERVAL_S_VAR, DEFAULT_HEALTH_INTERVAL_S = "TPU_ML_HEALTH_INTERVAL_S", 5.0
-HEALTH_PROBE_VAR, DEFAULT_HEALTH_PROBE = "TPU_ML_HEALTH_PROBE", "inline"
-HEALTH_PROBE_TIMEOUT_S_VAR, DEFAULT_HEALTH_PROBE_TIMEOUT_S = (
-    "TPU_ML_HEALTH_PROBE_TIMEOUT_S", 20.0
+# Every name and default below is the inventory's (utils/knobs.py); a
+# module reads a knob through one of these, never a literal or a knobs
+# handle of its own. This module imports no other module of the port at its
+# top, so that any module can import it.
+MIN_BUCKET_VAR = K.MIN_BUCKET.name
+MAX_WORKERS_VAR = K.MAX_WORKERS.name
+DEFAULT_PRECISION_VAR = K.DEFAULT_PRECISION.name
+STREAM_CUTOVER_VAR = K.STREAM_FIT_MAX_RESIDENT_BYTES.name
+WIRE_DTYPE_VAR = K.MESH_LOCAL_WIRE_DTYPE.name
+STREAM_CHUNK_VAR = K.STREAM_CHUNK_ROWS.name
+NONFINITE_POLICY_VAR = K.NONFINITE_POLICY.name
+PRECISION_POLICY_VAR = K.PRECISION_POLICY.name
+MESH_LOCAL_ARROW_MAX_BYTES_VAR, DEFAULT_MESH_LOCAL_ARROW_MAX_BYTES = (
+    K.MESH_LOCAL_ARROW_MAX_BYTES.name, K.MESH_LOCAL_ARROW_MAX_BYTES.value
 )
-HEALTH_HBM_WATERMARK_VAR, DEFAULT_HBM_WATERMARK = "TPU_ML_HEALTH_HBM_WATERMARK", 0.92
-HEALTH_STALE_S_VAR, DEFAULT_HEALTH_STALE_S = "TPU_ML_HEALTH_STALE_S", 60.0
-HEALTH_FAILING_AFTER_VAR, DEFAULT_HEALTH_FAILING_AFTER = "TPU_ML_HEALTH_FAILING_AFTER", 3
-ADMISSION_POLICY_VAR, DEFAULT_ADMISSION_POLICY = "TPU_ML_ADMISSION_POLICY", "refuse"
-# approximate nearest neighbours (spark_rapids_ml_tpu/utils/knobs.py:177-184),
-# with their defaults
-ANN_CAP_PERCENTILE_VAR, DEFAULT_ANN_CAP_PERCENTILE = "TPU_ML_ANN_CAP_PERCENTILE", 99.0
-ANN_SAMPLE_ROWS_VAR, DEFAULT_ANN_SAMPLE_ROWS = "TPU_ML_ANN_SAMPLE_ROWS", 32768
+MESH_LOCAL_MAX_BYTES_VAR = K.MESH_LOCAL_MAX_BYTES.name  # empty: no cap
 
-# resilience (spark_rapids_ml_tpu/utils/knobs.py:40, :66, :73-109, :130-146,
-# :306), with their defaults
-TASK_RETRIES_VAR = "TPU_ML_TASK_RETRIES"
-RETRY_MAX_ATTEMPTS_VAR = "TPU_ML_RETRY_MAX_ATTEMPTS"
-RETRY_DEADLINE_S_VAR = "TPU_ML_RETRY_DEADLINE_S"
-STREAM_CHECKPOINT_EVERY_VAR = "TPU_ML_STREAM_CHECKPOINT_EVERY_CHUNKS"
-FOLD_WAIT_TIMEOUT_S_VAR = "TPU_ML_FOLD_WAIT_TIMEOUT_S"
-STREAM_CHUNK_FLOOR_VAR, DEFAULT_STREAM_CHUNK_FLOOR = "TPU_ML_STREAM_CHUNK_FLOOR", 8
-PROGRESS_VAR = "TPU_ML_PROGRESS"  # seconds between stderr heartbeats; empty: off
-FAULT_PLAN_VAR = "TPU_ML_FAULT_PLAN"  # empty: no faults
-HEDGE_FACTOR_VAR, DEFAULT_HEDGE_FACTOR = "TPU_ML_HEDGE_FACTOR", 4.0
-HEDGE_FLOOR_S_VAR, DEFAULT_HEDGE_FLOOR_S = "TPU_ML_HEDGE_FLOOR_S", 1.0
+# serving
+SERVE_MIN_BUCKET_VAR, DEFAULT_SERVE_MIN_BUCKET = K.SERVE_MIN_BUCKET.name, K.SERVE_MIN_BUCKET.value
+SERVE_MAX_BATCH_ROWS_VAR, DEFAULT_SERVE_MAX_BATCH_ROWS = (
+    K.SERVE_MAX_BATCH_ROWS.name, K.SERVE_MAX_BATCH_ROWS.value
+)
+SERVE_MAX_DELAY_US_VAR, DEFAULT_SERVE_MAX_DELAY_US = (
+    K.SERVE_MAX_DELAY_US.name, K.SERVE_MAX_DELAY_US.value
+)
+SERVE_ADAPTIVE_WINDOW_VAR, DEFAULT_SERVE_ADAPTIVE_WINDOW = (
+    K.SERVE_ADAPTIVE_WINDOW.name, K.SERVE_ADAPTIVE_WINDOW.value
+)
+SERVE_UDS_PATH_VAR = K.SERVE_UDS_PATH.name  # empty: no UDS listener
+SERVE_HBM_BUDGET_BYTES_VAR = K.SERVE_HBM_BUDGET_BYTES.name  # empty: from the card
+TRACE_SAMPLE_VAR, DEFAULT_TRACE_SAMPLE = K.TRACE_SAMPLE.name, K.TRACE_SAMPLE.value
+TRACE_EXEMPLARS_VAR, DEFAULT_TRACE_EXEMPLARS = K.TRACE_EXEMPLARS.name, K.TRACE_EXEMPLARS.value
+TIMELINE_EVENTS_VAR, DEFAULT_TIMELINE_EVENTS = K.TIMELINE_EVENTS.name, K.TIMELINE_EVENTS.value
+TUNING_CACHE_PATH_VAR = K.TUNING_CACHE_PATH.name  # empty: in-process only
+# the serve fleet, hot swap and the refresh daemon
+SERVE_HEDGE_FLOOR_US_VAR, DEFAULT_SERVE_HEDGE_FLOOR_US = (
+    K.SERVE_HEDGE_FLOOR_US.name, K.SERVE_HEDGE_FLOOR_US.value
+)
+SERVE_FLEET_REPLICAS_VAR, DEFAULT_SERVE_FLEET_REPLICAS = (
+    K.SERVE_FLEET_REPLICAS.name, K.SERVE_FLEET_REPLICAS.value
+)
+SERVE_FLEET_SOCKET_DIR_VAR = K.SERVE_FLEET_SOCKET_DIR.name  # empty: a fresh temporary dir
+SERVE_DRAIN_TIMEOUT_S_VAR, DEFAULT_SERVE_DRAIN_TIMEOUT_S = (
+    K.SERVE_DRAIN_TIMEOUT_S.name, K.SERVE_DRAIN_TIMEOUT_S.value
+)
+REFRESH_INTERVAL_S_VAR, DEFAULT_REFRESH_INTERVAL_S = (
+    K.REFRESH_INTERVAL_S.name, K.REFRESH_INTERVAL_S.value
+)
+REFRESH_MIN_ROWS_VAR, DEFAULT_REFRESH_MIN_ROWS = K.REFRESH_MIN_ROWS.name, K.REFRESH_MIN_ROWS.value
+REFRESH_CHECKPOINT_DIR_VAR = K.REFRESH_CHECKPOINT_DIR.name  # empty: memory only
+SWAP_SHADOW_ROWS_VAR, DEFAULT_SWAP_SHADOW_ROWS = K.SWAP_SHADOW_ROWS.name, K.SWAP_SHADOW_ROWS.value
+SWAP_SHADOW_TOLERANCE_VAR, DEFAULT_SWAP_SHADOW_TOLERANCE = (
+    K.SWAP_SHADOW_TOLERANCE.name, K.SWAP_SHADOW_TOLERANCE.value
+)
+SWAP_PROBATION_S_VAR, DEFAULT_SWAP_PROBATION_S = K.SWAP_PROBATION_S.name, K.SWAP_PROBATION_S.value
+# telemetry, SLOs, health and admission
+TELEMETRY_PATH_VAR = K.TELEMETRY_PATH.name  # empty: no report sink
+TIMELINE_PATH_VAR = K.TIMELINE_PATH.name  # empty: no timeline sink
+HTTP_PORT_VAR = K.HTTP_PORT.name  # empty: fits start no exporter
+SLO_VAR = K.SLO.name  # empty: no objectives
+SLO_WINDOW_S_VAR, DEFAULT_SLO_WINDOW_S = K.SLO_WINDOW_S.name, K.SLO_WINDOW_S.value
+SLO_BURN_VAR, DEFAULT_SLO_BURN = K.SLO_BURN.name, K.SLO_BURN.value
+HEALTH_INTERVAL_S_VAR, DEFAULT_HEALTH_INTERVAL_S = (
+    K.HEALTH_INTERVAL_S.name, K.HEALTH_INTERVAL_S.value
+)
+HEALTH_PROBE_VAR, DEFAULT_HEALTH_PROBE = K.HEALTH_PROBE.name, K.HEALTH_PROBE.value
+HEALTH_PROBE_TIMEOUT_S_VAR, DEFAULT_HEALTH_PROBE_TIMEOUT_S = (
+    K.HEALTH_PROBE_TIMEOUT_S.name, K.HEALTH_PROBE_TIMEOUT_S.value
+)
+HEALTH_HBM_WATERMARK_VAR, DEFAULT_HBM_WATERMARK = (
+    K.HEALTH_HBM_WATERMARK.name, K.HEALTH_HBM_WATERMARK.value
+)
+HEALTH_STALE_S_VAR, DEFAULT_HEALTH_STALE_S = K.HEALTH_STALE_S.name, K.HEALTH_STALE_S.value
+HEALTH_FAILING_AFTER_VAR, DEFAULT_HEALTH_FAILING_AFTER = (
+    K.HEALTH_FAILING_AFTER.name, K.HEALTH_FAILING_AFTER.value
+)
+ADMISSION_POLICY_VAR, DEFAULT_ADMISSION_POLICY = (
+    K.ADMISSION_POLICY.name, K.ADMISSION_POLICY.value
+)
+# approximate nearest neighbours
+ANN_CAP_PERCENTILE_VAR, DEFAULT_ANN_CAP_PERCENTILE = (
+    K.ANN_CAP_PERCENTILE.name, K.ANN_CAP_PERCENTILE.value
+)
+ANN_SAMPLE_ROWS_VAR, DEFAULT_ANN_SAMPLE_ROWS = K.ANN_SAMPLE_ROWS.name, K.ANN_SAMPLE_ROWS.value
+
+# resilience
+TASK_RETRIES_VAR = K.TASK_RETRIES.name
+RETRY_MAX_ATTEMPTS_VAR = K.RETRY_MAX_ATTEMPTS.name
+RETRY_DEADLINE_S_VAR = K.RETRY_DEADLINE_S.name
+STREAM_CHECKPOINT_EVERY_VAR = K.STREAM_CHECKPOINT_EVERY_CHUNKS.name
+FOLD_WAIT_TIMEOUT_S_VAR = K.FOLD_WAIT_TIMEOUT_S.name
+STREAM_CHUNK_FLOOR_VAR, DEFAULT_STREAM_CHUNK_FLOOR = (
+    K.STREAM_CHUNK_FLOOR.name, K.STREAM_CHUNK_FLOOR.value
+)
+PROGRESS_VAR = K.PROGRESS.name  # seconds between stderr heartbeats; empty: off
+FAULT_PLAN_VAR = K.FAULT_PLAN.name  # empty: no faults
+HEDGE_FACTOR_VAR, DEFAULT_HEDGE_FACTOR = K.HEDGE_FACTOR.name, K.HEDGE_FACTOR.value
+HEDGE_FLOOR_S_VAR, DEFAULT_HEDGE_FLOOR_S = K.HEDGE_FLOOR_S.name, K.HEDGE_FLOOR_S.value
 WORKER_BREAKER_THRESHOLD_VAR, DEFAULT_WORKER_BREAKER_THRESHOLD = (
-    "TPU_ML_WORKER_BREAKER_THRESHOLD", 3
+    K.WORKER_BREAKER_THRESHOLD.name, K.WORKER_BREAKER_THRESHOLD.value
 )
 WORKER_RESPAWN_BACKOFF_S_VAR, DEFAULT_WORKER_RESPAWN_BACKOFF_S = (
-    "TPU_ML_WORKER_RESPAWN_BACKOFF_S", 0.05
+    K.WORKER_RESPAWN_BACKOFF_S.name, K.WORKER_RESPAWN_BACKOFF_S.value
 )
-WORKER_SLOT_VAR = "TPU_ML_WORKER_SLOT"  # stamped by the supervisor
-WORKER_PLATFORM_VAR = "TPU_ML_WORKER_PLATFORM"
-WORKER_PROBE_VAR = "TPU_ML_WORKER_PROBE"
-WORKER_PROBE_TIMEOUT_VAR = "TPU_ML_WORKER_PROBE_TIMEOUT"
-WORKER_SCRUB_VARS_VAR = "TPU_ML_WORKER_SCRUB_VARS"
-HEALTH_RETRY_STORM_VAR, DEFAULT_HEALTH_RETRY_STORM = "TPU_ML_HEALTH_RETRY_STORM", 8
+WORKER_SLOT_VAR = K.WORKER_SLOT.name  # stamped by the supervisor
+WORKER_PLATFORM_VAR = K.WORKER_PLATFORM.name
+WORKER_PROBE_VAR = K.WORKER_PROBE.name
+WORKER_PROBE_TIMEOUT_VAR, DEFAULT_WORKER_PROBE_TIMEOUT = (
+    K.WORKER_PROBE_TIMEOUT.name, K.WORKER_PROBE_TIMEOUT.value
+)
+WORKER_SCRUB_VARS_VAR = K.WORKER_SCRUB_VARS.name
+HEALTH_RETRY_STORM_VAR, DEFAULT_HEALTH_RETRY_STORM = (
+    K.HEALTH_RETRY_STORM.name, K.HEALTH_RETRY_STORM.value
+)
 
 # the cost model, the tuner and the local Spark engine
-# (spark_rapids_ml_tpu/utils/knobs.py:69, :99, :133, :163-169), with their
-# defaults, but for the peak: the port's is the card's (telemetry/costmodel.py)
-AUTOTUNE_VAR, DEFAULT_AUTOTUNE = "TPU_ML_AUTOTUNE", "cache"
-AUTOTUNE_TRIALS_VAR, DEFAULT_AUTOTUNE_TRIALS = "TPU_ML_AUTOTUNE_TRIALS", 9
-PEAK_TFLOPS_VAR = "TPU_ML_PEAK_TFLOPS"
-BARRIER_TIMEOUT_S_VAR, DEFAULT_BARRIER_TIMEOUT_S = "TPU_ML_BARRIER_TIMEOUT_S", "120"
-BARRIER_RETRIES_VAR, DEFAULT_BARRIER_RETRIES = "TPU_ML_BARRIER_RETRIES", 1
+AUTOTUNE_VAR, DEFAULT_AUTOTUNE = K.AUTOTUNE.name, K.AUTOTUNE.value
+AUTOTUNE_TRIALS_VAR, DEFAULT_AUTOTUNE_TRIALS = K.AUTOTUNE_TRIALS.name, K.AUTOTUNE_TRIALS.value
+PEAK_TFLOPS_VAR, DEFAULT_PEAK_TFLOPS = K.PEAK_TFLOPS.name, K.PEAK_TFLOPS.value
+BARRIER_TIMEOUT_S_VAR, DEFAULT_BARRIER_TIMEOUT_S = (
+    K.BARRIER_TIMEOUT_S.name, K.BARRIER_TIMEOUT_S.default
+)
+BARRIER_RETRIES_VAR, DEFAULT_BARRIER_RETRIES = K.BARRIER_RETRIES.name, K.BARRIER_RETRIES.value
 
-DEFAULT_STREAM_CHUNK = 65_536
+DEFAULT_STREAM_CHUNK = K.STREAM_CHUNK_ROWS.value
 VALID_NONFINITE_POLICIES = ("raise", "skip", "allow")
 
 
@@ -164,7 +181,9 @@ def lenient_float(name: str, default: float) -> float:
 
 
 def _precision_env() -> str:
-    v = os.environ.get(DEFAULT_PRECISION_VAR, "highest")
+    from spark_rapids_ml_tpu_torch.ops.linalg import PRECISIONS
+
+    v = os.environ.get(DEFAULT_PRECISION_VAR, K.DEFAULT_PRECISION.default)
     if v not in PRECISIONS:
         raise ValueError(
             f"{DEFAULT_PRECISION_VAR}={v!r} must be one of {PRECISIONS}"
@@ -173,7 +192,7 @@ def _precision_env() -> str:
 
 
 def _nonfinite_env() -> str:
-    v = os.environ.get(NONFINITE_POLICY_VAR, "raise")
+    v = os.environ.get(NONFINITE_POLICY_VAR, K.NONFINITE_POLICY.default)
     if v not in VALID_NONFINITE_POLICIES:
         raise ValueError(
             f"{NONFINITE_POLICY_VAR}={v!r} must be one of {VALID_NONFINITE_POLICIES}"
@@ -181,28 +200,42 @@ def _nonfinite_env() -> str:
     return v
 
 
+def _policy_env() -> str:
+    from spark_rapids_ml_tpu_torch.autotune.policy import resolve_policy
+
+    return resolve_policy(None)
+
+
 @dataclass(frozen=True)
 class RuntimeConfig:
-    min_bucket: int = field(default_factory=lambda: _int_env(MIN_BUCKET_VAR, 128))
-    max_workers: int = field(default_factory=lambda: _int_env(MAX_WORKERS_VAR, 4))
+    min_bucket: int = field(default_factory=lambda: _int_env(MIN_BUCKET_VAR, K.MIN_BUCKET.value))
+    max_workers: int = field(default_factory=lambda: _int_env(MAX_WORKERS_VAR, K.MAX_WORKERS.value))
     default_precision: str = field(default_factory=_precision_env)
     stream_fit_max_resident_bytes: int = field(
-        default_factory=lambda: _int_env(STREAM_CUTOVER_VAR, 1 << 31)
+        default_factory=lambda: _int_env(STREAM_CUTOVER_VAR, K.STREAM_FIT_MAX_RESIDENT_BYTES.value)
     )
     stream_chunk_rows: int = field(
         default_factory=lambda: _int_env(STREAM_CHUNK_VAR, DEFAULT_STREAM_CHUNK)
     )
     nonfinite_policy: str = field(default_factory=_nonfinite_env)
-    task_retries: int = field(default_factory=lambda: _int_env(TASK_RETRIES_VAR, 3))
-    retry_max_attempts: int = field(default_factory=lambda: _int_env(RETRY_MAX_ATTEMPTS_VAR, 4))
-    retry_deadline_s: int = field(default_factory=lambda: _int_env(RETRY_DEADLINE_S_VAR, 300))
+    task_retries: int = field(
+        default_factory=lambda: _int_env(TASK_RETRIES_VAR, K.TASK_RETRIES.value)
+    )
+    retry_max_attempts: int = field(
+        default_factory=lambda: _int_env(RETRY_MAX_ATTEMPTS_VAR, K.RETRY_MAX_ATTEMPTS.value)
+    )
+    retry_deadline_s: int = field(
+        default_factory=lambda: _int_env(RETRY_DEADLINE_S_VAR, K.RETRY_DEADLINE_S.value)
+    )
     stream_checkpoint_every_chunks: int = field(
-        default_factory=lambda: _int_env(STREAM_CHECKPOINT_EVERY_VAR, 64)
+        default_factory=lambda: _int_env(
+            STREAM_CHECKPOINT_EVERY_VAR, K.STREAM_CHECKPOINT_EVERY_CHUNKS.value
+        )
     )
     fold_wait_timeout_s: int = field(
-        default_factory=lambda: _int_env(FOLD_WAIT_TIMEOUT_S_VAR, 600)
+        default_factory=lambda: _int_env(FOLD_WAIT_TIMEOUT_S_VAR, K.FOLD_WAIT_TIMEOUT_S.value)
     )
-    precision_policy: str = field(default_factory=lambda: resolve_policy(None))
+    precision_policy: str = field(default_factory=_policy_env)
 
 
 def get_config() -> RuntimeConfig:
@@ -212,7 +245,7 @@ def get_config() -> RuntimeConfig:
 def wire_dtype() -> np.dtype:
     """Wire dtype that sizes the resident-fit cutover; the port itself stages
     in f32 whatever it says."""
-    name = os.environ.get(WIRE_DTYPE_VAR, "float64")
+    name = os.environ.get(WIRE_DTYPE_VAR, K.MESH_LOCAL_WIRE_DTYPE.default)
     if name not in ("float32", "float64"):
         raise ValueError(f"{WIRE_DTYPE_VAR}={name!r}: expected float32 or float64")
     return np.dtype(name)

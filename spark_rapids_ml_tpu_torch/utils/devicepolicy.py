@@ -37,6 +37,7 @@ from typing import Callable, Mapping
 import torch
 
 from spark_rapids_ml_tpu_torch.utils.config import (
+    DEFAULT_WORKER_PROBE_TIMEOUT,
     WORKER_PLATFORM_VAR,
     WORKER_PROBE_TIMEOUT_VAR,
     WORKER_PROBE_VAR,
@@ -51,7 +52,7 @@ CUDA_VISIBLE_DEVICES_VAR = "CUDA_VISIBLE_DEVICES"
 PLATFORM_VAR = WORKER_PLATFORM_VAR
 PROBE_VAR = WORKER_PROBE_VAR
 PROBE_TIMEOUT_VAR = WORKER_PROBE_TIMEOUT_VAR
-DEFAULT_PROBE_TIMEOUT = 60.0
+DEFAULT_PROBE_TIMEOUT = DEFAULT_WORKER_PROBE_TIMEOUT
 
 # the exit code of a failed probe, told apart from a task's crash
 PROBE_EXIT_CODE = 17
@@ -279,4 +280,4 @@ def wait_for_transport(
             f"{detail.splitlines()[0][:160]}"
         )
         REGISTRY.counter_inc("retry.attempts", site="transport")
-        time.sleep(backoff)
+        time.sleep(backoff)  # tpulint: disable=TPL004 -- the windowed transport wait, RetryPolicy delays counted as retry.attempts

@@ -1050,3 +1050,18 @@ def test_the_gate_divergence_of_the_refresh_stream_is_small():
     assert np.array_equal(first, x[:512])
     div = chip_smoke.bench_stream_divergence(256, 64, 5, 2, 3, 32, CPU)
     assert np.isfinite(div) and div > 0
+
+
+def test_bridges_phase_on_cpu(tmp_path):
+    workdir = tmp_path / "jvm_bridge"
+    result = chip_smoke.phase_bridges(3000, 32, 4, 2, CPU, batch_rows=1024, native_rows=256,
+                                      workdir=workdir)
+    # plain versions on the CPU: no launch; the CLI's 3 batches, the last one
+    # short; the staged parquet, the model and the output are removed
+    assert not workdir.exists()
+    assert result["launches"] == {name: 0 for name in chip_smoke.KERNELS}
+    assert result["batches"] == 3 and result["last_batch_rows"] == 3000 - 2 * 1024
+    assert result["min_cosine_vs_f64_oracle"] >= chip_smoke.COSINE_BAR
+    assert result["native_version"] >= 12
+    assert result["native_rel_err_vs_numpy"] <= 1e-12
+    assert len(result["batch_s"]) == 3 and result["fit_s"] <= result["fit_cli_s"]

@@ -316,6 +316,10 @@ def _batcher_outcomes(batcher, x, requests: int) -> list[str]:
 def test_dispatch_io_plan_costs_one_request(monkeypatch):
     model = _jax_fit("linear", 0)
     x = _xy(3, 9)[0]
+    # hedging off in both batchers: a hedge re-dispatch passes the
+    # serve.dispatch site again, so a primary slowed by a loaded host would
+    # shift which request meets occurrence 3 (the hedge has its own tests)
+    monkeypatch.setenv("TPU_ML_HEDGE_FACTOR", "0")
     monkeypatch.setenv("TPU_ML_FAULT_PLAN", "serve.dispatch:io:3")
     results = []
     for reg, conv, mod in ((registry_mod.ModelRegistry("cpu"), _port, batcher_mod),
