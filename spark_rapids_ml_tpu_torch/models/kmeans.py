@@ -27,6 +27,12 @@ policy is ``TPU_ML_PRECISION_POLICY`` (``f32``, ``bf16_f32acc`` or
 ``int8_dist``); the sums stay f32. With ``checkpoint_dir`` the centres,
 iteration and cost are checkpointed (``utils.checkpoint``), in the JAX
 package's format.
+
+A fit's spans (``telemetry.trace_range``) split it at its layer
+boundaries: ``kmeans ingest`` (every partition to the device),
+``kmeans init`` (the seeding), ``kmeans lloyd`` and, inside it, one
+``kmeans lloyd iteration`` per iteration (the partition passes, their
+reduction, the update, the host read and the checkpoint).
 """
 
 from __future__ import annotations
@@ -309,12 +315,13 @@ class KMeans(_KMeansParams, Estimator):
         # masks padding (0) and carries instance weights (1.0 when
         # unweighted) on true rows
         parts = []
-        for i, mat in enumerate(mats):
-            rows = mat.shape[0]
-            bucket = columnar.bucket_rows(rows)
-            w = np.zeros(bucket, np.float32)
-            w[:rows] = 1.0 if part_weights is None else part_weights[i]
-            parts.append((to_device_padded(mat, bucket, device), to_device(w, device), rows))
+        with trace_range("kmeans ingest", device):
+            for i, mat in enumerate(mats):
+                rows = mat.shape[0]
+                bucket = columnar.bucket_rows(rows)
+                w = np.zeros(bucket, np.float32)
+                w[:rows] = 1.0 if part_weights is None else part_weights[i]
+                parts.append((to_device_padded(mat, bucket, device), to_device(w, device), rows))
 
         if centers is None:
             with trace_range("kmeans init", device):
@@ -333,18 +340,19 @@ class KMeans(_KMeansParams, Estimator):
         block = block_rows_for(device, KM.DEFAULT_BLOCK_ROWS, k)
         with trace_range("kmeans lloyd", device):
             for it in range(start_iter, self.getMaxIter()):
-                partials = [
-                    KM.kmeans_stats(x, c, w, block_rows=block, policy=dist_policy)
-                    for x, w, _ in parts
-                ]
-                stats = tree_reduce(partials, KM.combine_kmeans_stats)
-                new_c = KM.update_centers(stats, c)
-                # the one wait for the device per iteration
-                cost = float(stats.cost)
-                shift = float(KM.center_shift_sq(c, new_c))
-                c = new_c
-                if ckpt is not None and (it + 1) % checkpoint_every == 0:
-                    ckpt.save(it, {"centers": c.cpu().numpy()}, {"cost": cost})
+                with trace_range("kmeans lloyd iteration", device):
+                    partials = [
+                        KM.kmeans_stats(x, c, w, block_rows=block, policy=dist_policy)
+                        for x, w, _ in parts
+                    ]
+                    stats = tree_reduce(partials, KM.combine_kmeans_stats)
+                    new_c = KM.update_centers(stats, c)
+                    # the one wait for the device per iteration
+                    cost = float(stats.cost)
+                    shift = float(KM.center_shift_sq(c, new_c))
+                    c = new_c
+                    if ckpt is not None and (it + 1) % checkpoint_every == 0:
+                        ckpt.save(it, {"centers": c.cpu().numpy()}, {"cost": cost})
                 if shift <= tol_sq:
                     break
 

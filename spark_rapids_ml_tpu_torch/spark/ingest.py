@@ -734,7 +734,7 @@ def stream_fold(
         comes before the copy, so a failed attempt changes nothing."""
         nonlocal carry, n_chunks, overlapped, copy_overlapped, max_put
         rows = hi - lo
-        with trace_range("fold.dispatch", device):
+        with trace_range("fold.dispatch", device, device_time=False):
             faults.inject(sites.FOLD_DISPATCH)
             if cuda:
                 previous = folded[1 - slot]
@@ -804,7 +804,7 @@ def stream_fold(
     hung = False
     try:
         while True:
-            with trace_range("ingest.chunk", device):
+            with trace_range("ingest.chunk", device, device_time=False):
                 try:
                     item = next(it)
                 except StopIteration:
@@ -901,7 +901,7 @@ def stream_fold(
                 f"dataset produced {seen + skipped} rows while streaming but count() "
                 f"reported {rows}; cache() the DataFrame if its source is nondeterministic"
             )
-        with trace_range("fold.wait", device):
+        with trace_range("fold.wait", device, device_time=False):
             try:
                 _bounded_wait(folded[1 - slot] if cuda else None, fold_wait_timeout_s)
             except R.FoldHangTimeout:

@@ -3,8 +3,10 @@ sinks, SLOs, health and the HTTP exporter.
 
 Counterpart of ``spark_rapids_ml_tpu/telemetry``:
 
-- ``trace_range`` (``spans``): an NVTX range on the card, booked into the
-  ``span.seconds`` histogram and the flight recorder on every device;
+- ``trace_range`` (``spans``): a profiler range on every device, booked
+  into the ``span.seconds`` histogram and the flight recorder, and on the
+  card inside a fit or transform timed by CUDA events
+  (``span.device_seconds``);
 - ``FitReport`` / ``TransformReport`` and their capture windows
   (``report``), opened by the ``models/base.py`` wrappers around every
   ``fit`` and ``transform``;

@@ -47,8 +47,9 @@ METRICS: frozenset[str] = frozenset({
     "stream.overlap_fraction",
     "chunk.bisections",
     "rows.nonfinite_skipped",
-    # spans
+    # spans: host seconds, and the card's seconds of the spans opened on one
     "span.seconds",
+    "span.device_seconds",
     # CUDA-graph captures (telemetry.compilemon, serving.registry)
     "compile.graph_captures",
     "compile.graph_capture_seconds",
@@ -162,6 +163,7 @@ METRIC_PREFIXES: tuple[str, ...] = (
 
 HISTOGRAMS: frozenset[str] = frozenset({
     "span.seconds",
+    "span.device_seconds",
     "compile.graph_capture_seconds",
     "health.probe_seconds",
     "ingest.chunk_rows",
@@ -262,8 +264,10 @@ SPAN_PHASES: frozenset[str] = frozenset({
     "svc transform",
     "isotonic pav",
     # clustering
+    "kmeans ingest",
     "kmeans init",
     "kmeans lloyd",
+    "kmeans lloyd iteration",
     "kmeans transform",
     "kmeans mesh fit",
     "kmeans mesh init",

@@ -17,9 +17,9 @@ one process-wide ``REGISTRY``; ``/metrics`` renders it.
 - **Exemplars**: each histogram series keeps its ``TPU_ML_TRACE_EXEMPLARS``
   slowest (value, trace id) pairs, so a p99 stays attributable to traces.
 
-- **Span tables**: ``phase_table`` rolls the ``span.seconds`` series that
-  ``telemetry.spans.trace_range`` books into the per-phase percentiles a
-  ``FitReport`` carries.
+- **Span tables**: ``phase_table`` rolls the ``span.seconds`` (host) or
+  ``span.device_seconds`` (card) series that ``telemetry.spans.trace_range``
+  books into the per-phase percentiles a ``FitReport`` carries.
 
 - **Wire form**: a worker's registry delta travels to the driver as
   ``RegistrySnapshot.to_wire`` (JSON-safe, buckets kept) and is replayed
@@ -350,12 +350,15 @@ class RegistrySnapshot:
             merged.merge(h)
         return merged
 
-    def phase_table(self, percentiles=(50, 90, 99)) -> dict[str, dict[str, float]]:
-        """Per-phase span statistics, ``{phase: {count, sum, min, max, p50,
-        p90, p99}}``, merged over the estimator label."""
+    def phase_table(
+        self, percentiles=(50, 90, 99), name: str = "span.seconds"
+    ) -> dict[str, dict[str, float]]:
+        """Per-phase span statistics of the histogram ``name``
+        (``span.seconds`` or ``span.device_seconds``), ``{phase: {count,
+        sum, min, max, p50, p90, p99}}``, merged over the estimator label."""
         phases: dict[str, Histogram] = {}
-        for (name, labels), h in self.hists.items():
-            if name != "span.seconds":
+        for (series, labels), h in self.hists.items():
+            if series != name:
                 continue
             phases.setdefault(dict(labels).get("phase", ""), Histogram()).merge(h)
         return {p: h.to_dict(percentiles) for p, h in sorted(phases.items())}

@@ -4,8 +4,9 @@ model and the ``TransformReport`` of every transform.
 Port of ``spark_rapids_ml_tpu/telemetry/report.py``, with its schema and
 its ``to_dict`` keys. ``begin_fit``/``end_fit`` bracket one
 ``Estimator.fit`` (wired once in ``models/base.py``, so every estimator
-gets it): snapshot the registry, stamp the estimator name and a fresh
-``fit_id`` into the span context, and at the end build the report from the
+gets it): snapshot the registry, stamp the estimator name, a fresh
+``fit_id`` and a list for the spans' device events into the span context,
+and at the end book the device events and build the report from the
 registry's delta (per-phase span percentiles, H2D bytes, stream overlap,
 health, the admission decision) and a device memory sample.
 
@@ -38,6 +39,10 @@ Where the port's report differs from the JAX package's:
   the tuner's decisions journaled inside the fit (``autotune/cache.py``),
   as in the JAX package; the cost model's numbers are the port's analytical
   counts and the card's peak.
+- ``device_phases`` is the port's own (both reports): per phase, the card's
+  seconds of the window's spans (``span.device_seconds``, timed by a pair
+  of CUDA events each, ``telemetry/spans.py``), in the table shape of
+  ``phases``; empty on the CPU.
 - A transform's report closes when ``transform`` returns, except for a lazy
   plan (a ``localspark`` DataFrame): there the window's context is restored
   at return (``release_transform_context``) and the report closes when the
@@ -77,7 +82,8 @@ _FOLDED_PREFIXES = ("compile.", "collective.", "h2d.", "costmodel.")
 @dataclass
 class FitReport:
     """Everything observed during one ``fit()`` call. ``phases`` maps span
-    name → ``{count, sum, min, max, p50, p90, p99}`` seconds."""
+    name → ``{count, sum, min, max, p50, p90, p99}`` seconds on the host;
+    ``device_phases`` the same on the card, for the spans opened on one."""
 
     estimator: str
     uid: str
@@ -99,6 +105,7 @@ class FitReport:
     tuning: dict = field(default_factory=dict)
     health: dict = field(default_factory=dict)
     admission: dict = field(default_factory=dict)
+    device_phases: dict[str, dict[str, float]] = field(default_factory=dict)
     schema: int = SCHEMA_VERSION
 
     @property
@@ -131,6 +138,7 @@ class FitReport:
             "tuning": self.tuning,
             "health": self.health,
             "admission": self.admission,
+            "device_phases": self.device_phases,
         }
 
     @classmethod
@@ -154,6 +162,7 @@ class FitReport:
             tuning=d.get("tuning", {}) or {},
             health=d.get("health", {}) or {},
             admission=d.get("admission", {}) or {},
+            device_phases=d.get("device_phases", {}) or {},
             schema=int(d.get("schema", SCHEMA_VERSION)),
         )
 
@@ -179,6 +188,7 @@ class TransformReport:
     counters: dict[str, float] = field(default_factory=dict)
     timestamp_unix: float = 0.0
     transform_id: str = ""
+    device_phases: dict[str, dict[str, float]] = field(default_factory=dict)
     schema: int = TRANSFORM_SCHEMA_VERSION
 
     def to_dict(self) -> dict:
@@ -197,6 +207,7 @@ class TransformReport:
             "partition_latency": self.partition_latency,
             "cost_model": self.cost_model,
             "counters": self.counters,
+            "device_phases": self.device_phases,
         }
 
     @classmethod
@@ -214,6 +225,7 @@ class TransformReport:
             counters=d.get("counters", {}),
             timestamp_unix=float(d.get("timestamp_unix", 0.0)),
             transform_id=d.get("transform_id", ""),
+            device_phases=d.get("device_phases", {}) or {},
             schema=int(d.get("schema", TRANSFORM_SCHEMA_VERSION)),
         )
 
@@ -231,6 +243,8 @@ class _Capture:
     id_token: Any
     snap: Any
     tl_seq: int
+    device_spans: list
+    spans_token: Any
     tuning_seq: int = 0
     admission: dict = field(default_factory=dict)
     released: bool = False
@@ -292,6 +306,7 @@ def begin_fit(
     from spark_rapids_ml_tpu_torch.autotune import cache as autotune_cache
 
     fit_id = uuid.uuid4().hex[:12]
+    device_spans, spans_token = spans.open_device_spans()
     return _Capture(
         name=estimator,
         uid=uid,
@@ -302,6 +317,8 @@ def begin_fit(
         id_token=spans.set_current_fit_id(fit_id),
         snap=REGISTRY.snapshot(),
         tl_seq=TIMELINE.seq(),
+        device_spans=device_spans,
+        spans_token=spans_token,
         tuning_seq=autotune_cache.decision_seq(),
         admission=admission,
     )
@@ -341,6 +358,8 @@ def end_fit(cap: _Capture) -> FitReport:
     wall = time.perf_counter() - cap.t0
     spans.reset_current_estimator(cap.token)
     spans.reset_current_fit_id(cap.id_token)
+    spans.close_device_spans(cap.spans_token)
+    spans.book_device_spans(cap.device_spans, cap.name)
     decisions = autotune_cache.decisions_since(cap.tuning_seq)
     tuning: dict = {}
     if decisions:
@@ -390,6 +409,7 @@ def end_fit(cap: _Capture) -> FitReport:
         tuning=tuning,
         health=health.current_summary(),
         admission=cap.admission,
+        device_phases=delta.phase_table(name="span.device_seconds"),
     )
     _remember_report(report.to_dict())
     return report
@@ -402,6 +422,7 @@ def begin_transform(
     ``transform_id`` and no admission decision."""
     spans.install_fit_id_filter()
     transform_id = uuid.uuid4().hex[:12]
+    device_spans, spans_token = spans.open_device_spans()
     return _Capture(
         name=transformer,
         uid=uid,
@@ -412,11 +433,14 @@ def begin_transform(
         id_token=spans.set_current_transform_id(transform_id),
         snap=REGISTRY.snapshot(),
         tl_seq=TIMELINE.seq(),
+        device_spans=device_spans,
+        spans_token=spans_token,
     )
 
 
 def release_transform_context(cap: _Capture) -> None:
-    """Restore the estimator and transform-id context variables (once).
+    """Restore the estimator, transform-id and device-span context variables
+    (once).
 
     Split from ``end_transform`` because a lazy plan's report is built
     later, from its materialization, where the tokens of this context are
@@ -424,6 +448,7 @@ def release_transform_context(cap: _Capture) -> None:
     if cap.released:
         return
     cap.released = True
+    spans.close_device_spans(cap.spans_token)
     try:
         spans.reset_current_estimator(cap.token)
         spans.reset_current_transform_id(cap.id_token)
@@ -445,6 +470,7 @@ def end_transform(cap: _Capture) -> TransformReport:
     partition functions booked (``transform.rows``/``transform.bytes``)."""
     wall = time.perf_counter() - cap.t0
     release_transform_context(cap)
+    spans.book_device_spans(cap.device_spans, cap.name)
     delta = REGISTRY.snapshot().delta(cap.snap)
     partitions: dict[str, dict[str, float]] = {}
 
@@ -473,6 +499,7 @@ def end_transform(cap: _Capture) -> TransformReport:
         counters=_other_counters(delta, "transform."),
         timestamp_unix=cap.t_unix,
         transform_id=cap.window_id,
+        device_phases=delta.phase_table(name="span.device_seconds"),
     )
     _remember_report(report.to_dict())
     return report

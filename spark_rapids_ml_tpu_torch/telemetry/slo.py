@@ -19,7 +19,7 @@ Objective grammar (comma list)::
     TPU_ML_SLO="ingest.rows:min_rate:50000"
 
 ``series:pNN:ceiling_s`` bounds a rolling percentile: a span phase
-(``telemetry.spans.SPAN_PHASES``) resolves through
+(``telemetry.names.SPAN_PHASES``) resolves through
 ``span.seconds{phase=...}``, any other name is a histogram.
 ``counter:min_rate:floor_per_s`` is a throughput floor, judged only while
 the counter moves. The health monitor drives ``evaluate`` at its poll
@@ -34,8 +34,8 @@ import threading
 import time
 from dataclasses import dataclass
 
+from spark_rapids_ml_tpu_torch.telemetry.names import SPAN_PHASES
 from spark_rapids_ml_tpu_torch.telemetry.registry import REGISTRY, Histogram
-from spark_rapids_ml_tpu_torch.telemetry.spans import SPAN_PHASES
 from spark_rapids_ml_tpu_torch.telemetry.timeline import TIMELINE
 from spark_rapids_ml_tpu_torch.utils.config import (
     DEFAULT_SLO_BURN,
