@@ -5,8 +5,18 @@ Counterpart of ``spark_rapids_ml_tpu/ops/kmeans.py``:
 
 - distances: ‖x−c‖² expanded to ‖x‖² + ‖c‖² − 2·x·cᵀ, whose cross term is
   one [rows, n]×[n, k] product under the precision policy (``f32``,
-  ``bf16_f32acc`` through ``linalg.policy_matmul``, or ``int8_dist``
-  through ``linalg.int8_quantized_matmul``); the norms stay f32;
+  ``bf16_f32acc`` through ``linalg.policy_matmul`` or its
+  ``policy_operands``, or ``int8_dist`` through
+  ``linalg.int8_quantized_matmul``); the norms stay f32.
+  ``pairwise_sq_dists`` builds every distance of the [rows, k] tile (DBSCAN
+  compares them with a radius, k-means‖ masks candidates);
+- assignment wants only each row's nearest centre and its distance. ‖x‖² is
+  the same along a row, so the argmin over the centres is that of
+  ‖c‖² − 2·x·cᵀ: one ``torch.addmm`` of bias ‖c‖² and alpha −2 (on the card
+  cuBLASLt adds the bias in the product's epilogue) writes that tile, the
+  minimum reads it, and ‖x‖² and the clamp at 0 touch the [rows] minima
+  alone (``int8_dist`` clamps its tile at −‖x‖² first). ‖c‖² is summed
+  once a pass, not once a block;
 - centroid sums: the scatter by label as the product onehotᵀ·x in f32 with
   TF32 off, which gives the same bits on every run (f32 atomics would not,
   and a fit resumed from a checkpoint must end at the centres of an
@@ -35,7 +45,9 @@ from spark_rapids_ml_tpu_torch.ops.linalg import (
     _require_f32_matmul,
     int8_quantized_matmul,
     policy_matmul,
+    policy_operands,
 )
+from spark_rapids_ml_tpu_torch.telemetry.registry import REGISTRY
 
 _INT8_DIST = PrecisionPolicy.INT8_DIST.value
 
@@ -73,13 +85,43 @@ def pairwise_sq_dists(
     return (x_sq + c_sq).sub_(cross, alpha=2.0).clamp_(min=0.0)
 
 
+def center_sq_norms(centers: torch.Tensor) -> torch.Tensor:
+    """[k] ‖c‖² of every centre, summed once a pass and handed to each
+    block's ``assign_block``."""
+    return torch.sum(centers * centers, dim=1)
+
+
+def assign_block(
+    x: torch.Tensor, centers: torch.Tensor, c_sq: torch.Tensor, *, policy: str = DEFAULT_POLICY
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``assign_clusters`` of one block given its centres' ``c_sq``: the
+    argmin of ‖c‖² − 2·x·cᵀ, made by the product itself, and ‖x‖² added to
+    the [rows] minima only. The first centre wins a tie, as ``jnp.argmin``
+    picks; of distances that round below 0 the most negative wins (under
+    ``int8_dist`` they tie at 0, so the first), and the distance is
+    clamped to 0. Booked as one ``kmeans.assign.blocks``."""
+    REGISTRY.counter_inc("kmeans.assign.blocks", policy=policy)
+    x_sq = torch.sum(x * x, dim=1)
+    if policy == _INT8_DIST:
+        # the dequantized product, −2 and ‖c‖² in one pass over it; the
+        # quantized term errs far past rounding, so distances below 0 are
+        # clamped before the argmin (at −‖x‖²), as in pairwise_sq_dists:
+        # the first of them wins
+        partial = torch.add(c_sq, int8_quantized_matmul(x, centers.T), alpha=-2.0)
+        partial = torch.maximum(partial, -x_sq[:, None])
+    else:
+        a, b = policy_operands(x, centers, policy=policy)
+        partial = torch.addmm(c_sq, a, b.T, alpha=-2.0)
+    values, labels = torch.min(partial, dim=1)
+    return labels, (x_sq + values).clamp_(min=0.0)
+
+
 def assign_clusters(
     x: torch.Tensor, centers: torch.Tensor, *, policy: str = DEFAULT_POLICY
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(labels [rows], min squared distances [rows]); the first centre wins a
-    tie, as ``jnp.argmin`` picks."""
-    dists, labels = torch.min(pairwise_sq_dists(x, centers, policy=policy), dim=1)
-    return labels, dists
+    """(labels [rows], min squared distances [rows]) of ``x`` as one block
+    (``assign_block``)."""
+    return assign_block(x, centers, center_sq_norms(centers), policy=policy)
 
 
 def assign_blocks(
@@ -93,10 +135,11 @@ def assign_blocks(
     [block, k] tile exists: labels (int32) and min squared distances of
     every row."""
     rows = x.shape[0]
+    c_sq = center_sq_norms(centers)
     labels = torch.empty(rows, dtype=torch.int32, device=x.device)
     dists = torch.empty(rows, dtype=x.dtype, device=x.device)
     for lo in range(0, rows, block_rows):
-        lab, d = assign_clusters(x[lo:lo + block_rows], centers, policy=policy)
+        lab, d = assign_block(x[lo:lo + block_rows], centers, c_sq, policy=policy)
         labels[lo:lo + block_rows] = lab
         dists[lo:lo + block_rows] = d
     return labels, dists
@@ -121,10 +164,11 @@ def kmeans_stats(
     sums = torch.zeros((k, n), dtype=x.dtype, device=x.device)
     counts = torch.zeros(k, dtype=x.dtype, device=x.device)
     cost = torch.zeros((), dtype=x.dtype, device=x.device)
+    c_sq = center_sq_norms(centers)
     for lo in range(0, rows, block_rows):
         xi = x[lo:lo + block_rows]
         wi = weights[lo:lo + block_rows]
-        labels, dists = assign_clusters(xi, centers, policy=policy)
+        labels, dists = assign_block(xi, centers, c_sq, policy=policy)
         onehot = torch.zeros((xi.shape[0], k), dtype=x.dtype, device=x.device)
         onehot.scatter_(1, labels[:, None], wi[:, None])
         sums += onehot.T @ xi
@@ -150,7 +194,7 @@ def min_sq_dists(
     x: torch.Tensor, centers: torch.Tensor, *, policy: str = DEFAULT_POLICY
 ) -> torch.Tensor:
     """[rows] squared distance of each row to its nearest centre."""
-    return torch.min(pairwise_sq_dists(x, centers, policy=policy), dim=1).values
+    return assign_clusters(x, centers, policy=policy)[1]
 
 
 def _draw(gen: torch.Generator, scores: torch.Tensor) -> torch.Tensor:

@@ -108,6 +108,20 @@ def policy_matmul(
     return a @ b
 
 
+def policy_operands(
+    a: torch.Tensor, b: torch.Tensor, *, policy: str = DEFAULT_POLICY
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The operands of ``policy_matmul``'s product, for a caller that makes
+    the product itself (``torch.addmm``): as given under ``f32``, rounded to
+    bf16 and held in their own dtype under ``bf16_f32acc`` (on f32 operands,
+    the very values ``policy_matmul`` multiplies)."""
+    _require_f32_matmul()
+    policy = validate_policy(policy, allowed=FOLD_POLICIES)
+    if policy == _BF16_F32ACC:
+        return a.to(torch.bfloat16).to(a.dtype), b.to(torch.bfloat16).to(b.dtype)
+    return a, b
+
+
 def quantize_int8(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(int8 tensor, its f32 scale): the per-tensor max-abs scale maps ``t``
     onto [−127, 127], then round half to even and clip, as the JAX

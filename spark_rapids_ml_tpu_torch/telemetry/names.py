@@ -15,8 +15,9 @@ port's own are the CUDA-graph captures (``compile.graph_captures``,
 ``compile.graph_capture_seconds``, ``serve.graph_recaptures``, in place of
 the XLA compile monitor's ``compile.*`` events) and the split spans of its
 IVF build (``ann sample``/``init``/``lloyd``/``assign``, ``ivf assign``/
-``pack``). The JAX package's report re-aggregation names (``fits``,
-``transforms``, ``fit.wall_seconds``, ...) belong to its
+``pack``) and the blocks of its KMeans assignment
+(``kmeans.assign.blocks``). The JAX package's report re-aggregation names
+(``fits``, ``transforms``, ``fit.wall_seconds``, ...) belong to its
 ``tools/metrics_dump.py``, which the port has no copy of.
 
 Import-pure: no torch, no package siblings.
@@ -147,6 +148,8 @@ METRICS: frozenset[str] = frozenset({
     "costmodel.calls",
     "costmodel.flops",
     "costmodel.bytes",
+    # KMeans assignment (ops.kmeans.assign_block): blocks assigned by argmin
+    "kmeans.assign.blocks",
 })
 
 # Metric families minted with a dynamic suffix (one registered prefix per

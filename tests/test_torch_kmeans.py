@@ -121,6 +121,95 @@ def test_kmeans_stats_policies_match_jax(policy):
     np.testing.assert_allclose(float(got.cost), float(ref.cost), rtol=1e-5)
 
 
+def _near_tie_bound(n):
+    """``chip_smoke.f32_dist_error_bound``: |f32 − exact| of one expanded
+    squared distance, relative to ‖x‖² + ‖c‖²; two distances whose gap is
+    under twice this can rank either way in f32."""
+    return 2.0 * (n + 2) * 2.0**-24
+
+
+def _policy_dists_f64(x, c, policy):
+    """([rows, k] squared distances in f64 from the cross term each policy
+    ranks by, its operands rounded as the policy rounds them, clamped at 0;
+    [rows] ‖x‖² + max ‖c‖², the scale of their f32 error)."""
+    x64, c64 = x.double(), c.double()
+    if policy == "int8_dist":
+        (qx, sx), (qc, sc) = L.quantize_int8(x), L.quantize_int8(c.T)
+        cross = (qx.double() @ qc.double()) * (float(sx) * float(sc))
+    elif policy == "bf16_f32acc":
+        cross = x.to(torch.bfloat16).double() @ c.to(torch.bfloat16).double().T
+    else:
+        cross = x64 @ c64.T
+    x_sq, c_sq = (x64 * x64).sum(1), (c64 * c64).sum(1)
+    return (x_sq[:, None] + c_sq[None, :] - 2.0 * cross).clamp(min=0.0), x_sq + c_sq.max()
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_argmin_path_labels_equal_full_tile_but_near_ties(policy):
+    """The argmin of ‖c‖² − 2·x·cᵀ against the argmin over the whole
+    distance tile: the labels differ only on rows whose two best distances
+    (in f64, from the policy's cross term) lie within twice the f32 near-tie
+    bound of ‖x‖² + ‖c‖²; the minima agree within 1e-5 of that scale."""
+    x, centers, _ = _blobs(rows=2000, n=16, k=12, seed=5)
+    xt, ct = _t(x), _t(centers + 0.3)
+    labels, dists = KM.assign_clusters(xt, ct, policy=policy)
+    ref_d, ref_l = torch.min(KM.pairwise_sq_dists(xt, ct, policy=policy), dim=1)
+    d64, scale = _policy_dists_f64(xt, ct, policy)
+    top = torch.topk(d64, 2, dim=1, largest=False).values
+    near = (top[:, 1] - top[:, 0]) < 2.0 * _near_tie_bound(x.shape[1]) * scale
+    assert not ((labels != ref_l) & ~near).any()
+    assert labels.dtype == ref_l.dtype
+    scale = float((x * x).sum(1).max() + (ct * ct).sum(1).max())
+    np.testing.assert_allclose(dists.numpy(), ref_d.numpy(), rtol=0, atol=1e-5 * scale)
+    assert (dists >= 0).all()
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_duplicate_centres_pick_the_lower_index(policy):
+    x, centers, truth = _blobs(rows=300, k=3)
+    # centres 0, 1, 2 planted again at 3, 4 and 5: every row ties exactly
+    dup = np.concatenate([centers, centers])
+    labels, _ = KM.assign_clusters(_t(x), _t(dup), policy=policy)
+    assert int(labels.max()) < 3
+    np.testing.assert_array_equal(labels.numpy(), truth)
+    labels, _ = KM.assign_blocks(_t(x), _t(dup[::-1].copy()), block_rows=64, policy=policy)
+    np.testing.assert_array_equal(labels.numpy(), 2 - truth)
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_row_on_a_centre_reads_zero_and_that_label(policy):
+    """Integer coordinates in [−127, 127] with 127 reached make every
+    product exact under each policy (bf16 holds them, the int8 scale is 1),
+    so a row equal to a centre is at distance 0 exactly."""
+    rng = np.random.default_rng(13)
+    centers = rng.integers(-127, 128, size=(6, 8)).astype(np.float32)
+    centers[0, 0] = 127.0
+    x = rng.integers(-127, 128, size=(50, 8)).astype(np.float32)
+    x[0, 0] = -127.0
+    on = [7, 21, 40]
+    x[on] = centers[[4, 1, 5]]
+    labels, dists = KM.assign_clusters(_t(x), _t(centers), policy=policy)
+    np.testing.assert_array_equal(labels.numpy()[on], [4, 1, 5])
+    np.testing.assert_array_equal(dists.numpy()[on], 0.0)
+    exact = ((x[:, None, :].astype(np.float64) - centers[None]) ** 2).sum(-1)
+    np.testing.assert_array_equal(dists.numpy(), exact.min(1))
+
+
+def test_assign_blocks_counter_books_one_per_block():
+    from spark_rapids_ml_tpu_torch.telemetry.registry import REGISTRY
+
+    def booked(policy):
+        return REGISTRY.snapshot().counter("kmeans.assign.blocks", policy=policy)
+
+    x, centers, _ = _blobs(rows=600)
+    before = booked("f32")
+    KM.assign_blocks(_t(x), _t(centers), block_rows=64)
+    assert booked("f32") - before == -(-600 // 64)
+    before = booked("int8_dist")
+    KM.kmeans_stats(_t(x), _t(centers), block_rows=128, policy="int8_dist")
+    assert booked("int8_dist") - before == -(-600 // 128)
+
+
 def test_update_centers_empty_cluster_keeps_old_and_shift():
     old = np.arange(12, dtype=np.float32).reshape(3, 4)
     sums = np.ones((3, 4), np.float32) * np.array([[2.0], [0.0], [9.0]], np.float32)
